@@ -135,7 +135,7 @@ def test_config_route_equals_defaults():
     defaults = {k: p.default for k, p in inspect.signature(IDOL.__init__).parameters.items()
                 if p.default is not inspect.Parameter.empty}
     assert kw == {k: defaults[k] for k in kw}
-    assert build_idol_model(cfg).dtype == build_idol_model().dtype == torch.bfloat16
+    assert build_idol_model(cfg, device="cpu").dtype == build_idol_model(device="cpu").dtype == torch.bfloat16
 
     run_kw = runner_kwargs_from_cfg(cfg)
     run_defaults = {k: p.default for k, p in inspect.signature(IDOLVideoInference.__init__).parameters.items()

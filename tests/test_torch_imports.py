@@ -193,3 +193,89 @@ def test_cuda_tensors_the_kernel_does_not_take_raise(cuda_device):
     with pytest.raises(ValueError, match="D == 32"):
         ms_deform_attn.ms_deform_attn(value[..., :16].contiguous(), levels, off, ref, logits)
     assert ms_deform_attn.KERNEL.launches == before
+
+
+@pytest.mark.cuda
+def test_inference_only_kernels_raise_under_grad(cuda_device):
+    """K1's fused entry and K3 have no backward (as on the TPU): under autograd
+    they raise instead of returning a tensor that silently drops the gradient."""
+    value, levels, off, ref, logits = _msda_args(cuda_device, False)
+    before = (ms_deform_attn.KERNEL.launches, encoder_epilogue.KERNEL.launches)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        ms_deform_attn.ms_deform_attn(value.requires_grad_(), levels, off, ref, logits)
+    with torch.no_grad():
+        ms_deform_attn.ms_deform_attn(value, levels, off, ref, logits)
+    rng = np.random.RandomState(4)
+    a, src = (torch.tensor(rng.randn(1, 64, 256), dtype=torch.bfloat16, device=cuda_device) for _ in range(2))
+    params = [torch.tensor(x, dtype=torch.float32, device=cuda_device) for x in (
+        rng.rand(256) + 0.5, rng.randn(256) * 0.1, rng.randn(1024, 256) / 16, rng.randn(1024) * 0.1,
+        rng.randn(256, 1024) / 32, rng.randn(256) * 0.1, rng.rand(256) + 0.5, rng.randn(256) * 0.1)]
+    params[2].requires_grad_()
+    with pytest.raises(RuntimeError, match="inference-only"):
+        encoder_epilogue.encoder_epilogue(a, src, *params)
+    assert (ms_deform_attn.KERNEL.launches, encoder_epilogue.KERNEL.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.cuda
+def test_stem_kernel_backward_matches_plain(cuda_device):
+    """K2's autograd function (kernel forward, f32 linearization backward)
+    against the plain version's autograd, on an input bf16 holds exactly so that
+    both linearize at the same point."""
+    rng = np.random.RandomState(5)
+    x = torch.tensor(rng.randn(2, 32, 48, 3), device=cuda_device).to(torch.bfloat16).float()
+    args = [torch.tensor(a, dtype=torch.float32, device=cuda_device)
+            for a in (rng.randn(7, 7, 3, 64) * 0.1, rng.rand(64) + 0.5, rng.randn(64) * 0.1)]
+    g = torch.tensor(rng.randn(2, 16, 24, 64), dtype=torch.bfloat16, device=cuda_device)
+    kern = [a.clone().requires_grad_() for a in args]
+    plain = [a.clone().requires_grad_() for a in args]
+    before = stem_conv.KERNEL.launches
+    stem_conv.stem_conv7x7s2_bn_relu(x, *kern).backward(g)
+    stem_conv.stem_conv_plain(x, *plain).backward(g)
+    assert stem_conv.KERNEL.launches == before + 1
+    for a, b in zip(kern, plain):
+        # the same f32 products summed in other orders; dkernel rounded to bf16 on both sides
+        assert float((a.grad - b.grad).norm() / b.grad.norm()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [50, 300])
+def test_msda_train_kernels_match_plain(cuda_device, q):
+    """K4 (forward) and K5 (backward) of the standard entry against the plain
+    core and its autograd, with samples on pixel centres and outside the levels."""
+    rng = np.random.RandomState(q)
+    b, m, d, p = 2, 8, 32, 4
+    s, l = sum(h * w for h, w in LEVELS), len(LEVELS)
+    wh = np.asarray([[w, h] for h, w in LEVELS])
+    loc = rng.rand(b, q, m, l, p, 2) * 1.2 - 0.1
+    loc[:, :, :, :, 0] = (rng.randint(0, 100, (b, q, m, l, 2)) % wh + 0.5) / wh
+    loc[rng.rand(b, q, m, l, p) < 0.05] = 3.0
+    value = torch.tensor(rng.randn(b, s, m, d), dtype=torch.bfloat16, device=cuda_device)
+    loc = torch.tensor(loc, dtype=torch.float32, device=cuda_device)
+    attn = torch.softmax(torch.tensor(rng.randn(b, q, m, l * p), device=cuda_device).float(), -1)
+    attn = attn.to(torch.bfloat16).view(b, q, m, l, p)
+    grad = torch.tensor(rng.randn(b, q, m * d), dtype=torch.bfloat16, device=cuda_device)
+    before = (ms_deform_attn.KERNEL_V9_FWD.launches, ms_deform_attn.KERNEL_V9_BWD.launches)
+    leaves = [x.clone().requires_grad_() for x in (value, loc, attn)]
+    out = ms_deform_attn.ms_deform_attn_v9(leaves[0], LEVELS, leaves[1], leaves[2])
+    out.backward(grad)
+    assert (ms_deform_attn.KERNEL_V9_FWD.launches, ms_deform_attn.KERNEL_V9_BWD.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = ms_deform_attn.ms_deform_attn_core_plain(value, LEVELS, loc, attn)
+    wants = ms_deform_attn.ms_deform_attn_grad_plain(value, LEVELS, loc, attn, grad)
+    # bf16 output: one ulp at the largest element (the same f32 sums rounded once,
+    # in other orders)
+    err, scale = _max_err(out.detach(), want)
+    assert out.dtype == torch.bfloat16 and err <= BF16_ULP * scale, err
+    # dvalue and dattn, element by element: one bf16 ulp of |want| plus 2^-16 of
+    # the element's sum of |terms| (f32 sums of the same products in other
+    # orders, dvalue's atomics in one that changes from run to run). Their terms
+    # attn * w_corner * g and g * w_corner * v have their only signs in g and v.
+    abs_sums = ms_deform_attn.ms_deform_attn_grad_plain(value.abs(), LEVELS, loc, attn, grad.abs())
+    for i in (0, 2):
+        got, w, limit = leaves[i].grad.float(), wants[i].float(), abs_sums[i].float()
+        assert leaves[i].grad.dtype == torch.bfloat16
+        excess = (got - w).abs() - (BF16_ULP * w.abs() + 2.0 ** -16 * limit)
+        assert float(excess.max()) <= 0.0, float(excess.max())
+    # dloc is f32: sums of the same products in other orders
+    err, scale = _max_err(leaves[1].grad, wants[1])
+    assert leaves[1].grad.dtype == torch.float32 and err <= 1e-5 * scale, err

@@ -104,13 +104,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     signatures = {
         # value, offsets, ref, logits, level_hw_start, out, B, Q, S, M, L, P, ref_dim, stream
         "vnext_msda_fwd": [p, p, p, p, p, p, i, i, i, i, i, i, i, p],
+        # value, loc, attn, level_hw_start, out, B, Q, S, M, L, P, stream
+        "vnext_msda_fwd_loc": [p, p, p, p, p, i, i, i, i, i, i, p],
+        # value, loc, attn, grad, level_hw_start, dvalue_f32, dloc, dattn, dvalue,
+        # B, Q, S, M, L, P, stream
+        "vnext_msda_bwd": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
         # x, w, scale, bias, out, B, H, W, stream
         "vnext_stem_conv": [p, p, p, p, p, i, i, i, p],
         # attn, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b, out, N, F, stream
         "vnext_encoder_epilogue": [p, p, p, p, p, p, p, p, p, p, p, i, i, p],
     }
     for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name)   # a symbol the sources lack raises here, at load
         fn.argtypes = argtypes
         fn.restype = i
 
@@ -119,6 +124,16 @@ def check(code: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would need the backward of an inference-only kernel."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} is inference-only and has no backward: call it under torch.no_grad() "
+            "or torch.inference_mode(); a module in train mode takes the unfused path")
 
 
 def stream_handle(device) -> int:

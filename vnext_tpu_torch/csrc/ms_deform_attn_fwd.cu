@@ -1,34 +1,35 @@
-// Multi-scale deformable attention forward, fused entry (inference).
+// Multi-scale deformable attention forward, in two entries.
 //
-// Replaces the TPU kernel `_v9_kernel` in vnext_tpu/ops/ms_deform_attn_pallas_v9.py
-// as reached through `ms_deform_attn_pallas_v9_cm_fused` (attn_is_logits=True):
-// raw sampling offsets, reference points and raw attention logits go in; the
-// kernel forms the pixel locations in f32, softmaxes the logits over L*P in f32,
-// samples every level bilinearly (align_corners=False, zero padding) and
-// accumulates in f32.
+// 1. The fused entry (inference), `vnext_msda_fwd`. Replaces the TPU kernel
+//    `_v9_kernel` in vnext_tpu/ops/ms_deform_attn_pallas_v9.py as reached through
+//    `ms_deform_attn_pallas_v9_cm_fused` (attn_is_logits=True): raw sampling
+//    offsets, reference points and raw attention logits go in; the kernel forms
+//    the pixel locations in f32, softmaxes the logits over L*P in f32, samples
+//    every level bilinearly (align_corners=False, zero padding) and accumulates
+//    in f32. It has no backward, as the TPU entry has none.
+// 2. The standard entry (training), `vnext_msda_fwd_loc`. Replaces `_v9_kernel`
+//    as reached through `_forward_v9` (ms_deform_attn_pallas_v9.py:472), the
+//    forward of `ms_deform_attn_pallas_v9`: precomputed normalized f32 locations
+//    [B, Q, M, L, P, 2] and softmaxed weights [B, Q, M, L, P] go in, so the
+//    location and softmax prologue drops out. Its backward is
+//    ms_deform_attn_bwd.cu.
 //
-// What bounds it on the card: gathered bytes. At IDOL-R50 eval shapes (B=10,
+// What bounds them on the card: gathered bytes. At IDOL-R50 eval shapes (B=10,
 // S=Q=8617, M=8, L=P=4, D=32) one encoder layer reads ~11 M samples x 4 corners
 // x 64 B of bf16 value rows, ~2.8 GB, almost all of it L2 hits (the value
 // tensor is 44 MB, inside the 50 MB L2); the arithmetic is a few FLOPs per byte.
 // Design: one warp per (batch, query, head) and one lane per channel (D=32), so
 // each corner read is one 64-byte contiguous row segment, and the 8 heads of a
 // query sit in one block and read neighbouring 64-byte segments of the same
-// 512-byte value row. The per-warp setup (32 offsets, 16 logits, the reference
-// point) is one coalesced load per lane plus warp shuffles. The TPU machinery
+// 512-byte value row. The per-warp setup is one coalesced load per lane plus warp
+// shuffles: 32 offsets and 16 logits (fused entry) or 32 f32 locations, one
+// 128-byte load, and 16 weights (standard entry). The TPU machinery
 // (tent-selector matmuls, row schedules, query padding, channel-major layout) is
 // not carried over: a GPU gathers directly.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
+#include "msda_common.cuh"
 
 namespace {
-
-constexpr int kD = 32;          // channels per head == lanes per warp
-constexpr int kWarps = 8;       // warps (queries x heads) per block
-constexpr int kMaxLevels = 8;
-constexpr unsigned kFull = 0xffffffffu;
 
 template <int REF_DIM>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -40,8 +41,7 @@ msda_fwd_kernel(const __nv_bfloat16* __restrict__ value,    // [B, S, M, D]
                 __nv_bfloat16* __restrict__ out,            // [B, Q, M*D]
                 int B, int Q, int S, int M, int L, int P) {
   __shared__ int s_lv[3 * kMaxLevels];
-  if (threadIdx.x < 3 * L) s_lv[threadIdx.x] = levels[threadIdx.x];
-  __syncthreads();
+  load_levels(s_lv, levels, L);
 
   const int lane = threadIdx.x & 31;
   const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -56,11 +56,8 @@ msda_fwd_kernel(const __nv_bfloat16* __restrict__ value,    // [B, S, M, D]
   float mx = lg;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-  float e = lane < LP ? expf(lg - mx) : 0.f;
-  float sum = e;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
-  const float attn = e / sum;
+  const float e = lane < LP ? expf(lg - mx) : 0.f;
+  const float attn = e / warp_sum(e);
 
   // raw offsets (lane j holds component j of the 2*L*P) and the reference
   const float off = lane < 2 * LP ? __bfloat162float(offsets[warp * 2 * LP + lane]) : 0.f;
@@ -89,33 +86,40 @@ msda_fwd_kernel(const __nv_bfloat16* __restrict__ value,    // [B, S, M, D]
   }
 
   const __nv_bfloat16* vb = value + ((long long)b * S * M + m) * kD + lane;
-  const long long row = (long long)M * kD;  // elements between neighbouring tokens
-  float acc = 0.f;
-#pragma unroll 4
-  for (int s = 0; s < LP; ++s) {
-    const float x = __shfl_sync(kFull, px, s);
-    const float y = __shfl_sync(kFull, py, s);
-    const float a = __shfl_sync(kFull, attn, s);
-    const int l = s / P;
-    const int h = s_lv[3 * l], w = s_lv[3 * l + 1], start = s_lv[3 * l + 2];
-    // outside (-1, w) x (-1, h) every corner is padding (and NaN skips too)
-    if (!(x > -1.f && x < (float)w && y > -1.f && y < (float)h)) continue;
-    const float x0f = floorf(x), y0f = floorf(y);
-    const float tx = x - x0f, ty = y - y0f;
-    const int x0 = (int)x0f, y0 = (int)y0f;
-    const __nv_bfloat16* vl = vb + (long long)start * row;
-    float v = 0.f;
-    if (y0 >= 0) {
-      if (x0 >= 0) v += (1.f - tx) * (1.f - ty) * __bfloat162float(vl[(long long)(y0 * w + x0) * row]);
-      if (x0 + 1 < w) v += tx * (1.f - ty) * __bfloat162float(vl[(long long)(y0 * w + x0 + 1) * row]);
-    }
-    if (y0 + 1 < h) {
-      if (x0 >= 0) v += (1.f - tx) * ty * __bfloat162float(vl[(long long)((y0 + 1) * w + x0) * row]);
-      if (x0 + 1 < w) v += tx * ty * __bfloat162float(vl[(long long)((y0 + 1) * w + x0 + 1) * row]);
-    }
-    acc += a * v;
-  }
+  const float acc = sample_levels(vb, (long long)M * kD, s_lv, LP, P, px, py, attn);
   out[bq * M * kD + m * kD + lane] = __float2bfloat16(acc);
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+msda_fwd_loc_kernel(const __nv_bfloat16* __restrict__ value,  // [B, S, M, D]
+                    const float* __restrict__ loc,            // [B, Q, M, L, P, 2] normalized
+                    const __nv_bfloat16* __restrict__ attn,   // [B, Q, M, L, P] softmaxed
+                    const int* __restrict__ levels,           // [L, 3]: h, w, start
+                    __nv_bfloat16* __restrict__ out,          // [B, Q, M*D]
+                    int B, int Q, int S, int M, int L, int P) {
+  __shared__ int s_lv[3 * kMaxLevels];
+  load_levels(s_lv, levels, L);
+
+  const int lane = threadIdx.x & 31;
+  const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (warp >= (long long)B * Q * M) return;
+  const int m = (int)(warp % M);
+  const long long bq = warp / M;
+  const int b = (int)(bq / Q);
+  const int LP = L * P;
+
+  float px, py;
+  pixel_location(loc + warp * 2 * LP, s_lv, lane, LP, P, px, py);
+  const float a = lane < LP ? __bfloat162float(attn[warp * LP + lane]) : 0.f;
+
+  const __nv_bfloat16* vb = value + ((long long)b * S * M + m) * kD + lane;
+  const float acc = sample_levels(vb, (long long)M * kD, s_lv, LP, P, px, py, a);
+  out[bq * M * kD + m * kD + lane] = __float2bfloat16(acc);
+}
+
+unsigned grid_for(int B, int Q, int M) {
+  const long long warps = (long long)B * Q * M;
+  return (unsigned)((warps + kWarps - 1) / kWarps);
 }
 
 }  // namespace
@@ -124,8 +128,7 @@ extern "C" int vnext_msda_fwd(const void* value, const void* offsets, const void
                               const void* logits, const void* levels, void* out, int B,
                               int Q, int S, int M, int L, int P, int ref_dim,
                               void* stream) {
-  const long long warps = (long long)B * Q * M;
-  const unsigned blocks = (unsigned)((warps + kWarps - 1) / kWarps);
+  const unsigned blocks = grid_for(B, Q, M);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* v = static_cast<const __nv_bfloat16*>(value);
   auto* o = static_cast<const __nv_bfloat16*>(offsets);
@@ -140,5 +143,15 @@ extern "C" int vnext_msda_fwd(const void* value, const void* offsets, const void
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vnext_msda_fwd_loc(const void* value, const void* loc, const void* attn,
+                                  const void* levels, void* out, int B, int Q, int S, int M,
+                                  int L, int P, void* stream) {
+  msda_fwd_loc_kernel<<<grid_for(B, Q, M), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(loc),
+      static_cast<const __nv_bfloat16*>(attn), static_cast<const int*>(levels),
+      static_cast<__nv_bfloat16*>(out), B, Q, S, M, L, P);
   return (int)cudaGetLastError();
 }

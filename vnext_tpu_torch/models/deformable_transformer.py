@@ -7,6 +7,15 @@ hand-written kernel on the card) and the encoder layer's tail is
 ``ops/encoder_epilogue.py`` (likewise). Every LayerNorm is eps 1e-6 with f32
 statistics. Only the token-major form is ported: the JAX package's channel-major
 twins are TPU relayout workarounds.
+
+A module in eval mode runs the fused inference kernels. In train mode (the JAX
+package's ``train=True``) the MSDA core takes the standard entry, which has a
+backward, with the locations and the softmax formed in f32 as the JAX module's
+token-major path forms them; the encoder layer's tail runs unfused; dropout
+applies where the JAX layers apply it, drawing from the ``generator`` the
+caller passes; and the decoder detaches the reference points after each layer.
+The transformer holds the dropout rate (IDOL passes the configured one) and
+hands it to its layers with each call.
 """
 
 from __future__ import annotations
@@ -19,8 +28,8 @@ import torch
 from torch import nn
 
 from ..ops.encoder_epilogue import encoder_epilogue
-from ..ops.ms_deform_attn import ms_deform_attn
-from .layers import MLP, Dense, LayerNorm, MultiHeadAttention, inverse_sigmoid
+from ..ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_v9
+from .layers import MLP, Dense, LayerNorm, MultiHeadAttention, dropout, inverse_sigmoid
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -63,9 +72,20 @@ class MSDeformAttnModule(nn.Module):
         value = value.view(b, src.shape[1], m, -1)
         offsets = self.sampling_offsets(query).view(b, q, m, l, p, 2)
         logits = self.attention_weights(query).view(b, q, m, l * p)
-        out = ms_deform_attn(value, spatial_shapes, offsets,
-                             reference_points.float().contiguous(), logits)
-        return self.output_proj(out)
+        if not self.training:
+            out = ms_deform_attn(value, spatial_shapes, offsets,
+                                 reference_points.float().contiguous(), logits)
+            return self.output_proj(out)
+        attn = torch.softmax(logits.float(), -1).to(logits.dtype).view(b, q, m, l, p)
+        off = offsets.float()
+        ref = reference_points.float()[:, :, None, :, None, :]           # [B, Q, 1, L, 1, 2|4]
+        if ref.shape[-1] == 2:
+            wh = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
+                              device=off.device)[:, None, :]              # [L, 1, 2]
+            loc = ref + off / wh
+        else:
+            loc = ref[..., :2] + off / p * ref[..., 2:] * 0.5
+        return self.output_proj(ms_deform_attn_v9(value, spatial_shapes, loc, attn))
 
 
 class EncoderLayer(nn.Module):
@@ -79,14 +99,19 @@ class EncoderLayer(nn.Module):
         self.linear2 = Dense(d_ffn, d_model, dtype)
         self.norm2 = LayerNorm(d_model, dtype)
 
-    def forward(self, src, pos, reference_points, spatial_shapes: Shapes, padding_mask):
+    def forward(self, src, pos, reference_points, spatial_shapes: Shapes, padding_mask,
+                rate: float = 0.0, generator=None):
         attn_out = self.self_attn(src + pos, reference_points, src, spatial_shapes, padding_mask)
-        # LN1(src + attn) -> FFN -> LN2 in one pass (the epilogue kernel on the card)
-        return encoder_epilogue(
-            attn_out.to(self.dtype), src.to(self.dtype),
-            self.norm1.weight, self.norm1.bias, self.linear1.weight, self.linear1.bias,
-            self.linear2.weight, self.linear2.bias, self.norm2.weight, self.norm2.bias,
-        )
+        if not self.training:
+            # LN1(src + attn) -> FFN -> LN2 in one pass (the epilogue kernel on the card)
+            return encoder_epilogue(
+                attn_out.to(self.dtype), src.to(self.dtype),
+                self.norm1.weight, self.norm1.bias, self.linear1.weight, self.linear1.bias,
+                self.linear2.weight, self.linear2.bias, self.norm2.weight, self.norm2.bias,
+            )
+        src = self.norm1(src + dropout(attn_out, rate, generator))
+        ff = dropout(torch.relu(self.linear1(src)), rate, generator)
+        return self.norm2(src + dropout(self.linear2(ff), rate, generator))
 
 
 class DecoderLayer(nn.Module):
@@ -101,12 +126,16 @@ class DecoderLayer(nn.Module):
         self.linear2 = Dense(d_ffn, d_model, dtype)
         self.norm3 = LayerNorm(d_model, dtype)
 
-    def forward(self, tgt, query_pos, reference_points, src, spatial_shapes: Shapes, padding_mask):
+    def forward(self, tgt, query_pos, reference_points, src, spatial_shapes: Shapes, padding_mask,
+                rate: float = 0.0, generator=None):
+        def drop(x):
+            return dropout(x, rate, generator)
+
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
+        tgt = self.norm2(tgt + drop(self.self_attn(q, q, tgt)))
         ca = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes, padding_mask)
-        tgt = self.norm1(tgt + ca)
-        ff = self.linear2(torch.relu(self.linear1(tgt)))
+        tgt = self.norm1(tgt + drop(ca))
+        ff = drop(self.linear2(drop(torch.relu(self.linear1(tgt)))))
         return self.norm3(tgt + ff)
 
 
@@ -129,9 +158,10 @@ class DeformableTransformer(nn.Module):
 
     def __init__(self, d_model=256, n_heads=8, num_encoder_layers=6, num_decoder_layers=6,
                  d_ffn=1024, num_feature_levels=4, enc_n_points=4, dec_n_points=4,
-                 dtype=torch.float32):
+                 dtype=torch.float32, *, dropout: float):
         super().__init__()
         self.d_model, self.dtype = d_model, dtype
+        self.dropout_rate = dropout
         self.num_encoder_layers, self.num_decoder_layers = num_encoder_layers, num_decoder_layers
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
         for i in range(num_encoder_layers):
@@ -151,13 +181,15 @@ class DeformableTransformer(nn.Module):
         nn.init.normal_(self.level_embed, 0.0, 1.0, generator=gen)
 
     def forward(self, srcs: List[torch.Tensor], valid_hw: List[torch.Tensor],
-                pos_embeds: List[torch.Tensor], query_embed: torch.Tensor):
+                pos_embeds: List[torch.Tensor], query_embed: torch.Tensor, generator=None):
         """srcs / pos_embeds: L x [B, H_l, W_l, C]; valid_hw: L x [B, 2];
-        query_embed [Q, 2C]. Returns (hs, memory, init_ref, inter_refs, out_coords)."""
-        memory, spatial_shapes, mask_flat, valid_ratios = self.encode(srcs, valid_hw, pos_embeds)
-        return self.decode(memory, spatial_shapes, mask_flat, valid_ratios, query_embed)
+        query_embed [Q, 2C]. Returns (hs, memory, init_ref, inter_refs, out_coords):
+        ``inter_refs`` are detached after each layer, ``out_coords`` (the boxes) not."""
+        memory, spatial_shapes, mask_flat, valid_ratios = self.encode(
+            srcs, valid_hw, pos_embeds, generator)
+        return self.decode(memory, spatial_shapes, mask_flat, valid_ratios, query_embed, generator)
 
-    def encode(self, srcs, valid_hw, pos_embeds):
+    def encode(self, srcs, valid_hw, pos_embeds, generator=None):
         b, c = srcs[0].shape[0], self.d_model
         spatial_shapes = tuple((int(s.shape[1]), int(s.shape[2])) for s in srcs)
         src_flat, pos_flat, mask_flat, vr = [], [], [], []
@@ -177,17 +209,20 @@ class DeformableTransformer(nn.Module):
         valid_ratios = torch.stack(vr, 1)                     # [B, L, 2] (w, h)
 
         enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
+        rate = self.dropout_rate if self.training else 0.0
         for i in range(self.num_encoder_layers):
-            memory = getattr(self, f"encoder_{i}")(memory, pos_flat, enc_ref, spatial_shapes, mask_flat)
+            memory = getattr(self, f"encoder_{i}")(
+                memory, pos_flat, enc_ref, spatial_shapes, mask_flat, rate, generator)
         return memory, spatial_shapes, mask_flat, valid_ratios
 
-    def decode(self, memory, spatial_shapes, mask_flat, valid_ratios, query_embed):
+    def decode(self, memory, spatial_shapes, mask_flat, valid_ratios, query_embed, generator=None):
         b = memory.shape[0]
         query_pos, tgt = torch.split(query_embed, query_embed.shape[1] // 2, dim=1)
         query_pos = query_pos[None].expand(b, -1, -1).to(self.dtype)
         output = tgt[None].expand(b, -1, -1).to(self.dtype)
         reference_points = torch.sigmoid(self.reference_points(query_pos).float())
         init_reference = reference_points
+        rate = self.dropout_rate if self.training else 0.0
 
         hs, refs, coords = [], [], []
         for lid in range(self.num_decoder_layers):
@@ -196,15 +231,15 @@ class DeformableTransformer(nn.Module):
             else:
                 ref_input = reference_points[:, :, None] * valid_ratios[:, None]
             output = getattr(self, f"decoder_{lid}")(
-                output, query_pos, ref_input, memory, spatial_shapes, mask_flat)
+                output, query_pos, ref_input, memory, spatial_shapes, mask_flat, rate, generator)
             tmp = getattr(self, f"bbox_embed_{lid}")(output).float()
             if reference_points.shape[-1] == 4:
                 new_ref = torch.sigmoid(tmp + inverse_sigmoid(reference_points))
             else:
                 new_ref = torch.sigmoid(torch.cat(
                     [tmp[..., :2] + inverse_sigmoid(reference_points), tmp[..., 2:]], -1))
-            coords.append(new_ref)
-            reference_points = new_ref
+            coords.append(new_ref)           # the layer's box keeps its gradient
+            reference_points = new_ref.detach()
             hs.append(output)
             refs.append(reference_points)
         return torch.stack(hs), memory, init_reference, torch.stack(refs), torch.stack(coords)

@@ -1,4 +1,4 @@
-"""Shared building blocks: Dense, Conv, norms, MLP, ConvGN, MultiHeadAttention.
+"""Shared building blocks: Dense, Conv, norms, MLP, ConvGN, MultiHeadAttention, dropout.
 
 Counterpart of ``vnext_tpu.models.layers``. Every module holds f32 parameters and
 computes in its ``dtype`` (bf16 on the card, f32 in the CPU tests), casting the
@@ -25,6 +25,17 @@ from ..ops.encoder_epilogue import EPS as LN_EPS, layer_norm_f32
 
 GN_EPS = 1e-6   # flax's GroupNorm default, not torch's 1e-5
 BN_EPS = 1e-5   # frozen BN, as the reference checkpoints were trained
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout`` in train mode: keep each element with probability
+    1 - rate and scale the kept ones by 1 / (1 - rate), in x's dtype. The draws
+    come from ``generator`` (on x's device; the default generator when None).
+    They are not the TPU's bits, so parity with the JAX package holds at rate 0."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -163,13 +174,17 @@ class GroupNorm(nn.Module):
 
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with fixed statistics (eps 1e-5), folded into one f32 scale and
-    shift that are cast to ``dtype`` before use, as the JAX package does."""
+    shift that are cast to ``dtype`` before use, as the JAX package does.
+
+    All four tensors are parameters, as in the flax tree: the optimizer never
+    updates them (``solver.build.frozen_mask``), but they carry gradients, which
+    the full-model gradient-norm clip counts as the JAX package's does."""
 
     def __init__(self, features: int, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         for name in ("weight", "bias", "running_mean", "running_var"):
-            self.register_buffer(name, torch.empty(features, dtype=torch.float32))
+            setattr(self, name, _empty(features))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         self.weight.fill_(1.0)

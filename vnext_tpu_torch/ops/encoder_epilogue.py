@@ -10,7 +10,10 @@ residual; the two products take operands in the input dtype. The weights come
 in torch layout: ``w1`` [F, C] (linear1.weight), ``w2`` [C, F] (linear2.weight).
 
 A CPU tensor runs :func:`encoder_epilogue_plain`; a CUDA tensor runs the
-hand-written kernel ``csrc/encoder_epilogue.cu`` or raises.
+hand-written kernel ``csrc/encoder_epilogue.cu`` or raises. The kernel is
+inference-only, as the TPU one is (the JAX encoder layer fuses only when not
+training): on the card it raises when autograd would need a backward, and an
+encoder layer in train mode runs the unfused tail instead.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .._build import Kernel, check, load_library, stream_handle
+from .._build import Kernel, check, load_library, refuse_grad, stream_handle
 
 KERNEL = Kernel(
     name="encoder_epilogue",
@@ -45,6 +48,7 @@ def encoder_epilogue(attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b):
         return encoder_epilogue_plain(attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
     if src.device.type != "cuda":
         raise ValueError(f"encoder_epilogue: no implementation for device {src.device}")
+    refuse_grad("encoder_epilogue", attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
     return _launch(attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
 
 

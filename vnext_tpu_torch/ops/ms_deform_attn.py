@@ -17,7 +17,22 @@ with pixel coordinates (align_corners=False, zero padding outside the level)
 them. Sums and the softmax are f32; the output has the value's dtype.
 
 A CPU tensor runs :func:`ms_deform_attn_plain`; a CUDA tensor runs the
-hand-written kernel ``csrc/ms_deform_attn_fwd.cu`` or raises.
+hand-written kernel ``csrc/ms_deform_attn_fwd.cu`` (K1) or raises. The fused
+entry is inference-only, as the TPU one is: it has no backward, and on the card
+it raises when autograd would need one.
+
+The standard entry :func:`ms_deform_attn_v9` (training) is the counterpart of
+``vnext_tpu.ops.ms_deform_attn_pallas_v9.ms_deform_attn_pallas_v9`` with its
+custom VJP: normalized f32 locations [B, Q, M, L, P, 2] and softmaxed weights
+[B, Q, M, L, P] go in, and
+
+    out[b, q, m] = sum_{l,p} attn[b, q, m, l, p] * bilinear(V_l[b, :, :, m], x, y),
+    x = loc_x * w_l - 0.5,  y = loc_y * h_l - 0.5.
+
+On the card its forward is K4 (``vnext_msda_fwd_loc`` in the same source) and
+its backward K5 (``csrc/ms_deform_attn_bwd.cu``); on the CPU both directions run
+:func:`ms_deform_attn_core_plain`, ``ms_deform_attn_core_jnp`` in torch, with the
+backward by autograd through its gathers.
 """
 
 from __future__ import annotations
@@ -27,12 +42,24 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .._build import Kernel, check, load_library, stream_handle
+from torch.autograd.function import once_differentiable
+
+from .._build import Kernel, check, load_library, refuse_grad, stream_handle
 
 KERNEL = Kernel(
     name="ms_deform_attn_fwd",
     source="vnext_tpu_torch/csrc/ms_deform_attn_fwd.cu",
     replaces="vnext_tpu/ops/ms_deform_attn_pallas_v9.py:67",
+)
+KERNEL_V9_FWD = Kernel(
+    name="ms_deform_attn_v9_fwd",
+    source="vnext_tpu_torch/csrc/ms_deform_attn_fwd.cu",
+    replaces="vnext_tpu/ops/ms_deform_attn_pallas_v9.py:472",
+)
+KERNEL_V9_BWD = Kernel(
+    name="ms_deform_attn_v9_bwd",
+    source="vnext_tpu_torch/csrc/ms_deform_attn_bwd.cu",
+    replaces="vnext_tpu/ops/ms_deform_attn_pallas_v9_bwd.py:55",
 )
 
 Shapes = Sequence[Tuple[int, int]]
@@ -67,6 +94,7 @@ def ms_deform_attn(
         return ms_deform_attn_plain(value, spatial_shapes, offsets, reference_points, logits)
     if value.device.type != "cuda":
         raise ValueError(f"ms_deform_attn: no implementation for device {value.device}")
+    refuse_grad("ms_deform_attn (the fused entry)", value, offsets, reference_points, logits)
     return _launch(value, spatial_shapes, offsets, reference_points, logits)
 
 
@@ -87,8 +115,19 @@ def ms_deform_attn_plain(value, spatial_shapes, offsets, reference_points, logit
     b, s, m, d, q, l, p = _check_args(value, spatial_shapes, offsets, reference_points, logits)
     attn = torch.softmax(logits.float(), dim=-1).view(b, q, m, l, p)
     pix = pixel_locations(spatial_shapes, offsets, reference_points)
-    v = value.float().permute(0, 2, 1, 3)                          # [B, M, S, D]
-    out = torch.zeros(b, m, q, d, dtype=torch.float32, device=value.device)
+    return _bilinear_sum(value, spatial_shapes, pix, attn).to(value.dtype)
+
+
+def _bilinear_sum(value, spatial_shapes, pix, attn):
+    """sum_{l,p} attn * bilinear(V_l, pix) -> [B, Q, M*D] in the sums' dtype
+    (f32, or f64 for f64 inputs). pix [B, Q, M, L, P, 2] are pixel coordinates
+    (align_corners=False); a corner outside its level adds zero."""
+    b, s, m, d = value.shape
+    q, p = pix.shape[1], pix.shape[4]
+    ct = torch.promote_types(value.dtype, torch.float32)
+    v = value.to(ct).permute(0, 2, 1, 3)                           # [B, M, S, D]
+    pix, attn = pix.to(ct), attn.to(ct)
+    out = torch.zeros(b, m, q, d, dtype=ct, device=value.device)
     start = 0
     for lvl, (h, w) in enumerate(spatial_shapes):
         v_l = v[:, :, start:start + h * w]
@@ -104,8 +143,89 @@ def ms_deform_attn_plain(value, spatial_shapes, offsets, reference_points, logit
             wgt = (tx if dx else 1.0 - tx) * (ty if dy else 1.0 - ty) * valid * a
             idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
             g = torch.gather(v_l, 2, idx.reshape(b, m, q * p, 1).expand(-1, -1, -1, d))
-            out += (wgt[..., None] * g.view(b, m, q, p, d)).sum(3)
-    return out.permute(0, 2, 1, 3).reshape(b, q, m * d).to(value.dtype)
+            out = out + (wgt[..., None] * g.view(b, m, q, p, d)).sum(3)
+    return out.permute(0, 2, 1, 3).reshape(b, q, m * d)
+
+
+def _check_v9_args(value, spatial_shapes, loc, attn):
+    b, s, m, d = value.shape
+    if loc.dim() != 6 or loc.shape[0] != b or loc.shape[2] != m or loc.shape[-1] != 2:
+        raise ValueError(f"sampling_locations must be [B, Q, M, L, P, 2], got {tuple(loc.shape)}")
+    q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    if len(spatial_shapes) != l:
+        raise ValueError(f"{len(spatial_shapes)} spatial shapes for {l} levels")
+    if sum(h * w for h, w in spatial_shapes) != s:
+        raise ValueError(f"value has {s} tokens, the levels {tuple(spatial_shapes)} sum to another")
+    if attn.shape != loc.shape[:-1]:
+        raise ValueError(f"attention_weights must be [B, Q, M, L, P], got {tuple(attn.shape)}")
+    return b, s, m, d, q, l, p
+
+
+def ms_deform_attn_v9(
+    value: torch.Tensor,                # [B, S, M, D], padding already zeroed
+    spatial_shapes: Shapes,             # ((H_0, W_0), ...) python ints
+    sampling_locations: torch.Tensor,   # [B, Q, M, L, P, 2] normalized, f32
+    attention_weights: torch.Tensor,    # [B, Q, M, L, P] softmaxed
+) -> torch.Tensor:
+    """The standard (training) entry; returns [B, Q, M*D] in value.dtype and
+    carries a gradient to all three tensors."""
+    _check_v9_args(value, spatial_shapes, sampling_locations, attention_weights)
+    if value.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ms_deform_attn_v9: no implementation for device {value.device}")
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return _MSDeformAttnV9.apply(value, shapes, sampling_locations, attention_weights)
+
+
+class _MSDeformAttnV9(torch.autograd.Function):
+    """Forward K4 and backward K5 on the card; the plain core and its autograd
+    on the CPU. The backward returns (dvalue in value's dtype, dloc in the
+    locations' dtype, dattn in the weights' dtype), as ``_backward_v9`` does."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, loc, attn):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, attn)
+        if value.is_cuda:
+            return _launch_v9_fwd(value, spatial_shapes, loc, attn)
+        return ms_deform_attn_core_plain(value, spatial_shapes, loc, attn)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        value, loc, attn = ctx.saved_tensors
+        dvalue, dloc, dattn = ms_deform_attn_v9_backward(value, ctx.spatial_shapes, loc, attn, grad)
+        return dvalue, None, dloc, dattn
+
+
+def ms_deform_attn_v9_backward(value, spatial_shapes, sampling_locations, attention_weights, grad):
+    """The standard entry's backward alone: (dvalue, dloc, dattn) under the
+    cotangent ``grad`` [B, Q, M*D], each in its input's dtype. K5 on the card,
+    :func:`ms_deform_attn_grad_plain` on the CPU."""
+    if value.is_cuda:
+        return _launch_v9_bwd(value, spatial_shapes, sampling_locations, attention_weights, grad)
+    return ms_deform_attn_grad_plain(value, spatial_shapes, sampling_locations, attention_weights, grad)
+
+
+def ms_deform_attn_core_plain(value, spatial_shapes, sampling_locations, attention_weights):
+    """Plain PyTorch version of the standard entry (``ms_deform_attn_core_jnp``):
+    gathers the four corners of every sample. Sums are f32 (f64 for f64 inputs);
+    the output has the value's dtype."""
+    _check_v9_args(value, spatial_shapes, sampling_locations, attention_weights)
+    ct = torch.promote_types(value.dtype, torch.float32)
+    wh = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=ct,
+                      device=value.device)[:, None, :]              # [L, 1, 2]
+    pix = sampling_locations.to(ct) * wh - 0.5                      # as grid_sample sees them
+    return _bilinear_sum(value, spatial_shapes, pix, attention_weights).to(value.dtype)
+
+
+def ms_deform_attn_grad_plain(value, spatial_shapes, sampling_locations, attention_weights, grad):
+    """(dvalue, dloc, dattn) of :func:`ms_deform_attn_core_plain` under the
+    cotangent ``grad``, by autograd; each in its input's dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (value, sampling_locations, attention_weights)]
+        out = ms_deform_attn_core_plain(leaves[0], spatial_shapes, leaves[1], leaves[2])
+        return torch.autograd.grad(out, leaves, grad)
 
 
 @functools.lru_cache(maxsize=64)
@@ -120,19 +240,10 @@ def _level_table(spatial_shapes: Tuple[Tuple[int, int], ...], device: torch.devi
 def _launch(value, spatial_shapes, offsets, reference_points, logits):
     b, s, m, d = value.shape
     q, l, p = offsets.shape[1], offsets.shape[3], offsets.shape[4]
-    if d != 32:
-        raise ValueError(f"the MSDA kernel runs one lane per channel and needs D == 32, got {d}")
-    if l * p > 16 or l > 8:
-        raise ValueError(f"the MSDA kernel holds 2*L*P offsets in one warp: needs L*P <= 16, got {l}*{p}")
-    for name, t, dt in (("value", value, torch.bfloat16), ("offsets", offsets, torch.bfloat16),
-                        ("logits", logits, torch.bfloat16),
-                        ("reference_points", reference_points, torch.float32)):
-        if t.device != value.device:
-            raise ValueError(f"{name} is on {t.device}, value on {value.device}")
-        if t.dtype != dt:
-            raise TypeError(f"the MSDA kernel takes {name} as {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"the MSDA kernel needs {name} contiguous")
+    _check_kernel_args(value, p, l, (("value", value, torch.bfloat16),
+                                     ("offsets", offsets, torch.bfloat16),
+                                     ("logits", logits, torch.bfloat16),
+                                     ("reference_points", reference_points, torch.float32)))
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     levels = _level_table(shapes, value.device)
     out = torch.empty(b, q, m * d, dtype=value.dtype, device=value.device)
@@ -146,3 +257,66 @@ def _launch(value, spatial_shapes, offsets, reference_points, logits):
     check(code, "ms_deform_attn_fwd")
     KERNEL.launches += 1
     return out
+
+
+def _check_kernel_args(value, p, l, named):
+    """What the MSDA kernels take: D == 32, L*P <= 16, contiguous tensors of
+    the given dtypes on value's device."""
+    d = value.shape[-1]
+    if d != 32:
+        raise ValueError(f"the MSDA kernel runs one lane per channel and needs D == 32, got {d}")
+    if l * p > 16 or l > 8:
+        raise ValueError(f"the MSDA kernel holds 2*L*P locations in one warp: needs L*P <= 16, got {l}*{p}")
+    for name, t, dt in named:
+        if t.device != value.device:
+            raise ValueError(f"{name} is on {t.device}, value on {value.device}")
+        if t.dtype != dt:
+            raise TypeError(f"the MSDA kernel takes {name} as {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"the MSDA kernel needs {name} contiguous")
+
+
+def _launch_v9_fwd(value, spatial_shapes, loc, attn):
+    b, s, m, d = value.shape
+    q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    _check_kernel_args(value, p, l, (("value", value, torch.bfloat16),
+                                     ("sampling_locations", loc, torch.float32),
+                                     ("attention_weights", attn, torch.bfloat16)))
+    levels = _level_table(spatial_shapes, value.device)
+    out = torch.empty(b, q, m * d, dtype=value.dtype, device=value.device)
+    lib = load_library().lib
+    with torch.cuda.device(value.device):
+        code = lib.vnext_msda_fwd_loc(
+            value.data_ptr(), loc.data_ptr(), attn.data_ptr(), levels.data_ptr(),
+            out.data_ptr(), b, q, s, m, l, p, stream_handle(value.device),
+        )
+    check(code, "ms_deform_attn_v9_fwd")
+    KERNEL_V9_FWD.launches += 1
+    return out
+
+
+def _launch_v9_bwd(value, spatial_shapes, loc, attn, grad):
+    b, s, m, d = value.shape
+    q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    grad = grad.contiguous()
+    _check_kernel_args(value, p, l, (("value", value, torch.bfloat16),
+                                     ("sampling_locations", loc, torch.float32),
+                                     ("attention_weights", attn, torch.bfloat16),
+                                     ("the cotangent", grad, torch.bfloat16)))
+    if grad.shape != (b, q, m * d):
+        raise ValueError(f"the cotangent must be [B, Q, M*D], got {tuple(grad.shape)}")
+    levels = _level_table(spatial_shapes, value.device)
+    scratch = torch.zeros(b, s, m, d, dtype=torch.float32, device=value.device)
+    dvalue = torch.empty_like(value)
+    dloc = torch.empty_like(loc)
+    dattn = torch.empty_like(attn)
+    lib = load_library().lib
+    with torch.cuda.device(value.device):
+        code = lib.vnext_msda_bwd(
+            value.data_ptr(), loc.data_ptr(), attn.data_ptr(), grad.data_ptr(),
+            levels.data_ptr(), scratch.data_ptr(), dloc.data_ptr(), dattn.data_ptr(),
+            dvalue.data_ptr(), b, q, s, m, l, p, stream_handle(value.device),
+        )
+    check(code, "ms_deform_attn_v9_bwd")
+    KERNEL_V9_BWD.launches += 1
+    return dvalue, dloc, dattn

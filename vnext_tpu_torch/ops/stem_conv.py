@@ -5,13 +5,18 @@ the kernel are rounded to bf16, products are summed in f32, and the output is
 bf16 ``relu(conv(x, k) * scale + bias)`` of shape [B, H/2, W/2, 64] for even H, W.
 
 A CPU tensor runs :func:`stem_conv_plain`; a CUDA tensor runs the hand-written
-kernel ``csrc/stem_conv.cu`` or raises.
+kernel ``csrc/stem_conv.cu`` or raises. Either way the op is a
+``torch.autograd.Function`` whose backward is the autograd of
+:func:`stem_conv_ref_f32` at the same inputs, as the JAX package's custom VJP
+linearizes ``_stem_ref_f32``: there is no backward kernel on the TPU either.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from torch.autograd.function import once_differentiable
 
 from .._build import Kernel, check, load_library, stream_handle
 
@@ -35,11 +40,40 @@ def stem_conv7x7s2_bn_relu(x, k_hwio, scale, bias) -> torch.Tensor:
     """x [B, H, W, 3] (any float dtype), k_hwio [7, 7, 3, 64], scale/bias [64] f32.
     Returns bf16 [B, H/2, W/2, 64]."""
     _check_args(x, k_hwio, scale, bias)
-    if x.device.type == "cpu":
-        return stem_conv_plain(x, k_hwio, scale, bias)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stem_conv: no implementation for device {x.device}")
-    return _launch(x, k_hwio, scale, bias)
+    return _StemConv.apply(x, k_hwio, scale, bias)
+
+
+class _StemConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k_hwio, scale, bias):
+        ctx.save_for_backward(x, k_hwio, scale, bias)
+        if x.is_cuda:
+            return _launch(x, k_hwio, scale, bias)
+        return stem_conv_plain(x, k_hwio, scale, bias)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        inputs = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in zip(inputs, ctx.needs_input_grad)]
+            wanted = [leaf for leaf in leaves if leaf.requires_grad]
+            grads = iter(torch.autograd.grad(stem_conv_ref_f32(*leaves), wanted, grad.float()))
+        return tuple(next(grads) if need else None for need in ctx.needs_input_grad)
+
+
+def stem_conv_ref_f32(x, k_hwio, scale, bias) -> torch.Tensor:
+    """The backward's linearization point (JAX ``_stem_ref_f32``): an f32
+    convolution of x with the bf16-rounded kernel, the affine and the ReLU, in
+    f32. The kernel's gradient is rounded to bf16, as JAX's is (it enters the
+    op as bf16)."""
+    xf = x.float().permute(0, 3, 1, 2)
+    kb = k_hwio.to(torch.bfloat16).float().permute(3, 2, 0, 1)   # OIHW
+    y = F.conv2d(xf, kb, stride=2, padding=3)
+    y = y * scale.float()[None, :, None, None] + bias.float()[None, :, None, None]
+    return torch.relu(y).permute(0, 2, 3, 1)
 
 
 def stem_conv_plain(x, k_hwio, scale, bias) -> torch.Tensor:
