@@ -3,18 +3,24 @@
 
     python3 chip_smoke.py
 
-Phases, each printed as it ends; any failure raises and exits non-zero:
+Phases, each printed as it ends; any failure raises and exits non-zero. Each
+path zeroes every kernel's launch counter just before it runs and reads them
+all just after; the counts must be what the code implies.
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions, and
    the build of the hand-written kernels from ``vnext_tpu_torch/csrc``.
-2. Each kernel against its plain PyTorch version on the card, at the shapes the
-   IDOL-R50 paths give it, with the tolerance stated beside the error, both
-   times (CUDA events, median of 10 after warm-up), the least time the card
-   could take for the same work, and the time of one PyTorch library call that
-   computes the same function where there is one. The serving kernels K1-K3 at
-   the serving shapes; K4 (MSDA forward, standard entry), K5 (its backward,
-   held element by element) and K2 again at the train step's; K2's backward;
-   K1's fused entry and K3 refuse autograd.
+2. Each kernel against its plain PyTorch version on the card, with the
+   tolerance stated beside the error, both times (CUDA events, median of 10
+   after warm-up), the least time the card could take for the same work, and
+   the time of one PyTorch library call that computes the same function where
+   there is one. 2a: K1-K3 at IDOL-R50's serving shapes; K1's fused entry and
+   K3 refuse autograd. 2b: K4, K5 (held element by element), the v6 route's
+   backward (K5 through ``TPU.MSDA_IMPL`` "pallas") and K2's forward and
+   backward at the train step's shapes. 2c: K4 and the selector's routes
+   ("pallas", "pallas_v7", "pallas_v8") at the serving encoder and decoder
+   shapes (the decoder's is SeqFormer's), K4b (the channel-major entry) at the
+   encoder's, and K9 at its own. 2d: the two kernels no model path runs,
+   through their entry points: ``ms_deform_attn_cm`` once and the K9 probe.
 3. The serving path: IDOL-R50 (40 classes, 300 queries, 6 + 6 layers, hidden
    256, bf16, seeded random weights) through ``IDOLVideoInference`` on two
    synthetic videos of 20 and 13 frames at 480x853 (clips of 10 padded to
@@ -22,6 +28,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    all outputs must be finite and the ``results.json`` entries well-formed.
 4. Frame 0 of the first video through the port on the card (kernels, bf16) and
    on the CPU (plain versions, f32), compared within stated tolerances.
+9. IDOL-R50 serving on one clip under each of the routes "pallas",
+   "pallas_v7", "pallas_v8": the route's counter and K4's at 12 per clip, K1's
+   at 0, the outputs within 2% of the "auto" run on the same weights.
+7. SeqFormer-R50 (the same trunk, 300 queries, bf16, seeded random weights)
+   through ``SeqFormerVideoInference`` on the same two videos whole and the
+   13-frame one clip-matched in windows of 5: per clip K2 / K1 / K3 / K4 =
+   1 / 6 / 6 / 6; per-clip and forward times, the device's busy share.
+8. A 2-frame clip of SeqFormer on the card (bf16) and on the CPU (f32).
 5. The train path: IDOL-R50 at the same widths, bf16, dropout 0.1, through
    ``VISTrainer.train`` with its hooks, on seeded synthetic batches of 4 clips
    (key + reference frame at 512x640, up to 48 instances with boxes and
@@ -35,6 +49,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    versions, f32): a seeded random projection of the last layer's logits,
    boxes and hidden states, and its gradients by parameter group, compared
    within stated tolerances.
+10. Two IDOL-R50 train steps under "pallas": the v6 route's forward and
+    backward counters at 24 each per step beside K4's and K5's.
 
 Then a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -64,6 +80,7 @@ LEVELS = ((60, 108), (30, 54), (15, 27), (8, 14))   # IDOL-R50 at 480x864, strid
 CLIP, HEIGHT, WIDTH = 10, 480, 864
 VIDEO_HW = (480, 853)
 VIDEO_FRAMES = (20, 13)
+SEQ_CLIP_LENGTH = 5           # MODEL.SeqFormer.CLIP_LENGTH of configs/seqformer/ytvis19_r50.yaml
 
 # the train step: TPU.TRAIN_IMAGE_SIZE and MAX_INSTANCES of configs/idol/ytvis19_r50.yaml,
 # and bench.py's single-chip share of its 32-clip batch
@@ -394,7 +411,7 @@ def phase_main_path(dev, kernels):
     results = [(rec, runner(rec)) for rec in records]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: kern.launches for name, kern in kernels.items()}
+    launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
 
     n_clips = sum(-(-len(f) // CLIP) for f in videos.values())
     expected = {"ms_deform_attn_fwd": 12 * n_clips, "stem_conv": 1 * n_clips,
@@ -526,7 +543,7 @@ def phase_train_kernels(dev):
         pix = loc * torch.tensor(wh, dtype=torch.float32, device=dev)[:, None, :] - 0.5
         on_pixel = int((pix == torch.floor(pix)).all(-1).sum())
         with torch.no_grad():
-            got = msda.ms_deform_attn_v9(value, TRAIN_LEVELS, loc, attn)
+            got = msda.ms_deform_attn_standard(value, TRAIN_LEVELS, loc, attn, "pallas_v9")
         want = msda.ms_deform_attn_core_plain(value, TRAIN_LEVELS, loc, attn)
         torch.cuda.synchronize()
         err = compare(f"K4 ms_deform_attn_v9_fwd ({form}, B={b}, Q={q}; {on_pixel} samples on pixel centres)",
@@ -534,7 +551,7 @@ def phase_train_kernels(dev):
                       "one bf16 ulp at the largest output: both sum the same bf16 inputs in f32 and "
                       "round once to bf16, in different orders")
         with torch.no_grad():
-            ms = time_ms(lambda: msda.ms_deform_attn_v9(value, TRAIN_LEVELS, loc, attn))
+            ms = time_ms(lambda: msda.ms_deform_attn_standard(value, TRAIN_LEVELS, loc, attn, "pallas_v9"))
         plain_ms = time_ms(lambda: msda.ms_deform_attn_core_plain(value, TRAIN_LEVELS, loc, attn))
         n_fwd = samples_in_range(pix, TRAIN_LEVELS, strict=True)
         fwd_bound = bound_ms(nbytes(value, loc, attn, got), 10.0 * n_fwd * d, "f32")
@@ -568,6 +585,17 @@ def phase_train_kernels(dev):
               f"plain {plain_ms:.4f} ms (autograd of the plain version), bound {bwd_bound[0]:.4f} ms "
               f"by {bwd_bound[1]}; no single library call computes MSDA's backward")
         results[f"bwd_{form}"] = kernel_entry(max(err_v, err_a, err_l), ms, plain_ms, bwd_bound)
+
+        # the selector's v6 route (cfg.TPU.MSDA_IMPL "pallas"): its backward is K5
+        # too, on the same inputs and held by the same rules
+        dv, dl, da = msda.ms_deform_attn_v9_backward(value, TRAIN_LEVELS, loc, attn, grad, "pallas")
+        err_v = compare_each(f"K6 backward route, dvalue ({form})", dv, wv, sv)
+        err_a = compare_each(f"K6 backward route, dattn ({form})", da, wa, sa)
+        err_l = compare(f"K6 backward route, dloc ({form})", dl, wl, 1e-5 * float(wl.abs().max()),
+                        "as K5's dloc")
+        ms6 = time_ms(lambda: msda.ms_deform_attn_v9_backward(value, TRAIN_LEVELS, loc, attn, grad, "pallas"))
+        print(f"  K6 backward route ({form}) {ms6:.4f} ms (K5 through impl='pallas'), plain {plain_ms:.4f} ms")
+        results[f"bwd6_{form}"] = kernel_entry(max(err_v, err_a, err_l), ms6, plain_ms, bwd_bound)
 
     # K2's forward at the train step's shape
     x = t(rng.randn(TRAIN_CLIPS, *TRAIN_HW, 3))
@@ -609,7 +637,8 @@ def phase_train_kernels(dev):
         print(f"  K2 backward d{name}: relative L2 {err:.3g} tolerance 0.001: the same f32 products "
               "summed in other orders, and dkernel rounded to bf16 on both sides")
         require(err <= 1e-3, f"K2 backward d{name}: relative error {err}")
-    print("[phase 2b] K4, K5 and K2 agree with their plain versions at train-step shapes; K2 has a backward")
+    print("[phase 2b] K4, K5 (and the v6 route's backward) and K2 agree with their plain versions at "
+          "train-step shapes; K2 has a backward")
     return results
 
 
@@ -700,7 +729,7 @@ def phase_train(dev, kernels):
         torch.cuda.reset_peak_memory_stats(dev)
         trainer.train(0, TRAIN_STEPS)
         torch.cuda.synchronize()
-        launches = {name: kern.launches for name, kern in kernels.items()}
+        launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
         peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         with open(f"{out_dir}/metrics.json") as f:
             written = [json.loads(line) for line in f]
@@ -866,6 +895,397 @@ def phase_train_numerics(dev):
         require(e <= 0.10, f"gradient of {group}: relative error {e}")
     print("[phase 6] card (kernels, bf16) agrees with CPU (plain, f32) on the train forward and its gradients")
 
+# ---------------------------------------------------------------- phase 2c
+ROUTES = ("pallas", "pallas_v7", "pallas_v8")      # cfg.TPU.MSDA_IMPL onto K4 / K5
+ROUTE_KERNEL = {"pallas": "ms_deform_attn_v6_fwd", "pallas_v7": "ms_deform_attn_v7_fwd",
+                "pallas_v8": "ms_deform_attn_v8_fwd"}
+
+
+def phase_more_kernels(dev):
+    """K4b at IDOL-R50's encoder shape, the selector's routes and K4 itself at the
+    serving encoder and decoder shapes (the decoder's is SeqFormer's, nf = 10),
+    and K9 at its own shape, each against its plain version."""
+    import torch
+
+    from vnext_tpu_torch.ops import ms_deform_attn as msda
+    from vnext_tpu_torch.tools import exp_dynstore
+
+    rng = np.random.RandomState(2)
+    bf16 = torch.bfloat16
+    b, m, d, l, p = CLIP, 8, 32, 4, 4
+    s = sum(h * w for h, w in LEVELS)
+    wh = np.asarray([[w, h] for h, w in LEVELS], np.float64)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, dtype)
+
+    value = rng.randn(b, s, m, d)
+    start = 0
+    for h, w in LEVELS:
+        value[:, start + np.arange(h) * w + (w - 1)] = 0.0
+        start += h * w
+    value = t(value, bf16)
+
+    def locations(ref_xy, q):
+        """[b, q, M, L, P, 2]: around the references, a quarter exactly on pixel
+        centres, 2% far outside every level."""
+        loc = ref_xy[:, :, None, None, None, :] + rng.randn(b, q, m, l, p, 2) * 3.0 / wh[None, None, None, :, None, :]
+        k = np.floor(loc * wh[None, None, None, :, None, :])
+        centre = rng.rand(b, q, m, l, p) < 0.25
+        loc[centre] = ((k + 0.5) / wh[None, None, None, :, None, :])[centre]
+        far = rng.rand(b, q, m, l, p) < 0.02
+        loc[far] = rng.choice([-4.0, 5.0], size=(int(far.sum()), 2))
+        return t(loc)
+
+    def attention(q):
+        logits = torch.from_numpy(rng.randn(b, q, m, l * p).astype(np.float32) * 2.0).to(dev)
+        return torch.softmax(logits, -1).to(bf16).view(b, q, m, l, p).contiguous()
+
+    grid = np.concatenate([np.stack(np.meshgrid((np.arange(w) + 0.5) / w, (np.arange(h) + 0.5) / h), -1).reshape(-1, 2)
+                           for h, w in LEVELS])
+    forms = {"enc": (locations(np.broadcast_to(grid, (b, s, 2)), s), attention(s)),
+             "dec": (locations(rng.rand(b, 300, 2), 300), attention(300))}
+    results = {}
+    for form, (loc, attn) in forms.items():
+        q = loc.shape[1]
+        pix = loc * torch.tensor(wh, dtype=torch.float32, device=dev)[:, None, :] - 0.5
+        want = msda.ms_deform_attn_core_plain(value, LEVELS, loc, attn)
+        plain_ms = time_ms(lambda: msda.ms_deform_attn_core_plain(value, LEVELS, loc, attn))
+        bound = bound_ms(nbytes(value, loc, attn, want), 10.0 * samples_in_range(pix, LEVELS, True) * d, "f32")
+        tol = BF16_ULP * float(want.float().abs().max())
+        for impl in ("auto",) + ROUTES:
+            with torch.no_grad():
+                got = msda.ms_deform_attn_standard(value, LEVELS, loc, attn, impl)
+                torch.cuda.synchronize()
+                err = compare(f"impl={impl} ({form}, B={b}, Q={q}, S={s})", got, want, tol,
+                              "one bf16 ulp at the largest output: K4 and the plain version sum the same "
+                              "bf16 inputs in f32 and round once, in other orders")
+                ms = time_ms(lambda: msda.ms_deform_attn_standard(value, LEVELS, loc, attn, impl))
+            print(f"  impl={impl} ({form}) K4 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"by {bound[1]}; no single library call computes MSDA")
+            results[f"route_{impl}_{form}"] = kernel_entry(err, ms, plain_ms, bound)
+
+    # K4b: the encoder's inputs in the channel-major layout
+    loc, attn = forms["enc"]
+    value_t = value.view(b, s, m * d).transpose(1, 2).contiguous()
+    loc_cm = loc.permute(0, 2, 3, 4, 5, 1).contiguous()
+    attn_cm = attn.permute(0, 2, 3, 4, 1).contiguous()
+    with torch.no_grad():
+        got = msda.ms_deform_attn_cm(value_t, LEVELS, loc_cm, attn_cm)
+    want = msda.ms_deform_attn_cm_plain(value_t, LEVELS, loc_cm, attn_cm)
+    torch.cuda.synchronize()
+    err = compare(f"K4b ms_deform_attn_v9_cm (encoder, B={b}, Q=S={s})", got, want,
+                  BF16_ULP * float(want.float().abs().max()),
+                  "one bf16 ulp at the largest output: both sum the same bf16 inputs in f32 and round once")
+    with torch.no_grad():
+        ms = time_ms(lambda: msda.ms_deform_attn_cm(value_t, LEVELS, loc_cm, attn_cm))
+    plain_ms = time_ms(lambda: msda.ms_deform_attn_cm_plain(value_t, LEVELS, loc_cm, attn_cm))
+    pix = loc * torch.tensor(wh, dtype=torch.float32, device=dev)[:, None, :] - 0.5
+    bound = bound_ms(nbytes(value_t, loc_cm, attn_cm, got), 10.0 * samples_in_range(pix, LEVELS, True) * d, "f32")
+    print(f"  K4b kernel {ms:.4f} ms (with the value's transpose to token-major), plain {plain_ms:.4f} ms, "
+          f"bound {bound[0]:.4f} ms by {bound[1]}; no single library call computes MSDA")
+    results["cm"] = kernel_entry(err, ms, plain_ms, bound)
+    try:
+        msda.ms_deform_attn_cm(value_t.clone().requires_grad_(), LEVELS, loc_cm, attn_cm)
+    except RuntimeError as exc:
+        require("inference-only" in str(exc), f"K4b: unexpected error {exc}")
+        print(f"  K4b under autograd raises: {exc}")
+    else:
+        raise SmokeFailure("K4b ran under autograd instead of raising")
+
+    # K9 at its own shape: the same f32 additions in the same order, so equal
+    x, r = exp_dynstore.probe_inputs((0, 1, 2, 0))
+    x, r = x.to(dev), r.to(dev)
+    got = exp_dynstore.dynstore(x, r)
+    want = exp_dynstore.dynstore_plain(x, r)
+    err = compare(f"K9 dynstore {tuple(x.shape)}", got, want, 0.0,
+                  "exact: the same f32 additions in the same order of steps")
+    ms = time_ms(lambda: exp_dynstore.dynstore(x, r))
+    plain_ms = time_ms(lambda: exp_dynstore.dynstore_plain(x, r))
+    block = exp_dynstore.HB * exp_dynstore.D
+    adds = 2.0 * x.shape[0] * exp_dynstore.T * block * x.shape[2]
+    # the bytes the function needs: the x rows of the block, column 0 of r (the
+    # offsets), the whole output once
+    bound = bound_ms(nbytes(x[:, :block], r[:, :, 0], got), adds, "f32")
+    print(f"  K9 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.6f} ms by {bound[1]}; "
+          "no single library call computes it")
+    results["dynstore"] = kernel_entry(err, ms, plain_ms, bound)
+    print("[phase 2c] K4b, K9 and every MSDA route agree with their plain versions")
+    return results, (value_t, loc_cm, attn_cm)
+
+
+def phase_entry_points(kernels, cm_inputs):
+    """The two kernels no model path runs, through their own entry points as a
+    user calls them: ``ms_deform_attn_cm`` (the channel-major MSDA entry) once at
+    the encoder's shape, and the K9 probe's script."""
+    import torch
+
+    from vnext_tpu_torch.ops import ms_deform_attn as msda
+    from vnext_tpu_torch.tools import exp_dynstore
+
+    for kern in kernels.values():
+        kern.launches = 0
+    with torch.inference_mode():
+        out = msda.ms_deform_attn_cm(*cm_inputs[:1], LEVELS, *cm_inputs[1:])
+    require(bool(torch.isfinite(out.float()).all()), "ms_deform_attn_cm: non-finite output")
+    require(exp_dynstore.main([]) == 0, "exp_dynstore probe failed")
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
+    expected = {"ms_deform_attn_v9_cm": 1, "dynstore": 1}
+    print(f"  launches: {launches} (expected {expected})")
+    require(launches == expected, f"launch counts {launches} != {expected}")
+    print("[phase 2d] the channel-major MSDA entry and the K9 probe ran through their kernels")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 7
+def window_count(t: int, clip: int, stride: int) -> int:
+    """Windows of the clip-matching path: ``stride * clip`` apart, the last flush with the end."""
+    n, start = 1, 0
+    while start + clip < t:
+        start += stride * clip
+        n += 1
+    return n
+
+
+def phase_seqformer(dev, kernels):
+    import torch
+
+    from vnext_tpu_torch.engine.seqformer_inference import SeqFormerVideoInference
+    from vnext_tpu_torch.evaluation.ytvis_json import video_output_to_json
+    from vnext_tpu_torch.models.seqformer import build_seqformer_model
+
+    t0 = time.perf_counter()
+    model = build_seqformer_model(device=dev, seed=0)
+    print(f"  SeqFormer-R50 built in {time.perf_counter() - t0:.1f} s: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters, dtype {model.dtype}, "
+          "seeded random weights (cocopretrain_seqformer_R50.pth is not in the repository)")
+    videos = {vid: synthetic_video(vid, n) for vid, n in zip((1, 2), VIDEO_FRAMES)}
+    store = {f"v{vid}/{i:05d}.jpg": fr for vid, frames in videos.items() for i, fr in enumerate(frames)}
+    records = [
+        {"video_id": vid, "height": VIDEO_HW[0], "width": VIDEO_HW[1], "length": len(frames),
+         "file_names": [f"v{vid}/{i:05d}.jpg" for i in range(len(frames))]}
+        for vid, frames in videos.items()
+    ]
+    whole = SeqFormerVideoInference(model, image_loader=store.__getitem__)
+    matched = SeqFormerVideoInference(model, clip_matching=True, clip_length=SEQ_CLIP_LENGTH,
+                                      clip_stride=1, image_loader=store.__getitem__)
+
+    # Random weights score every query alike (~0.01), below the runner's 0.05
+    # threshold. Raise the bias of class 0 so that a tenth of the queries of the
+    # first 10 frames score 0.3 on it, so that instances, masks and entries are made.
+    frames, size = whole._prepare_frames({**records[0], "file_names": records[0]["file_names"][:CLIP]})
+    sizes = torch.tensor([size], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        x = ((torch.from_numpy(frames).to(dev).float() - whole.pixel_mean) / whole.pixel_std)[None]
+        probe = model.inference(x, sizes)["pred_logits"][:, 0].float().cpu().numpy()
+    shift = float(np.log(0.3 / 0.7) - np.quantile(probe, 0.9))
+    with torch.no_grad():
+        getattr(model, f"class_embed_{model.dec_layers - 1}").bias[0] += shift
+    print(f"  class-0 bias raised by {shift:.3f} so that random weights make detections")
+
+    clip_ms, finite = [], []
+    for runner in (whole, matched):
+        infer = runner.infer_topk
+
+        def timed(frames, size, infer=infer):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cls, masks = infer(frames, size)
+            clip_ms.append((len(frames), (time.perf_counter() - t1) * 1e3))
+            finite.append(bool(np.isfinite(cls).all() and np.isfinite(masks).all()))
+            return cls, masks
+
+        runner.infer_topk = timed
+    whole(records[1])                      # warm-up, not counted
+    clip_ms.clear()
+    finite.clear()
+
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    results = [(rec, whole(rec)) for rec in records] + [(records[1], matched(records[1]))]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
+
+    n_clips = len(records) + window_count(VIDEO_FRAMES[1], SEQ_CLIP_LENGTH, 1)
+    expected = {"ms_deform_attn_fwd": 6 * n_clips, "stem_conv": n_clips, "encoder_epilogue": 6 * n_clips,
+                "ms_deform_attn_v9_fwd": 6 * n_clips}
+    print(f"  launches over {n_clips} clips (2 whole videos, then the {VIDEO_FRAMES[1]}-frame one in windows "
+          f"of {SEQ_CLIP_LENGTH}): {launches} (expected {expected}: per clip one stem, 6 encoder layers of "
+          "K1's point form and K3, 6 decoder layers of K4 at batch nf, no K1 box form)")
+    require(launches == expected, f"launch counts {launches} != {expected}")
+    require(len(finite) == n_clips and all(finite), "non-finite SeqFormer outputs")
+
+    entries = []
+    for rec, out in results:
+        js = video_output_to_json(out, rec["video_id"])
+        for e in js:
+            require(set(e) == {"video_id", "score", "category_id", "segmentations"}, f"entry keys {set(e)}")
+            require(0.0 <= e["score"] <= 1.0 and 1 <= e["category_id"] <= 40, f"bad entry {e['score']}")
+            require(len(e["segmentations"]) == rec["length"], "one segmentation per frame")
+            require(all(sg["size"] == list(VIDEO_HW) and isinstance(sg["counts"], str)
+                        for sg in e["segmentations"]), "RLE size / counts")
+        entries += js
+    require(len(entries) > 0, "no results.json entries")
+    json.dumps(entries)
+
+    with torch.inference_mode():
+        forward_ms = time_ms(lambda: model.inference(x, sizes), reps=5, warmup=1)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            model.inference(x, sizes)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t1) * 1e3 / 2
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / 2
+    events.sort(key=lambda e: -e.self_device_time_total)
+    print(f"  torch.profiler over 2 forwards of a {CLIP}-frame clip: device busy {busy:.2f} ms per clip of "
+          f"{prof_wall:.2f} ms wall under the profiler ({busy / prof_wall:.1%}); top kernels, ms per clip:")
+    for e in events[:10]:
+        print(f"    {e.self_device_time_total / 1e3 / 2:9.3f} ms  {e.count // 2:6d} calls  {e.key[:110]}")
+    timing = {"clip_ms_by_frames": clip_ms, "forward_ms": forward_ms, "device_busy_ms": busy,
+              "profiled_forward_ms": prof_wall}
+    print(f"  per-clip ms through the runner (forward, top-10 on the card, their masks to the host), "
+          f"as frames: ms: {', '.join(f'{n}: {v:.2f}' for n, v in clip_ms)}")
+    print(f"  forward only, {CLIP}-frame clip on the card (CUDA events, median of 5): {forward_ms:.2f} ms")
+    print(f"  2 videos whole + 1 clip-matched ({VIDEO_FRAMES[0] + 2 * VIDEO_FRAMES[1]} frames) end to end: "
+          f"{wall:.2f} s; {len(entries)} results.json entries")
+    print("[phase 7] SeqFormer-R50 ran through K1 / K2 / K3 / K4; outputs finite; entries well-formed")
+    return model, whole, records[0], launches, timing
+
+
+def phase_seqformer_numerics(model, runner, record):
+    import torch
+
+    from vnext_tpu_torch.models.seqformer import build_seqformer_model
+
+    frames, size = runner._prepare_frames({**record, "file_names": record["file_names"][:2]})
+    cpu_model = build_seqformer_model(device="cpu", dtype=torch.float32, seed=1)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+
+    def run(m, device):
+        x = torch.from_numpy(frames).to(device).float()
+        x = (x - runner.pixel_mean.to(device)) / runner.pixel_std.to(device)
+        sizes = torch.tensor([size], dtype=torch.int32, device=device)
+        with torch.inference_mode():
+            return {k: v.float().cpu() for k, v in m.inference(x[None], sizes).items()}
+
+    card = run(model, next(model.parameters()).device)
+    t0 = time.perf_counter()
+    ref = run(cpu_model, "cpu")
+    print(f"  CPU f32 reference forward (2 frames): {time.perf_counter() - t0:.1f} s")
+    reason = ("bf16 keeps 8 significant bits and the path rounds ~100 times in sequence (53 convolutions, "
+              "12 transformer layers, heads), so errors that add like a random walk reach ~2%")
+    box_err = float((card["pred_boxes"] - ref["pred_boxes"]).abs().max())
+    print(f"  pred_boxes: max_abs_err {box_err:.4g} tolerance 0.05: sigmoids with slope <= 1/4")
+    require(box_err <= 0.05, f"pred_boxes error {box_err}")
+    top = ref["pred_logits"].max(-1).values.topk(10).indices
+    for name, a, b in (("pred_logits (top-10 queries)", card["pred_logits"][top], ref["pred_logits"][top]),
+                       ("pred_masks", card["pred_masks"], ref["pred_masks"])):
+        err = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        print(f"  {name}: relative L2 error {err:.4g} tolerance 0.05: {reason}")
+        require(err <= 0.05, f"{name}: relative error {err}")
+    print("[phase 8] SeqFormer card (kernels, bf16) agrees with CPU (plain, f32) on a 2-frame clip")
+
+
+# ---------------------------------------------------------------- phase 9
+def phase_selector_serve(dev, kernels, model, runner, record):
+    """IDOL-R50 serving on one clip under each v6 / v7 / v8 route of
+    ``cfg.TPU.MSDA_IMPL``, against the ``auto`` run on the same weights."""
+    import torch
+
+    from vnext_tpu_torch.models.idol import IDOL
+
+    frames, size = runner._prepare_frames({**record, "file_names": record["file_names"][:CLIP]})
+    with torch.inference_mode():
+        x = (torch.from_numpy(frames).to(dev).float() - runner.pixel_mean) / runner.pixel_std
+        sizes = torch.tensor([size] * CLIP, dtype=torch.int32, device=dev)
+        auto = {k: v.float() for k, v in model.inference(x, sizes).items()}
+    top = auto["pred_logits"].max(-1).values.topk(10, dim=1).indices                  # [T, 10]
+    state = model.state_dict()
+    per_impl, forward = {}, {}
+    for impl in ROUTES:
+        routed = IDOL(dtype=model.dtype, msda_impl=impl)
+        routed.load_state_dict(state)
+        routed = routed.to(dev).eval()
+        for kern in kernels.values():
+            kern.launches = 0
+        with torch.inference_mode():
+            out = {k: v.float() for k, v in routed.inference(x, sizes).items()}
+        torch.cuda.synchronize()
+        launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
+        expected = {ROUTE_KERNEL[impl]: 12, "ms_deform_attn_v9_fwd": 12, "stem_conv": 1, "encoder_epilogue": 6}
+        print(f"  impl={impl}: launches per clip {launches} (expected {expected}: 6 encoder + 6 decoder "
+              "layers through K4 on the route's counter, K1 not at all)")
+        require(launches == expected, f"impl={impl}: launch counts {launches} != {expected}")
+        for name in out:
+            a, b = out[name], auto[name]
+            if name == "pred_logits":
+                a, b = a.gather(1, top[..., None].expand(-1, -1, a.shape[-1])), b.gather(
+                    1, top[..., None].expand(-1, -1, b.shape[-1]))
+            require(bool(torch.isfinite(a).all()), f"impl={impl}: non-finite {name}")
+            err = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            print(f"    {name}{' (top-10 queries)' if name == 'pred_logits' else ''} vs auto: relative L2 "
+                  f"{err:.4g} tolerance 0.02: the route rounds the softmaxed weights to bf16, K1 keeps them f32")
+            require(err <= 0.02, f"impl={impl} {name}: relative error {err}")
+        with torch.inference_mode():
+            forward[impl] = time_ms(lambda: routed.inference(x, sizes), reps=3, warmup=1)
+        print(f"    forward {forward[impl]:.2f} ms per clip (CUDA events, median of 3)")
+        per_impl[impl] = launches
+        del routed
+    print("[phase 9] IDOL-R50 serving runs under every MSDA route, within 2% of auto")
+    return per_impl, forward
+
+
+# ---------------------------------------------------------------- phase 10
+def phase_selector_train(dev, kernels):
+    """Two IDOL-R50 train steps under cfg.TPU.MSDA_IMPL = "pallas" (the v6 route)."""
+    import torch
+
+    from vnext_tpu_torch.engine.train_step import TrainState, make_train_step
+    from vnext_tpu_torch.engine.trainer import PIXEL_MEAN, PIXEL_STD, batch_to_model_inputs
+    from vnext_tpu_torch.models.criterion import default_weight_dict
+    from vnext_tpu_torch.models.idol import IDOL
+    from vnext_tpu_torch.models.layers import init_weights
+    from vnext_tpu_torch.solver import build as solver
+
+    cfg = SimpleNamespace(SOLVER=SOLVER)
+    model = IDOL(dtype=torch.bfloat16, msda_impl="pallas")
+    init_weights(model, 5)
+    model = model.to(dev)
+    optimizer = solver.build_optimizer(cfg, model)
+    state = TrainState.create(model, optimizer, solver.build_lr_scheduler(cfg, optimizer))
+    step_fn = make_train_step(model, optimizer, default_weight_dict(dec_layers=model.dec_layers),
+                              solver.build_grad_clip(cfg))
+    inputs = [batch_to_model_inputs(synthetic_batch(np.random.RandomState(300 + i)), PIXEL_MEAN, PIXEL_STD, dev)
+              for i in range(2)]
+    for kern in kernels.values():
+        kern.launches = 0
+    totals = []
+    for inp in inputs:
+        state, metrics = step_fn(state, inp)
+        require(all(bool(torch.isfinite(v).all()) for v in metrics.values()), "non-finite loss under pallas")
+        totals.append(float(metrics["total_loss"]))
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
+    expected = {"ms_deform_attn_v6_fwd": 48, "ms_deform_attn_v6_bwd": 48, "ms_deform_attn_v9_fwd": 48,
+                "ms_deform_attn_v9_bwd": 48, "stem_conv": 4}
+    print(f"  launches over 2 steps: {launches} (expected {expected}: 24 MSDA forwards and backwards per "
+          "step on the v6 route's counters beside K4's and K5's)")
+    require(launches == expected, f"launch counts {launches} != {expected}")
+    print(f"  total_loss by step {', '.join(f'{v:.4f}' for v in totals)}; every loss finite")
+    print("[phase 10] the IDOL-R50 train step runs under impl='pallas' through K4 / K5")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -879,38 +1299,67 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    from vnext_tpu_torch.ops import encoder_epilogue, ms_deform_attn, stem_conv
+    from vnext_tpu_torch.ops import encoder_epilogue, stem_conv
+    from vnext_tpu_torch.ops import ms_deform_attn as msda
+    from vnext_tpu_torch.tools import exp_dynstore
 
     logging.basicConfig(level=logging.INFO, stream=sys.stdout, format="  %(name)s: %(message)s")
-    serve = {k.name: k for k in (ms_deform_attn.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)}
-    train = {k.name: k for k in (ms_deform_attn.KERNEL_V9_FWD, ms_deform_attn.KERNEL_V9_BWD,
-                                 stem_conv.KERNEL)}
+    # every kernel's counter: each path zeroes them all before it runs and reads them all after
+    kernels = {k.name: k for k in (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL, msda.KERNEL_V9_FWD,
+                                   msda.KERNEL_V9_BWD, msda.KERNEL_CM, msda.KERNEL_V6_FWD, msda.KERNEL_V6_BWD,
+                                   msda.KERNEL_V7_FWD, msda.KERNEL_V8_FWD, exp_dynstore.KERNEL)}
     smi = phase_card()
     measured = phase_kernels(dev)
     measured.update(phase_train_kernels(dev))
-    model, runner, record, serve_launches, timing = phase_main_path(dev, serve)
+    more, cm_inputs = phase_more_kernels(dev)
+    measured.update(more)
+    entry_launches = phase_entry_points(kernels, cm_inputs)
+    del cm_inputs
+    model, runner, record, serve_launches, timing = phase_main_path(dev, kernels)
     phase_numerics(model, runner, record)
+    route_launches, route_forward_ms = phase_selector_serve(dev, kernels, model, runner, record)
     del model, runner
     torch.cuda.empty_cache()
-    train_launches, train_timing = phase_train(dev, train)
+    seq_model, seq_runner, seq_record, seq_launches, seq_timing = phase_seqformer(dev, kernels)
+    phase_seqformer_numerics(seq_model, seq_runner, seq_record)
+    del seq_model, seq_runner
+    torch.cuda.empty_cache()
+    train_launches, train_timing = phase_train(dev, kernels)
     phase_train_numerics(dev)
+    route_train_launches = phase_selector_train(dev, kernels)
 
-    print(json.dumps({"slice": timing, "train": train_timing, "msda_decoder_form": measured["dec"],
-                      "k4_decoder_form": measured["fwd_decoder"], "k5_decoder_form": measured["bwd_decoder"]}))
-    rows = [  # (kernel, its launches on the path that runs it, the measurement it is reported by)
-        (ms_deform_attn.KERNEL, serve_launches, "enc"),
-        (stem_conv.KERNEL, train_launches, "stem_train"),
-        (encoder_epilogue.KERNEL, serve_launches, "epilogue"),
-        (ms_deform_attn.KERNEL_V9_FWD, train_launches, "fwd_encoder"),
-        (ms_deform_attn.KERNEL_V9_BWD, train_launches, "bwd_encoder"),
+    print(json.dumps({
+        "slice": timing, "seqformer": seq_timing, "train": train_timing,
+        "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
+        "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
+        "k5_decoder_form": measured["bwd_decoder"], "k6_backward_decoder_form": measured["bwd6_decoder"],
+        "k2_serving": measured["stem"], "k4_serving": {f: measured[f"route_auto_{f}"] for f in ("enc", "dec")},
+        "routes_serving": {impl: {f: measured[f"route_{impl}_{f}"] for f in ("enc", "dec")} for impl in ROUTES},
+    }))
+    paths = {"serve": serve_launches, "seqformer": seq_launches,
+             **{f"serve_{impl}": route_launches[impl] for impl in ROUTES},
+             "train": train_launches, "train_pallas": route_train_launches, "entry_points": entry_launches}
+    rows = [  # (kernel, the path its launches are reported from, the measurement it is reported by)
+        (msda.KERNEL, "serve", "enc"),
+        (stem_conv.KERNEL, "train", "stem_train"),
+        (encoder_epilogue.KERNEL, "serve", "epilogue"),
+        (msda.KERNEL_V9_FWD, "train", "fwd_encoder"),
+        (msda.KERNEL_V9_BWD, "train", "bwd_encoder"),
+        (msda.KERNEL_CM, "entry_points", "cm"),
+        (msda.KERNEL_V6_FWD, "serve_pallas", "route_pallas_enc"),
+        (msda.KERNEL_V6_BWD, "train_pallas", "bwd6_encoder"),
+        (msda.KERNEL_V7_FWD, "serve_pallas_v7", "route_pallas_v7_enc"),
+        (msda.KERNEL_V8_FWD, "serve_pallas_v8", "route_pallas_v8_enc"),
+        (exp_dynstore.KERNEL, "entry_points", "dynstore"),
     ]
+    for kern, path, _ in rows:
+        require(paths[path].get(kern.name, 0) > 0, f"{kern.name}: no launch on the {path} path")
     print(json.dumps({"kernels": [
         {"name": kern.name, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
-         "launches": launches[kern.name],
-         "launches_by_path": {"serve": serve_launches.get(kern.name, 0),
-                              "train": train_launches.get(kern.name, 0)},
+         "launches": paths[path][kern.name],
+         "launches_by_path": {p: launches.get(kern.name, 0) for p, launches in paths.items()},
          **measured[key]}
-        for kern, launches, key in rows
+        for kern, path, key in rows
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,9 @@ import torch
 from vnext_tpu_torch import _build
 from vnext_tpu_torch.models.idol import IDOL
 from vnext_tpu_torch.models.layers import init_weights
+from vnext_tpu_torch.models.seqformer import SeqFormer
 from vnext_tpu_torch.ops import encoder_epilogue, ms_deform_attn, stem_conv
+from vnext_tpu_torch.tools import exp_dynstore
 
 from _torch_helpers import TINY_IDOL, cuda_device  # noqa: F401 (fixture)
 
@@ -31,6 +33,11 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_MODULES = (ms_deform_attn, stem_conv, encoder_epilogue)
+# every launch counter of the package
+COUNTERS = (ms_deform_attn.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL, ms_deform_attn.KERNEL_V9_FWD,
+            ms_deform_attn.KERNEL_V9_BWD, ms_deform_attn.KERNEL_CM, ms_deform_attn.KERNEL_V6_FWD,
+            ms_deform_attn.KERNEL_V6_BWD, ms_deform_attn.KERNEL_V7_FWD, ms_deform_attn.KERNEL_V8_FWD,
+            exp_dynstore.KERNEL)
 
 
 def _run(code, env=None):
@@ -46,10 +53,12 @@ def test_package_never_imports_jax():
         "names = [m.name for m in pkgutil.walk_packages(vnext_tpu_torch.__path__, 'vnext_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vnext_tpu'))\n"
-        "print(len(names), bad)\n"
+        "print(len(names), ','.join(names), bad)\n"
     )
-    count, bad = out.split(" ", 1)
+    count, names, bad = out.split(" ", 2)
     assert int(count) >= 15
+    for name in ("models.seqformer", "engine.seqformer_inference", "tools.exp_dynstore"):
+        assert f"vnext_tpu_torch.{name}" in names.split(","), name
     assert bad.strip() == "[]"
 
 
@@ -62,7 +71,9 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "        if name.split('.')[0] == 'triton': raise ImportError('triton blocked')\n"
         "sys.meta_path.insert(0, Block())\n"
         "from vnext_tpu_torch.ops import ms_deform_attn, stem_conv, encoder_epilogue\n"
-        "from vnext_tpu_torch.models import idol\n"
+        "from vnext_tpu_torch.models import idol, seqformer\n"
+        "from vnext_tpu_torch.engine import seqformer_inference\n"
+        "from vnext_tpu_torch.tools import exp_dynstore\n"
         "from vnext_tpu_torch import _build\n"
         "print(shutil.which('nvcc'), _build.load_library.cache_info().currsize)\n",
         env=env,
@@ -89,14 +100,20 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 
 def test_cpu_model_leaves_launch_counters_alone():
-    before = [m.KERNEL.launches for m in KERNEL_MODULES]
+    before = [k.launches for k in COUNTERS]
     for dtype in (torch.float32, torch.bfloat16):
-        model = IDOL(**TINY_IDOL, dtype=dtype).eval()
+        for impl in ("auto", "pallas"):
+            model = IDOL(**TINY_IDOL, dtype=dtype, msda_impl=impl).eval()
+            init_weights(model, seed=0)
+            with torch.no_grad():
+                out = model.inference(torch.randn(2, 64, 96, 3), torch.tensor([[64, 85]] * 2))
+            assert all(torch.isfinite(v.float()).all() for v in out.values())
+        model = SeqFormer(**TINY_IDOL, dtype=dtype).eval()
         init_weights(model, seed=0)
         with torch.no_grad():
-            out = model.inference(torch.randn(2, 64, 96, 3), torch.tensor([[64, 85]] * 2))
+            out = model.inference(torch.randn(1, 2, 64, 96, 3), torch.tensor([[64, 85]]))
         assert all(torch.isfinite(v.float()).all() for v in out.values())
-    assert [m.KERNEL.launches for m in KERNEL_MODULES] == before
+    assert [k.launches for k in COUNTERS] == before
 
 
 def test_every_kernel_names_its_source_and_tpu_twin():
@@ -256,7 +273,7 @@ def test_msda_train_kernels_match_plain(cuda_device, q):
     grad = torch.tensor(rng.randn(b, q, m * d), dtype=torch.bfloat16, device=cuda_device)
     before = (ms_deform_attn.KERNEL_V9_FWD.launches, ms_deform_attn.KERNEL_V9_BWD.launches)
     leaves = [x.clone().requires_grad_() for x in (value, loc, attn)]
-    out = ms_deform_attn.ms_deform_attn_v9(leaves[0], LEVELS, leaves[1], leaves[2])
+    out = ms_deform_attn.ms_deform_attn_standard(leaves[0], LEVELS, leaves[1], leaves[2], "pallas_v9")
     out.backward(grad)
     assert (ms_deform_attn.KERNEL_V9_FWD.launches, ms_deform_attn.KERNEL_V9_BWD.launches) == \
         (before[0] + 1, before[1] + 1)
@@ -279,3 +296,66 @@ def test_msda_train_kernels_match_plain(cuda_device, q):
     # dloc is f32: sums of the same products in other orders
     err, scale = _max_err(leaves[1].grad, wants[1])
     assert leaves[1].grad.dtype == torch.float32 and err <= 1e-5 * scale, err
+
+
+@pytest.mark.cuda
+def test_msda_channel_major_kernel_matches_plain(cuda_device):
+    """K4b: the channel-major entry with precomputed locations against its plain
+    version, with samples on pixel centres and outside the levels; inference-only."""
+    rng = np.random.RandomState(21)
+    b, m, d, p, q = 2, 8, 32, 4, 50
+    s, l = sum(h * w for h, w in LEVELS), len(LEVELS)
+    wh = np.asarray([[w, h] for h, w in LEVELS])
+    loc = rng.rand(b, m, l, p, 2, q) * 1.2 - 0.1
+    loc[:, :, :, 0] = (rng.randint(0, 100, (b, m, l, 2, q)) % wh[None, None, :, :, None] + 0.5) \
+        / wh[None, None, :, :, None]
+    loc[..., :5] = 3.0
+    value_t = torch.tensor(rng.randn(b, m * d, s), dtype=torch.bfloat16, device=cuda_device)
+    loc_cm = torch.tensor(loc, dtype=torch.float32, device=cuda_device)
+    attn = torch.softmax(torch.tensor(rng.randn(b, m, l * p, q), device=cuda_device).float(), 2)
+    attn_cm = attn.to(torch.bfloat16).view(b, m, l, p, q).contiguous()
+    before = ms_deform_attn.KERNEL_CM.launches
+    got = ms_deform_attn.ms_deform_attn_cm(value_t, LEVELS, loc_cm, attn_cm)
+    want = ms_deform_attn.ms_deform_attn_cm_plain(value_t, LEVELS, loc_cm, attn_cm)
+    assert ms_deform_attn.KERNEL_CM.launches == before + 1
+    assert got.shape == (b, m * d, q) and got.dtype == torch.bfloat16
+    err, scale = _max_err(got, want)
+    assert err <= BF16_ULP * scale, err
+    with pytest.raises(RuntimeError, match="inference-only"):
+        ms_deform_attn.ms_deform_attn_cm(value_t.clone().requires_grad_(), LEVELS, loc_cm, attn_cm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("starts", [(0, 1, 2, 0), (14, 13, 20, 3), (-1, -13, 5, 100)])
+def test_dynstore_kernel_matches_plain(cuda_device, starts):
+    """K9: the same f32 additions in the same order of steps, so equal bit for bit."""
+    x, r = exp_dynstore.probe_inputs(starts, seed=abs(starts[1]))
+    r[1] = torch.from_numpy(np.random.RandomState(5).randn(*r.shape[1:]).astype(np.float32) * 9.0)
+    before = exp_dynstore.KERNEL.launches
+    got = exp_dynstore.dynstore(x.to(cuda_device), r.to(cuda_device))
+    assert exp_dynstore.KERNEL.launches == before + 1
+    assert torch.equal(got.cpu(), exp_dynstore.dynstore_plain(x, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl, route", [("pallas", "v6"), ("pallas_v7", "v7"), ("pallas_v8", "v8")])
+def test_selector_routes_count_beside_k4_k5(cuda_device, impl, route):
+    """A v6 / v7 / v8 route runs K4 forward and K5 backward and counts on its own
+    counter too; its backward is the v6 backward's."""
+    rng = np.random.RandomState(22)
+    b, m, d, p, q = 2, 8, 32, 4, 40
+    s, l = sum(h * w for h, w in LEVELS), len(LEVELS)
+    value = torch.tensor(rng.randn(b, s, m, d), dtype=torch.bfloat16, device=cuda_device)
+    loc = torch.tensor(rng.rand(b, q, m, l, p, 2), dtype=torch.float32, device=cuda_device)
+    attn = torch.softmax(torch.tensor(rng.randn(b, q, m, l * p), device=cuda_device).float(), -1)
+    attn = attn.to(torch.bfloat16).view(b, q, m, l, p)
+    fwd = getattr(ms_deform_attn, f"KERNEL_{route.upper()}_FWD")
+    counters = (ms_deform_attn.KERNEL_V9_FWD, ms_deform_attn.KERNEL_V9_BWD, fwd, ms_deform_attn.KERNEL_V6_BWD)
+    before = [k.launches for k in counters]
+    leaves = [x.clone().requires_grad_() for x in (value, loc, attn)]
+    out = ms_deform_attn.ms_deform_attn_standard(leaves[0], LEVELS, leaves[1], leaves[2], impl)
+    out.float().sum().backward()
+    assert [k.launches - n for k, n in zip(counters, before)] == [1, 1, 1, 1]
+    want = ms_deform_attn.ms_deform_attn_core_plain(value, LEVELS, loc, attn)
+    err, scale = _max_err(out.detach(), want)
+    assert err <= BF16_ULP * scale, err

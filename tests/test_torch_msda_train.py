@@ -1,9 +1,9 @@
 """The port's MSDA standard (training) entry against the JAX package, on the CPU.
 
-``vnext_tpu_torch.ops.ms_deform_attn.ms_deform_attn_v9`` takes normalized f32
-locations and softmaxed weights, as ``ms_deform_attn_pallas_v9`` does, and
-carries a gradient to value, locations and weights (K4 / K5 on the card, the
-plain core and its autograd here). Held against:
+``vnext_tpu_torch.ops.ms_deform_attn.ms_deform_attn_standard`` with
+``impl="pallas_v9"`` takes normalized f32 locations and softmaxed weights, as
+``ms_deform_attn_pallas_v9`` does, and carries a gradient to value, locations
+and weights (K4 / K5 on the card, the plain core and its autograd here). Held against:
 
 - ``ms_deform_attn_core_jnp`` and ``jax.grad`` of it under a seeded cotangent,
   with uniform samples, samples exactly on pixel centres (where the corner-wise
@@ -82,7 +82,7 @@ def _jax_grads(fn, shapes, value, loc, attn, cot):
 
 def _port_grads(shapes, value, loc, attn, cot):
     leaves = [t(a).requires_grad_() for a in (value, loc, attn)]
-    out = msda.ms_deform_attn_v9(leaves[0], shapes, leaves[1], leaves[2])
+    out = msda.ms_deform_attn_standard(leaves[0], shapes, leaves[1], leaves[2], "pallas_v9")
     (out * t(cot)).sum().backward()
     return [out.detach().numpy()] + [x.grad.numpy() for x in leaves]
 
@@ -119,7 +119,7 @@ def test_autograd_function_gradcheck_f64():
     value, loc, attn, _ = _inputs(6, "uniform", b=1, q=4)
     leaves = [torch.from_numpy(a).double().requires_grad_() for a in (value, loc, attn)]
     assert torch.autograd.gradcheck(
-        lambda v, lo, a: msda.ms_deform_attn_v9(v, SHAPES, lo, a), leaves, eps=1e-6, atol=1e-5)
+        lambda v, lo, a: msda.ms_deform_attn_standard(v, SHAPES, lo, a, "pallas_v9"), leaves, eps=1e-6, atol=1e-5)
 
 
 def test_module_train_path_and_gradients_match_jax():

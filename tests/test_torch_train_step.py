@@ -79,6 +79,17 @@ def _tree_by_name(tree):
 
 @pytest.fixture(scope="module")
 def run():
+    # the tolerances above were set with 4 threads; another test file imported
+    # into the same worker may have set another count since this one was imported
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        yield _run()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _run():
     cfg = ytvis19_r50_cfg()
     batch = tiny_batch(0)
     jmodel = JaxIDOL(num_classes=5, hidden_dim=32, num_queries=NQ, nheads=4, dim_feedforward=64,

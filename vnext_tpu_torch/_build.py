@@ -1,7 +1,8 @@
 """Build and load the hand-written Hopper kernels in ``csrc/``.
 
 The kernels are plain CUDA C++ with a C interface (no PyTorch headers), compiled
-on first use with ``nvcc`` for ``sm_90a`` into one shared library under
+on first use with ``nvcc`` for ``sm_90a`` (one process per source, in parallel)
+and linked into one shared library under
 ``build/vnext_tpu_torch/`` at the repository root, and loaded with ``ctypes``.
 The library's file name carries a hash of the sources and flags, so an edited
 source rebuilds and a stale library is never loaded.
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "vnext_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -77,22 +78,32 @@ def _digest() -> str:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> Library:
-    """Build (if needed) and load the kernel library; cached per process."""
+    """Build (if needed) and load the kernel library; cached per process. Each
+    source compiles in its own ``nvcc``, all started together; one more links
+    the objects into the shared library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"libvnext_kernels_{_digest()}.so"
     log = ""
     t0 = time.perf_counter()
     if not out.exists():
-        cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            cu = [s for s in _sources() if s.suffix == ".cu"]
+            objs = [str(Path(tmp) / f"{s.stem}.o") for s in cu]
+            cmds = [[_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", o, str(s)] for s, o in zip(cu, objs)]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                     for c in cmds]
+            outputs = [p.communicate()[0] for p in procs]
+            log = "".join(outputs)
+            for cmd, proc, text in zip(cmds, procs, outputs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+            lib_tmp = str(Path(tmp) / out.name)
+            link = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", lib_tmp, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(lib_tmp, out)  # atomic: a concurrent loader sees all or nothing
     seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     _declare(lib)
@@ -106,6 +117,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "vnext_msda_fwd": [p, p, p, p, p, p, i, i, i, i, i, i, i, p],
         # value, loc, attn, level_hw_start, out, B, Q, S, M, L, P, stream
         "vnext_msda_fwd_loc": [p, p, p, p, p, i, i, i, i, i, i, p],
+        # the same, channel-major locations / weights / output
+        "vnext_msda_fwd_loc_cm": [p, p, p, p, p, i, i, i, i, i, i, p],
+        # x, r, out, B, rows, W, T, D, block_rows, stream
+        "vnext_dynstore": [p, p, p, i, i, i, i, i, i, p],
         # value, loc, attn, grad, level_hw_start, dvalue_f32, dloc, dattn, dvalue,
         # B, Q, S, M, L, P, stream
         "vnext_msda_bwd": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p],

@@ -54,7 +54,7 @@ msda_bwd_kernel(const __nv_bfloat16* __restrict__ value,   // [B, S, M, D]
   const int LP = L * P;
 
   float px, py;
-  pixel_location(loc + warp * 2 * LP, s_lv, lane, LP, P, px, py);
+  pixel_location(loc + warp * 2 * LP, 1, s_lv, lane, LP, P, px, py);
   const float a = lane < LP ? __bfloat162float(attn[warp * LP + lane]) : 0.f;
   const float g = __bfloat162float(grad[bq * M * kD + m * kD + lane]);
 

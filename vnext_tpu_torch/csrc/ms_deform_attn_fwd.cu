@@ -12,7 +12,20 @@
 //    forward of `ms_deform_attn_pallas_v9`: precomputed normalized f32 locations
 //    [B, Q, M, L, P, 2] and softmaxed weights [B, Q, M, L, P] go in, so the
 //    location and softmax prologue drops out. Its backward is
-//    ms_deform_attn_bwd.cu.
+//    ms_deform_attn_bwd.cu. The same kernel is the forward of the
+//    implementation selector's v6 / v7 / v8 routes (cfg.TPU.MSDA_IMPL
+//    "pallas", "pallas_v7", "pallas_v8"): those TPU generations compute this
+//    function in this layout and differ only in their VMEM / MXU schedules.
+// 3. The channel-major entry (inference), `vnext_msda_fwd_loc_cm` (K4b).
+//    Replaces `_v9_kernel` as reached through `ms_deform_attn_pallas_v9_cm`
+//    (ms_deform_attn_pallas_v9.py:652): locations [B, M, L, P, 2, Q] and
+//    weights [B, M, L, P, Q] with the query axis minor, output [B, M*D, Q]. The
+//    value comes token-major [B, S, M, D] (one transpose in the wrapper), so
+//    the sampling loop and its 64-byte corner rows are K4's; the warps of a
+//    block take consecutive queries of one head, so the strided reads of the
+//    locations and weights and the strided output stores of a block fall in
+//    neighbouring 2- and 4-byte words that L2 merges. A simple first form:
+//    its stores are not coalesced within a warp.
 //
 // What bounds them on the card: gathered bytes. At IDOL-R50 eval shapes (B=10,
 // S=Q=8617, M=8, L=P=4, D=32) one encoder layer reads ~11 M samples x 4 corners
@@ -90,12 +103,13 @@ msda_fwd_kernel(const __nv_bfloat16* __restrict__ value,    // [B, S, M, D]
   out[bq * M * kD + m * kD + lane] = __float2bfloat16(acc);
 }
 
+template <bool CM>
 __global__ void __launch_bounds__(kWarps * 32)
 msda_fwd_loc_kernel(const __nv_bfloat16* __restrict__ value,  // [B, S, M, D]
-                    const float* __restrict__ loc,            // [B, Q, M, L, P, 2] normalized
-                    const __nv_bfloat16* __restrict__ attn,   // [B, Q, M, L, P] softmaxed
+                    const float* __restrict__ loc,            // [B, Q, M, L, P, 2] | CM [B, M, L, P, 2, Q]
+                    const __nv_bfloat16* __restrict__ attn,   // [B, Q, M, L, P]    | CM [B, M, L, P, Q]
                     const int* __restrict__ levels,           // [L, 3]: h, w, start
-                    __nv_bfloat16* __restrict__ out,          // [B, Q, M*D]
+                    __nv_bfloat16* __restrict__ out,          // [B, Q, M*D]        | CM [B, M*D, Q]
                     int B, int Q, int S, int M, int L, int P) {
   __shared__ int s_lv[3 * kMaxLevels];
   load_levels(s_lv, levels, L);
@@ -103,18 +117,30 @@ msda_fwd_loc_kernel(const __nv_bfloat16* __restrict__ value,  // [B, S, M, D]
   const int lane = threadIdx.x & 31;
   const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (warp >= (long long)B * Q * M) return;
-  const int m = (int)(warp % M);
-  const long long bq = warp / M;
-  const int b = (int)(bq / Q);
   const int LP = L * P;
-
-  float px, py;
-  pixel_location(loc + warp * 2 * LP, s_lv, lane, LP, P, px, py);
-  const float a = lane < LP ? __bfloat162float(attn[warp * LP + lane]) : 0.f;
+  int b, m;
+  float px, py, a;
+  if (CM) {                           // warp = (b * M + m) * Q + q
+    const long long bm = warp / Q;
+    const long long q = warp % Q;
+    m = (int)(bm % M);
+    b = (int)(bm / M);
+    pixel_location(loc + bm * 2 * LP * Q + q, Q, s_lv, lane, LP, P, px, py);
+    a = lane < LP ? __bfloat162float(attn[(bm * LP + lane) * Q + q]) : 0.f;
+  } else {                            // warp = (b * Q + q) * M + m
+    m = (int)(warp % M);
+    b = (int)(warp / M / Q);
+    pixel_location(loc + warp * 2 * LP, 1, s_lv, lane, LP, P, px, py);
+    a = lane < LP ? __bfloat162float(attn[warp * LP + lane]) : 0.f;
+  }
 
   const __nv_bfloat16* vb = value + ((long long)b * S * M + m) * kD + lane;
   const float acc = sample_levels(vb, (long long)M * kD, s_lv, LP, P, px, py, a);
-  out[bq * M * kD + m * kD + lane] = __float2bfloat16(acc);
+  if (CM) {
+    out[((warp / Q) * kD + lane) * Q + warp % Q] = __float2bfloat16(acc);
+  } else {
+    out[warp * kD + lane] = __float2bfloat16(acc);   // [B, Q, M*D]: (b*Q + q)*M*D + m*D
+  }
 }
 
 unsigned grid_for(int B, int Q, int M) {
@@ -146,12 +172,24 @@ extern "C" int vnext_msda_fwd(const void* value, const void* offsets, const void
   return (int)cudaGetLastError();
 }
 
-extern "C" int vnext_msda_fwd_loc(const void* value, const void* loc, const void* attn,
-                                  const void* levels, void* out, int B, int Q, int S, int M,
-                                  int L, int P, void* stream) {
-  msda_fwd_loc_kernel<<<grid_for(B, Q, M), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+template <bool CM>
+int launch_fwd_loc(const void* value, const void* loc, const void* attn, const void* levels,
+                   void* out, int B, int Q, int S, int M, int L, int P, void* stream) {
+  msda_fwd_loc_kernel<CM><<<grid_for(B, Q, M), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(loc),
       static_cast<const __nv_bfloat16*>(attn), static_cast<const int*>(levels),
       static_cast<__nv_bfloat16*>(out), B, Q, S, M, L, P);
   return (int)cudaGetLastError();
+}
+
+extern "C" int vnext_msda_fwd_loc(const void* value, const void* loc, const void* attn,
+                                  const void* levels, void* out, int B, int Q, int S, int M,
+                                  int L, int P, void* stream) {
+  return launch_fwd_loc<false>(value, loc, attn, levels, out, B, Q, S, M, L, P, stream);
+}
+
+extern "C" int vnext_msda_fwd_loc_cm(const void* value, const void* loc, const void* attn,
+                                     const void* levels, void* out, int B, int Q, int S, int M,
+                                     int L, int P, void* stream) {
+  return launch_fwd_loc<true>(value, loc, attn, levels, out, B, Q, S, M, L, P, stream);
 }

@@ -37,10 +37,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 // (no fused multiply-add), as PyTorch and XLA round them, so a sample that lands
 // exactly on a pixel centre lands there here too: the backward's derivative is
 // taken corner by corner and jumps at integer pixels.
-__device__ __forceinline__ void pixel_location(const float* loc_row, const int* s_lv,
-                                               int lane, int LP, int P, float& px,
-                                               float& py) {
-  const float lv = lane < 2 * LP ? loc_row[lane] : 0.f;   // one 128-byte load per warp
+// `stride` is the distance between the 2*L*P components: 1 in the standard
+// layout (one 128-byte load per warp), Q in the channel-major one.
+__device__ __forceinline__ void pixel_location(const float* loc_row, long long stride,
+                                               const int* s_lv, int lane, int LP, int P,
+                                               float& px, float& py) {
+  const float lv = lane < 2 * LP ? loc_row[lane * stride] : 0.f;
   const int j = lane < LP ? lane : 0;
   const int lj = j / P;
   const float lx = __shfl_sync(kFull, lv, 2 * j);

@@ -16,6 +16,12 @@ applies where the JAX layers apply it, drawing from the ``generator`` the
 caller passes; and the decoder detaches the reference points after each layer.
 The transformer holds the dropout rate (IDOL passes the configured one) and
 hands it to its layers with each call.
+
+``msda_impl`` (``cfg.TPU.MSDA_IMPL``) picks the MSDA route as in the JAX
+package: ``auto`` / ``pallas_v9`` run the fused entry in eval mode; any other
+impl forms the locations and the softmax in f32 (the weights cast to the
+compute dtype) and calls the implementation selector, in eval and train mode
+alike. The encoder's epilogue does not depend on it.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 from torch import nn
 
 from ..ops.encoder_epilogue import encoder_epilogue
-from ..ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_v9
+from ..ops.ms_deform_attn import FUSED_IMPLS, check_impl, ms_deform_attn, ms_deform_attn_standard
 from .layers import MLP, Dense, LayerNorm, MultiHeadAttention, dropout, inverse_sigmoid
 
 Shapes = Sequence[Tuple[int, int]]
@@ -48,9 +54,11 @@ def offset_bias_grid(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
 class MSDeformAttnModule(nn.Module):
     """Multi-scale deformable attention layer: projections + the MSDA core."""
 
-    def __init__(self, d_model=256, n_levels=4, n_heads=8, n_points=4, dtype=torch.float32):
+    def __init__(self, d_model=256, n_levels=4, n_heads=8, n_points=4, dtype=torch.float32,
+                 impl: str = "auto"):
         super().__init__()
         self.m, self.l, self.p = n_heads, n_levels, n_points
+        self.impl = check_impl(impl)
         grid = torch.from_numpy(offset_bias_grid(n_heads, n_levels, n_points))
         self.value_proj = Dense(d_model, d_model, dtype)
         self.sampling_offsets = Dense(
@@ -72,28 +80,35 @@ class MSDeformAttnModule(nn.Module):
         value = value.view(b, src.shape[1], m, -1)
         offsets = self.sampling_offsets(query).view(b, q, m, l, p, 2)
         logits = self.attention_weights(query).view(b, q, m, l * p)
-        if not self.training:
+        if not self.training and self.impl in FUSED_IMPLS:
             out = ms_deform_attn(value, spatial_shapes, offsets,
                                  reference_points.float().contiguous(), logits)
             return self.output_proj(out)
         attn = torch.softmax(logits.float(), -1).to(logits.dtype).view(b, q, m, l, p)
-        off = offsets.float()
-        ref = reference_points.float()[:, :, None, :, None, :]           # [B, Q, 1, L, 1, 2|4]
-        if ref.shape[-1] == 2:
-            wh = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
-                              device=off.device)[:, None, :]              # [L, 1, 2]
-            loc = ref + off / wh
-        else:
-            loc = ref[..., :2] + off / p * ref[..., 2:] * 0.5
-        return self.output_proj(ms_deform_attn_v9(value, spatial_shapes, loc, attn))
+        loc = sampling_locations(spatial_shapes, offsets, reference_points)
+        return self.output_proj(ms_deform_attn_standard(value, spatial_shapes, loc, attn, self.impl))
+
+
+def sampling_locations(spatial_shapes: Shapes, offsets, reference_points):
+    """Normalized f32 locations [.., L, P, 2] from raw offsets [.., M, L, P, 2] and
+    references [.., L, 2|4]: point form ``ref + off / (w_l, h_l)``, box form
+    ``ref_xy + off / P * ref_wh * 0.5``."""
+    p = offsets.shape[-2]
+    off = offsets.float()
+    ref = reference_points.float()[..., None, :, None, :]               # [.., 1, L, 1, 2|4]
+    if ref.shape[-1] == 2:
+        wh = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
+                          device=off.device)[:, None, :]                  # [L, 1, 2]
+        return ref + off / wh
+    return ref[..., :2] + off / p * ref[..., 2:] * 0.5
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model=256, d_ffn=1024, n_levels=4, n_heads=8, n_points=4,
-                 dtype=torch.float32):
+                 dtype=torch.float32, msda_impl: str = "auto"):
         super().__init__()
         self.dtype = dtype
-        self.self_attn = MSDeformAttnModule(d_model, n_levels, n_heads, n_points, dtype)
+        self.self_attn = MSDeformAttnModule(d_model, n_levels, n_heads, n_points, dtype, msda_impl)
         self.norm1 = LayerNorm(d_model, dtype)
         self.linear1 = Dense(d_model, d_ffn, dtype)
         self.linear2 = Dense(d_ffn, d_model, dtype)
@@ -116,11 +131,11 @@ class EncoderLayer(nn.Module):
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model=256, d_ffn=1024, n_levels=4, n_heads=8, n_points=4,
-                 dtype=torch.float32):
+                 dtype=torch.float32, msda_impl: str = "auto"):
         super().__init__()
         self.self_attn = MultiHeadAttention(d_model, n_heads, dtype)
         self.norm2 = LayerNorm(d_model, dtype)
-        self.cross_attn = MSDeformAttnModule(d_model, n_levels, n_heads, n_points, dtype)
+        self.cross_attn = MSDeformAttnModule(d_model, n_levels, n_heads, n_points, dtype, msda_impl)
         self.norm1 = LayerNorm(d_model, dtype)
         self.linear1 = Dense(d_model, d_ffn, dtype)
         self.linear2 = Dense(d_ffn, d_model, dtype)
@@ -153,43 +168,43 @@ def encoder_reference_points(spatial_shapes: Shapes, valid_ratios: torch.Tensor)
     return ref[:, :, None] * valid_ratios[:, None]
 
 
-class DeformableTransformer(nn.Module):
-    """Encoder + box-refining decoder over flattened multi-level features."""
+def bbox_embed(d_model: int, dtype, first: bool) -> MLP:
+    """A decoder layer's box head; the first layer's final bias starts the boxes
+    small ([2:] = -2)."""
+    bias_init = (lambda b: b.copy_(torch.tensor([0.0, 0.0, -2.0, -2.0]))) if first else None
+    return MLP(d_model, d_model, 4, 3, dtype, final_kernel_init="zeros", final_bias_init=bias_init)
 
-    def __init__(self, d_model=256, n_heads=8, num_encoder_layers=6, num_decoder_layers=6,
-                 d_ffn=1024, num_feature_levels=4, enc_n_points=4, dec_n_points=4,
-                 dtype=torch.float32, *, dropout: float):
+
+def refine_boxes(delta: torch.Tensor, reference_points: torch.Tensor) -> torch.Tensor:
+    """Box refinement in sigmoid space: the layer's [.., 4] head output plus the
+    inverse sigmoid of its [.., 2|4] reference points (f32)."""
+    delta = delta.float()
+    if reference_points.shape[-1] == 4:
+        return torch.sigmoid(delta + inverse_sigmoid(reference_points))
+    return torch.sigmoid(torch.cat([delta[..., :2] + inverse_sigmoid(reference_points), delta[..., 2:]], -1))
+
+
+class DeformableEncoder(nn.Module):
+    """The level embedding and the deformable encoder layers over flattened
+    multi-level features; the transformers add their decoders to it."""
+
+    def __init__(self, d_model, n_heads, num_encoder_layers, d_ffn, num_feature_levels,
+                 enc_n_points, dtype, dropout: float, msda_impl: str):
         super().__init__()
         self.d_model, self.dtype = d_model, dtype
         self.dropout_rate = dropout
-        self.num_encoder_layers, self.num_decoder_layers = num_encoder_layers, num_decoder_layers
+        self.num_encoder_layers = num_encoder_layers
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
         for i in range(num_encoder_layers):
             self.add_module(f"encoder_{i}", EncoderLayer(
-                d_model, d_ffn, num_feature_levels, n_heads, enc_n_points, dtype))
-        for i in range(num_decoder_layers):
-            self.add_module(f"decoder_{i}", DecoderLayer(
-                d_model, d_ffn, num_feature_levels, n_heads, dec_n_points, dtype))
-        self.reference_points = Dense(d_model, 2, dtype, kernel_init="xavier")
-        for i in range(num_decoder_layers):
-            # layer 0's final bias starts the boxes small: [2:] = -2
-            bias_init = (lambda b: b.copy_(torch.tensor([0.0, 0.0, -2.0, -2.0]))) if i == 0 else None
-            self.add_module(f"bbox_embed_{i}", MLP(
-                d_model, d_model, 4, 3, dtype, final_kernel_init="zeros", final_bias_init=bias_init))
+                d_model, d_ffn, num_feature_levels, n_heads, enc_n_points, dtype, msda_impl))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         nn.init.normal_(self.level_embed, 0.0, 1.0, generator=gen)
 
-    def forward(self, srcs: List[torch.Tensor], valid_hw: List[torch.Tensor],
-                pos_embeds: List[torch.Tensor], query_embed: torch.Tensor, generator=None):
-        """srcs / pos_embeds: L x [B, H_l, W_l, C]; valid_hw: L x [B, 2];
-        query_embed [Q, 2C]. Returns (hs, memory, init_ref, inter_refs, out_coords):
-        ``inter_refs`` are detached after each layer, ``out_coords`` (the boxes) not."""
-        memory, spatial_shapes, mask_flat, valid_ratios = self.encode(
-            srcs, valid_hw, pos_embeds, generator)
-        return self.decode(memory, spatial_shapes, mask_flat, valid_ratios, query_embed, generator)
-
     def encode(self, srcs, valid_hw, pos_embeds, generator=None):
+        """srcs / pos_embeds: L x [B, H_l, W_l, C]; valid_hw: L x [B, 2]. Returns
+        (memory [B, S, C], spatial_shapes, padding mask [B, S], valid_ratios [B, L, 2])."""
         b, c = srcs[0].shape[0], self.d_model
         spatial_shapes = tuple((int(s.shape[1]), int(s.shape[2])) for s in srcs)
         src_flat, pos_flat, mask_flat, vr = [], [], [], []
@@ -215,6 +230,32 @@ class DeformableTransformer(nn.Module):
                 memory, pos_flat, enc_ref, spatial_shapes, mask_flat, rate, generator)
         return memory, spatial_shapes, mask_flat, valid_ratios
 
+
+class DeformableTransformer(DeformableEncoder):
+    """Encoder + box-refining decoder over flattened multi-level features."""
+
+    def __init__(self, d_model=256, n_heads=8, num_encoder_layers=6, num_decoder_layers=6,
+                 d_ffn=1024, num_feature_levels=4, enc_n_points=4, dec_n_points=4,
+                 dtype=torch.float32, *, dropout: float, msda_impl: str = "auto"):
+        super().__init__(d_model, n_heads, num_encoder_layers, d_ffn, num_feature_levels,
+                         enc_n_points, dtype, dropout, msda_impl)
+        self.num_decoder_layers = num_decoder_layers
+        for i in range(num_decoder_layers):
+            self.add_module(f"decoder_{i}", DecoderLayer(
+                d_model, d_ffn, num_feature_levels, n_heads, dec_n_points, dtype, msda_impl))
+        self.reference_points = Dense(d_model, 2, dtype, kernel_init="xavier")
+        for i in range(num_decoder_layers):
+            self.add_module(f"bbox_embed_{i}", bbox_embed(d_model, dtype, first=i == 0))
+
+    def forward(self, srcs: List[torch.Tensor], valid_hw: List[torch.Tensor],
+                pos_embeds: List[torch.Tensor], query_embed: torch.Tensor, generator=None):
+        """srcs / pos_embeds: L x [B, H_l, W_l, C]; valid_hw: L x [B, 2];
+        query_embed [Q, 2C]. Returns (hs, memory, init_ref, inter_refs, out_coords):
+        ``inter_refs`` are detached after each layer, ``out_coords`` (the boxes) not."""
+        memory, spatial_shapes, mask_flat, valid_ratios = self.encode(
+            srcs, valid_hw, pos_embeds, generator)
+        return self.decode(memory, spatial_shapes, mask_flat, valid_ratios, query_embed, generator)
+
     def decode(self, memory, spatial_shapes, mask_flat, valid_ratios, query_embed, generator=None):
         b = memory.shape[0]
         query_pos, tgt = torch.split(query_embed, query_embed.shape[1] // 2, dim=1)
@@ -232,12 +273,7 @@ class DeformableTransformer(nn.Module):
                 ref_input = reference_points[:, :, None] * valid_ratios[:, None]
             output = getattr(self, f"decoder_{lid}")(
                 output, query_pos, ref_input, memory, spatial_shapes, mask_flat, rate, generator)
-            tmp = getattr(self, f"bbox_embed_{lid}")(output).float()
-            if reference_points.shape[-1] == 4:
-                new_ref = torch.sigmoid(tmp + inverse_sigmoid(reference_points))
-            else:
-                new_ref = torch.sigmoid(torch.cat(
-                    [tmp[..., :2] + inverse_sigmoid(reference_points), tmp[..., 2:]], -1))
+            new_ref = refine_boxes(getattr(self, f"bbox_embed_{lid}")(output), reference_points)
             coords.append(new_ref)           # the layer's box keeps its gradient
             reference_points = new_ref.detach()
             hs.append(output)

@@ -12,7 +12,8 @@ Module and parameter names follow the flax tree.
 
 The module's mode picks the path, as the JAX package's ``train`` flag does:
 eval mode runs the fused inference kernels, train mode the MSDA standard entry
-(with a backward), the unfused encoder tail and dropout.
+(with a backward), the unfused encoder tail and dropout. ``msda_impl``
+(``cfg.TPU.MSDA_IMPL``) picks the MSDA route as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,44 +37,12 @@ BACKBONE_CHANNELS = (512, 1024, 2048)   # res3, res4, res5 of ResNet-50
 CLASS_PRIOR = 0.01
 
 
-class IDOL(nn.Module):
-    """Defaults are IDOL-R50 as ``configs/idol/ytvis19_r50.yaml`` configures it."""
+class DeformableVIS(nn.Module):
+    """What IDOL and SeqFormer share around their transformers: the input
+    projections with sine positions over the valid region, and the mask head's
+    features from the encoder memory. A subclass holds ``num_feature_levels``,
+    ``hidden_dim``, ``dtype``, ``input_proj_{i}`` and ``mask_head``."""
 
-    def __init__(self, num_classes: int = 40, hidden_dim: int = 256, num_queries: int = 300,
-                 nheads: int = 8, dim_feedforward: int = 1024, enc_layers: int = 6,
-                 dec_layers: int = 6, num_feature_levels: int = 4, enc_n_points: int = 4,
-                 dec_n_points: int = 4, backbone_depth: int = 50, mask_out_stride: int = 4,
-                 dropout: float = 0.1, max_insts: int = 48, dtype=torch.float32):
-        super().__init__()
-        self.dtype = dtype
-        self.num_classes = num_classes
-        self.max_insts = max_insts
-        self.num_feature_levels = num_feature_levels
-        self.dec_layers = dec_layers
-        self.hidden_dim = hidden_dim
-        self.mask_out_stride = mask_out_stride
-        self.backbone = ResNet(backbone_depth, dtype)
-        for i in range(num_feature_levels):
-            extra = i >= 3
-            in_ch = BACKBONE_CHANNELS[min(i, 2)] if i <= 3 else hidden_dim
-            self.add_module(f"input_proj_{i}", ConvGN(
-                in_ch, hidden_dim, 3 if extra else 1, 2 if extra else 1, dtype=dtype))
-        self.transformer = DeformableTransformer(
-            hidden_dim, nheads, enc_layers, dec_layers, dim_feedforward, num_feature_levels,
-            enc_n_points, dec_n_points, dtype, dropout=dropout)
-        prior = -math.log((1 - CLASS_PRIOR) / CLASS_PRIOR)
-        for i in range(dec_layers):
-            self.add_module(f"class_embed_{i}", Dense(
-                hidden_dim, num_classes, dtype, bias_init=lambda b: b.fill_(prior)))
-        self.controller = MLP(hidden_dim, hidden_dim, num_dynamic_params(hidden_dim // 32), 3, dtype)
-        self.mask_head = MaskHeadSmallConv(hidden_dim, dtype)
-        self.reid_embed = MLP(hidden_dim, hidden_dim, hidden_dim, 3, dtype)
-        self.query_embed = nn.Parameter(torch.empty(num_queries, 2 * hidden_dim))
-
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        nn.init.normal_(self.query_embed, 0.0, 1.0, generator=gen)
-
-    # ------------------------------------------------------------ features
     def project_features(self, base: List[torch.Tensor], image_sizes: torch.Tensor):
         """[res3, res4, res5] NCHW -> per-level srcs [B, H, W, C], valid (h, w), positions."""
         srcs, valid_hw, poses = [], [], []
@@ -92,13 +61,52 @@ class IDOL(nn.Module):
         return srcs, valid_hw, poses
 
     def _mask_features(self, memory: torch.Tensor, spatial_shapes) -> torch.Tensor:
-        """The 3 finest levels of the flattened memory, fused by the mask head."""
+        """The 3 finest levels of the flattened memory [B, S, C], fused by the mask head."""
         feats, start = [], 0
         b = memory.shape[0]
         for h, w in spatial_shapes[:3]:
             feats.append(memory[:, start:start + h * w].transpose(1, 2).reshape(b, -1, h, w))
             start += h * w
         return self.mask_head(feats)
+
+
+class IDOL(DeformableVIS):
+    """Defaults are IDOL-R50 as ``configs/idol/ytvis19_r50.yaml`` configures it."""
+
+    def __init__(self, num_classes: int = 40, hidden_dim: int = 256, num_queries: int = 300,
+                 nheads: int = 8, dim_feedforward: int = 1024, enc_layers: int = 6,
+                 dec_layers: int = 6, num_feature_levels: int = 4, enc_n_points: int = 4,
+                 dec_n_points: int = 4, backbone_depth: int = 50, mask_out_stride: int = 4,
+                 dropout: float = 0.1, max_insts: int = 48, dtype=torch.float32,
+                 msda_impl: str = "auto"):
+        super().__init__()
+        self.dtype = dtype
+        self.num_classes = num_classes
+        self.max_insts = max_insts
+        self.num_feature_levels = num_feature_levels
+        self.dec_layers = dec_layers
+        self.hidden_dim = hidden_dim
+        self.mask_out_stride = mask_out_stride
+        self.backbone = ResNet(backbone_depth, dtype)
+        for i in range(num_feature_levels):
+            extra = i >= 3
+            in_ch = BACKBONE_CHANNELS[min(i, 2)] if i <= 3 else hidden_dim
+            self.add_module(f"input_proj_{i}", ConvGN(
+                in_ch, hidden_dim, 3 if extra else 1, 2 if extra else 1, dtype=dtype))
+        self.transformer = DeformableTransformer(
+            hidden_dim, nheads, enc_layers, dec_layers, dim_feedforward, num_feature_levels,
+            enc_n_points, dec_n_points, dtype, dropout=dropout, msda_impl=msda_impl)
+        prior = -math.log((1 - CLASS_PRIOR) / CLASS_PRIOR)
+        for i in range(dec_layers):
+            self.add_module(f"class_embed_{i}", Dense(
+                hidden_dim, num_classes, dtype, bias_init=lambda b: b.fill_(prior)))
+        self.controller = MLP(hidden_dim, hidden_dim, num_dynamic_params(hidden_dim // 32), 3, dtype)
+        self.mask_head = MaskHeadSmallConv(hidden_dim, dtype)
+        self.reid_embed = MLP(hidden_dim, hidden_dim, hidden_dim, 3, dtype)
+        self.query_embed = nn.Parameter(torch.empty(num_queries, 2 * hidden_dim))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        nn.init.normal_(self.query_embed, 0.0, 1.0, generator=gen)
 
     def _trunk(self, images: torch.Tensor, image_sizes: torch.Tensor,
                base_feats: Optional[List[torch.Tensor]] = None,
@@ -210,7 +218,8 @@ class IDOL(nn.Module):
 
 def idol_kwargs_from_cfg(cfg) -> dict:
     """IDOL constructor arguments from a config node with the JAX package's keys
-    (``MODEL.IDOL.*``, ``MODEL.RESNETS.*``, ``TPU.COMPUTE_DTYPE``); the port reads
+    (``MODEL.IDOL.*``, ``MODEL.RESNETS.*``, ``TPU.COMPUTE_DTYPE``,
+    ``TPU.MSDA_IMPL``); the port reads
     the node by attribute and does not import the JAX package."""
     if "swin" in cfg.MODEL.BACKBONE.NAME.lower():
         raise NotImplementedError("IDOL-Swin-L is not ported yet (ROADMAP Queue 1, Swin backbone)")
@@ -225,6 +234,7 @@ def idol_kwargs_from_cfg(cfg) -> dict:
         backbone_depth=cfg.MODEL.RESNETS.DEPTH, mask_out_stride=c.MASK_STRIDE,
         dropout=c.DROPOUT, max_insts=cfg.TPU.MAX_INSTANCES,
         dtype=torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32,
+        msda_impl=cfg.TPU.MSDA_IMPL,
     )
 
 

@@ -21,7 +21,8 @@ hand-written kernel ``csrc/ms_deform_attn_fwd.cu`` (K1) or raises. The fused
 entry is inference-only, as the TPU one is: it has no backward, and on the card
 it raises when autograd would need one.
 
-The standard entry :func:`ms_deform_attn_v9` (training) is the counterpart of
+The standard entry (training), :func:`ms_deform_attn_standard` with
+``impl="pallas_v9"``, is the counterpart of
 ``vnext_tpu.ops.ms_deform_attn_pallas_v9.ms_deform_attn_pallas_v9`` with its
 custom VJP: normalized f32 locations [B, Q, M, L, P, 2] and softmaxed weights
 [B, Q, M, L, P] go in, and
@@ -33,6 +34,24 @@ On the card its forward is K4 (``vnext_msda_fwd_loc`` in the same source) and
 its backward K5 (``csrc/ms_deform_attn_bwd.cu``); on the CPU both directions run
 :func:`ms_deform_attn_core_plain`, ``ms_deform_attn_core_jnp`` in torch, with the
 backward by autograd through its gathers.
+
+The implementation selector :func:`ms_deform_attn_standard` is the counterpart
+of ``vnext_tpu.ops.ms_deform_attn.ms_deform_attn(..., impl)``, the function
+behind ``cfg.TPU.MSDA_IMPL``. The TPU's kernel generations v6 (``pallas``), v7
+and v8 compute the standard entry's function in its layout under one rounding
+contract (f32 sums, the output in the value's dtype, zero from a corner outside
+its level); they differ only in how they schedule VMEM and the MXU. So on the
+card each of them routes onto K4 forward and K5 backward, and counts its
+launches on a counter of its own beside K4's and K5's. ``jnp`` and ``xla`` run
+the plain version on any device, because the config asks for it. The TPU kernels
+round the x-selector weights to the value dtype before the MXU product (v6 also
+its row intermediate), and ``xla`` rounds its selector and its ``z`` slab to
+bf16; every route of the port keeps the oracle's f32 weights, so in bf16 the
+port and the TPU differ by those roundings, and in f32 they agree.
+
+:func:`ms_deform_attn_cm` is the channel-major entry with precomputed locations
+(``ms_deform_attn_pallas_v9_cm``): on the card its ``auto`` / ``pallas_v9``
+route is K4b (``vnext_msda_fwd_loc_cm``), inference-only as the TPU entry.
 """
 
 from __future__ import annotations
@@ -61,6 +80,55 @@ KERNEL_V9_BWD = Kernel(
     source="vnext_tpu_torch/csrc/ms_deform_attn_bwd.cu",
     replaces="vnext_tpu/ops/ms_deform_attn_pallas_v9_bwd.py:55",
 )
+KERNEL_CM = Kernel(
+    name="ms_deform_attn_v9_cm",
+    source="vnext_tpu_torch/csrc/ms_deform_attn_fwd.cu",
+    replaces="vnext_tpu/ops/ms_deform_attn_pallas_v9.py:652",
+)
+# the selector's routes onto K4 / K5: each counts beside K4's and K5's counters
+KERNEL_V6_FWD = Kernel(
+    name="ms_deform_attn_v6_fwd",
+    source="vnext_tpu_torch/csrc/ms_deform_attn_fwd.cu",
+    replaces="vnext_tpu/ops/ms_deform_attn_pallas.py:68",
+)
+KERNEL_V6_BWD = Kernel(
+    name="ms_deform_attn_v6_bwd",
+    source="vnext_tpu_torch/csrc/ms_deform_attn_bwd.cu",
+    replaces="vnext_tpu/ops/ms_deform_attn_pallas.py:248",
+)
+KERNEL_V7_FWD = Kernel(
+    name="ms_deform_attn_v7_fwd",
+    source="vnext_tpu_torch/csrc/ms_deform_attn_fwd.cu",
+    replaces="vnext_tpu/ops/attic/ms_deform_attn_pallas_v7.py:60",
+)
+KERNEL_V8_FWD = Kernel(
+    name="ms_deform_attn_v8_fwd",
+    source="vnext_tpu_torch/csrc/ms_deform_attn_fwd.cu",
+    replaces="vnext_tpu/ops/attic/ms_deform_attn_pallas_v8.py:59",
+)
+
+# cfg.TPU.MSDA_IMPL -> the counters its forward and its backward launches add to
+# (K4 / K5 and the route's own); jnp and xla run the plain version
+_ROUTES = {
+    "auto": ((KERNEL_V9_FWD,), (KERNEL_V9_BWD,)),
+    "pallas_v9": ((KERNEL_V9_FWD,), (KERNEL_V9_BWD,)),
+    "pallas": ((KERNEL_V9_FWD, KERNEL_V6_FWD), (KERNEL_V9_BWD, KERNEL_V6_BWD)),
+    "pallas_v7": ((KERNEL_V9_FWD, KERNEL_V7_FWD), (KERNEL_V9_BWD, KERNEL_V6_BWD)),
+    "pallas_v8": ((KERNEL_V9_FWD, KERNEL_V8_FWD), (KERNEL_V9_BWD, KERNEL_V6_BWD)),
+    "jnp": None,
+    "xla": None,
+}
+IMPLS = tuple(_ROUTES)
+# the impls whose inference path is the fused entry (K1), as in the JAX package
+FUSED_IMPLS = ("auto", "pallas_v9")
+
+
+def check_impl(impl: str) -> str:
+    """``impl`` if the JAX package knows it; else ValueError (the JAX dispatcher
+    would quietly run its plain core, which on the card is a hidden plain path)."""
+    if impl not in _ROUTES:
+        raise ValueError(f"unknown MSDA impl {impl!r}: expected one of {IMPLS}")
+    return impl
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -161,49 +229,114 @@ def _check_v9_args(value, spatial_shapes, loc, attn):
     return b, s, m, d, q, l, p
 
 
-def ms_deform_attn_v9(
+def ms_deform_attn_standard(
     value: torch.Tensor,                # [B, S, M, D], padding already zeroed
     spatial_shapes: Shapes,             # ((H_0, W_0), ...) python ints
     sampling_locations: torch.Tensor,   # [B, Q, M, L, P, 2] normalized, f32
     attention_weights: torch.Tensor,    # [B, Q, M, L, P] softmaxed
+    impl: str = "auto",
 ) -> torch.Tensor:
-    """The standard (training) entry; returns [B, Q, M*D] in value.dtype and
-    carries a gradient to all three tensors."""
+    """The standard entry under ``cfg.TPU.MSDA_IMPL``: returns [B, Q, M*D] in
+    value.dtype with a gradient to all three tensors. Every kernel route runs K4
+    forward and K5 backward on the card (and counts on its own counter beside
+    theirs); ``jnp`` and ``xla`` run :func:`ms_deform_attn_core_plain` and its
+    autograd on any device (``xla`` with f32 selector weights, where the JAX
+    package rounds its selector and ``z`` to bf16). CPU tensors run the plain
+    version on every route."""
+    check_impl(impl)
     _check_v9_args(value, spatial_shapes, sampling_locations, attention_weights)
     if value.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ms_deform_attn_v9: no implementation for device {value.device}")
+        raise ValueError(f"ms_deform_attn_standard: no implementation for device {value.device}")
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    return _MSDeformAttnV9.apply(value, shapes, sampling_locations, attention_weights)
+    if _ROUTES[impl] is None:
+        return ms_deform_attn_core_plain(value, shapes, sampling_locations, attention_weights)
+    return _MSDeformAttnV9.apply(value, shapes, sampling_locations, attention_weights, impl)
 
 
 class _MSDeformAttnV9(torch.autograd.Function):
-    """Forward K4 and backward K5 on the card; the plain core and its autograd
-    on the CPU. The backward returns (dvalue in value's dtype, dloc in the
-    locations' dtype, dattn in the weights' dtype), as ``_backward_v9`` does."""
+    """Forward K4 and backward K5 on the card, counted on the route of ``impl``;
+    the plain core and its autograd on the CPU. The backward returns (dvalue in
+    value's dtype, dloc in the locations' dtype, dattn in the weights' dtype), as
+    ``_backward_v9`` does."""
 
     @staticmethod
-    def forward(ctx, value, spatial_shapes, loc, attn):
-        ctx.spatial_shapes = spatial_shapes
+    def forward(ctx, value, spatial_shapes, loc, attn, impl):
+        ctx.spatial_shapes, ctx.impl = spatial_shapes, impl
         ctx.save_for_backward(value, loc, attn)
         if value.is_cuda:
-            return _launch_v9_fwd(value, spatial_shapes, loc, attn)
+            return _launch_v9_fwd(value, spatial_shapes, loc, attn, _ROUTES[impl][0])
         return ms_deform_attn_core_plain(value, spatial_shapes, loc, attn)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
         value, loc, attn = ctx.saved_tensors
-        dvalue, dloc, dattn = ms_deform_attn_v9_backward(value, ctx.spatial_shapes, loc, attn, grad)
-        return dvalue, None, dloc, dattn
+        dvalue, dloc, dattn = ms_deform_attn_v9_backward(value, ctx.spatial_shapes, loc, attn, grad,
+                                                         ctx.impl)
+        return dvalue, None, dloc, dattn, None
 
 
-def ms_deform_attn_v9_backward(value, spatial_shapes, sampling_locations, attention_weights, grad):
+def ms_deform_attn_v9_backward(value, spatial_shapes, sampling_locations, attention_weights, grad,
+                               impl: str = "pallas_v9"):
     """The standard entry's backward alone: (dvalue, dloc, dattn) under the
-    cotangent ``grad`` [B, Q, M*D], each in its input's dtype. K5 on the card,
-    :func:`ms_deform_attn_grad_plain` on the CPU."""
+    cotangent ``grad`` [B, Q, M*D], each in its input's dtype. K5 on the card
+    (counted on the route of ``impl``), :func:`ms_deform_attn_grad_plain` on the
+    CPU."""
     if value.is_cuda:
-        return _launch_v9_bwd(value, spatial_shapes, sampling_locations, attention_weights, grad)
+        return _launch_v9_bwd(value, spatial_shapes, sampling_locations, attention_weights, grad,
+                              _ROUTES[check_impl(impl)][1])
     return ms_deform_attn_grad_plain(value, spatial_shapes, sampling_locations, attention_weights, grad)
+
+
+def ms_deform_attn_cm(
+    valueT: torch.Tensor,           # [B, M*D, S], padding already zeroed
+    spatial_shapes: Shapes,         # ((H_0, W_0), ...) python ints
+    loc_cm: torch.Tensor,           # [B, M, L, P, 2, Q] normalized, f32
+    attn_cm: torch.Tensor,          # [B, M, L, P, Q] softmaxed
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Channel-major entry with precomputed locations; returns [B, M*D, Q] in
+    valueT.dtype. ``auto`` / ``pallas_v9`` run K4b on the card (inference-only,
+    as ``ms_deform_attn_pallas_v9_cm``: it raises under autograd) and the plain
+    core (as :func:`ms_deform_attn_cm_plain`) on the CPU; every other impl transposes to
+    the standard layout and takes :func:`ms_deform_attn_standard`, as the JAX
+    entry does."""
+    check_impl(impl)
+    value, loc, attn = _standard_layout(valueT, spatial_shapes, loc_cm, attn_cm)
+    if impl not in FUSED_IMPLS:
+        out = ms_deform_attn_standard(value, spatial_shapes, loc, attn, impl)
+    elif valueT.device.type == "cpu":
+        out = ms_deform_attn_core_plain(value, spatial_shapes, loc, attn)
+    elif valueT.device.type != "cuda":
+        raise ValueError(f"ms_deform_attn_cm: no implementation for device {valueT.device}")
+    else:
+        refuse_grad("ms_deform_attn_cm (the channel-major entry)", valueT, loc_cm, attn_cm)
+        return _launch_cm(value, spatial_shapes, loc_cm, attn_cm)
+    return out.transpose(1, 2).contiguous()
+
+
+def _standard_layout(valueT, spatial_shapes, loc_cm, attn_cm):
+    """valueT [B, M*D, S], loc_cm [B, M, L, P, 2, Q], attn_cm [B, M, L, P, Q] ->
+    the standard entry's value [B, S, M, D], locations and weights (views)."""
+    if valueT.dim() != 3 or loc_cm.dim() != 6 or attn_cm.dim() != 5:
+        raise ValueError(f"ms_deform_attn_cm takes valueT [B, M*D, S], loc_cm [B, M, L, P, 2, Q] and "
+                         f"attn_cm [B, M, L, P, Q], got {tuple(valueT.shape)}, {tuple(loc_cm.shape)}, "
+                         f"{tuple(attn_cm.shape)}")
+    b, md, s = valueT.shape
+    m = loc_cm.shape[1]
+    if md % m:
+        raise ValueError(f"valueT has {md} channels for {m} heads")
+    value = valueT.view(b, m, md // m, s).permute(0, 3, 1, 2)
+    loc, attn = loc_cm.movedim(5, 1), attn_cm.movedim(4, 1)
+    _check_v9_args(value, spatial_shapes, loc, attn)
+    return value, loc, attn
+
+
+def ms_deform_attn_cm_plain(valueT, spatial_shapes, loc_cm, attn_cm):
+    """Plain PyTorch version of the channel-major entry: the plain core in the
+    standard layout, transposed back to [B, M*D, Q]."""
+    value, loc, attn = _standard_layout(valueT, spatial_shapes, loc_cm, attn_cm)
+    return ms_deform_attn_core_plain(value, spatial_shapes, loc, attn).transpose(1, 2).contiguous()
 
 
 def ms_deform_attn_core_plain(value, spatial_shapes, sampling_locations, attention_weights):
@@ -276,7 +409,7 @@ def _check_kernel_args(value, p, l, named):
             raise ValueError(f"the MSDA kernel needs {name} contiguous")
 
 
-def _launch_v9_fwd(value, spatial_shapes, loc, attn):
+def _launch_v9_fwd(value, spatial_shapes, loc, attn, counters=(KERNEL_V9_FWD,)):
     b, s, m, d = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
     _check_kernel_args(value, p, l, (("value", value, torch.bfloat16),
@@ -291,11 +424,37 @@ def _launch_v9_fwd(value, spatial_shapes, loc, attn):
             out.data_ptr(), b, q, s, m, l, p, stream_handle(value.device),
         )
     check(code, "ms_deform_attn_v9_fwd")
-    KERNEL_V9_FWD.launches += 1
+    for kern in counters:
+        kern.launches += 1
     return out
 
 
-def _launch_v9_bwd(value, spatial_shapes, loc, attn, grad):
+def _launch_cm(value, spatial_shapes, loc_cm, attn_cm):
+    """value: the token-major view [B, S, M, D] of valueT (``_standard_layout``)."""
+    # one transpose to token-major memory: a warp per (b, q, m) with a lane per
+    # channel reads each corner as one 64-byte row, which the channel-major
+    # layout (channels S apart) cannot give
+    value = value.contiguous()
+    b, s, m, d = value.shape
+    l, p, q = loc_cm.shape[2], loc_cm.shape[3], loc_cm.shape[5]
+    _check_kernel_args(value, p, l, (("value", value, torch.bfloat16),
+                                     ("loc_cm", loc_cm, torch.float32),
+                                     ("attn_cm", attn_cm, torch.bfloat16)))
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    levels = _level_table(shapes, value.device)
+    out = torch.empty(b, m * d, q, dtype=value.dtype, device=value.device)
+    lib = load_library().lib
+    with torch.cuda.device(value.device):
+        code = lib.vnext_msda_fwd_loc_cm(
+            value.data_ptr(), loc_cm.data_ptr(), attn_cm.data_ptr(), levels.data_ptr(),
+            out.data_ptr(), b, q, s, m, l, p, stream_handle(value.device),
+        )
+    check(code, "ms_deform_attn_v9_cm")
+    KERNEL_CM.launches += 1
+    return out
+
+
+def _launch_v9_bwd(value, spatial_shapes, loc, attn, grad, counters=(KERNEL_V9_BWD,)):
     b, s, m, d = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
     grad = grad.contiguous()
@@ -318,5 +477,6 @@ def _launch_v9_bwd(value, spatial_shapes, loc, attn, grad):
             dvalue.data_ptr(), b, q, s, m, l, p, stream_handle(value.device),
         )
     check(code, "ms_deform_attn_v9_bwd")
-    KERNEL_V9_BWD.launches += 1
+    for kern in counters:
+        kern.launches += 1
     return dvalue, dloc, dattn
