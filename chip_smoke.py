@@ -13,8 +13,9 @@ all just after; the counts must be what the code implies.
    tolerance stated beside the error, both times (CUDA events, median of 10
    after warm-up), the least time the card could take for the same work, and
    the time of one PyTorch library call that computes the same function where
-   there is one. 2a: K1-K3 at IDOL-R50's serving shapes; K1's fused entry and
-   K3 refuse autograd. 2b: K4, K5 (held element by element), the v6 route's
+   there is one. 2a: K1-K3 at IDOL-R50's serving shapes, with K1's rate of
+   gathered corner rows (in-range corners x 64 B over its time); K1's fused
+   entry and K3 refuse autograd. 2b: K4, K5 (held element by element), the v6 route's
    backward (K5 through ``TPU.MSDA_IMPL`` "pallas") and K2's forward and
    backward at the train step's shapes. 2c: K4 and the selector's routes
    ("pallas", "pallas_v7", "pallas_v8") at the serving encoder and decoder
@@ -152,6 +153,21 @@ def samples_in_range(pix, levels, strict: bool) -> int:
     return int(inside.all(-1).sum())
 
 
+def corners_in_range(pix, levels) -> int:
+    """Corners inside their level of the samples an MSDA kernel does not skip
+    (pixel coordinates [.., L, P, 2]): the 64-byte head rows it must gather."""
+    import torch
+
+    wh = torch.tensor([[w, h] for h, w in levels], dtype=pix.dtype, device=pix.device)[:, None, :]
+    sample_in = ((pix > -1) & (pix < wh)).all(-1)
+    lo = torch.floor(pix)
+    n = 0
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        c = lo + torch.tensor([dx, dy], dtype=pix.dtype, device=pix.device)
+        n += int((sample_in & ((c >= 0) & (c < wh)).all(-1)).sum())
+    return n
+
+
 def kernel_entry(err, ms, plain_ms, bound, library_ms=None):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": library_ms}
@@ -246,10 +262,14 @@ def phase_kernels(dev):
         ms = time_ms(lambda: msda.ms_deform_attn(*args))
         # ~10 f32 operations per (sample inside its level, channel): 4 corner
         # weights, 4 products and sums, the attention weight
-        n = samples_in_range(msda.pixel_locations(LEVELS, offsets, ref), LEVELS, strict=True)
+        pix = msda.pixel_locations(LEVELS, offsets, ref)
+        n = samples_in_range(pix, LEVELS, strict=True)
         bound = bound_ms(nbytes(value, offsets, ref, logits, got), 10.0 * n * d, "f32")
+        corners = corners_in_range(pix, LEVELS)
         print(f"  K1 ({form}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound[0]:.4f} ms by {bound[1]}; no single library call computes MSDA")
+              f"bound {bound[0]:.4f} ms by {bound[1]}; no single library call computes MSDA; "
+              f"{corners} in-range corners x 64 B = {corners * 64 / 1e9:.4f} GB gathered at "
+              f"{corners * 64 / (ms * 1e-3) / 1e12:.4f} TB/s")
         return kernel_entry(err, ms, plain_ms, bound)
 
     # encoder form: Q = S grid references; integer offsets put samples exactly on

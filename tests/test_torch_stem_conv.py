@@ -80,3 +80,36 @@ def test_cpu_tensors_never_launch():
     before = stem.KERNEL.launches
     stem.stem_conv7x7s2_bn_relu(*(t(a) for a in _inputs(2)))
     assert stem.KERNEL.launches == before
+
+
+def _im2col_kernel_order(x):
+    """[B, H, W, 3] -> [B, H/2, W/2, K_PAD]: patch column ky * K_RUN_PAD + kx * 3 + ci
+    holds the zero-padded input at (2 * oy + ky - 3, 2 * ox + kx - 3, ci), the
+    order the kernel reduces in; the other columns are zero."""
+    b, h, w, _ = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 3, 3, 3, 3))
+    cols = [xp[:, ky:ky + h:2, kx:kx + w:2, :] for ky in range(7) for kx in range(7)]
+    runs = torch.stack(cols, 3).reshape(b, h // 2, w // 2, 7, stem.K_RUN)
+    runs = torch.nn.functional.pad(runs, (0, stem.K_RUN_PAD - stem.K_RUN))
+    return torch.nn.functional.pad(runs.flatten(3), (0, stem.K_PAD - 7 * stem.K_RUN_PAD))
+
+
+@pytest.mark.parametrize("h,w", [(32, 48), (38, 70)])
+def test_packed_weights_times_im2col_is_the_plain_stem(h, w):
+    """The kernel's GEMM in plain PyTorch: im2col in its K order times the
+    packed weights equals the plain stem, and the packing pads with zeros."""
+    x, k, scale, bias = (t(a) for a in _inputs(3, h, w))
+    packed = stem.pack_stem_weights(k)
+    assert packed.dtype == torch.bfloat16 and packed.shape == (64, stem.K_PAD)
+    taps = torch.zeros(stem.K_PAD, dtype=torch.bool)
+    taps[:7 * stem.K_RUN_PAD].view(7, stem.K_RUN_PAD)[:, :stem.K_RUN] = True
+    assert int(taps.sum()) == 7 * 7 * 3 and not packed[:, ~taps].any()
+    cols = _im2col_kernel_order(x.to(torch.bfloat16).float())
+    y = torch.relu((cols @ packed.float().t()) * scale + bias)
+    # the same exact products summed in f32 in another order
+    ref = torch.nn.functional.conv2d(x.to(torch.bfloat16).float().permute(0, 3, 1, 2),
+                                     k.to(torch.bfloat16).float().permute(3, 2, 0, 1), stride=2, padding=3)
+    ref = torch.relu(ref * scale[:, None, None] + bias[:, None, None]).permute(0, 2, 3, 1)
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+    want = stem.stem_conv_plain(x, k, scale, bias)
+    _within_one_ulp(y.to(torch.bfloat16).float().numpy(), want.float().numpy())

@@ -1,10 +1,12 @@
 // Pieces shared by the multi-scale deformable attention kernels
 // (ms_deform_attn_fwd.cu, ms_deform_attn_bwd.cu).
 //
-// Every MSDA kernel here maps one warp to one (batch, query, head) and one lane
-// to one channel (D = 32), with the 8 heads of a query in one block. Lane j < L*P
+// K4, K4b and K5 map one warp to one (batch, query, head) and one lane to one
+// channel (D = 32), with the 8 heads of a query in one block. Lane j < L*P
 // carries sample j = (l, p): its pixel location and its attention weight, which
-// the sampling loops broadcast to the whole warp with shuffles.
+// the sampling loops broadcast to the whole warp with shuffles. K1 (the fused
+// entry) maps one warp to all 8 heads of a query and has its own loop in
+// ms_deform_attn_fwd.cu; it shares only `load_levels` and the constants here.
 
 #pragma once
 

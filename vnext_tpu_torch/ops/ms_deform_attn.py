@@ -377,9 +377,12 @@ def _launch(value, spatial_shapes, offsets, reference_points, logits):
                                      ("offsets", offsets, torch.bfloat16),
                                      ("logits", logits, torch.bfloat16),
                                      ("reference_points", reference_points, torch.float32)))
+    if b > 65535:
+        raise ValueError(f"the fused MSDA kernel puts the batch on grid y (<= 65535), got {b}")
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     levels = _level_table(shapes, value.device)
     out = torch.empty(b, q, m * d, dtype=value.dtype, device=value.device)
+    _check_aligned(("value", value), ("offsets", offsets), ("logits", logits), ("out", out))
     lib = load_library().lib
     with torch.cuda.device(value.device):
         code = lib.vnext_msda_fwd(
@@ -407,6 +410,14 @@ def _check_kernel_args(value, p, l, named):
             raise TypeError(f"the MSDA kernel takes {name} as {dt}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"the MSDA kernel needs {name} contiguous")
+
+
+def _check_aligned(*named):
+    """K1 reads and writes 16-byte vectors: each tensor must start on a 16-byte boundary."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"the fused MSDA kernel reads {name} in 16-byte vectors: it must be "
+                             f"16-byte aligned, got a view at offset {t.data_ptr() % 16}")
 
 
 def _launch_v9_fwd(value, spatial_shapes, loc, attn, counters=(KERNEL_V9_FWD,)):
