@@ -14,10 +14,12 @@ all just after; the counts must be what the code implies.
    after warm-up), the least time the card could take for the same work, and
    the time of one PyTorch library call that computes the same function where
    there is one. 2a: K1-K3 at IDOL-R50's serving shapes, with K1's rate of
-   gathered corner rows (in-range corners x 64 B over its time); K1's fused
-   entry and K3 refuse autograd. 2b: K4, K5 (held element by element), the v6 route's
-   backward (K5 through ``TPU.MSDA_IMPL`` "pallas") and K2's forward and
-   backward at the train step's shapes. 2c: K4 and the selector's routes
+   gathered corner rows (in-range corners x 64 B over its time) and K3's
+   TFLOP/s beside its yardstick, cuBLAS's two bf16 products alone; K1's fused
+   entry and K3 refuse autograd. 2b: K4, K5 (held element by element, with its
+   value-gradient reduction traffic: in-range corners x 128 B over its time),
+   the v6 route's backward (K5 through ``TPU.MSDA_IMPL`` "pallas") and K2's
+   forward and backward at the train step's shapes. 2c: K4 and the selector's routes
    ("pallas", "pallas_v7", "pallas_v8") at the serving encoder and decoder
    shapes (the decoder's is SeqFormer's), K4b (the channel-major entry) at the
    encoder's, and K9 at its own. 2d: the two kernels no model path runs,
@@ -27,6 +29,8 @@ all just after; the counts must be what the code implies.
    synthetic videos of 20 and 13 frames at 480x853 (clips of 10 padded to
    480x864). The launch counters must read K1 / K2 / K3 = 12 / 1 / 6 per clip,
    all outputs must be finite and the ``results.json`` entries well-formed.
+   Then the forward alone on a clip already on the card, and its device time
+   by kernel (``torch.profiler``).
 4. Frame 0 of the first video through the port on the card (kernels, bf16) and
    on the CPU (plain versions, f32), compared within stated tolerances.
 9. IDOL-R50 serving on one clip under each of the routes "pallas",
@@ -153,19 +157,51 @@ def samples_in_range(pix, levels, strict: bool) -> int:
     return int(inside.all(-1).sum())
 
 
-def corners_in_range(pix, levels) -> int:
+def corners_in_range(pix, levels, strict: bool = True) -> int:
     """Corners inside their level of the samples an MSDA kernel does not skip
-    (pixel coordinates [.., L, P, 2]): the 64-byte head rows it must gather."""
+    (pixel coordinates [.., L, P, 2]): the head rows it must gather (and, in the
+    backward, which also keeps samples at exactly -1 (``strict=False``), the
+    head rows of the value gradient it must add to)."""
     import torch
 
     wh = torch.tensor([[w, h] for h, w in levels], dtype=pix.dtype, device=pix.device)[:, None, :]
-    sample_in = ((pix > -1) & (pix < wh)).all(-1)
+    sample_in = (((pix > -1) if strict else (pix >= -1)) & (pix < wh)).all(-1)
     lo = torch.floor(pix)
     n = 0
     for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
         c = lo + torch.tensor([dx, dy], dtype=pix.dtype, device=pix.device)
         n += int((sample_in & ((c >= 0) & (c < wh)).all(-1)).sum())
     return n
+
+
+def backward_reductions(pix, levels):
+    """K5's value-gradient reductions for samples at pixel coordinates [B, Q,
+    M, L, P, 2]: the corners inside their level with a non-zero bilinear weight
+    (one 128-byte reduction each), and how many distinct (query, head, level,
+    token) they hit, which is what merging a head's corners that repeat within
+    a level would leave."""
+    import torch
+
+    b, q, m, n_l, p, _ = pix.shape
+    wh = torch.tensor([[w, h] for h, w in levels], dtype=pix.dtype, device=pix.device)[:, None, :]
+    starts = torch.tensor(np.cumsum([0] + [h * w for h, w in levels])[:-1], device=pix.device)
+    s_total = sum(h * w for h, w in levels)
+    sample_in = ((pix >= -1) & (pix < wh)).all(-1)
+    lo = torch.floor(pix)
+    frac = pix - lo
+    head = torch.arange(b * q * m, device=pix.device).view(b, q, m, 1, 1)
+    level = torch.arange(n_l, device=pix.device).view(1, 1, 1, n_l, 1)
+    keys = []
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        c = lo + torch.tensor([dx, dy], dtype=pix.dtype, device=pix.device)
+        wx = frac[..., 0] if dx else 1 - frac[..., 0]
+        wy = frac[..., 1] if dy else 1 - frac[..., 1]
+        ok = sample_in & ((c >= 0) & (c < wh)).all(-1) & (wx * wy != 0)
+        tok = starts.view(1, 1, 1, n_l, 1) + c[..., 1].long() * wh[:, 0, 0].long().view(1, 1, 1, n_l, 1) \
+            + c[..., 0].long()
+        keys.append(((head * n_l + level) * s_total + tok)[ok])
+    keys = torch.cat(keys)
+    return keys.numel(), torch.unique(keys).numel()
 
 
 def kernel_entry(err, ms, plain_ms, bound, library_ms=None):
@@ -199,6 +235,33 @@ def compare_each(name, got, want, abs_sum):
           f"its limit): both round an f32 sum of the same products to bf16 once, in other orders")
     require(over == 0, f"{name}: {over} elements above their limit (worst {worst:.3g}x)")
     return err
+
+
+def profile_busy(fn, what: str, calls: int = 2, top: int = 12):
+    """Device time per call of ``fn`` by kernel (``torch.profiler``, CUDA rows
+    only, annotated regions dropped), after one call of warm-up; prints the top
+    kernels, returns (busy ms, wall ms under the profiler) per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / calls
+    events.sort(key=lambda e: -e.self_device_time_total)
+    print(f"  torch.profiler, {what}: device busy {busy:.2f} ms per call of {wall:.2f} ms wall under the "
+          f"profiler ({busy / wall:.1%}); top kernels, ms per call:")
+    for e in events[:top]:
+        print(f"    {e.self_device_time_total / 1e3 / calls:9.3f} ms  {e.count // calls:6d} calls  {e.key[:110]}")
+    return busy, wall
 
 
 # ---------------------------------------------------------------- phase 1
@@ -331,10 +394,17 @@ def phase_kernels(dev):
                   "products; the kernel rounds only the ReLU activation)")
     plain_ms = time_ms(lambda: epi.encoder_epilogue_plain(attn, src, *params))
     ms = time_ms(lambda: epi.encoder_epilogue(attn, src, *params))
-    bound = bound_ms(nbytes(attn, src, got, *params), 2.0 * 2 * src.numel() * f, "bf16")
-    print(f"  K3 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (bf16 F.linear), "
-          f"bound {bound[0]:.4f} ms by {bound[1]}; no single library call computes LN + FFN + LN")
-    results["epilogue"] = kernel_entry(err, ms, plain_ms, bound)
+    flops = 2.0 * 2 * src.numel() * f
+    bound = bound_ms(nbytes(attn, src, got, *params), flops, "bf16")
+    # the yardstick: K3's two products alone as cuBLAS runs them (bf16 F.linear
+    # with bias, the [N, F] intermediate in device memory, no LayerNorm or ReLU)
+    h = src.view(-1, c)
+    w1b, b1b, w2b, b2b = (x.to(bf16) for x in (params[2], params[3], params[4], params[5]))
+    library_ms = time_ms(lambda: torch.nn.functional.linear(torch.nn.functional.linear(h, w1b, b1b), w2b, b2b))
+    print(f"  K3 kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms "
+          f"(bf16 F.linear), cuBLAS's two bf16 F.linear alone {library_ms:.4f} ms "
+          f"({flops / (library_ms * 1e-3) / 1e12:.1f} TFLOP/s), bound {bound[0]:.4f} ms by {bound[1]}")
+    results["epilogue"] = kernel_entry(err, ms, plain_ms, bound, library_ms)
 
     # K1's fused entry and K3 are inference-only, as on the TPU: under autograd they raise
     for name, call in (
@@ -459,7 +529,8 @@ def phase_main_path(dev, kernels):
         x = (torch.from_numpy(frames).to(dev).float() - runner.pixel_mean) / runner.pixel_std
         sizes = torch.tensor([size] * CLIP, dtype=torch.int32, device=dev)
         forward_ms = time_ms(lambda: model.inference(x, sizes), reps=10, warmup=2)
-    timing = {"clip_ms": statistics.median(clip_ms), "forward_ms": forward_ms}
+        busy_ms, _ = profile_busy(lambda: model.inference(x, sizes), f"IDOL-R50 serving forward ({CLIP}-frame clip)")
+    timing = {"clip_ms": statistics.median(clip_ms), "forward_ms": forward_ms, "device_busy_ms": busy_ms}
     print(f"  per-clip ms (model, host<->device copies included): "
           f"{', '.join(f'{x:.2f}' for x in clip_ms)}; median {timing['clip_ms']:.2f}")
     print(f"  forward only, clip on the card (CUDA events, median of 10): {forward_ms:.2f} ms")
@@ -601,9 +672,15 @@ def phase_train_kernels(dev):
         # cotangent and their reductions, four scaled value-gradient adds
         n_bwd = samples_in_range(pix, TRAIN_LEVELS, strict=False)
         bwd_bound = bound_ms(nbytes(value, loc, attn, grad, dv, dl, da), 30.0 * n_bwd * d, "f32")
+        # the value gradient's reductions: one f32 head row (128 B) per in-range corner
+        red_gb = corners_in_range(pix, TRAIN_LEVELS, strict=False) * 128 / 1e9
+        issued, distinct = backward_reductions(pix, TRAIN_LEVELS)
         print(f"  K5 ({form}) kernel {ms:.4f} ms (with the f32 scratch's zeroing and cast), "
               f"plain {plain_ms:.4f} ms (autograd of the plain version), bound {bwd_bound[0]:.4f} ms "
-              f"by {bwd_bound[1]}; no single library call computes MSDA's backward")
+              f"by {bwd_bound[1]}; no single library call computes MSDA's backward; dvalue reductions "
+              f"{red_gb:.4f} GB (in-range corners x 128 B) at {red_gb / (ms * 1e-3) / 1e3:.3f} TB/s; "
+              f"{issued} of non-zero weight, which merging a head's repeats within a level would cut "
+              f"to {distinct} ({1 - distinct / max(issued, 1):.2%} fewer)")
         results[f"bwd_{form}"] = kernel_entry(max(err_v, err_a, err_l), ms, plain_ms, bwd_bound)
 
         # the selector's v6 route (cfg.TPU.MSDA_IMPL "pallas"): its backward is K5
@@ -1153,24 +1230,9 @@ def phase_seqformer(dev, kernels):
 
     with torch.inference_mode():
         forward_ms = time_ms(lambda: model.inference(x, sizes), reps=5, warmup=1)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(2):
-            model.inference(x, sizes)
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t1) * 1e3 / 2
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / 2
-    events.sort(key=lambda e: -e.self_device_time_total)
-    print(f"  torch.profiler over 2 forwards of a {CLIP}-frame clip: device busy {busy:.2f} ms per clip of "
-          f"{prof_wall:.2f} ms wall under the profiler ({busy / prof_wall:.1%}); top kernels, ms per clip:")
-    for e in events[:10]:
-        print(f"    {e.self_device_time_total / 1e3 / 2:9.3f} ms  {e.count // 2:6d} calls  {e.key[:110]}")
+    with torch.inference_mode():
+        busy, prof_wall = profile_busy(lambda: model.inference(x, sizes),
+                                       f"SeqFormer-R50 forward ({CLIP}-frame clip)", top=10)
     timing = {"clip_ms_by_frames": clip_ms, "forward_ms": forward_ms, "device_busy_ms": busy,
               "profiled_forward_ms": prof_wall}
     print(f"  per-clip ms through the runner (forward, top-10 on the card, their masks to the host), "

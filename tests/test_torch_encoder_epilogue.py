@@ -87,6 +87,52 @@ def test_encoder_layer_matches_jax():
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("f", [64, 128, 1024])
+def test_chunked_product_on_packed_weights_matches_plain(f):
+    """The kernel's order of work (chunk by chunk of 64 FFN columns, on the
+    weights as ``pack_epilogue_weights`` lays them out for ``wgmma``), read back
+    from the packed layout, equals the plain version in f32."""
+    args = _inputs(3, c=256, f=f, s=37)
+    a, src, g1, be1, w1, b1, w2, b2, g2, be2 = (t(x) for x in args)
+    packed = epi.pack_epilogue_weights(w1, w2)
+    assert packed.shape == (f // 64, 2, 64 * 256) and packed.dtype == torch.float32
+    got = epi.encoder_epilogue_chunked(a, src, g1, be1, packed, b1, b2, g2, be2)
+    want = epi.encoder_epilogue_plain(a, src, g1, be1, w1, b1, w2, b2, g2, be2)
+    # f32 end to end; the same products summed in 64-column chunks
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("f", [64, 192])
+def test_packed_weights_hold_every_element_once(f):
+    c = 256
+    w1 = torch.arange(f * c, dtype=torch.float64).view(f, c)
+    w2 = torch.arange(f * c, 2 * f * c, dtype=torch.float64).view(c, f)
+    packed = epi.pack_epilogue_weights(w1, w2)
+    assert torch.equal(packed.reshape(-1).sort().values, torch.arange(2 * f * c, dtype=torch.float64))
+    # the 128-byte swizzle: element (row, k) of a 64-column atom at row * 64 + 8 * ((k // 8) ^ (row % 8)) + k % 8
+    rng = np.random.RandomState(f)
+    for j, row, k in zip(rng.randint(0, f // 64, 20), rng.randint(0, 64, 20), rng.randint(0, c, 20)):
+        pos = (k // 64) * 64 * 64 + row * 64 + 8 * ((k % 64 // 8) ^ (row % 8)) + k % 8
+        assert packed[j, 0, pos] == w1[64 * j + row, k]
+    for j, row, k in zip(rng.randint(0, f // 64, 20), rng.randint(0, c, 20), rng.randint(0, 64, 20)):
+        assert packed[j, 1, row * 64 + 8 * ((k // 8) ^ (row % 8)) + k % 8] == w2[row, 64 * j + k]
+
+
+def test_chunked_product_matches_jax_kernel_in_bf16():
+    """In bf16 the chunked product rounds where the kernel does (the ReLU
+    activation once, the output once), as the TPU kernel does."""
+    args = _inputs(5, c=256, f=256, s=40)
+    bf = torch.bfloat16
+    w1, w2 = t(args[4]), t(args[6])
+    packed = epi.pack_epilogue_weights(w1.to(bf), w2.to(bf))
+    got = epi.encoder_epilogue_chunked(t(args[0], bf), t(args[1], bf), t(args[2]), t(args[3]), packed,
+                                       t(args[5]), t(args[7]), t(args[8]), t(args[9]))
+    want = _jax_kernel(*args, dtype=jnp.bfloat16)
+    got = got.float().numpy()
+    # both round an f32 sum of the same bf16 products once, in other orders
+    assert np.all(np.abs(got - want) <= 2 * bf16_ulp(np.abs(want).max()))
+
+
 def test_cpu_tensors_never_launch():
     before = epi.KERNEL.launches
     args = _inputs(1)

@@ -1,19 +1,22 @@
-"""K2 (the stem as an implicit GEMM on the tensor cores) and K1 (the fused MSDA
-forward, one warp per query with 16-byte corner loads) against their plain
-versions on the card, at the edges of their tilings and sampling rules.
+"""K2 (the stem as an implicit GEMM on the tensor cores), K1 (the fused MSDA
+forward, one warp per query with 16-byte corner loads), K3 (the encoder
+epilogue on ``wgmma`` with bulk-copied weights) and K5 (the MSDA backward on
+K1's mapping, with vector reductions) against their plain versions on the card,
+at the edges of their tilings and sampling rules.
 
 Every test here needs a CUDA device (``cuda`` marker; skipped without one):
 ``python -m pytest -m cuda tests/test_torch_kernels_hopper.py``. This file
 imports nothing of the JAX package, so it runs where flax is not installed.
-The stem's K packing, which the CPU reaches, is held against the JAX package
-in ``tests/test_torch_stem_conv.py``.
+The stem's K packing and the epilogue's weight packing, which the CPU reaches,
+are held in ``tests/test_torch_stem_conv.py`` and
+``tests/test_torch_encoder_epilogue.py``.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vnext_tpu_torch.ops import ms_deform_attn, stem_conv
+from vnext_tpu_torch.ops import encoder_epilogue, ms_deform_attn, stem_conv
 
 from _torch_helpers import cuda_device  # noqa: F401 (fixture)
 
@@ -178,3 +181,129 @@ def test_msda_kernel_refuses_misaligned_views(cuda_device):
         ms_deform_attn.ms_deform_attn(flat[:b * s * m * d].view(b, s, m, d), levels,
                                       flat_off[4:4 + off.numel()].view_as(off), ref, logits)
     assert ms_deform_attn.KERNEL.launches == before
+
+
+def _epilogue_args(dev, n, f, seed=0):
+    rng = np.random.RandomState(seed + n + f)
+    c = 256
+    a, src = rng.randn(1, n, c) * 0.5, rng.randn(1, n, c)
+    params = (rng.rand(c) + 0.5, rng.randn(c) * 0.1, rng.randn(f, c) / 16, rng.randn(f) * 0.1,
+              rng.randn(c, f) / np.sqrt(f), rng.randn(c) * 0.1, rng.rand(c) + 0.5, rng.randn(c) * 0.1)
+    a, src = (torch.tensor(x, dtype=torch.bfloat16, device=dev) for x in (a, src))
+    return a, src, [torch.tensor(x, dtype=torch.float32, device=dev) for x in params]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [64, 1024, 2048])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 2 * 8617])
+def test_epilogue_kernel_at_tile_edges(cuda_device, n, f):
+    """A ragged last tile of 128 tokens (N = 1, 127, 129), exactly one tile,
+    IDOL-R50's encoder at two frames (more tiles than SMs, so blocks walk
+    several), and one, 16 and 32 FFN chunks through the 4-slot weight ring."""
+    a, src, params = _epilogue_args(cuda_device, n, f)
+    before = encoder_epilogue.KERNEL.launches
+    got = encoder_epilogue.encoder_epilogue(a, src, *params)
+    want = encoder_epilogue.encoder_epilogue_plain(a, src, *params)
+    assert encoder_epilogue.KERNEL.launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    err, scale = _max_err(got, want)
+    # the final rounding plus the plain version's bf16 roundings of both products
+    assert err <= 2 * BF16_ULP * scale, err
+
+
+@pytest.mark.cuda
+def test_epilogue_kernel_refuses_what_it_does_not_take(cuda_device):
+    a, src, params = _epilogue_args(cuda_device, 40, 128)
+    before = encoder_epilogue.KERNEL.launches
+    flat = torch.zeros(src.numel() + 8, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        encoder_epilogue.encoder_epilogue(a, flat[1:1 + src.numel()].view_as(src), *params)
+    wide = torch.zeros(1, 40, 512, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError, match="contiguous"):
+        encoder_epilogue.encoder_epilogue(a, wide[..., ::2], *params)
+    with pytest.raises(ValueError, match="d_model 256"):
+        encoder_epilogue.encoder_epilogue(a[..., :128].contiguous(), src[..., :128].contiguous(),
+                                          *params)
+    w1, b1, w2 = params[2][:96], params[3][:96], params[4][:, :96]
+    with pytest.raises(ValueError, match="F % 64"):
+        encoder_epilogue.encoder_epilogue(a, src, params[0], params[1], w1, b1, w2.contiguous(),
+                                          *params[5:])
+    assert encoder_epilogue.KERNEL.launches == before
+
+
+def _k5_locations(levels, b, q, m, p, rng):
+    """Normalized locations [b, q, m, L, P, 2] on power-of-two levels (so that
+    x = loc * w - 0.5 is exact): a quarter on pixel centres, point 1 at x = -1
+    and point 2 at x = w - 1 exactly (and y likewise for half of the queries),
+    5% far outside every level, the rest uniform over the level and a little
+    beyond."""
+    wh = np.asarray([[w, h] for h, w in levels], np.float64)[None, None, None, :, None, :]
+    loc = rng.rand(b, q, m, len(levels), p, 2) * 1.2 - 0.1
+    cells = rng.randint(0, 1 << 20, loc.shape) % wh.astype(np.int64)
+    centre = rng.rand(*loc.shape[:-1]) < 0.25
+    loc[centre] = ((cells + 0.5) / wh)[centre]
+    axes = [0] if p < 2 else [0, 1]
+    for axis in axes:
+        sel = slice(None) if axis == 0 else slice(0, q // 2)
+        loc[:, sel, :, :, 1 % p, axis] = (-0.5 / wh[..., axis])[:, 0, :, :, 0]
+        loc[:, sel, :, :, 2 % p, axis] = ((wh[..., axis] - 0.5) / wh[..., axis])[:, 0, :, :, 0]
+    far = rng.rand(*loc.shape[:-1]) < 0.05
+    loc[far] = rng.choice([-4.0, 5.0], size=(int(far.sum()), 2))
+    return loc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,q", [
+    (((16, 32), (8, 16), (4, 8), (1, 1)), 301),     # 4 levels, one 1 x 1
+    (((16, 32), (8, 16), (4, 8), (1, 1)), 6800),    # the train encoder's query count
+    (((16, 16),), 301),                               # 1 level: L*P = 4
+], ids=["L4-Q301", "L4-Q6800", "L1-Q301"])
+def test_msda_backward_kernel_at_sampling_edges(cuda_device, levels, q):
+    """K5 against the plain version's autograd, element by element: dvalue and
+    dattn within one bf16 ulp of |want| plus 2^-16 of the element's sum of
+    |terms| (the same f32 products summed in other orders, dvalue's reductions
+    in one that changes from run to run, each rounded once to bf16); dloc (f32)
+    within 1e-5 of its largest element. Q is not a multiple of a block's 8
+    queries."""
+    rng = np.random.RandomState(q + len(levels))
+    b, m, d, p = 2, 8, 32, 4
+    s = sum(h * w for h, w in levels)
+    bf16 = torch.bfloat16
+    value = torch.tensor(rng.randn(b, s, m, d), dtype=bf16, device=cuda_device)
+    loc = torch.tensor(_k5_locations(levels, b, q, m, p, rng), dtype=torch.float32, device=cuda_device)
+    attn = torch.softmax(torch.tensor(rng.randn(b, q, m, len(levels) * p), device=cuda_device).float(), -1)
+    attn = attn.to(bf16).view(b, q, m, len(levels), p).contiguous()
+    grad = torch.tensor(rng.randn(b, q, m * d), dtype=bf16, device=cuda_device)
+    before = ms_deform_attn.KERNEL_V9_BWD.launches
+    got = ms_deform_attn.ms_deform_attn_v9_backward(value, levels, loc, attn, grad)
+    assert ms_deform_attn.KERNEL_V9_BWD.launches == before + 1
+    want = ms_deform_attn.ms_deform_attn_grad_plain(value, levels, loc, attn, grad)
+    abs_sums = ms_deform_attn.ms_deform_attn_grad_plain(value.abs(), levels, loc, attn, grad.abs())
+    for i in (0, 2):
+        g, w, limit = got[i].float(), want[i].float(), abs_sums[i].float()
+        assert got[i].dtype == bf16
+        excess = (g - w).abs() - (BF16_ULP * w.abs() + 2.0 ** -16 * limit)
+        assert float(excess.max()) <= 0.0, (i, float(excess.max()))
+    err, scale = _max_err(got[1], want[1])
+    assert got[1].dtype == torch.float32 and err <= 1e-5 * scale, err
+
+
+@pytest.mark.cuda
+def test_msda_backward_kernel_refuses_misaligned_views(cuda_device):
+    levels = ((4, 8), (2, 4))
+    b, q, m, l, p, d = 1, 5, 8, 2, 4, 32
+    s = 40
+    bf16 = torch.bfloat16
+    flat = torch.zeros(b * s * m * d + 8, dtype=bf16, device=cuda_device)
+    value = flat[1:1 + b * s * m * d].view(b, s, m, d)                 # 2 bytes off
+    loc = torch.rand(b, q, m, l, p, 2, device=cuda_device)
+    attn = torch.full((b, q, m, l, p), 0.125, dtype=bf16, device=cuda_device)
+    grad = torch.zeros(b, q, m * d, dtype=bf16, device=cuda_device)
+    before = ms_deform_attn.KERNEL_V9_BWD.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        ms_deform_attn.ms_deform_attn_v9_backward(value, levels, loc, attn, grad)
+    flat_g = torch.zeros(grad.numel() + 8, dtype=bf16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        ms_deform_attn.ms_deform_attn_v9_backward(flat[:b * s * m * d].view(b, s, m, d), levels, loc, attn,
+                                                  flat_g[4:4 + grad.numel()].view_as(grad))
+    assert ms_deform_attn.KERNEL_V9_BWD.launches == before

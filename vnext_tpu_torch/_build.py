@@ -126,8 +126,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "vnext_msda_bwd": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
         # x, w, scale, bias, out, B, H, W, stream
         "vnext_stem_conv": [p, p, p, p, p, i, i, i, p],
-        # attn, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b, out, N, F, stream
-        "vnext_encoder_epilogue": [p, p, p, p, p, p, p, p, p, p, p, i, i, p],
+        # attn, src, ln1_w, ln1_b, packed w1 / w2, b1, b2, ln2_w, ln2_b, out, N, F, stream
+        "vnext_encoder_epilogue": [p, p, p, p, p, p, p, p, p, p, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)   # a symbol the sources lack raises here, at load

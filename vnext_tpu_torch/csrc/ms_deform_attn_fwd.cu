@@ -58,9 +58,6 @@ namespace {
 
 constexpr int kQWarps = 8;   // K1: queries (one warp each) per block
 
-__device__ __forceinline__ float bf16_lo(unsigned u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
-
 // K1: one warp per (batch, query, group of 8 heads); lane = 4 * head + c, and
 // lane c of a head owns channels 8c..8c+7 (16 bytes of the value row) and
 // samples 4c..4c+3 of the head's L*P.

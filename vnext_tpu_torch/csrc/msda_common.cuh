@@ -1,12 +1,14 @@
 // Pieces shared by the multi-scale deformable attention kernels
 // (ms_deform_attn_fwd.cu, ms_deform_attn_bwd.cu).
 //
-// K4, K4b and K5 map one warp to one (batch, query, head) and one lane to one
+// K4 and K4b map one warp to one (batch, query, head) and one lane to one
 // channel (D = 32), with the 8 heads of a query in one block. Lane j < L*P
 // carries sample j = (l, p): its pixel location and its attention weight, which
-// the sampling loops broadcast to the whole warp with shuffles. K1 (the fused
-// entry) maps one warp to all 8 heads of a query and has its own loop in
-// ms_deform_attn_fwd.cu; it shares only `load_levels` and the constants here.
+// their sampling loop `sample_levels` broadcasts to the whole warp with
+// shuffles; they are the last users of `pixel_location` and `sample_levels`.
+// K1 (the fused forward) and K5 (the backward) map one warp to all 8 heads of a
+// query, 4 lanes a head and 8 channels a lane, and have their own loops; they
+// share `load_levels`, the bf16 helpers and the constants here.
 
 #pragma once
 
@@ -27,10 +29,12 @@ __device__ __forceinline__ void load_levels(int* s_lv, const int* levels, int L)
   __syncthreads();
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+// the two bf16 halves of a 32-bit word as f32, and two f32 rounded into one
+__device__ __forceinline__ float bf16_lo(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // Precomputed normalized locations [.., L, P, 2] f32 -> pixel coordinates of this

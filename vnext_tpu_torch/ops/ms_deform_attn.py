@@ -412,11 +412,11 @@ def _check_kernel_args(value, p, l, named):
             raise ValueError(f"the MSDA kernel needs {name} contiguous")
 
 
-def _check_aligned(*named):
-    """K1 reads and writes 16-byte vectors: each tensor must start on a 16-byte boundary."""
+def _check_aligned(*named, what="the fused MSDA kernel"):
+    """K1 and K5 read and write 16-byte vectors: each tensor must start on a 16-byte boundary."""
     for name, t in named:
         if t.data_ptr() % 16:
-            raise ValueError(f"the fused MSDA kernel reads {name} in 16-byte vectors: it must be "
+            raise ValueError(f"{what} reads {name} in 16-byte vectors: it must be "
                              f"16-byte aligned, got a view at offset {t.data_ptr() % 16}")
 
 
@@ -475,6 +475,10 @@ def _launch_v9_bwd(value, spatial_shapes, loc, attn, grad, counters=(KERNEL_V9_B
                                      ("the cotangent", grad, torch.bfloat16)))
     if grad.shape != (b, q, m * d):
         raise ValueError(f"the cotangent must be [B, Q, M*D], got {tuple(grad.shape)}")
+    if b > 65535:
+        raise ValueError(f"the MSDA backward kernel puts the batch on grid y (<= 65535), got {b}")
+    _check_aligned(("value", value), ("sampling_locations", loc), ("attention_weights", attn),
+                   ("the cotangent", grad), what="the MSDA backward kernel")
     levels = _level_table(spatial_shapes, value.device)
     scratch = torch.zeros(b, s, m, d, dtype=torch.float32, device=value.device)
     dvalue = torch.empty_like(value)
