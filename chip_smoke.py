@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``vnext_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                          # every phase
+    python3 chip_smoke.py --only train_numerics    # phases 1 and 6 alone
 
 Phases, each printed as it ends; any failure raises and exits non-zero. Each
 path zeroes every kernel's launch counter just before it runs and reads them
@@ -53,7 +54,12 @@ all just after; the counts must be what the code implies.
    mode with dropout 0, on the card (kernels, bf16) and on the CPU (plain
    versions, f32): a seeded random projection of the last layer's logits,
    boxes and hidden states, and its gradients by parameter group, compared
-   within stated tolerances.
+   within stated tolerances. It prints |value| beside the sum of the terms'
+   |values| (how much the signed sum cancels) and each projected output's
+   relative L2. Alone (``--only train_numerics``) it can import the package
+   from another checkout (``--tree``, to bisect a move across commits) and
+   rerun the card's forward with K2's or K4's plain version on the card
+   (``--swap-plain``).
 10. Two IDOL-R50 train steps under "pallas": the v6 route's forward and
     backward counters at 24 each per step beside K4's and K5's.
 
@@ -65,6 +71,8 @@ jax nor the JAX package.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import logging
 import statistics
@@ -174,6 +182,14 @@ def corners_in_range(pix, levels, strict: bool = True) -> int:
     return n
 
 
+def gathered(pix, levels, ms) -> str:
+    """An MSDA forward's gather at pixel coordinates [.., L, P, 2]: its in-range
+    corners, one 64-byte head row each, and their rate over ``ms``."""
+    corners = corners_in_range(pix, levels)
+    return (f"{corners} in-range corners x 64 B = {corners * 64 / 1e9:.4f} GB gathered at "
+            f"{corners * 64 / (ms * 1e-3) / 1e12:.4f} TB/s")
+
+
 def backward_reductions(pix, levels):
     """K5's value-gradient reductions for samples at pixel coordinates [B, Q,
     M, L, P, 2]: the corners inside their level with a non-zero bilinear weight
@@ -237,6 +253,11 @@ def compare_each(name, got, want, abs_sum):
     return err
 
 
+# the device functions of csrc/, as the profiler names them
+HAND_WRITTEN = ("msda_fwd_kernel", "msda_fwd_loc_kernel", "msda_fwd_loc_cm_kernel", "msda_bwd_kernel",
+                "f32_to_bf16_kernel", "stem_conv_kernel", "encoder_epilogue_kernel", "dynstore_kernel")
+
+
 def profile_busy(fn, what: str, calls: int = 2, top: int = 12):
     """Device time per call of ``fn`` by kernel (``torch.profiler``, CUDA rows
     only, annotated regions dropped), after one call of warm-up; prints the top
@@ -259,9 +280,17 @@ def profile_busy(fn, what: str, calls: int = 2, top: int = 12):
     events.sort(key=lambda e: -e.self_device_time_total)
     print(f"  torch.profiler, {what}: device busy {busy:.2f} ms per call of {wall:.2f} ms wall under the "
           f"profiler ({busy / wall:.1%}); top kernels, ms per call:")
-    for e in events[:top]:
-        print(f"    {e.self_device_time_total / 1e3 / calls:9.3f} ms  {e.count // calls:6d} calls  {e.key[:110]}")
+    print_kernel_rows(events, calls, top)
     return busy, wall
+
+
+def print_kernel_rows(events, calls: int, top: int):
+    """The ``top`` kernels by device time per call, then the hand-written ones below them."""
+    ours = [e for e in events[top:] if any(k in e.key for k in HAND_WRITTEN)]
+    for i, e in enumerate(events[:top] + ours):
+        if i == top:
+            print("  and the hand-written kernels below them:")
+        print(f"    {e.self_device_time_total / 1e3 / calls:9.3f} ms  {e.count // calls:6d} calls  {e.key[:110]}")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -328,11 +357,9 @@ def phase_kernels(dev):
         pix = msda.pixel_locations(LEVELS, offsets, ref)
         n = samples_in_range(pix, LEVELS, strict=True)
         bound = bound_ms(nbytes(value, offsets, ref, logits, got), 10.0 * n * d, "f32")
-        corners = corners_in_range(pix, LEVELS)
         print(f"  K1 ({form}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound[0]:.4f} ms by {bound[1]}; no single library call computes MSDA; "
-              f"{corners} in-range corners x 64 B = {corners * 64 / 1e9:.4f} GB gathered at "
-              f"{corners * 64 / (ms * 1e-3) / 1e12:.4f} TB/s")
+              f"{gathered(pix, LEVELS, ms)}")
         return kernel_entry(err, ms, plain_ms, bound)
 
     # encoder form: Q = S grid references; integer offsets put samples exactly on
@@ -647,7 +674,7 @@ def phase_train_kernels(dev):
         n_fwd = samples_in_range(pix, TRAIN_LEVELS, strict=True)
         fwd_bound = bound_ms(nbytes(value, loc, attn, got), 10.0 * n_fwd * d, "f32")
         print(f"  K4 ({form}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {fwd_bound[0]:.4f} ms "
-              f"by {fwd_bound[1]}; no single library call computes MSDA")
+              f"by {fwd_bound[1]}; no single library call computes MSDA; {gathered(pix, TRAIN_LEVELS, ms)}")
         results[f"fwd_{form}"] = kernel_entry(err, ms, plain_ms, fwd_bound)
 
         dv, dl, da = msda.ms_deform_attn_v9_backward(value, TRAIN_LEVELS, loc, attn, grad)
@@ -918,8 +945,7 @@ def phase_train(dev, kernels):
     events.sort(key=lambda e: -e.self_device_time_total)
     print(f"  torch.profiler over 2 steps: device busy {device_ms:.1f} ms per step of {prof_wall:.1f} ms "
           f"wall under the profiler ({device_ms / prof_wall:.1%}); top kernels, ms per step:")
-    for e in events[:14]:
-        print(f"    {e.self_device_time_total / 1e3 / 2:9.3f} ms  {e.count // 2:6d} calls  {e.key[:110]}")
+    print_kernel_rows(events, 2, 14)
 
     timed = step_ms[1:]
     result = {"step_ms": statistics.median(timed), "step_ms_all": step_ms, "forward_ms": split["forward"],
@@ -944,7 +970,34 @@ GROUPS = (
 )
 
 
-def phase_train_numerics(dev):
+PROJECTED = ("logits", "boxes", "hs")      # the last decoder layer's outputs phase 6 projects
+
+
+@contextlib.contextmanager
+def plain_on_card(names):
+    """Inside, each named kernel's wrapper runs its plain version on the card in
+    place of the kernel ("K2": the stem's forward, "K4": the MSDA standard
+    entry's forward): phase 6 attributes a move of the card's value with it."""
+    from vnext_tpu_torch.ops import ms_deform_attn as msda
+    from vnext_tpu_torch.ops import stem_conv as stem
+
+    saved = [(stem, "_launch", stem._launch), (msda, "_launch_v9_fwd", msda._launch_v9_fwd)]
+    if "K2" in names:
+        stem._launch = stem.stem_conv_plain
+    if "K4" in names:
+        msda._launch_v9_fwd = lambda value, shapes, loc, attn, *counters: msda.ms_deform_attn_core_plain(
+            value, shapes, loc, attn)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def phase_train_numerics(dev, swaps=()):
+    """Phase 6. ``swaps`` (``--swap-plain``): after the checked run, the card's
+    forward again with each named kernel's plain version on the card, reported
+    beside it and not checked."""
     import torch
 
     from vnext_tpu_torch.engine.trainer import PIXEL_MEAN, PIXEL_STD, batch_to_model_inputs
@@ -963,8 +1016,8 @@ def phase_train_numerics(dev):
         x, sizes = torch.cat([key, ref]), torch.cat([key_size, ref_size])
         out = model.forward_single(x, sizes)
         r = [torch.from_numpy(a).to(device) for a in proj]
-        value = ((out["logits"][-1] * r[0]).sum() + (out["boxes"][-1] * r[1]).sum()
-                 + (out["hs"][-1].float() * r[2]).sum())
+        outs = [out[k][-1].float() for k in PROJECTED]
+        value = sum((o * w).sum() for o, w in zip(outs, r))
         model.zero_grad(set_to_none=True)
         value.backward()
         grads = {}
@@ -972,18 +1025,38 @@ def phase_train_numerics(dev):
             gs = [p.grad.detach().float().cpu().reshape(-1) for n, p in model.named_parameters()
                   if n.startswith(prefixes) and p.grad is not None]
             grads[group] = torch.cat(gs)
-        return float(value.detach()), grads
+        # the sum of the projection's |terms|: with |value| it says how much the signed sum cancels
+        abs_terms = float(sum((o.detach() * w).abs().sum() for o, w in zip(outs, r)))
+        return float(value.detach()), grads, [o.detach().cpu() for o in outs], abs_terms
 
-    got, got_grads = run(card, dev)
+    got, got_grads, got_outs, _ = run(card, dev)
     t0 = time.perf_counter()
-    want, want_grads = run(cpu, "cpu")
+    want, want_grads, want_outs, abs_terms = run(cpu, "cpu")
     print(f"  CPU f32 reference forward + backward: {time.perf_counter() - t0:.1f} s")
     reason = ("bf16 keeps 8 significant bits and the path rounds ~100 times in sequence forward "
               "(53 convolutions, 12 transformer layers, heads) and as many backward, so errors that "
               "add like a random walk reach a few percent")
     err = abs(got - want) / abs(want)
-    print(f"  projection value: card {got:.6g} CPU {want:.6g}, relative error {err:.4g} tolerance 0.05: {reason}")
+
+    def outputs_rel_l2(outs):
+        return {k: float((a - b).norm() / b.norm()) for k, a, b in zip(PROJECTED, outs, want_outs)}
+
+    def fmt(errs):
+        return ", ".join(f"{k} {e:.4g}" for k, e in errs.items())
+
+    print(f"  projection value: card {got:.6g} CPU {want:.6g}, |want| {abs(want):.6g}, sum of |terms| on the "
+          f"CPU {abs_terms:.6g} ({abs(want) / abs_terms:.4g} of it survives the signed sum), relative error "
+          f"{err:.4g} tolerance 0.05: {reason}")
+    out_errs = outputs_rel_l2(got_outs)
+    print(f"  the projected outputs, card vs CPU, relative L2: {fmt(out_errs)}; tolerance 0.05 each: {reason}")
+    for name in swaps:
+        with plain_on_card((name,)):
+            value, _, outs, _ = run(card, dev)
+        print(f"  with {name}'s plain version on the card (not checked): card {value:.6g}, relative error "
+              f"{abs(value - want) / abs(want):.4g}; outputs relative L2: {fmt(outputs_rel_l2(outs))}")
     require(err <= 0.05, f"projection value: relative error {err}")
+    for k, e in out_errs.items():
+        require(e <= 0.05, f"projected output {k}: relative L2 {e}")
     for group, _ in GROUPS:
         a, b = got_grads[group], want_grads[group]
         e = float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -1059,7 +1132,7 @@ def phase_more_kernels(dev):
                               "bf16 inputs in f32 and round once, in other orders")
                 ms = time_ms(lambda: msda.ms_deform_attn_standard(value, LEVELS, loc, attn, impl))
             print(f"  impl={impl} ({form}) K4 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
-                  f"by {bound[1]}; no single library call computes MSDA")
+                  f"by {bound[1]}; no single library call computes MSDA; {gathered(pix, LEVELS, ms)}")
             results[f"route_{impl}_{form}"] = kernel_entry(err, ms, plain_ms, bound)
 
     # K4b: the encoder's inputs in the channel-major layout
@@ -1076,11 +1149,17 @@ def phase_more_kernels(dev):
                   "one bf16 ulp at the largest output: both sum the same bf16 inputs in f32 and round once")
     with torch.no_grad():
         ms = time_ms(lambda: msda.ms_deform_attn_cm(value_t, LEVELS, loc_cm, attn_cm))
+        # the entry's two parts: the wrapper's transpose of the value to
+        # token-major, and the kernel on a value already in that layout
+        transpose_ms = time_ms(lambda: value_t.view(b, m, d, s).permute(0, 3, 1, 2).contiguous())
+        kernel_ms = time_ms(lambda: msda._launch_cm(value, LEVELS, loc_cm, attn_cm))
     plain_ms = time_ms(lambda: msda.ms_deform_attn_cm_plain(value_t, LEVELS, loc_cm, attn_cm))
     pix = loc * torch.tensor(wh, dtype=torch.float32, device=dev)[:, None, :] - 0.5
     bound = bound_ms(nbytes(value_t, loc_cm, attn_cm, got), 10.0 * samples_in_range(pix, LEVELS, True) * d, "f32")
-    print(f"  K4b kernel {ms:.4f} ms (with the value's transpose to token-major), plain {plain_ms:.4f} ms, "
-          f"bound {bound[0]:.4f} ms by {bound[1]}; no single library call computes MSDA")
+    print(f"  K4b entry {ms:.4f} ms: the value's transpose to token-major {transpose_ms:.4f} ms "
+          f"({nbytes(value_t) / 1e6:.1f} MB each way), the kernel alone {kernel_ms:.4f} ms; plain "
+          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}; no single library call computes MSDA; "
+          f"{gathered(pix, LEVELS, kernel_ms)} (the kernel alone)")
     results["cm"] = kernel_entry(err, ms, plain_ms, bound)
     try:
         msda.ms_deform_attn_cm(value_t.clone().requires_grad_(), LEVELS, loc_cm, attn_cm)
@@ -1368,7 +1447,19 @@ def phase_selector_train(dev, kernels):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
+                                                 "with no argument, every phase.")
+    parser.add_argument("--only", choices=("train_numerics",),
+                        help="phase 1 and this phase alone (train_numerics: phase 6)")
+    parser.add_argument("--tree", help="with --only: import vnext_tpu_torch from this checkout (an "
+                                       "earlier commit's `git archive`) in place of the one beside this script")
+    parser.add_argument("--swap-plain", action="append", default=[], choices=("K2", "K4"),
+                        help="with --only train_numerics: also run the card's forward with this "
+                             "kernel's plain version on the card (repeatable)")
+    args = parser.parse_args(argv)
+    if (args.tree or args.swap_plain) and not args.only:
+        parser.error("--tree and --swap-plain go with --only")
     try:
         import torch
     except ImportError:
@@ -1380,6 +1471,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.tree:
+        sys.path.insert(0, str(Path(args.tree).resolve()))
+    if args.only:
+        smi = phase_card()
+        phase_train_numerics(dev, args.swap_plain)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     from vnext_tpu_torch.ops import encoder_epilogue, stem_conv
     from vnext_tpu_torch.ops import ms_deform_attn as msda

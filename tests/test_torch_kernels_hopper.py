@@ -1,8 +1,10 @@
 """K2 (the stem as an implicit GEMM on the tensor cores), K1 (the fused MSDA
 forward, one warp per query with 16-byte corner loads), K3 (the encoder
-epilogue on ``wgmma`` with bulk-copied weights) and K5 (the MSDA backward on
-K1's mapping, with vector reductions) against their plain versions on the card,
-at the edges of their tilings and sampling rules.
+epilogue on ``wgmma`` with bulk-copied weights), K5 (the MSDA backward on
+K1's mapping, with vector reductions), and K4 and K4b (the MSDA forward from
+given locations, standard and channel-major, on K1's loop with K5's
+prologue) against their plain versions on the card, at the edges of their
+tilings and sampling rules.
 
 Every test here needs a CUDA device (``cuda`` marker; skipped without one):
 ``python -m pytest -m cuda tests/test_torch_kernels_hopper.py``. This file
@@ -307,3 +309,127 @@ def test_msda_backward_kernel_refuses_misaligned_views(cuda_device):
         ms_deform_attn.ms_deform_attn_v9_backward(flat[:b * s * m * d].view(b, s, m, d), levels, loc, attn,
                                                   flat_g[4:4 + grad.numel()].view_as(grad))
     assert ms_deform_attn.KERNEL_V9_BWD.launches == before
+
+
+def _k4_inputs(dev, levels, b, q, m, p, seed, nan=False):
+    """value [b, S, m, 32], locations (as ``_k5_locations``: x = -1 and w - 1
+    exactly, pixel centres, far outside) and softmaxed weights; with ``nan``,
+    also the locations with 5% of the samples NaN in one coordinate and the
+    same samples far outside in their place."""
+    rng = np.random.RandomState(seed)
+    s, l = sum(h * w for h, w in levels), len(levels)
+    bf16 = torch.bfloat16
+    value = torch.tensor(rng.randn(b, s, m, 32), dtype=bf16, device=dev)
+    loc = _k5_locations(levels, b, q, m, p, rng)
+    attn = torch.softmax(torch.tensor(rng.randn(b, q, m, l * p) * 2.0, device=dev).float(), -1)
+    attn = attn.to(bf16).view(b, q, m, l, p).contiguous()
+    if not nan:
+        return value, torch.tensor(loc, dtype=torch.float32, device=dev), attn
+    pick = rng.rand(*loc.shape[:-1]) < 0.05
+    far = loc.copy()
+    far[pick] = 5.0
+    loc[pick, rng.randint(0, 2, int(pick.sum()))] = np.nan
+    return value, [torch.tensor(x, dtype=torch.float32, device=dev) for x in (loc, far)], attn
+
+
+def _k4_entry(entry, value, levels, loc, attn):
+    """K4 (the standard entry, impl pallas_v9) or K4b (the channel-major entry
+    on the same function's inputs, its output transposed back to [B, Q, M*D]),
+    with the launch counter it must move."""
+    if entry == "standard":
+        before = ms_deform_attn.KERNEL_V9_FWD.launches
+        with torch.no_grad():
+            out = ms_deform_attn.ms_deform_attn_standard(value, levels, loc, attn, "pallas_v9")
+        return out, ms_deform_attn.KERNEL_V9_FWD.launches - before
+    b, s, m, d = value.shape
+    value_t = value.view(b, s, m * d).transpose(1, 2).contiguous()
+    before = ms_deform_attn.KERNEL_CM.launches
+    with torch.no_grad():
+        out = ms_deform_attn.ms_deform_attn_cm(value_t, levels, loc.permute(0, 2, 3, 4, 5, 1).contiguous(),
+                                               attn.permute(0, 2, 3, 4, 1).contiguous())
+    return out.transpose(1, 2), ms_deform_attn.KERNEL_CM.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["standard", "channel_major"])
+@pytest.mark.parametrize("levels,p,m,q", [
+    (((16, 32), (8, 16), (4, 8), (1, 1)), 4, 8, 301),     # 4 levels, one 1 x 1; L*P = 16
+    (((16, 32), (8, 16), (4, 8), (1, 1)), 4, 8, 6800),    # the train encoder's query count
+    (((16, 16),), 4, 8, 301),                               # 1 level: L*P = 4, the generic prologue
+    (((8, 16), (4, 8), (2, 4), (1, 1)), 2, 4, 37),         # L*P = 8, half a head group
+    (((8, 16), (4, 8)), 4, 16, 64),                         # two full head groups
+    (((8, 16), (4, 8)), 4, 12, 65),                         # two head groups, the second half full
+], ids=["L4-1x1-Q301", "L4-Q6800", "L1-Q301", "L4P2-M4-Q37", "L2-M16-Q64", "L2-M12-Q65"])
+def test_msda_loc_kernels_at_sampling_edges(cuda_device, entry, levels, p, m, q):
+    """K4 and K4b against the plain core, within one bf16 ulp at the largest
+    output (both sum the same bf16 inputs in f32 and round once to bf16, in
+    other orders). Q is not a multiple of K4's 8 queries per block nor of K4b's
+    32-query tile but at Q = 64, so K4b's last tile is ragged; x = -1 and
+    x = w - 1 exactly, pixel centres, far outside, a 1 x 1 level."""
+    value, loc, attn = _k4_inputs(cuda_device, levels, 2, q, m, p, seed=q + m + p)
+    got, launches = _k4_entry(entry, value, levels, loc, attn)
+    want = ms_deform_attn.ms_deform_attn_core_plain(value, levels, loc, attn)
+    assert launches == 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    err, scale = _max_err(got, want)
+    assert err <= BF16_ULP * scale, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["standard", "channel_major"])
+def test_msda_loc_kernels_skip_nan_samples_whole(cuda_device, entry):
+    """A NaN sample adds exactly nothing, as one far outside every level does:
+    the plain version cannot take NaN (its gather index is undefined), so the
+    kernel's output with NaN locations must equal, bit for bit, its output with
+    those samples at 5.0 (far outside), which the plain version confirms."""
+    levels = ((16, 32), (8, 16), (4, 8), (1, 1))
+    value, (loc_nan, loc_far), attn = _k4_inputs(cuda_device, levels, 2, 301, 8, 4, seed=11, nan=True)
+    got_nan, _ = _k4_entry(entry, value, levels, loc_nan, attn)
+    got_far, _ = _k4_entry(entry, value, levels, loc_far, attn)
+    assert torch.isfinite(got_nan.float()).all()
+    assert torch.equal(got_nan, got_far)
+    want = ms_deform_attn.ms_deform_attn_core_plain(value, levels, loc_far, attn)
+    err, scale = _max_err(got_far, want)
+    assert err <= BF16_ULP * scale, err
+
+
+@pytest.mark.cuda
+def test_msda_loc_kernels_refuse_misaligned_views(cuda_device):
+    """K4 reads the value, the locations and the weights and writes its output
+    in 16- and 8-byte vectors: a view of any input off a 16-byte boundary
+    raises before a launch. K4b reads only the value so (its locations and
+    weights one query per lane, in runs along Q): a token-major value view off
+    the boundary raises; channel-major locations and weights at any offset are
+    taken, and agree with the plain version."""
+    levels = ((4, 8), (2, 4))
+    b, q, m, l, p, d, s = 1, 5, 8, 2, 4, 32, 40
+    bf16 = torch.bfloat16
+    value, loc, attn = _k4_inputs(cuda_device, levels, b, q, m, p, seed=3)
+    flat_v = torch.zeros(value.numel() + 8, dtype=bf16, device=cuda_device)
+    flat_l = torch.zeros(loc.numel() + 4, device=cuda_device)
+    flat_a = torch.zeros(attn.numel() + 8, dtype=bf16, device=cuda_device)
+    value_off = flat_v[1:1 + value.numel()].view_as(value).copy_(value)         # 2 bytes off
+    loc_off = flat_l[1:1 + loc.numel()].view_as(loc).copy_(loc)                # 4 bytes off
+    attn_off = flat_a[2:2 + attn.numel()].view_as(attn).copy_(attn)            # 4 bytes off
+    before = ms_deform_attn.KERNEL_V9_FWD.launches
+    for args in ((value_off, loc, attn), (value, loc_off, attn), (value, loc, attn_off)):
+        with pytest.raises(ValueError, match="16-byte"):
+            ms_deform_attn.ms_deform_attn_standard(args[0], levels, args[1], args[2], "pallas_v9")
+    assert ms_deform_attn.KERNEL_V9_FWD.launches == before
+
+    before = ms_deform_attn.KERNEL_CM.launches
+    loc_cm = loc.permute(0, 2, 3, 4, 5, 1).contiguous()
+    attn_cm = attn.permute(0, 2, 3, 4, 1).contiguous()
+    # a channel-major view of the misaligned token-major value: the wrapper's
+    # transpose to token-major is then no copy
+    with pytest.raises(ValueError, match="16-byte"):
+        ms_deform_attn.ms_deform_attn_cm(value_off.view(b, s, m * d).transpose(1, 2), levels, loc_cm, attn_cm)
+    assert ms_deform_attn.KERNEL_CM.launches == before
+    loc_cm_off = flat_l[1:1 + loc.numel()].view_as(loc_cm).copy_(loc_cm)
+    attn_cm_off = flat_a[2:2 + attn.numel()].view_as(attn_cm).copy_(attn_cm)
+    value_t = value.view(b, s, m * d).transpose(1, 2).contiguous()
+    got = ms_deform_attn.ms_deform_attn_cm(value_t, levels, loc_cm_off, attn_cm_off)
+    assert ms_deform_attn.KERNEL_CM.launches == before + 1
+    want = ms_deform_attn.ms_deform_attn_cm_plain(value_t, levels, loc_cm, attn_cm)
+    err, scale = _max_err(got, want)
+    assert err <= BF16_ULP * scale, err

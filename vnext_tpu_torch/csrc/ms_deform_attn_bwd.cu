@@ -12,7 +12,7 @@
 //   dloc_y[l,p] = attn * h_l * sum_d g_d * [(1-tx)(v10-v00) + tx(v11-v01)]
 //   dvalue[c]  += attn * w_c * g          for each corner c inside the level
 //
-// with x = loc_x * w_l - 0.5 (no fused multiply-add, as `pixel_location` rounds
+// with x = loc_x * w_l - 0.5 (no fused multiply-add, as `pixel_coords` rounds
 // it) and v_c = 0 for a corner outside the level. The derivative is taken corner
 // by corner at integer pixels (d tx / dx = 1 with floor constant), not by the
 // tent's sign: at init the encoder's samples land exactly on pixel centres,
@@ -26,7 +26,7 @@
 // lane, so the cotangent's 8 channels are one 16-byte load and one warp
 // instruction fetches a corner of all 8 heads. Lane c of a head owns samples
 // 4c..4c+3 (their locations in two 16-byte loads, their weights in one 8-byte
-// load); the four lanes of a head take a batch of 4 samples by shuffles and
+// load: the prologue K4 shares, msda_common.cuh); the four lanes of a head take a batch of 4 samples by shuffles and
 // issue the corner loads of 2 samples at a time (8 loads of 16 bytes),
 // predicated on the range test, before using any; at 128 registers two blocks
 // fit an SM, which measured faster than 16 loads in flight at one block.
@@ -51,7 +51,6 @@
 
 namespace {
 
-constexpr int kQWarps = 8;      // queries (one warp each) per block
 // samples whose 4 corners a lane loads before using any: 2 (8 loads of 16
 // bytes) with 2 blocks per SM (128 registers) measured faster than 4 with 1
 constexpr int kLoadGroup = 2;
@@ -89,35 +88,11 @@ msda_bwd_kernel(const __nv_bfloat16* __restrict__ value,   // [B, S, M, D]
   const long long bq = (long long)b * Q + q;
   const long long hrow = bq * M + (active ? head : 0);   // (b, q, head)
 
-  // this lane's samples s = 4c + i: locations and weights
-  float lx[4], ly[4], at[4];
-  if (LP == 16) {   // the model's shape: two 16-byte loads and one 8-byte load
-    const float4 l0 = __ldg(reinterpret_cast<const float4*>(loc + hrow * 32 + 8 * c));
-    const float4 l1 = __ldg(reinterpret_cast<const float4*>(loc + hrow * 32 + 8 * c + 4));
-    const uint2 e = __ldg(reinterpret_cast<const uint2*>(attn + hrow * 16 + 4 * c));
-    lx[0] = l0.x; ly[0] = l0.y; lx[1] = l0.z; ly[1] = l0.w;
-    lx[2] = l1.x; ly[2] = l1.y; lx[3] = l1.z; ly[3] = l1.w;
-    at[0] = bf16_lo(e.x); at[1] = bf16_hi(e.x); at[2] = bf16_lo(e.y); at[3] = bf16_hi(e.y);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int s = 4 * c + i;
-      const bool has = s < LP;
-      lx[i] = has ? loc[(hrow * LP + s) * 2] : 0.f;
-      ly[i] = has ? loc[(hrow * LP + s) * 2 + 1] : 0.f;
-      at[i] = has ? __bfloat162float(attn[hrow * LP + s]) : 0.f;
-    }
-  }
-  // pixel coordinates, rounded as pixel_location rounds them; a sample past L*P
-  // goes to -inf, which the range test below rejects
-  float px[4], py[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = 4 * c + i;
-    const int l = s < LP ? s / P : 0;
-    px[i] = s < LP ? __fsub_rn(__fmul_rn(lx[i], (float)s_lv[3 * l + 1]), 0.5f) : -INFINITY;
-    py[i] = s < LP ? __fsub_rn(__fmul_rn(ly[i], (float)s_lv[3 * l]), 0.5f) : -INFINITY;
-  }
+  // this lane's samples s = 4c + i: locations, weights and pixel coordinates
+  // (a sample past L*P goes to -inf, which the range test below rejects)
+  float lx[4], ly[4], at[4], px[4], py[4], lw[4], lh[4];
+  load_locations(loc, attn, hrow, c, LP, lx, ly, at);
+  pixel_coords(s_lv, c, LP, P, lx, ly, px, py, lw, lh);
 
   // the cotangent's 8 channels of this lane
   float g[8];

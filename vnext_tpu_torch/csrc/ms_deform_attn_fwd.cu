@@ -20,9 +20,7 @@
 //    Replaces `_v9_kernel` as reached through `ms_deform_attn_pallas_v9_cm`
 //    (ms_deform_attn_pallas_v9.py:652): locations [B, M, L, P, 2, Q] and
 //    weights [B, M, L, P, Q] with the query axis minor, output [B, M*D, Q]. The
-//    value comes token-major [B, S, M, D] (one transpose in the wrapper), so the
-//    sampling loop is K4's; the warps of a block take consecutive queries of one
-//    head. A simple first form: its stores are not coalesced within a warp.
+//    value comes token-major [B, S, M, D] (one transpose in the wrapper).
 //
 // What bounds them on the card: gathered bytes and the instructions that fetch
 // them. At IDOL-R50 serving shapes (B=10, S=Q=8617, M=8, L=P=4, D=32) one
@@ -31,32 +29,41 @@
 // MB); the arithmetic is a few FLOPs per byte. Device memory alone would take
 // 0.047 ms.
 //
-// K1's design: one warp per (batch, query) covering all 8 heads, 4 lanes per
-// head and 8 channels (16 bytes) per lane, so one warp instruction fetches a
-// corner of all 8 heads (8 x 64 B): 64 load instructions per query where one
-// lane per channel needs 512. The prologue is per lane group: a lane loads the
-// raw offsets of its 4 samples in one 16-byte load and their logits in one
-// 8-byte load, a head's softmax is a reduction over its 4 lanes, and the range
-// test is a predicate (weight 0, address clamped in range), not a branch. The
-// four lanes of a head take a batch of 4 samples by shuffles and issue all 16
-// corner loads before they use any. A block takes 8 consecutive queries of one
-// frame (the batch is outermost in the grid), so neighbouring encoder queries
-// meet overlapping value rows in L1, and each warp writes its query's 512-byte
-// output row in one coalesced store. The locations are rounded as
-// `pixel_locations` rounds them (explicit __fmul_rn / __fadd_rn), so samples on
-// pixel centres pick the same corners as the plain version.
+// One mapping for all three: one warp per (batch, query, group of 8 heads), 4
+// lanes per head and 8 channels (16 bytes) per lane, so one warp instruction
+// fetches a corner of all 8 heads (8 x 64 B): 64 load instructions per query
+// where one lane per channel needs 512. The sampling loop is shared
+// (`sample_heads` in msda_common.cuh): the four lanes of a head take a batch of
+// 4 samples by shuffles and issue all 16 corner loads before they use any, and
+// the range test is a predicate (weight 0, address clamped in range), not a
+// branch. The batch is outermost in the grid, so the warps of a block take
+// consecutive queries of one frame and neighbouring encoder queries meet
+// overlapping value rows in L1.
+// - K1's prologue is per lane group: a lane loads the raw offsets of its 4
+//   samples in one 16-byte load and their logits in one 8-byte load, a head's
+//   softmax is a reduction over its 4 lanes, and the locations are rounded as
+//   `pixel_locations` rounds them (explicit __fmul_rn / __fadd_rn), so samples
+//   on pixel centres pick the same corners as the plain version. Each warp
+//   writes its query's 512-byte output row in one coalesced store.
+// - K4's prologue is K5's (`load_locations`, `pixel_coords`): two 16-byte loads
+//   of f32 locations and one 8-byte load of weights per lane where L*P = 16,
+//   x = loc_x * w - 0.5 without a fused multiply-add. Its output row leaves as
+//   K1's does.
+// - K4b: a block takes 32 consecutive queries of one (batch, group of 8 heads).
+//   Its warps first stage the tile's locations and weights in shared memory,
+//   each global read a run of 32 queries along Q; each warp then reads its
+//   queries' samples back (the rows padded so that neither side conflicts on
+//   banks), runs K4's loop and leaves its output in shared memory, and the
+//   block writes the [256 channels x 32 queries] tile so that each channel's
+//   row is one run of 64 bytes along Q.
 //
-// K4 / K4b: one warp per (batch, query, head) and one lane per channel (D=32),
-// the sampling loop `sample_levels` of msda_common.cuh; each corner read is one
-// 64-byte row segment. The TPU machinery (tent-selector matmuls, row schedules,
-// query padding, channel-major layout) is carried over by none of them: a GPU
-// gathers directly.
+// The TPU machinery (tent-selector matmuls, row schedules, query padding,
+// channel-major layout) is carried over by none of them: a GPU gathers
+// directly.
 
 #include "msda_common.cuh"
 
 namespace {
-
-constexpr int kQWarps = 8;   // K1: queries (one warp each) per block
 
 // K1: one warp per (batch, query, group of 8 heads); lane = 4 * head + c, and
 // lane c of a head owns channels 8c..8c+7 (16 bytes of the value row) and
@@ -121,8 +128,7 @@ msda_fwd_kernel(const __nv_bfloat16* __restrict__ value,    // [B, S, M, D]
   sum += __shfl_xor_sync(kFull, sum, 1);
   sum += __shfl_xor_sync(kFull, sum, 2);
 
-  // pixel locations, rounded in pixel_locations' order (no fused multiply-add);
-  // a sample outside (-1, w) x (-1, h), NaN or past L*P gets weight 0 at (0, 0)
+  // pixel locations, rounded in pixel_locations' order (no fused multiply-add)
   float px[4], py[4], at[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -130,129 +136,140 @@ msda_fwd_kernel(const __nv_bfloat16* __restrict__ value,    // [B, S, M, D]
     const int l = s < LP ? s / P : 0;
     const float hl = (float)s_lv[3 * l], wl = (float)s_lv[3 * l + 1];
     const float* rf = ref + (bq * L + l) * REF_DIM;
-    float x, y;
     if (REF_DIM == 2) {   // point reference: x = ref_x * w - 0.5 + off_x
-      x = __fadd_rn(__fsub_rn(__fmul_rn(rf[0], wl), 0.5f), ox[i]);
-      y = __fadd_rn(__fsub_rn(__fmul_rn(rf[1], hl), 0.5f), oy[i]);
+      px[i] = __fadd_rn(__fsub_rn(__fmul_rn(rf[0], wl), 0.5f), ox[i]);
+      py[i] = __fadd_rn(__fsub_rn(__fmul_rn(rf[1], hl), 0.5f), oy[i]);
     } else {              // box reference: x = (ref_x + off_x / P * ref_w * 0.5) * w - 0.5
-      x = __fsub_rn(__fmul_rn(__fadd_rn(rf[0], __fmul_rn(__fmul_rn(__fdiv_rn(ox[i], (float)P), rf[2]), 0.5f)), wl), 0.5f);
-      y = __fsub_rn(__fmul_rn(__fadd_rn(rf[1], __fmul_rn(__fmul_rn(__fdiv_rn(oy[i], (float)P), rf[3]), 0.5f)), hl), 0.5f);
+      px[i] = __fsub_rn(__fmul_rn(__fadd_rn(rf[0], __fmul_rn(__fmul_rn(__fdiv_rn(ox[i], (float)P), rf[2]), 0.5f)), wl), 0.5f);
+      py[i] = __fsub_rn(__fmul_rn(__fadd_rn(rf[1], __fmul_rn(__fmul_rn(__fdiv_rn(oy[i], (float)P), rf[3]), 0.5f)), hl), 0.5f);
     }
-    const bool inside = s < LP && x > -1.f && x < wl && y > -1.f && y < hl;
-    px[i] = inside ? x : 0.f;
-    py[i] = inside ? y : 0.f;
-    at[i] = inside ? ex[i] / sum : 0.f;
+    at[i] = ex[i] / sum;
+    keep_inside(s < LP, wl, hl, px[i], py[i], at[i]);
   }
 
-  // sampling: batch j holds samples 4j..4j+3, owned by lane j of each head; the
-  // four lanes of a head take them by shuffles and issue all 16 corner loads
-  // (16 bytes each, clamped in range, weight 0 where outside) before using any
-  const __nv_bfloat16* vb = value + (long long)b * S * M * kD + 256 * grp + 8 * lane;
-  const long long row = (long long)M * kD;
   float acc[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-  const int batches = (LP + 3) / 4;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (j >= batches) break;
-    const int src = (lane & ~3) | j;
-    float cw[16];
-    int tok[16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float x = __shfl_sync(kFull, px[i], src);
-      const float y = __shfl_sync(kFull, py[i], src);
-      const float a = __shfl_sync(kFull, at[i], src);
-      const int s = 4 * j + i;
-      const int l = s < LP ? s / P : 0;
-      const int h = s_lv[3 * l], w = s_lv[3 * l + 1], start = s_lv[3 * l + 2];
-      const float x0f = floorf(x), y0f = floorf(y);
-      const float tx = x - x0f, ty = y - y0f;
-      const int x0 = (int)x0f, y0 = (int)y0f;
-      const bool vx0 = x0 >= 0, vx1 = x0 + 1 < w, vy0 = y0 >= 0, vy1 = y0 + 1 < h;
-      const int xa = vx0 ? x0 : 0, xb = vx1 ? x0 + 1 : w - 1;
-      const int ya = vy0 ? y0 : 0, yb = vy1 ? y0 + 1 : h - 1;
-      cw[4 * i + 0] = vx0 && vy0 ? (1.f - tx) * (1.f - ty) * a : 0.f;
-      cw[4 * i + 1] = vx1 && vy0 ? tx * (1.f - ty) * a : 0.f;
-      cw[4 * i + 2] = vx0 && vy1 ? (1.f - tx) * ty * a : 0.f;
-      cw[4 * i + 3] = vx1 && vy1 ? tx * ty * a : 0.f;
-      tok[4 * i + 0] = start + ya * w + xa;
-      tok[4 * i + 1] = start + ya * w + xb;
-      tok[4 * i + 2] = start + yb * w + xa;
-      tok[4 * i + 3] = start + yb * w + xb;
-    }
-    uint4 v[16];
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      v[k] = active ? __ldg(reinterpret_cast<const uint4*>(vb + (long long)tok[k] * row))
-                    : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const unsigned vw[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        acc[2 * u] = fmaf(cw[k], bf16_lo(vw[u]), acc[2 * u]);
-        acc[2 * u + 1] = fmaf(cw[k], bf16_hi(vw[u]), acc[2 * u + 1]);
-      }
-    }
-  }
-
-  if (active) {   // the warp's 8 x 64 bytes of the query's output row, one coalesced store
-    uint4 o;
-    unsigned* ow = reinterpret_cast<unsigned*>(&o);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const __nv_bfloat162 pr = __floats2bfloat162_rn(acc[2 * u], acc[2 * u + 1]);
-      ow[u] = *reinterpret_cast<const unsigned*>(&pr);
-    }
-    *reinterpret_cast<uint4*>(out + bq * M * kD + 256 * grp + 8 * lane) = o;
-  }
+  sample_heads(value + (long long)b * S * M * kD + 256 * grp + 8 * lane, (long long)M * kD, s_lv, LP, P,
+               lane, active, px, py, at, acc);
+  // the warp's 8 x 64 bytes of the query's output row, one coalesced store
+  if (active) store_row8(out + bq * M * kD + 256 * grp + 8 * lane, acc);
 }
 
-template <bool CM>
-__global__ void __launch_bounds__(kWarps * 32)
+// K4: one warp per (batch, query, group of 8 heads), lanes as K1's
+__global__ void __launch_bounds__(kQWarps * 32, 2)
 msda_fwd_loc_kernel(const __nv_bfloat16* __restrict__ value,  // [B, S, M, D]
-                    const float* __restrict__ loc,            // [B, Q, M, L, P, 2] | CM [B, M, L, P, 2, Q]
-                    const __nv_bfloat16* __restrict__ attn,   // [B, Q, M, L, P]    | CM [B, M, L, P, Q]
+                    const float* __restrict__ loc,            // [B, Q, M, L, P, 2]
+                    const __nv_bfloat16* __restrict__ attn,   // [B, Q, M, L, P]
                     const int* __restrict__ levels,           // [L, 3]: h, w, start
-                    __nv_bfloat16* __restrict__ out,          // [B, Q, M*D]        | CM [B, M*D, Q]
-                    int B, int Q, int S, int M, int L, int P) {
+                    __nv_bfloat16* __restrict__ out,          // [B, Q, M*D]
+                    int Q, int S, int M, int L, int P) {
   __shared__ int s_lv[3 * kMaxLevels];
   load_levels(s_lv, levels, L);
 
   const int lane = threadIdx.x & 31;
-  const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (warp >= (long long)B * Q * M) return;
+  const int groups = (M + 7) / 8;
+  const long long wq = (long long)blockIdx.x * kQWarps + (threadIdx.x >> 5);
+  if (wq >= (long long)Q * groups) return;
+  const int b = blockIdx.y;                     // the batch is outermost in the grid
+  const int q = (int)(wq / groups), grp = (int)(wq % groups);
+  const int head = 8 * grp + (lane >> 2), c = lane & 3;
+  const bool active = head < M;
   const int LP = L * P;
-  int b, m;
-  float px, py, a;
-  if (CM) {                           // warp = (b * M + m) * Q + q
-    const long long bm = warp / Q;
-    const long long q = warp % Q;
-    m = (int)(bm % M);
-    b = (int)(bm / M);
-    pixel_location(loc + bm * 2 * LP * Q + q, Q, s_lv, lane, LP, P, px, py);
-    a = lane < LP ? __bfloat162float(attn[(bm * LP + lane) * Q + q]) : 0.f;
-  } else {                            // warp = (b * Q + q) * M + m
-    m = (int)(warp % M);
-    b = (int)(warp / M / Q);
-    pixel_location(loc + warp * 2 * LP, 1, s_lv, lane, LP, P, px, py);
-    a = lane < LP ? __bfloat162float(attn[warp * LP + lane]) : 0.f;
-  }
+  const long long bq = (long long)b * Q + q;
+  const long long hrow = bq * M + (active ? head : 0);   // (b, q, head)
 
-  const __nv_bfloat16* vb = value + ((long long)b * S * M + m) * kD + lane;
-  const float acc = sample_levels(vb, (long long)M * kD, s_lv, LP, P, px, py, a);
-  if (CM) {
-    out[((warp / Q) * kD + lane) * Q + warp % Q] = __float2bfloat16(acc);
-  } else {
-    out[warp * kD + lane] = __float2bfloat16(acc);   // [B, Q, M*D]: (b*Q + q)*M*D + m*D
-  }
+  float lx[4], ly[4], at[4], px[4], py[4], wl[4], hl[4], acc[8];
+  load_locations(loc, attn, hrow, c, LP, lx, ly, at);
+  pixel_coords(s_lv, c, LP, P, lx, ly, px, py, wl, hl);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) keep_inside(4 * c + i < LP, wl[i], hl[i], px[i], py[i], at[i]);
+  sample_heads(value + (long long)b * S * M * kD + 256 * grp + 8 * lane, (long long)M * kD, s_lv, LP, P,
+               lane, active, px, py, at, acc);
+  if (active) store_row8(out + bq * M * kD + 256 * grp + 8 * lane, acc);
 }
 
-unsigned grid_for(int B, int Q, int M) {
-  const long long warps = (long long)B * Q * M;
-  return (unsigned)((warps + kWarps - 1) / kWarps);
+// K4b's tile: kCmTile queries of one (batch, group of 8 heads). Shared memory
+// holds one row of kCmRow words per query: 8 x 32 f32 location words (word k of
+// lane t at k * 32 + t: lane t = 4 * head + c holds x, y of its samples 4c + i
+// as words 2i, 2i + 1), 2 x 32 words of bf16 weight pairs (word u of lane t at
+// 256 + u * 32 + t: samples 4c + 2u, 4c + 2u + 1) and one word of padding, so
+// that 32 consecutive queries of one staged row, and the 32 lanes of one query,
+// each fall on 32 banks. After a warp has read its query's samples it leaves
+// the query's output there too (word u of lane t at u * 32 + t: channels
+// 8t + 2u, 8t + 2u + 1).
+constexpr int kCmTile = 32;
+constexpr int kCmRow = 8 * 32 + 2 * 32 + 1;
+
+__global__ void __launch_bounds__(kQWarps * 32, 2)
+msda_fwd_loc_cm_kernel(const __nv_bfloat16* __restrict__ value,  // [B, S, M, D]
+                       const float* __restrict__ loc,            // [B, M, L, P, 2, Q]
+                       const __nv_bfloat16* __restrict__ attn,   // [B, M, L, P, Q]
+                       const int* __restrict__ levels,           // [L, 3]: h, w, start
+                       __nv_bfloat16* __restrict__ out,          // [B, M*D, Q]
+                       int Q, int S, int M, int L, int P) {
+  __shared__ int s_lv[3 * kMaxLevels];
+  __shared__ unsigned s_tile[kCmTile * kCmRow];
+  const int groups = (M + 7) / 8;
+  const int grp = blockIdx.x % groups;
+  const int q0 = (blockIdx.x / groups) * kCmTile;
+  const int b = blockIdx.y;
+  const int LP = L * P;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // staging: a warp takes one row (head, component) at a time, lane = query,
+  // so each global read is a run of 32 queries along Q
+  {
+    const int q = q0 + lane;
+    unsigned* row_q = s_tile + lane * kCmRow;
+    for (int r = warp; r < 8 * 2 * LP; r += kQWarps) {
+      const int hh = r / (2 * LP), j = r % (2 * LP), head = 8 * grp + hh;
+      const int s = j >> 1;
+      const float v = head < M && q < Q ? loc[((long long)(b * M + head) * 2 * LP + j) * Q + q] : 0.f;
+      row_q[(2 * (s & 3) + (j & 1)) * 32 + 4 * hh + (s >> 2)] = __float_as_uint(v);
+    }
+    __nv_bfloat16* at_q = reinterpret_cast<__nv_bfloat16*>(row_q + 256);
+    for (int r = warp; r < 8 * LP; r += kQWarps) {
+      const int hh = r / LP, s = r % LP, head = 8 * grp + hh;
+      const __nv_bfloat16 v = head < M && q < Q ? attn[((long long)(b * M + head) * LP + s) * Q + q]
+                                                : __float2bfloat16(0.f);
+      at_q[2 * (((s & 3) >> 1) * 32 + 4 * hh + (s >> 2)) + (s & 1)] = v;
+    }
+  }
+  load_levels(s_lv, levels, L);   // its __syncthreads also ends the staging
+
+  const int head = 8 * grp + (lane >> 2), c = lane & 3;
+  const bool active = head < M;
+  const __nv_bfloat16* vb = value + (long long)b * S * M * kD + 256 * grp + 8 * lane;
+  for (int qq = warp; qq < kCmTile && q0 + qq < Q; qq += kQWarps) {
+    unsigned* row_q = s_tile + qq * kCmRow;
+    float lx[4], ly[4], at[4], px[4], py[4], wl[4], hl[4], acc[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      lx[i] = __uint_as_float(row_q[2 * i * 32 + lane]);
+      ly[i] = __uint_as_float(row_q[(2 * i + 1) * 32 + lane]);
+    }
+    const unsigned a01 = row_q[256 + lane], a23 = row_q[256 + 32 + lane];
+    at[0] = bf16_lo(a01); at[1] = bf16_hi(a01); at[2] = bf16_lo(a23); at[3] = bf16_hi(a23);
+    pixel_coords(s_lv, c, LP, P, lx, ly, px, py, wl, hl);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) keep_inside(4 * c + i < LP, wl[i], hl[i], px[i], py[i], at[i]);
+    sample_heads(vb, (long long)M * kD, s_lv, LP, P, lane, active, px, py, at, acc);
+    // words this lane read above and no other lane reads: no barrier needed
+#pragma unroll
+    for (int u = 0; u < 4; ++u) row_q[u * 32 + lane] = pack_bf16(acc[2 * u], acc[2 * u + 1]);
+  }
+  __syncthreads();
+
+  // the [256 channels x 32 queries] tile: a warp takes one pair of channels at a
+  // time, lane = query, so each channel's row leaves as one run along Q
+  const int q = q0 + lane;
+  if (q >= Q) return;
+  for (int cp = warp; cp < 128; cp += kQWarps) {   // channels 2 cp, 2 cp + 1 of the group
+    if (8 * grp + cp / 16 >= M) break;
+    const unsigned w = s_tile[lane * kCmRow + (cp & 3) * 32 + (cp >> 2)];
+    __nv_bfloat16* o = out + ((long long)b * M * kD + 256 * grp + 2 * cp) * Q + q;
+    o[0] = __ushort_as_bfloat16((unsigned short)(w & 0xffffu));
+    o[Q] = __ushort_as_bfloat16((unsigned short)(w >> 16));
+  }
 }
 
 }  // namespace
@@ -281,24 +298,28 @@ extern "C" int vnext_msda_fwd(const void* value, const void* offsets, const void
   return (int)cudaGetLastError();
 }
 
-template <bool CM>
-int launch_fwd_loc(const void* value, const void* loc, const void* attn, const void* levels,
-                   void* out, int B, int Q, int S, int M, int L, int P, void* stream) {
-  msda_fwd_loc_kernel<CM><<<grid_for(B, Q, M), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(loc),
-      static_cast<const __nv_bfloat16*>(attn), static_cast<const int*>(levels),
-      static_cast<__nv_bfloat16*>(out), B, Q, S, M, L, P);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int vnext_msda_fwd_loc(const void* value, const void* loc, const void* attn,
                                   const void* levels, void* out, int B, int Q, int S, int M,
                                   int L, int P, void* stream) {
-  return launch_fwd_loc<false>(value, loc, attn, levels, out, B, Q, S, M, L, P, stream);
+  const long long warps = (long long)Q * ((M + 7) / 8);
+  const dim3 grid((unsigned)((warps + kQWarps - 1) / kQWarps), (unsigned)B);
+  if (grid.x == 0 || grid.y == 0) return 0;
+  msda_fwd_loc_kernel<<<grid, kQWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(loc),
+      static_cast<const __nv_bfloat16*>(attn), static_cast<const int*>(levels),
+      static_cast<__nv_bfloat16*>(out), Q, S, M, L, P);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int vnext_msda_fwd_loc_cm(const void* value, const void* loc, const void* attn,
                                      const void* levels, void* out, int B, int Q, int S, int M,
                                      int L, int P, void* stream) {
-  return launch_fwd_loc<true>(value, loc, attn, levels, out, B, Q, S, M, L, P, stream);
+  const long long tiles = (long long)(Q + kCmTile - 1) / kCmTile * ((M + 7) / 8);
+  const dim3 grid((unsigned)tiles, (unsigned)B);
+  if (grid.x == 0 || grid.y == 0) return 0;
+  msda_fwd_loc_cm_kernel<<<grid, kQWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(loc),
+      static_cast<const __nv_bfloat16*>(attn), static_cast<const int*>(levels),
+      static_cast<__nv_bfloat16*>(out), Q, S, M, L, P);
+  return (int)cudaGetLastError();
 }

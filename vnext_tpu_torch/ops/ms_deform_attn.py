@@ -400,9 +400,10 @@ def _check_kernel_args(value, p, l, named):
     the given dtypes on value's device."""
     d = value.shape[-1]
     if d != 32:
-        raise ValueError(f"the MSDA kernel runs one lane per channel and needs D == 32, got {d}")
+        raise ValueError(f"the MSDA kernels give a head's channels to 4 lanes of 8: need D == 32, got {d}")
     if l * p > 16 or l > 8:
-        raise ValueError(f"the MSDA kernel holds 2*L*P locations in one warp: needs L*P <= 16, got {l}*{p}")
+        raise ValueError(f"the MSDA kernels give a head's samples to 4 lanes of 4: need L*P <= 16 and "
+                         f"L <= 8, got {l}*{p}")
     for name, t, dt in named:
         if t.device != value.device:
             raise ValueError(f"{name} is on {t.device}, value on {value.device}")
@@ -413,7 +414,8 @@ def _check_kernel_args(value, p, l, named):
 
 
 def _check_aligned(*named, what="the fused MSDA kernel"):
-    """K1 and K5 read and write 16-byte vectors: each tensor must start on a 16-byte boundary."""
+    """K1, K4, K4b and K5 read and write 16-byte vectors: each such tensor must
+    start on a 16-byte boundary."""
     for name, t in named:
         if t.data_ptr() % 16:
             raise ValueError(f"{what} reads {name} in 16-byte vectors: it must be "
@@ -426,8 +428,12 @@ def _launch_v9_fwd(value, spatial_shapes, loc, attn, counters=(KERNEL_V9_FWD,)):
     _check_kernel_args(value, p, l, (("value", value, torch.bfloat16),
                                      ("sampling_locations", loc, torch.float32),
                                      ("attention_weights", attn, torch.bfloat16)))
+    if b > 65535:
+        raise ValueError(f"the MSDA standard-entry kernel puts the batch on grid y (<= 65535), got {b}")
     levels = _level_table(spatial_shapes, value.device)
     out = torch.empty(b, q, m * d, dtype=value.dtype, device=value.device)
+    _check_aligned(("value", value), ("sampling_locations", loc), ("attention_weights", attn), ("out", out),
+                   what="the MSDA standard-entry kernel")
     lib = load_library().lib
     with torch.cuda.device(value.device):
         code = lib.vnext_msda_fwd_loc(
@@ -442,15 +448,20 @@ def _launch_v9_fwd(value, spatial_shapes, loc, attn, counters=(KERNEL_V9_FWD,)):
 
 def _launch_cm(value, spatial_shapes, loc_cm, attn_cm):
     """value: the token-major view [B, S, M, D] of valueT (``_standard_layout``)."""
-    # one transpose to token-major memory: a warp per (b, q, m) with a lane per
-    # channel reads each corner as one 64-byte row, which the channel-major
-    # layout (channels S apart) cannot give
+    # one transpose to token-major memory: K4's loop reads each corner of a
+    # head as 16-byte pieces of its 64-byte row, which the channel-major layout
+    # (a head's channels S apart) cannot give
     value = value.contiguous()
     b, s, m, d = value.shape
     l, p, q = loc_cm.shape[2], loc_cm.shape[3], loc_cm.shape[5]
     _check_kernel_args(value, p, l, (("value", value, torch.bfloat16),
                                      ("loc_cm", loc_cm, torch.float32),
                                      ("attn_cm", attn_cm, torch.bfloat16)))
+    if b > 65535:
+        raise ValueError(f"the channel-major MSDA kernel puts the batch on grid y (<= 65535), got {b}")
+    # the locations and weights are read one query per lane and the output
+    # written so, in runs along Q: only the value is read in 16-byte vectors
+    _check_aligned(("value", value), what="the channel-major MSDA kernel")
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     levels = _level_table(shapes, value.device)
     out = torch.empty(b, m * d, q, dtype=value.dtype, device=value.device)

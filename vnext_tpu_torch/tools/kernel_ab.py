@@ -1,6 +1,8 @@
 """Time K1 (the fused MSDA forward, both forms), K2 (the stem, serving and
-train shapes), K3 (the encoder epilogue) and K5 (the MSDA backward, both forms)
-of two checkouts of the port in one process tree, in turns.
+train shapes), K3 (the encoder epilogue), K4 (the MSDA standard-entry forward,
+both train forms and the serving encoder), K4b (the channel-major entry) and K5
+(the MSDA backward, both forms) of two checkouts of the port in one process
+tree, in turns.
 
     python -m vnext_tpu_torch.tools.kernel_ab --parent build/parent
 
@@ -11,8 +13,11 @@ line per run and a summary with each kernel's median per tree and the ratio
 change / parent. The inputs are ``chip_smoke.py``'s, made from fixed seeds in
 every run: phase 2a's at IDOL-R50's serving shapes (B = 10, 480x864: K1's
 encoder point form at Q = S = 8617 and decoder box form at Q = 300, K3 at
-[10, 8617, 256] with F = 1024) and phase 2b's at the train shapes (the stem at
-[4, 512, 640, 3]; K5 at B = 4, 512x640, Q = S = 6800 and Q = 300). Times are
+[10, 8617, 256] with F = 1024), phase 2b's at the train shapes (the stem at
+[4, 512, 640, 3]; K4 and K5 at B = 4, 512x640, Q = S = 6800 and Q = 300) and
+phase 2c's at the serving encoder (K4 through ``impl="pallas_v9"``, K4b
+through ``ms_deform_attn_cm`` with its value transpose, at B = 10, Q = S =
+8617). Times are
 CUDA events on one card, the median over ``--reps`` samples after warm-up:
 ``ms`` times one call per event pair, as ``chip_smoke.py`` does, so it includes
 the wrapper's host work when the card waits for it; ``stream_ms`` times 20
@@ -32,9 +37,10 @@ times one tree and prints its JSON line (what each turn above runs).
 
     python -m vnext_tpu_torch.tools.kernel_ab --sass
 
-prints, from this tree's library as compiled (``cuobjdump -sass``): K1's
-(``msda_fwd_kernel``) 128-bit global loads and how many of them each stretch
-between two f32 FMAs issues; K3's (``encoder_epilogue_kernel``) HGMMA
+prints, from this tree's library as compiled (``cuobjdump -sass``; another
+tree's with ``--root``): K1's (``msda_fwd_kernel``), K4's and K4b's
+(``msda_fwd_loc*``) 128-bit global loads, how many of them each stretch
+between two f32 FMAs issues, and their instruction count; K3's (``encoder_epilogue_kernel``) HGMMA
 instructions by shape; K5's (``msda_bwd_kernel``) reduction and atomic
 instructions by their full opcode, which carries the width.
 """
@@ -149,6 +155,37 @@ def _backward_inputs(dev):
     return forms
 
 
+def _serving_loc_inputs(dev):
+    """K4's and K4b's serving-encoder inputs as phase 2c makes them: Q = S =
+    8617 samples around each query's pixel, a quarter on pixel centres, 2% far
+    outside; returns the standard entry's (value, levels, loc, attn) and the
+    channel-major entry's (valueT, levels, loc_cm, attn_cm)."""
+    import torch
+
+    rng = np.random.RandomState(2)
+    s = sum(h * w for h, w in LEVELS)
+    wh = np.asarray([[w, h] for h, w in LEVELS], np.float64)[None, None, None, :, None, :]
+    value = rng.randn(B, s, M, D)
+    start = 0
+    for h, w in LEVELS:
+        value[:, start + np.arange(h) * w + (w - 1)] = 0.0
+        start += h * w
+    value = torch.from_numpy(value.astype(np.float32)).to(dev, torch.bfloat16)
+    grid = np.concatenate([np.stack(np.meshgrid((np.arange(w) + 0.5) / w, (np.arange(h) + 0.5) / h), -1)
+                           .reshape(-1, 2) for h, w in LEVELS])
+    loc = grid[None, :, None, None, None, :] + rng.randn(B, s, M, L, P, 2) * 3.0 / wh
+    centre = rng.rand(B, s, M, L, P) < 0.25
+    loc[centre] = ((np.floor(loc * wh) + 0.5) / wh)[centre]
+    far = rng.rand(B, s, M, L, P) < 0.02
+    loc[far] = rng.choice([-4.0, 5.0], size=(int(far.sum()), 2))
+    loc = torch.from_numpy(loc.astype(np.float32)).to(dev)
+    logits = torch.from_numpy(rng.randn(B, s, M, L * P).astype(np.float32) * 2.0).to(dev)
+    attn = torch.softmax(logits, -1).to(torch.bfloat16).view(B, s, M, L, P).contiguous()
+    cm = (value.view(B, s, M * D).transpose(1, 2).contiguous(), LEVELS,
+          loc.permute(0, 2, 3, 4, 5, 1).contiguous(), attn.permute(0, 2, 3, 4, 1).contiguous())
+    return (value, LEVELS, loc, attn), cm
+
+
 def run_one(root: Path, reps: int, keys=None) -> dict:
     sys.path.insert(0, str(root))
     import torch
@@ -167,6 +204,11 @@ def run_one(root: Path, reps: int, keys=None) -> dict:
     calls.update({f"k2_{name}": (stem.stem_conv7x7s2_bn_relu, args) for name, args in stems.items()})
     calls["k3"] = (epi.encoder_epilogue, epilogue)
     calls.update({f"k5_{form}": (msda.ms_deform_attn_v9_backward, args) for form, args in backward.items()})
+    k4 = lambda value, levels, loc, attn: msda.ms_deform_attn_standard(value, levels, loc, attn, "pallas_v9")
+    calls.update({f"k4_train_{form}": (k4, args[:4]) for form, args in backward.items()})
+    serving, cm = _serving_loc_inputs(dev)
+    calls["k4_serving_encoder"] = (k4, serving)
+    calls["k4b"] = (msda.ms_deform_attn_cm, cm)
     if keys:
         calls = {k: v for k, v in calls.items() if k in keys}
     times, stream = {}, {}
@@ -193,21 +235,25 @@ def strip_atomics(root: Path, dst: Path) -> Path:
     return dst
 
 
-def sass_report() -> dict:
-    """K1's 128-bit global loads, K3's HGMMA instructions and K5's reductions in
-    the built library's SASS (``cuobjdump``)."""
-    from vnext_tpu_torch._build import _nvcc, load_library
+def sass_report(root: Path) -> dict:
+    """K1's, K4's and K4b's 128-bit global loads, K3's HGMMA instructions and
+    K5's reductions in the SASS of ``root``'s library as built (``cuobjdump``)."""
+    from vnext_tpu_torch import _build
 
-    lib = load_library()
-    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    if not Path(_build.__file__).resolve().is_relative_to(root.resolve()):
+        raise SystemExit(f"imported {_build.__file__}, not the tree under {root}: run this file from there")
+    lib = _build.load_library()
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(cuobjdump), "-sass", str(lib.path)], capture_output=True, text=True,
                           check=True).stdout
     report = {}
     for block in text.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
-        if "msda_fwd_kernel" in name:
+        if "msda_fwd_kernel" in name or "msda_fwd_loc" in name:
             loads = [len(re.findall(r"LDG\.E[.\w]*\.128", seg)) for seg in re.split(r"\bFFMA\b", block)]
-            report[name] = {"ldg128": sum(loads), "between_ffmas": [n for n in loads if n]}
+            instructions = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?[A-Z]", block))
+            report[name] = {"ldg128": sum(loads), "between_ffmas": [n for n in loads if n],
+                            "instructions": instructions}
         elif "encoder_epilogue_kernel" in name or "msda_bwd_kernel" in name:
             pattern = r"\b(HGMMA\.[\w.]+)" if "encoder" in name else r"\b((?:REDG?|ATOMG?)\.[\w.]+)"
             ops = {}
@@ -235,16 +281,19 @@ def _run(label: str, root: Path, reps: int, keys=None) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="root of the parent tree: run parent, change, change, parent")
-    ap.add_argument("--root", type=Path, default=HERE, help="with --one: the tree to time")
+    ap.add_argument("--root", type=Path, default=HERE, help="with --one: the tree to time; with --sass: "
+                                                            "the tree whose library to read")
     ap.add_argument("--one", action="store_true", help="time one tree and print its JSON line")
     ap.add_argument("--keys", help="with --one: a comma-separated subset of the kernels to time")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--atomics-off", action="store_true",
                     help="also time K5 of each tree with its value-gradient reductions removed")
-    ap.add_argument("--sass", action="store_true", help="report K1's, K3's and K5's SASS counts in this tree")
+    ap.add_argument("--sass", action="store_true",
+                    help="report K1's, K3's, K4's, K4b's and K5's SASS counts in this tree")
     args = ap.parse_args(argv)
     if args.sass:
-        print(json.dumps(sass_report()))
+        sys.path.insert(0, str(args.root))
+        print(json.dumps(sass_report(args.root)))
         return 0
     if args.one:
         print(json.dumps(run_one(args.root, args.reps, args.keys.split(",") if args.keys else None)),
