@@ -23,8 +23,9 @@ all just after; the counts must be what the code implies.
    forward and backward at the train step's shapes. 2c: K4 and the selector's routes
    ("pallas", "pallas_v7", "pallas_v8") at the serving encoder and decoder
    shapes (the decoder's is SeqFormer's), K4b (the channel-major entry) at the
-   encoder's, and K9 at its own. 2d: the two kernels no model path runs,
-   through their entry points: ``ms_deform_attn_cm`` once and the K9 probe.
+   encoder's, and K9 at its own beside an empty kernel launched on its grid
+   (the launch floor). 2d: the two kernels no model path runs, through their
+   entry points: ``ms_deform_attn_cm`` once and the K9 probe.
 3. The serving path: IDOL-R50 (40 classes, 300 queries, 6 + 6 layers, hidden
    256, bf16, seeded random weights) through ``IDOLVideoInference`` on two
    synthetic videos of 20 and 13 frames at 480x853 (clips of 10 padded to
@@ -56,12 +57,31 @@ all just after; the counts must be what the code implies.
    boxes and hidden states, and its gradients by parameter group, compared
    within stated tolerances. It prints |value| beside the sum of the terms'
    |values| (how much the signed sum cancels) and each projected output's
-   relative L2. Alone (``--only train_numerics``) it can import the package
+   relative L2, and a second projection whose weights take the sign of the
+   CPU's outputs, so that no term cancels, held at 5% too. Alone
+   (``--only train_numerics``) it can import the package
    from another checkout (``--tree``, to bisect a move across commits) and
    rerun the card's forward with K2's or K4's plain version on the card
    (``--swap-plain``).
 10. Two IDOL-R50 train steps under "pallas": the v6 route's forward and
     backward counters at 24 each per step beside K4's and K5's.
+11. MinVIS-R50 serving (Mask2Former: 25 classes, 100 queries, 6 pixel-decoder
+    layers over 3 levels coarsest first, 9 masked-attention decoder layers,
+    hidden 256, bf16, seeded random weights) through ``MinVISVideoInference``
+    in windows of 3 on the same two videos: per window K2 / K1 / K3 = 1 / 6 /
+    6 and no K4 or K5 (K1 and K3 first held against their plain versions at
+    a window's shapes); outputs finite, ``results.json`` entries well-formed;
+    per-video ms; then the forward alone at bench.py's ``bench_minvis`` shape
+    (10 frames at 480x864), its device busy share and time by kernel.
+12. One frame of MinVIS on the card (kernels, bf16) and on the CPU (plain,
+    f32): logits, embeddings and masks within 5%, and the share of attention-
+    mask bits that differ by decoder layer.
+13. InstMove (memory 100, 4 ConvLSTM layers of 128 channels) at bench.py's
+    ``bench_instmove`` shape (bf16, B = 32, 4 past masks at 128x128): K2 once
+    per call, output finite, ms per call; card vs CPU at B = 2 within 5%; and
+    the motion-fused MinVIS runner at 480x864 must raise its ValueError (its
+    120x216 masks are not multiples of 16, where the JAX package fails too).
+    The seconds of phases 11-13 are printed.
 
 Then a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -314,6 +334,44 @@ def phase_card():
     return smi
 
 
+def epilogue_case(t, rng, b: int, s: int, label: str):
+    """K3 against its plain version on [b, s, 256] tokens with FFN 1024, drawn
+    from ``rng``, with its time beside cuBLAS's two products alone. Returns the
+    kernel entry and the inputs (attn, src, params)."""
+    import torch
+
+    from vnext_tpu_torch.ops import encoder_epilogue as epi
+
+    bf16 = torch.bfloat16
+    c, f = 256, 1024
+    attn = t(rng.randn(b, s, c) * 0.5, bf16)
+    src = t(rng.randn(b, s, c), bf16)
+    params = (t(rng.rand(c) + 0.5), t(rng.randn(c) * 0.1), t(rng.randn(f, c) * 0.06),
+              t(rng.randn(f) * 0.1), t(rng.randn(c, f) * 0.03), t(rng.randn(c) * 0.1),
+              t(rng.rand(c) + 0.5), t(rng.randn(c) * 0.1))
+    got = epi.encoder_epilogue(attn, src, *params)
+    want = epi.encoder_epilogue_plain(attn, src, *params)
+    torch.cuda.synchronize()
+    err = compare(f"K3 encoder_epilogue {label}", got, want,
+                  2 * BF16_ULP * float(want.float().abs().max()),
+                  "two bf16 ulps at the largest output: one for the final rounding, one for the "
+                  "intermediate roundings the plain version takes elsewhere (bf16 outputs of both "
+                  "products; the kernel rounds only the ReLU activation)")
+    plain_ms = time_ms(lambda: epi.encoder_epilogue_plain(attn, src, *params))
+    ms = time_ms(lambda: epi.encoder_epilogue(attn, src, *params))
+    flops = 2.0 * 2 * src.numel() * f
+    bound = bound_ms(nbytes(attn, src, got, *params), flops, "bf16")
+    # the yardstick: K3's two products alone as cuBLAS runs them (bf16 F.linear
+    # with bias, the [N, F] intermediate in device memory, no LayerNorm or ReLU)
+    h = src.view(-1, c)
+    w1b, b1b, w2b, b2b = (x.to(bf16) for x in (params[2], params[3], params[4], params[5]))
+    library_ms = time_ms(lambda: torch.nn.functional.linear(torch.nn.functional.linear(h, w1b, b1b), w2b, b2b))
+    print(f"  K3 {label} kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms "
+          f"(bf16 F.linear), cuBLAS's two bf16 F.linear alone {library_ms:.4f} ms "
+          f"({flops / (library_ms * 1e-3) / 1e12:.1f} TFLOP/s), bound {bound[0]:.4f} ms by {bound[1]}")
+    return kernel_entry(err, ms, plain_ms, bound, library_ms), (attn, src, params)
+
+
 # ---------------------------------------------------------------- phase 2
 def phase_kernels(dev):
     import torch
@@ -405,33 +463,7 @@ def phase_kernels(dev):
     results["stem"] = kernel_entry(err, ms, plain_ms, bound, library_ms)
 
     # K3 encoder epilogue
-    c, f = 256, 1024
-    attn = t(rng.randn(CLIP, s, c) * 0.5, bf16)
-    src = t(rng.randn(CLIP, s, c), bf16)
-    params = (t(rng.rand(c) + 0.5), t(rng.randn(c) * 0.1), t(rng.randn(f, c) * 0.06),
-              t(rng.randn(f) * 0.1), t(rng.randn(c, f) * 0.03), t(rng.randn(c) * 0.1),
-              t(rng.rand(c) + 0.5), t(rng.randn(c) * 0.1))
-    got = epi.encoder_epilogue(attn, src, *params)
-    want = epi.encoder_epilogue_plain(attn, src, *params)
-    torch.cuda.synchronize()
-    err = compare("K3 encoder_epilogue [10,8617,256]", got, want,
-                  2 * BF16_ULP * float(want.float().abs().max()),
-                  "two bf16 ulps at the largest output: one for the final rounding, one for the "
-                  "intermediate roundings the plain version takes elsewhere (bf16 outputs of both "
-                  "products; the kernel rounds only the ReLU activation)")
-    plain_ms = time_ms(lambda: epi.encoder_epilogue_plain(attn, src, *params))
-    ms = time_ms(lambda: epi.encoder_epilogue(attn, src, *params))
-    flops = 2.0 * 2 * src.numel() * f
-    bound = bound_ms(nbytes(attn, src, got, *params), flops, "bf16")
-    # the yardstick: K3's two products alone as cuBLAS runs them (bf16 F.linear
-    # with bias, the [N, F] intermediate in device memory, no LayerNorm or ReLU)
-    h = src.view(-1, c)
-    w1b, b1b, w2b, b2b = (x.to(bf16) for x in (params[2], params[3], params[4], params[5]))
-    library_ms = time_ms(lambda: torch.nn.functional.linear(torch.nn.functional.linear(h, w1b, b1b), w2b, b2b))
-    print(f"  K3 kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms "
-          f"(bf16 F.linear), cuBLAS's two bf16 F.linear alone {library_ms:.4f} ms "
-          f"({flops / (library_ms * 1e-3) / 1e12:.1f} TFLOP/s), bound {bound[0]:.4f} ms by {bound[1]}")
-    results["epilogue"] = kernel_entry(err, ms, plain_ms, bound, library_ms)
+    results["epilogue"], (attn, src, params) = epilogue_case(t, rng, CLIP, s, f"[{CLIP},{s},256]")
 
     # K1's fused entry and K3 are inference-only, as on the TPU: under autograd they raise
     for name, call in (
@@ -1049,12 +1081,21 @@ def phase_train_numerics(dev, swaps=()):
           f"{err:.4g} tolerance 0.05: {reason}")
     out_errs = outputs_rel_l2(got_outs)
     print(f"  the projected outputs, card vs CPU, relative L2: {fmt(out_errs)}; tolerance 0.05 each: {reason}")
+    # the same weights with the sign of the CPU's outputs: every CPU term adds, none cancels,
+    # so the relative error reads the outputs' own error and not the rounding order of a sum near 0
+    unsigned = [torch.from_numpy(np.abs(a)) * torch.sign(o) for a, o in zip(proj, want_outs)]
+    want_abs = float(sum((o * w).sum() for o, w in zip(want_outs, unsigned)))
+    got_abs = float(sum((o * w).sum() for o, w in zip(got_outs, unsigned)))
+    err_abs = abs(got_abs - want_abs) / abs(want_abs)
+    print(f"  projection with the CPU outputs' signs (no term cancels): card {got_abs:.6g} CPU {want_abs:.6g}, "
+          f"relative error {err_abs:.4g} tolerance 0.05: {reason}")
     for name in swaps:
         with plain_on_card((name,)):
             value, _, outs, _ = run(card, dev)
         print(f"  with {name}'s plain version on the card (not checked): card {value:.6g}, relative error "
               f"{abs(value - want) / abs(want):.4g}; outputs relative L2: {fmt(outputs_rel_l2(outs))}")
     require(err <= 0.05, f"projection value: relative error {err}")
+    require(err_abs <= 0.05, f"projection with the CPU outputs' signs: relative error {err_abs}")
     for k, e in out_errs.items():
         require(e <= 0.05, f"projected output {k}: relative L2 {e}")
     for group, _ in GROUPS:
@@ -1078,7 +1119,7 @@ def phase_more_kernels(dev):
     import torch
 
     from vnext_tpu_torch.ops import ms_deform_attn as msda
-    from vnext_tpu_torch.tools import exp_dynstore
+    from vnext_tpu_torch.tools import exp_dynstore, kernel_ab
 
     rng = np.random.RandomState(2)
     bf16 = torch.bfloat16
@@ -1177,15 +1218,23 @@ def phase_more_kernels(dev):
     err = compare(f"K9 dynstore {tuple(x.shape)}", got, want, 0.0,
                   "exact: the same f32 additions in the same order of steps")
     ms = time_ms(lambda: exp_dynstore.dynstore(x, r))
+    # an empty kernel on K9's grid, block and shared memory: at this size the launch sets the time.
+    # Both by events (one call per pair, the wrappers' host work included) and by the profiler
+    # (the kernels' own device time, 20 calls)
+    floor_ms = time_ms(lambda: exp_dynstore.empty_launch(x))
+    dev_ms = kernel_ab.device_ms(lambda: exp_dynstore.dynstore(x, r), "dynstore_kernel")
+    floor_dev_ms = kernel_ab.device_ms(lambda: exp_dynstore.empty_launch(x), "empty_kernel")
     plain_ms = time_ms(lambda: exp_dynstore.dynstore_plain(x, r))
     block = exp_dynstore.HB * exp_dynstore.D
     adds = 2.0 * x.shape[0] * exp_dynstore.T * block * x.shape[2]
     # the bytes the function needs: the x rows of the block, column 0 of r (the
     # offsets), the whole output once
     bound = bound_ms(nbytes(x[:, :block], r[:, :, 0], got), adds, "f32")
-    print(f"  K9 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.6f} ms by {bound[1]}; "
-          "no single library call computes it")
-    results["dynstore"] = kernel_entry(err, ms, plain_ms, bound)
+    print(f"  K9 kernel {ms:.4f} ms (device {dev_ms:.5f} ms) beside an empty kernel launched on its grid "
+          f"{floor_ms:.4f} ms (device {floor_dev_ms:.5f} ms), the launch floor; plain {plain_ms:.4f} ms, bound "
+          f"{bound[0]:.6f} ms by {bound[1]}; no single library call computes it")
+    results["dynstore"] = {**kernel_entry(err, ms, plain_ms, bound), "device_ms": dev_ms,
+                           "launch_floor_ms": floor_ms, "launch_floor_device_ms": floor_dev_ms}
     print("[phase 2c] K4b, K9 and every MSDA route agree with their plain versions")
     return results, (value_t, loc_cm, attn_cm)
 
@@ -1447,6 +1496,243 @@ def phase_selector_train(dev, kernels):
     return launches
 
 
+# ---------------------------------------------------------------- phase 11
+MINVIS_WINDOW = 3             # MODEL.MASK_FORMER.TEST.WINDOW_SIZE of configs/minvis/ovis_r50.yaml
+MINVIS_CLASSES = 25           # MODEL.MASK_FORMER.NUM_CLASSES of the same file
+MINVIS_LEVELS = ((15, 27), (30, 54), (60, 108))   # its pixel decoder at 480x864, coarsest first
+
+
+def minvis_kernel_checks(dev):
+    """K1 and K3 against their plain versions at the shapes MinVIS-R50's pixel
+    decoder gives them on a window of 3 frames: Q = S = 8505 grid references
+    over 3 levels, coarsest first (L * P = 12, K1's generic prologue), and 3 x
+    8505 tokens of 256 channels with FFN 1024."""
+    import torch
+
+    from vnext_tpu_torch.ops import ms_deform_attn as msda
+
+    rng = np.random.RandomState(11)
+    bf16 = torch.bfloat16
+    b, m, d, l, p = MINVIS_WINDOW, 8, 32, len(MINVIS_LEVELS), 4
+    s = sum(h * w for h, w in MINVIS_LEVELS)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, dtype)
+
+    grid = np.concatenate([np.stack(np.meshgrid((np.arange(w) + 0.5) / w, (np.arange(h) + 0.5) / h), -1)
+                           .reshape(-1, 2) for h, w in MINVIS_LEVELS])
+    off = rng.randn(b, s, m, l, p, 2) * 3.0
+    far = rng.rand(b, s, m, l, p) < 0.02
+    off[far] = rng.choice([-300.0, 300.0], size=(int(far.sum()), 2))
+    args = (t(rng.randn(b, s, m, d), bf16), MINVIS_LEVELS, t(off, bf16),
+            t(np.broadcast_to(grid[None, :, None, :], (b, s, l, 2))), t(rng.randn(b, s, m, l * p) * 2.0, bf16))
+    got = msda.ms_deform_attn(*args)
+    want = msda.ms_deform_attn_plain(*args)
+    torch.cuda.synchronize()
+    err = compare(f"K1 ms_deform_attn_fwd (MinVIS window, B={b}, Q=S={s}, 3 levels coarsest first)", got, want,
+                  BF16_ULP * float(want.float().abs().max()),
+                  "one bf16 ulp at the largest output: both sum the same bf16 inputs in f32 and round once")
+    ms = time_ms(lambda: msda.ms_deform_attn(*args))
+    plain_ms = time_ms(lambda: msda.ms_deform_attn_plain(*args))
+    pix = msda.pixel_locations(MINVIS_LEVELS, args[2], args[3])
+    bound = bound_ms(nbytes(*args[:1], *args[2:], got),
+                     10.0 * samples_in_range(pix, MINVIS_LEVELS, strict=True) * d, "f32")
+    print(f"  K1 (MinVIS window) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}; "
+          f"{gathered(pix, MINVIS_LEVELS, ms)}")
+    results = {"msda_minvis": kernel_entry(err, ms, plain_ms, bound)}
+
+    results["epilogue_minvis"], _ = epilogue_case(t, rng, b, s, f"(MinVIS window) [{b},{s},256]")
+    return results
+
+
+def phase_minvis(dev, kernels):
+    """MinVIS-R50 serving: ``MinVISVideoInference`` on the two synthetic videos,
+    then the forward alone at bench.py's ``bench_minvis`` shape (10 frames)."""
+    import torch
+
+    from vnext_tpu_torch.engine.minvis_inference import MinVISVideoInference
+    from vnext_tpu_torch.evaluation.ytvis_json import video_output_to_json
+    from vnext_tpu_torch.models.mask2former import build_maskformer_model
+
+    kernel_checks = minvis_kernel_checks(dev)
+    t0 = time.perf_counter()
+    model = build_maskformer_model(device=dev, seed=0)
+    print(f"  MinVIS-R50 (Mask2Former, {MINVIS_CLASSES} classes, 100 queries, 6 pixel-decoder + 9 decoder "
+          f"layers) built in {time.perf_counter() - t0:.1f} s: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} "
+          f"M parameters, dtype {model.dtype}, seeded random weights")
+    videos = {vid: synthetic_video(vid, n) for vid, n in zip((1, 2), VIDEO_FRAMES)}
+    store = {f"v{vid}/{i:05d}.jpg": fr for vid, frames in videos.items() for i, fr in enumerate(frames)}
+    records = [
+        {"video_id": vid, "height": VIDEO_HW[0], "width": VIDEO_HW[1], "length": len(frames),
+         "file_names": [f"v{vid}/{i:05d}.jpg" for i in range(len(frames))]}
+        for vid, frames in videos.items()
+    ]
+    runner = MinVISVideoInference(model, window_size=MINVIS_WINDOW, image_loader=store.__getitem__)
+    infer, finite = runner.infer_clip, []
+
+    def checked_clip(frames, size):
+        out = infer(frames, size)
+        finite.append(all(np.isfinite(v).all() for v in out.values()))
+        return out
+
+    runner.infer_clip = checked_clip
+    runner(records[1])                      # warm-up, not counted
+    finite.clear()
+
+    for kern in kernels.values():
+        kern.launches = 0
+    video_ms, results = [], []
+    for rec in records:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        results.append((rec, runner(rec)))
+        torch.cuda.synchronize()
+        video_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
+    n_windows = sum(-(-n // MINVIS_WINDOW) for n in VIDEO_FRAMES)
+    expected = {"stem_conv": n_windows, "ms_deform_attn_fwd": 6 * n_windows, "encoder_epilogue": 6 * n_windows}
+    print(f"  launches over {n_windows} windows of {MINVIS_WINDOW}: {launches} (expected {expected}: per window "
+          "one stem and 6 pixel-decoder layers of K1's point form and K3; no K4 or K5)")
+    require(launches == expected, f"launch counts {launches} != {expected}")
+    require(len(finite) == n_windows and all(finite), "non-finite MinVIS outputs")
+
+    entries = []
+    for rec, out in results:
+        js = video_output_to_json(out, rec["video_id"])
+        require(len(js) == 10, f"{len(js)} entries: MinVIS keeps its top 10 (query, class) pairs")
+        for e in js:
+            require(set(e) == {"video_id", "score", "category_id", "segmentations"}, f"entry keys {set(e)}")
+            require(0.0 <= e["score"] <= 1.0 and 1 <= e["category_id"] <= MINVIS_CLASSES, f"bad entry {e}")
+            require(len(e["segmentations"]) == rec["length"], "one segmentation per frame")
+            require(all(sg["size"] == list(VIDEO_HW) and isinstance(sg["counts"], str)
+                        for sg in e["segmentations"]), "RLE size / counts")
+        entries += js
+    json.dumps(entries)
+
+    # the forward alone at bench_minvis's shape: 10 frames at 480x864, already on the card
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(CLIP, HEIGHT, WIDTH, 3).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        forward_ms = time_ms(lambda: model.inference(x), reps=5, warmup=1)
+        busy, prof_wall = profile_busy(lambda: model.inference(x), f"MinVIS-R50 forward ({CLIP} frames)", top=12)
+    timing = {"video_ms": video_ms, "forward_ms": forward_ms, "device_busy_ms": busy,
+              "profiled_forward_ms": prof_wall, "kernels": kernel_checks}
+    print(f"  per-video ms through the runner ({', '.join(f'{n} frames' for n in VIDEO_FRAMES)}; windows of "
+          f"{MINVIS_WINDOW}, f32 outputs to the host, matching, top 10, masks at 480x853): "
+          f"{', '.join(f'{v:.1f}' for v in video_ms)}")
+    print(f"  forward only, {CLIP} frames at {HEIGHT}x{WIDTH} on the card (CUDA events, median of 5): "
+          f"{forward_ms:.2f} ms; {len(entries)} results.json entries")
+    print("[phase 11] MinVIS-R50 ran through K2 / K1 / K3; outputs finite; entries well-formed")
+    return model, runner, records[0], launches, timing
+
+
+def phase_minvis_numerics(model, runner, record):
+    """One frame at 480x864 through ``MaskFormer.forward_frames`` on the card
+    (kernels, bf16) and on the CPU (plain versions, f32)."""
+    import torch
+
+    from vnext_tpu_torch.models.mask2former import build_maskformer_model
+
+    frames, _ = runner._prepare_frames({**record, "file_names": record["file_names"][:1]})
+    cpu_model = build_maskformer_model(device="cpu", dtype=torch.float32, seed=1)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+
+    def run(m, device):
+        x = (torch.from_numpy(frames).to(device).float() - runner.pixel_mean.to(device)) / runner.pixel_std.to(device)
+        with torch.inference_mode():
+            out = m.forward_frames(x)
+        return ({"pred_logits": out["logits"][-1].float().cpu(), "pred_masks": out["masks"][-1].float().cpu(),
+                 "pred_embds": out["embeds"].float().cpu()}, [a.cpu() for a in out["attn_masks"]])
+
+    card, card_masks = run(model, next(model.parameters()).device)
+    t0 = time.perf_counter()
+    ref, ref_masks = run(cpu_model, "cpu")
+    print(f"  CPU f32 reference forward (1 frame): {time.perf_counter() - t0:.1f} s")
+    flips = [float((a != b).float().mean()) for a, b in zip(card_masks, ref_masks)]
+    print("  attention-mask bits that differ, card vs CPU, by decoder layer (each layer's mask is the "
+          "previous prediction's sigmoid < 0.5, a hard threshold; a flipped bit lets a query see a pixel, or "
+          f"not): {', '.join(f'{f:.4%}' for f in flips)}")
+    reason = ("bf16 keeps 8 significant bits and the path rounds ~100 times in sequence (53 convolutions, "
+              "6 pixel-decoder and 9 decoder layers, heads), so errors that add like a random walk reach a few "
+              "percent; the attention masks' flipped bits add to them")
+    for name in ("pred_logits", "pred_embds", "pred_masks"):
+        a, b = card[name], ref[name]
+        err = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        print(f"  {name}: relative L2 error {err:.4g} tolerance 0.05: {reason}")
+        require(err <= 0.05, f"{name}: relative error {err}")
+    print("[phase 12] MinVIS card (kernels, bf16) agrees with CPU (plain, f32) on one frame")
+    return flips
+
+
+# ---------------------------------------------------------------- phase 13
+INSTMOVE_BATCH, INSTMOVE_PAST, INSTMOVE_HW = 32, 4, (128, 128)   # bench.py's bench_instmove
+
+
+def phase_instmove(dev, kernels, minvis_model, record):
+    """InstMove at ``bench_instmove``'s shape (bf16, B = 32), card vs CPU at B =
+    2 of those inputs, and the motion-fused MinVIS runner at 480x864, which
+    must raise (its 120x216 masks are not multiples of 16)."""
+    import torch
+
+    from vnext_tpu_torch.engine.minvis_inference import MinVISVideoInference
+    from vnext_tpu_torch.models.instmove import build_instmove_model, lstm_state_hw, motion_memory_hw
+
+    model = build_instmove_model(device=dev, dtype=torch.bfloat16, seed=0)
+    print(f"  InstMove (memory 100, 4 ConvLSTM layers of 128 channels, ResNet-50 image encoder) in "
+          f"{model.dtype}: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters, seeded random weights")
+    rng = np.random.RandomState(0)
+    h, w = INSTMOVE_HW
+    masks = torch.from_numpy((rng.rand(INSTMOVE_BATCH, INSTMOVE_PAST, h, w, 1) > 0.7).astype(np.float32)).to(dev)
+    image = torch.from_numpy(rng.randn(INSTMOVE_BATCH, h, w, 3).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        model(masks, image)                 # warm-up
+        for kern in kernels.values():
+            kern.launches = 0
+        out = model(masks, image)
+        torch.cuda.synchronize()
+        launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
+        ms = time_ms(lambda: model(masks, image), reps=5, warmup=1)
+    expected = {"stem_conv": 1}
+    print(f"  launches per call: {launches} (expected {expected}: the image ResNet's stem)")
+    require(launches == expected, f"launch counts {launches} != {expected}")
+    require(out.shape == (INSTMOVE_BATCH, 1, h, w, 1) and bool(torch.isfinite(out.float()).all()),
+            f"InstMove output {tuple(out.shape)} not finite or misshapen")
+    print(f"  B={INSTMOVE_BATCH}, {INSTMOVE_PAST} past masks at {h}x{w}: {ms:.2f} ms per call (CUDA events, "
+          f"median of 5), {INSTMOVE_BATCH / ms * 1e3:.1f} instance-clips/s")
+
+    cpu = build_instmove_model(device="cpu", dtype=torch.float32, seed=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        got = model(masks[:2], image[:2]).float().cpu()
+        t0 = time.perf_counter()
+        want = cpu(masks[:2].cpu(), image[:2].cpu())
+    err = float((got - want).norm() / want.norm())
+    print(f"  card (bf16, K2) vs CPU (f32, plain) at B=2: relative L2 {err:.4g} tolerance 0.05 (CPU "
+          f"{time.perf_counter() - t0:.1f} s): bf16 rounds ~50 times in sequence (the ResNet to res3, 4 ConvLSTM "
+          "layers x 4 steps, the 3-D encoder and the decoder), errors adding like a random walk")
+    require(err <= 0.05, f"InstMove card vs CPU: relative error {err}")
+
+    # the motion-fused runner as tools/train_net_video.py runs it by default (480x864 frames, 120x216 masks)
+    predictor = build_instmove_model(device=dev, seed=0)           # f32, as the JAX package builds it
+    frames = {f"m/{i:05d}.jpg": fr for i, fr in enumerate(synthetic_video(3, INSTMOVE_PAST + 2))}
+    motion_record = {"video_id": 3, "height": VIDEO_HW[0], "width": VIDEO_HW[1], "length": len(frames),
+                     "file_names": sorted(frames)}
+    runner = MinVISVideoInference(minvis_model, window_size=MINVIS_WINDOW, motion_predictor=predictor,
+                                  image_loader=frames.__getitem__)
+    th, tw = runner.target_size
+    shapes = ["x".join(map(str, f(th // 4, tw // 4))) for f in (motion_memory_hw, lstm_state_hw)]
+    try:
+        runner(motion_record)
+    except ValueError as exc:
+        require("multiples of 16" in str(exc) and all(sh in str(exc) for sh in shapes),
+                f"unexpected ValueError (expected the shapes {shapes}): {exc}")
+        print(f"  the motion-fused runner at {th}x{tw} raises, as the JAX package fails there: {exc}")
+    else:
+        raise SmokeFailure("the motion-fused runner ran at 120x216 masks instead of raising")
+    print("[phase 13] InstMove ran through K2; card agrees with CPU; the motion runner refuses 120x216 masks")
+    return launches, {"ms_per_call": ms, "batch": INSTMOVE_BATCH, "card_vs_cpu_rel_l2": err}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
                                                  "with no argument, every phase.")
@@ -1509,9 +1795,23 @@ def main(argv=None) -> int:
     train_launches, train_timing = phase_train(dev, kernels)
     phase_train_numerics(dev)
     route_train_launches = phase_selector_train(dev, kernels)
+    torch.cuda.empty_cache()
+    phase_seconds = {}
+    t0 = time.perf_counter()
+    mv_model, mv_runner, mv_record, minvis_launches, minvis_timing = phase_minvis(dev, kernels)
+    phase_seconds["11"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    minvis_timing["attention_mask_bits_differing"] = phase_minvis_numerics(mv_model, mv_runner, mv_record)
+    phase_seconds["12"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    instmove_launches, instmove_timing = phase_instmove(dev, kernels, mv_model, mv_record)
+    phase_seconds["13"] = time.perf_counter() - t0
+    print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
+    del mv_model, mv_runner
 
     print(json.dumps({
-        "slice": timing, "seqformer": seq_timing, "train": train_timing,
+        "slice": timing, "seqformer": seq_timing, "train": train_timing, "minvis": minvis_timing,
+        "instmove": instmove_timing, "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
         "k5_decoder_form": measured["bwd_decoder"], "k6_backward_decoder_form": measured["bwd6_decoder"],
@@ -1520,7 +1820,8 @@ def main(argv=None) -> int:
     }))
     paths = {"serve": serve_launches, "seqformer": seq_launches,
              **{f"serve_{impl}": route_launches[impl] for impl in ROUTES},
-             "train": train_launches, "train_pallas": route_train_launches, "entry_points": entry_launches}
+             "train": train_launches, "train_pallas": route_train_launches, "entry_points": entry_launches,
+             "minvis": minvis_launches, "instmove": instmove_launches}
     rows = [  # (kernel, the path its launches are reported from, the measurement it is reported by)
         (msda.KERNEL, "serve", "enc"),
         (stem_conv.KERNEL, "train", "stem_train"),

@@ -22,6 +22,8 @@ import torch
 
 from vnext_tpu_torch import _build
 from vnext_tpu_torch.models.idol import IDOL
+from vnext_tpu_torch.models.instmove import InstMovePredictor
+from vnext_tpu_torch.models.mask2former import MaskFormer
 from vnext_tpu_torch.models.layers import init_weights
 from vnext_tpu_torch.models.seqformer import SeqFormer
 from vnext_tpu_torch.ops import encoder_epilogue, ms_deform_attn, stem_conv
@@ -57,7 +59,8 @@ def test_package_never_imports_jax():
     )
     count, names, bad = out.split(" ", 2)
     assert int(count) >= 15
-    for name in ("models.seqformer", "engine.seqformer_inference", "tools.exp_dynstore"):
+    for name in ("models.seqformer", "engine.seqformer_inference", "tools.exp_dynstore", "models.mask2former",
+                 "engine.minvis_inference", "models.instmove"):
         assert f"vnext_tpu_torch.{name}" in names.split(","), name
     assert bad.strip() == "[]"
 
@@ -72,7 +75,8 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "sys.meta_path.insert(0, Block())\n"
         "from vnext_tpu_torch.ops import ms_deform_attn, stem_conv, encoder_epilogue\n"
         "from vnext_tpu_torch.models import idol, seqformer\n"
-        "from vnext_tpu_torch.engine import seqformer_inference\n"
+        "from vnext_tpu_torch.engine import seqformer_inference, minvis_inference\n"
+        "from vnext_tpu_torch.models import mask2former, instmove\n"
         "from vnext_tpu_torch.tools import exp_dynstore\n"
         "from vnext_tpu_torch import _build\n"
         "print(shutil.which('nvcc'), _build.load_library.cache_info().currsize)\n",
@@ -113,6 +117,24 @@ def test_cpu_model_leaves_launch_counters_alone():
         with torch.no_grad():
             out = model.inference(torch.randn(1, 2, 64, 96, 3), torch.tensor([[64, 85]]))
         assert all(torch.isfinite(v.float()).all() for v in out.values())
+    assert [k.launches for k in COUNTERS] == before
+
+
+def test_cpu_minvis_and_instmove_leave_launch_counters_alone():
+    """MaskFormer (K1 / K3 on the card) and InstMove (K2 in bf16) on CPU tensors
+    run the plain versions, in f32 and bf16 alike."""
+    before = [k.launches for k in COUNTERS]
+    for dtype in (torch.float32, torch.bfloat16):
+        model = MaskFormer(num_classes=5, hidden_dim=32, num_queries=8, dec_layers=3, enc_layers=1,
+                           dim_feedforward=64, dtype=dtype).eval()
+        init_weights(model, seed=0)
+        motion = InstMovePredictor(memory_size=8, num_lstm_layers=2, lstm_channels=16, dtype=dtype).eval()
+        init_weights(motion, seed=0)
+        with torch.no_grad():
+            out = model.inference(torch.randn(2, 64, 96, 3))
+            pred = motion(torch.rand(2, 4, 32, 32, 1), torch.randn(2, 64, 64, 3))
+        assert all(torch.isfinite(v.float()).all() for v in out.values())
+        assert pred.shape == (2, 1, 32, 32, 1) and torch.isfinite(pred.float()).all()
     assert [k.launches for k in COUNTERS] == before
 
 

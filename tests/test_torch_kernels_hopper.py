@@ -1,10 +1,12 @@
 """K2 (the stem as an implicit GEMM on the tensor cores), K1 (the fused MSDA
 forward, one warp per query with 16-byte corner loads), K3 (the encoder
 epilogue on ``wgmma`` with bulk-copied weights), K5 (the MSDA backward on
-K1's mapping, with vector reductions), and K4 and K4b (the MSDA forward from
+K1's mapping, with vector reductions), K4 and K4b (the MSDA forward from
 given locations, standard and channel-major, on K1's loop with K5's
-prologue) against their plain versions on the card, at the edges of their
-tilings and sampling rules.
+prologue) and K9 (the dynamic-offset accumulate, one thread per output
+element) against their plain versions on the card, at the edges of their
+tilings and sampling rules, and K1 and K3 at MinVIS-R50's pixel-decoder shapes
+(3 levels, coarsest first).
 
 Every test here needs a CUDA device (``cuda`` marker; skipped without one):
 ``python -m pytest -m cuda tests/test_torch_kernels_hopper.py``. This file
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from vnext_tpu_torch.ops import encoder_epilogue, ms_deform_attn, stem_conv
+from vnext_tpu_torch.tools import exp_dynstore
 
 from _torch_helpers import cuda_device  # noqa: F401 (fixture)
 
@@ -433,3 +436,103 @@ def test_msda_loc_kernels_refuse_misaligned_views(cuda_device):
     want = ms_deform_attn.ms_deform_attn_cm_plain(value_t, levels, loc_cm, attn_cm)
     err, scale = _max_err(got, want)
     assert err <= BF16_ULP * scale, err
+
+
+# ---------------------------------------------------------------- MinVIS-R50's shapes
+# the pixel decoder's levels at 480x864, coarsest first (strides 32, 16, 8)
+MINVIS_LEVELS = ((15, 27), (30, 54), (60, 108))
+
+
+@pytest.mark.cuda
+def test_msda_kernel_at_minvis_shape(cuda_device):
+    """K1 as MinVIS-R50's pixel decoder runs it on a window of 3 frames: Q = S =
+    8505 grid references over 3 levels, coarsest first; L * P = 12 takes the
+    kernel's generic prologue, not the L * P = 16 one."""
+    rng = np.random.RandomState(8505)
+    b, m, p, d = 3, 8, 4, 32
+    s, l = sum(h * w for h, w in MINVIS_LEVELS), len(MINVIS_LEVELS)
+    grid = np.concatenate([np.stack(np.meshgrid((np.arange(w) + 0.5) / w, (np.arange(h) + 0.5) / h), -1)
+                           .reshape(-1, 2) for h, w in MINVIS_LEVELS])
+    ref = np.broadcast_to(grid[None, :, None, :], (b, s, l, 2))
+    bf16 = torch.bfloat16
+    args = (torch.tensor(rng.randn(b, s, m, d), dtype=bf16, device=cuda_device), MINVIS_LEVELS,
+            torch.tensor(rng.randn(b, s, m, l, p, 2) * 3.0, dtype=bf16, device=cuda_device),
+            torch.tensor(ref, dtype=torch.float32, device=cuda_device),
+            torch.tensor(rng.randn(b, s, m, l * p) * 2.0, dtype=bf16, device=cuda_device))
+    before = ms_deform_attn.KERNEL.launches
+    got = ms_deform_attn.ms_deform_attn(*args)
+    want = ms_deform_attn.ms_deform_attn_plain(*args)
+    assert ms_deform_attn.KERNEL.launches == before + 1
+    assert s == 8505 and got.shape == (b, s, m * d)
+    err, scale = _max_err(got, want)
+    assert err <= BF16_ULP * scale, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box", [False, True], ids=["point", "box"])
+def test_msda_kernel_at_sampling_edges_coarsest_first(cuda_device, box):
+    """3 levels, the smallest first (as Mask2Former orders them), L * P = 12:
+    samples at x = -1 and x = w - 1 exactly, on pixel centres and far outside."""
+    levels = ((2, 4), (4, 8), (8, 16))
+    rng = np.random.RandomState(12 + box)
+    s, l, p, m, q, d = sum(h * w for h, w in levels), 3, 4, 8, 301, 32
+    off, ref = _edge_samples(levels, q, m, p, box, rng)
+    bf16 = torch.bfloat16
+    args = (torch.tensor(rng.randn(1, s, m, d), dtype=bf16, device=cuda_device), levels,
+            torch.tensor(off, dtype=bf16, device=cuda_device),
+            torch.tensor(ref, dtype=torch.float32, device=cuda_device),
+            torch.tensor(rng.randn(1, q, m, l * p) * 2.0, dtype=bf16, device=cuda_device))
+    before = ms_deform_attn.KERNEL.launches
+    got = ms_deform_attn.ms_deform_attn(*args)
+    want = ms_deform_attn.ms_deform_attn_plain(*args)
+    assert ms_deform_attn.KERNEL.launches == before + 1
+    err, scale = _max_err(got, want)
+    assert err <= BF16_ULP * scale, err
+
+
+@pytest.mark.cuda
+def test_epilogue_kernel_at_minvis_tokens(cuda_device):
+    """K3 on MinVIS-R50's pixel decoder tokens: 3 frames x 8505 (a ragged last
+    tile of 128), FFN 1024."""
+    a, src, params = _epilogue_args(cuda_device, 3 * 8505, 1024)
+    before = encoder_epilogue.KERNEL.launches
+    got = encoder_epilogue.encoder_epilogue(a, src, *params)
+    want = encoder_epilogue.encoder_epilogue_plain(a, src, *params)
+    assert encoder_epilogue.KERNEL.launches == before + 1
+    err, scale = _max_err(got, want)
+    assert err <= 2 * BF16_ULP * scale, err
+
+
+# ---------------------------------------------------------------- K9
+def _dynstore_inputs(b, rows, w, starts, seed):
+    """x [b, rows, w] bf16 and r [b, 8T, w] f32 whose step t picks row chunk
+    ``starts[t]`` (column 0 of its 8 rows sums to starts[t] * T)."""
+    rng = np.random.RandomState(seed)
+    n_steps = len(starts)
+    x = torch.tensor(rng.randn(b, rows, w), dtype=torch.bfloat16)
+    r = torch.zeros(b, n_steps * exp_dynstore.ROWS_PER_STEP, w)
+    for i, s in enumerate(starts):
+        r[:, i * exp_dynstore.ROWS_PER_STEP] = float(s * n_steps)
+    return x, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, rows, w, starts, d, block_rows", [
+    (2, 128, 128, (0, 1, 2, 0), 8, 4),        # the probe
+    (3, 54, 200, (-2, 8, 1, 1, 0), 6, 3),     # a negative start and one clamped at the end; ragged grid
+], ids=["probe", "negative-and-clamped"])
+def test_dynstore_kernel_equals_plain(cuda_device, b, rows, w, starts, d, block_rows):
+    """K9, one thread per output element summing the steps that cover its row in
+    step order: bit-equal to the sequential loop. 54 rows and 200 columns leave
+    partial blocks on both axes; start -2 * 6 counts from the end (42) and is
+    clamped with 8 * 6 = 48 to the last block (36)."""
+    x, r = _dynstore_inputs(b, rows, w, starts, seed=len(starts))
+    n = len(starts)
+    before = exp_dynstore.KERNEL.launches
+    got = exp_dynstore.dynstore(x.to(cuda_device), r.to(cuda_device), n, d, block_rows)
+    assert exp_dynstore.KERNEL.launches == before + 1
+    want = exp_dynstore.dynstore_plain(x, r, n, d, block_rows)
+    assert torch.equal(got.cpu(), want)
+    exp_dynstore.empty_launch(x.to(cuda_device), n)
+    torch.cuda.synchronize()
+    assert exp_dynstore.KERNEL.launches == before + 1

@@ -121,6 +121,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "vnext_msda_fwd_loc_cm": [p, p, p, p, p, i, i, i, i, i, i, p],
         # x, r, out, B, rows, W, T, D, block_rows, stream
         "vnext_dynstore": [p, p, p, i, i, i, i, i, i, p],
+        # B, rows, W, T, stream: an empty kernel on K9's grid (its launch floor)
+        "vnext_dynstore_empty": [i, i, i, i, p],
         # value, loc, attn, grad, level_hw_start, dvalue_f32, dloc, dattn, dvalue,
         # B, Q, S, M, L, P, stream
         "vnext_msda_bwd": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p],

@@ -5,8 +5,15 @@ mechanical: the dotted flax path is the state-dict key, with
 
 - a 2-d ``kernel`` [in, out] (Dense)       -> ``weight`` [out, in]
 - a 4-d ``kernel`` HWIO (Conv)             -> ``weight`` OIHW
+- a 5-d ``kernel`` DHWIO (3-D Conv)        -> ``weight`` OIDHW
 - ``scale`` (LayerNorm / GroupNorm)        -> ``weight``
-- everything else (biases, FrozenBN statistics, embeddings) as it is.
+- everything else (biases, FrozenBN statistics, embeddings, InstMove's
+  ``memory_w``) as it is.
+
+The map goes by path and rank alone, so a ``ConvTranspose`` kernel (flax's
+(kh, kw, in, out), ``transpose_kernel=False``) takes the 4-d rule too: the
+port's ``ConvTranspose`` keeps that layout in its parameter and arranges it for
+``conv_transpose2d`` at use (``models/instmove.py``).
 
 The input is a nested dict of numpy arrays (``jax.tree.map(np.asarray, params)``),
 so this module needs neither jax nor flax.
@@ -43,6 +50,8 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 arr = arr.T
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 5:
+                arr = arr.transpose(4, 3, 0, 1, 2)
             else:
                 raise ValueError(f"{path}: a kernel of rank {arr.ndim}")
             leaf = "weight"

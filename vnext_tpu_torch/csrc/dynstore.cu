@@ -1,4 +1,4 @@
-// Read-modify-write accumulate at a data-dependent row offset (K9).
+// Accumulate at a data-dependent row offset (K9).
 //
 // Replaces the probe kernel `kernel` in tools/exp_dynstore.py, which checks
 // that a Pallas TPU kernel can add a block into its output at a row offset it
@@ -13,12 +13,17 @@
 // negative index does), and the block is then clamped inside them.
 //
 // On the TPU the steps run in order on one core and carry the sum in VMEM. On
-// the card the blocks run in parallel in no order, so the sequential axis is a
-// loop inside the thread: one thread owns one output column of one batch
-// element and walks the steps in order, so every read-modify-write of an
-// element is its own and the result is deterministic. What bounds it: nothing
-// at the probe's size (16 KB of x and 256 B of r read, 128 KB out); it is a
-// launch.
+// the card every output element (b, row, col) is one thread's, threads along
+// the columns so that loads and stores coalesce. A block first places the T
+// steps' blocks once (lanes t < T each sum their 8 values of column 0 of r and
+// put the start in shared memory); then each thread adds float(x[b, row -
+// start_t, col]) + 1 for every step whose block covers its row, in the order
+// t = 0 .. T-1, starting from 0.0f, and stores once. The f32 additions are the
+// sequential loop's, in its order, so the result equals the plain version
+// exactly, with no zeroing pass and no read-modify-write of device memory.
+// What bounds it: nothing at the probe's size (16 KB of x and 256 B of r
+// read, 128 KB written); it is a launch, which the empty kernel below, launched
+// the same way, measures.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -26,43 +31,69 @@
 namespace {
 
 constexpr int kRowsPerStep = 8;   // rows of r each step reads (the probe's r block)
-constexpr int kThreads = 128;
+constexpr int kCols = 128;        // threads of a block along the columns
+constexpr int kRows = 4;          // output rows of a block
 
-__global__ void __launch_bounds__(kThreads)
-dynstore_kernel(const __nv_bfloat16* __restrict__ x,  // [B, H*D, W]
+__device__ __forceinline__ int floor_div(int a, int n) {
+  int q = a / n;
+  if (a % n != 0 && (a < 0) != (n < 0)) --q;                  // floor, as jnp's //
+  return q;
+}
+
+__global__ void __launch_bounds__(kCols * kRows)
+dynstore_kernel(const __nv_bfloat16* __restrict__ x,  // [B, rows, W]
                 const float* __restrict__ r,          // [B, T*8, W]
-                float* __restrict__ out,              // [B, H*D, W]
+                float* __restrict__ out,              // [B, rows, W]
                 int rows, int W, int T, int D, int block_rows) {
-  const int b = blockIdx.y;
-  const int col = blockIdx.x * kThreads + threadIdx.x;
-  if (col >= W) return;
-  const __nv_bfloat16* xb = x + (long long)b * rows * W + col;
+  extern __shared__ int starts[];                     // [T]
+  const int b = blockIdx.z;
+  const int tid = threadIdx.y * kCols + threadIdx.x;
   const float* rb = r + (long long)b * T * kRowsPerStep * W;
-  float* ob = out + (long long)b * rows * W + col;
-  for (int i = 0; i < rows; ++i) ob[(long long)i * W] = 0.f;
-  for (int t = 0; t < T; ++t) {
+  for (int t = tid; t < T; t += kCols * kRows) {
     int sum = 0;
     for (int i = 0; i < kRowsPerStep; ++i) {
       sum += (int)rb[(long long)(kRowsPerStep * t + i) * W];   // truncates, as astype(int32)
     }
-    int r0 = sum / T;
-    if (sum % T != 0 && (sum < 0) != (T < 0)) --r0;            // floor, as jnp's //
-    int start = r0 * D;
+    int start = floor_div(sum, T) * D;
     if (start < 0) start += rows;
-    start = min(max(start, 0), rows - block_rows);
-    for (int i = 0; i < block_rows; ++i) {
-      ob[(long long)(start + i) * W] += __bfloat162float(xb[(long long)i * W]) + 1.f;
+    starts[t] = min(max(start, 0), rows - block_rows);
+  }
+  __syncthreads();
+  const int row = blockIdx.y * kRows + threadIdx.y;
+  const int col = blockIdx.x * kCols + threadIdx.x;
+  if (row >= rows || col >= W) return;
+  const __nv_bfloat16* xb = x + (long long)b * rows * W + col;
+  float acc = 0.f;
+  for (int t = 0; t < T; ++t) {
+    const int i = row - starts[t];
+    if (i >= 0 && i < block_rows) {
+      const float v = __bfloat162float(xb[(long long)i * W]) + 1.f;
+      acc += v;
     }
   }
+  out[((long long)b * rows + row) * W + col] = acc;
+}
+
+// the same grid, block and shared memory, and no work: the launch's own time
+__global__ void __launch_bounds__(kCols * kRows) empty_kernel() {}
+
+dim3 grid_of(int B, int rows, int W) {
+  return dim3((W + kCols - 1) / kCols, (rows + kRows - 1) / kRows, B);
 }
 
 }  // namespace
 
 extern "C" int vnext_dynstore(const void* x, const void* r, void* out, int B, int rows, int W,
                               int T, int D, int block_rows, void* stream) {
-  const dim3 grid((W + kThreads - 1) / kThreads, B);
-  dynstore_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  dynstore_kernel<<<grid_of(B, rows, W), dim3(kCols, kRows), T * sizeof(int),
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(r),
       static_cast<float*>(out), rows, W, T, D, block_rows);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vnext_dynstore_empty(int B, int rows, int W, int T, void* stream) {
+  empty_kernel<<<grid_of(B, rows, W), dim3(kCols, kRows), T * sizeof(int),
+                 static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }

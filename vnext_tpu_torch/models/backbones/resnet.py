@@ -1,4 +1,4 @@
-"""ResNet-50 trunk with frozen BN, returning res3..res5.
+"""ResNet-50 trunk with frozen BN, returning the stages it is asked for (res3..res5 by default).
 
 Counterpart of ``vnext_tpu.models.backbones.resnet.ResNet`` at depth 50 with the
 torchvision layout (``stride_in_1x1=False``: the stride sits on the 3x3). The
@@ -13,7 +13,7 @@ only for bf16; an f32 model runs the f32 convolution, as the JAX package does.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -51,11 +51,16 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    def __init__(self, depth: int = 50, dtype=torch.float32):
+    def __init__(self, depth: int = 50, dtype=torch.float32,
+                 out_features: Sequence[str] = ("res3", "res4", "res5")):
         super().__init__()
         if depth not in BLOCKS_PER_STAGE:
             raise ValueError(f"the port has ResNet depths {sorted(BLOCKS_PER_STAGE)}, got {depth}")
+        unknown = set(out_features) - {"res2", "res3", "res4", "res5"}
+        if unknown:
+            raise ValueError(f"ResNet has no outputs {sorted(unknown)}")
         self.dtype = dtype
+        self.out_features = tuple(out_features)
         self.conv1 = Conv(3, 64, 7, 2, 3, bias=False, dtype=dtype)
         self.bn1 = FrozenBatchNorm(64, dtype)
         in_ch, mid, out_ch = 64, 64, 256
@@ -81,16 +86,19 @@ class ResNet(nn.Module):
         return torch.relu(self.bn1(y))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x [B, H, W, 3] normalized; returns {"res3", "res4", "res5"} NCHW."""
+        """x [B, H, W, 3] normalized; returns the ``out_features`` NCHW. Every
+        stage holds its parameters (the flax tree has them all), but the stages
+        after the last output are not run."""
         y = self.stem(x)
         if y.is_cuda:
             y = y.contiguous(memory_format=torch.channels_last)
         # max-pool 3x3/s2 with -inf padding, as flax nn.max_pool pads
         y = F.max_pool2d(y, 3, 2, 1)
         outputs = {}
-        for stage, names in enumerate(self.stage_blocks):
+        last = max(int(name[3:]) for name in self.out_features) - 2
+        for stage, names in enumerate(self.stage_blocks[:last + 1]):
             for name in names:
                 y = getattr(self, name)(y)
-            if stage >= 1:
+            if f"res{stage + 2}" in self.out_features:
                 outputs[f"res{stage + 2}"] = y
         return outputs

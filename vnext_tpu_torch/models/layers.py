@@ -243,8 +243,8 @@ class ConvGN(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Softmax MHA (decoder self-attention): separate q/k/v/out projections, the
-    logits and the softmax in f32, written as explicit products."""
+    """Softmax MHA (decoder self- and masked cross-attention): separate q/k/v/out
+    projections, the logits and the softmax in f32, written as explicit products."""
 
     def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
         super().__init__()
@@ -252,7 +252,10 @@ class MultiHeadAttention(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, Dense(d_model, d_model, dtype))
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask`` (broadcast to [B, H, Q, K]) is True where a query may attend:
+        elsewhere its f32 logit becomes -1e9 before the softmax, as JAX's."""
         b, nq, d = q.shape
         h = self.num_heads
         hd = d // h
@@ -260,6 +263,8 @@ class MultiHeadAttention(nn.Module):
         kp = self.k_proj(k).view(b, k.shape[1], h, hd).transpose(1, 2)
         vp = self.v_proj(v).view(b, v.shape[1], h, hd).transpose(1, 2)
         logits = torch.matmul(qp, kp.transpose(-1, -2)).float() / math.sqrt(hd)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, -1e9)
         attn = torch.softmax(logits, dim=-1).to(self.dtype)
         out = torch.matmul(attn, vp).transpose(1, 2).reshape(b, nq, d)
         return self.out_proj(out)

@@ -18,10 +18,12 @@ def sine_position_embedding(
     feat_h: int,
     feat_w: int,
     num_pos_feats: int = 128,
+    offset: float = 0.5,
 ) -> torch.Tensor:
-    """[B, H, W, 2*num_pos_feats] f32 embedding (temperature 1e4, positions
-    offset by 0.5: the Deformable-DETR / IDOL convention)."""
-    temperature, offset = 10000.0, 0.5
+    """[B, H, W, 2*num_pos_feats] f32 embedding (temperature 1e4). ``offset``
+    0.5 is the Deformable-DETR / IDOL convention (cumsum - 0.5), 1.0 the
+    Mask2Former one (the plain cumsum)."""
+    temperature = 10000.0
     scale = 2 * math.pi
     eps = 1e-6
     dev = valid_hw.device

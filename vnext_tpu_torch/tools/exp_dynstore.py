@@ -31,6 +31,7 @@ from .._build import Kernel, check, load_library, stream_handle
 
 H, D, W, T, HB = 16, 8, 128, 4, 4
 ROWS_PER_STEP = 8   # rows of r each step reads (the probe's r block)
+MAX_STEPS = 12288   # one int of shared memory per step, within the 48 KB a launch gets by default
 
 KERNEL = Kernel(
     name="dynstore",
@@ -46,6 +47,15 @@ def _check_args(x, r, n_steps, d, block_rows):
         raise ValueError(f"r has {r.shape[1]} rows for {n_steps} steps of {ROWS_PER_STEP}")
     if x.shape[1] % d or block_rows * d > x.shape[1]:
         raise ValueError(f"{x.shape[1]} rows do not hold blocks of {block_rows} x {d}")
+
+
+def _check_grid(b, rows, n_steps):
+    """What the kernel's grid and shared memory take: the batch on grid z, rows
+    in fours on grid y, one int of shared memory per step."""
+    if b > 65535 or -(-rows // 4) > 65535:
+        raise ValueError(f"the dynstore kernel takes B <= 65535 and rows <= 262140, got {b}, {rows}")
+    if n_steps > MAX_STEPS:
+        raise ValueError(f"the dynstore kernel places at most {MAX_STEPS} steps in shared memory, got {n_steps}")
 
 
 def block_start(start: torch.Tensor, rows: int, block: int) -> torch.Tensor:
@@ -82,6 +92,7 @@ def dynstore(x, r, n_steps: int = T, d: int = D, block_rows: int = HB):
     if r.device != x.device or not (x.is_contiguous() and r.is_contiguous()):
         raise ValueError("the dynstore kernel needs x and r contiguous on one device")
     b, rows, w = x.shape
+    _check_grid(b, rows, n_steps)
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     lib = load_library().lib
     with torch.cuda.device(x.device):
@@ -90,6 +101,17 @@ def dynstore(x, r, n_steps: int = T, d: int = D, block_rows: int = HB):
     check(code, "dynstore")
     KERNEL.launches += 1
     return out
+
+
+def empty_launch(x, n_steps: int = T) -> None:
+    """An empty kernel on K9's grid, block and shared memory for ``x`` [B, H*D,
+    W] on the card: the time of the launch alone, K9's floor at small sizes. It
+    is not K9 and leaves K9's counter alone."""
+    b, rows, w = x.shape
+    _check_grid(b, rows, n_steps)
+    with torch.cuda.device(x.device):
+        code = load_library().lib.vnext_dynstore_empty(b, rows, w, n_steps, stream_handle(x.device))
+    check(code, "dynstore (empty launch)")
 
 
 def probe_inputs(step_starts=(0, 1, 2, 0), seed: int = 0):

@@ -1,8 +1,8 @@
 """Time K1 (the fused MSDA forward, both forms), K2 (the stem, serving and
 train shapes), K3 (the encoder epilogue), K4 (the MSDA standard-entry forward,
-both train forms and the serving encoder), K4b (the channel-major entry) and K5
-(the MSDA backward, both forms) of two checkouts of the port in one process
-tree, in turns.
+both train forms and the serving encoder), K4b (the channel-major entry), K5
+(the MSDA backward, both forms) and K9 (the dynamic-offset accumulate probe)
+of two checkouts of the port in one process tree, in turns.
 
     python -m vnext_tpu_torch.tools.kernel_ab --parent build/parent
 
@@ -17,12 +17,14 @@ encoder point form at Q = S = 8617 and decoder box form at Q = 300, K3 at
 [4, 512, 640, 3]; K4 and K5 at B = 4, 512x640, Q = S = 6800 and Q = 300) and
 phase 2c's at the serving encoder (K4 through ``impl="pallas_v9"``, K4b
 through ``ms_deform_attn_cm`` with its value transpose, at B = 10, Q = S =
-8617). Times are
+8617), and K9 at the probe's shape. Times are
 CUDA events on one card, the median over ``--reps`` samples after warm-up:
 ``ms`` times one call per event pair, as ``chip_smoke.py`` does, so it includes
 the wrapper's host work when the card waits for it; ``stream_ms`` times 20
 calls between two events, per call, so the host runs ahead wherever the kernel
-takes longer than the wrapper.
+takes longer than the wrapper. K9's wrapper takes longer than its kernel, so
+for it ``device_ms`` also gives the kernel's own time per call by
+``torch.profiler`` (20 calls).
 
     python -m vnext_tpu_torch.tools.kernel_ab --parent build/parent --atomics-off
 
@@ -193,6 +195,7 @@ def run_one(root: Path, reps: int, keys=None) -> dict:
     from vnext_tpu_torch.ops import encoder_epilogue as epi
     from vnext_tpu_torch.ops import ms_deform_attn as msda
     from vnext_tpu_torch.ops import stem_conv as stem
+    from vnext_tpu_torch.tools import exp_dynstore
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA device")
@@ -209,14 +212,38 @@ def run_one(root: Path, reps: int, keys=None) -> dict:
     serving, cm = _serving_loc_inputs(dev)
     calls["k4_serving_encoder"] = (k4, serving)
     calls["k4b"] = (msda.ms_deform_attn_cm, cm)
+    calls["k9"] = (exp_dynstore.dynstore, tuple(a.to(dev) for a in exp_dynstore.probe_inputs()))
     if keys:
         calls = {k: v for k, v in calls.items() if k in keys}
-    times, stream = {}, {}
+    times, stream, device = {}, {}, {}
     with torch.no_grad():
         for key, (fn, args) in calls.items():
             times[key] = _time_ms(lambda: fn(*args), reps)
             stream[key] = _time_ms(lambda: fn(*args), reps, calls=20)
-    return {"root": str(root), "device": torch.cuda.get_device_name(0), "ms": times, "stream_ms": stream}
+        if "k9" in calls:
+            device["k9"] = device_ms(lambda: calls["k9"][0](*calls["k9"][1]), "dynstore_kernel")
+    return {"root": str(root), "device": torch.cuda.get_device_name(0), "ms": times, "stream_ms": stream,
+            "device_ms": device}
+
+
+def device_ms(fn, kernel: str, calls: int = 20) -> float:
+    """Device time per call of the kernels whose name holds ``kernel``, by
+    ``torch.profiler`` over ``calls`` calls after one of warm-up: a kernel's own
+    time where its wrapper's host work is longer (``chip_smoke.py`` uses it too)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
+    if not events:
+        raise RuntimeError(f"the profiler saw no kernel named {kernel}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / calls
 
 
 def strip_atomics(root: Path, dst: Path) -> Path:
@@ -315,8 +342,8 @@ def main(argv=None) -> int:
     for label in order:
         runs[label].append(_run(label, trees[label], args.reps, keys[label]))
     summary = {}
-    for metric in ("ms", "stream_ms"):
-        for key in runs["change"][0][metric]:
+    for metric in ("ms", "stream_ms", "device_ms"):
+        for key in runs["change"][0].get(metric, {}):
             par = statistics.median(r[metric][key] for r in runs["parent"])
             chg = statistics.median(r[metric][key] for r in runs["change"])
             summary[f"{key} {metric}"] = {"parent": par, "change": chg, "ratio": chg / par}
