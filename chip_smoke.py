@@ -26,13 +26,18 @@ all just after; the counts must be what the code implies.
    encoder's, and K9 at its own beside an empty kernel launched on its grid
    (the launch floor). 2d: the two kernels no model path runs, through their
    entry points: ``ms_deform_attn_cm`` once and the K9 probe.
-3. The serving path: IDOL-R50 (40 classes, 300 queries, 6 + 6 layers, hidden
-   256, bf16, seeded random weights) through ``IDOLVideoInference`` on two
+Every model is built from its config file under ``configs/``, read by the
+port's own reader (``vnext_tpu_torch.config``).
+
+3. The serving path: IDOL-R50 (``configs/idol/ytvis19_r50.yaml``: 40 classes,
+   300 queries, 6 + 6 layers, hidden 256, bf16, seeded random weights) through
+   ``IDOLVideoInference`` on two
    synthetic videos of 20 and 13 frames at 480x853 (clips of 10 padded to
    480x864). The launch counters must read K1 / K2 / K3 = 12 / 1 / 6 per clip,
    all outputs must be finite and the ``results.json`` entries well-formed.
-   Then the forward alone on a clip already on the card, and its device time
-   by kernel (``torch.profiler``).
+   Then the forward alone on a clip already on the card: its time (CUDA
+   events), peak memory, the time inside the backbone (and inside its window
+   attention, for Swin), and its device time by kernel (``torch.profiler``).
 4. Frame 0 of the first video through the port on the card (kernels, bf16) and
    on the CPU (plain versions, f32), compared within stated tolerances.
 9. IDOL-R50 serving on one clip under each of the routes "pallas",
@@ -81,7 +86,20 @@ all just after; the counts must be what the code implies.
     per call, output finite, ms per call; card vs CPU at B = 2 within 5%; and
     the motion-fused MinVIS runner at 480x864 must raise its ValueError (its
     120x216 masks are not multiples of 16, where the JAX package fails too).
-    The seconds of phases 11-13 are printed.
+14. IDOL-Swin-L (``configs/idol/ytvis19_swinL.yaml``: Swin-L 192 wide, depths
+    2 / 2 / 18 / 2, window 12, bf16, seeded random weights) as phase 3: K1 /
+    K2 / K3 = 12 / 0 / 6 per clip (a patch embed, no stem), and the forward of
+    a clip of 10 at 480x864 (``bench_swinl``'s shape) with its window
+    attention's time; then frame 0 card vs CPU as phase 4.
+15. SeqFormer-Swin-L (``configs/seqformer/swin_ytvis.yaml``) as phases 7 and 8:
+    K1 / K2 / K3 / K4 = 6 / 0 / 6 / 6 per clip.
+16. IDOL-R101 (``configs/idol/ytvis19_r101.yaml``): one clip (K1 / K2 / K3 =
+    12 / 1 / 6), its forward's profile, frame 0 card vs CPU; then IDOL-Swin-L's
+    seeded state written out under the reference's names (``module.``
+    prefixed ``.pth``) and imported into a model of another seed
+    (``checkpoint/torch_import.py``): a clean report, and outputs equal bit for
+    bit to the seeded model's on a clip.
+    The seconds of phases 11-16 are printed.
 
 Then a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -101,7 +119,6 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 
@@ -113,21 +130,12 @@ LEVELS = ((60, 108), (30, 54), (15, 27), (8, 14))   # IDOL-R50 at 480x864, strid
 CLIP, HEIGHT, WIDTH = 10, 480, 864
 VIDEO_HW = (480, 853)
 VIDEO_FRAMES = (20, 13)
-SEQ_CLIP_LENGTH = 5           # MODEL.SeqFormer.CLIP_LENGTH of configs/seqformer/ytvis19_r50.yaml
 
 # the train step: TPU.TRAIN_IMAGE_SIZE and MAX_INSTANCES of configs/idol/ytvis19_r50.yaml,
 # and bench.py's single-chip share of its 32-clip batch
 TRAIN_CLIPS, TRAIN_HW, MAX_INSTS = 4, (512, 640), 48
 TRAIN_LEVELS = ((64, 80), (32, 40), (16, 20), (8, 10))
 TRAIN_STEPS = 6                      # one warm-up step, then 5 timed
-# SOLVER of configs/idol/ytvis19_r50.yaml, with the JAX package's defaults
-# (vnext_tpu/config/defaults.py) where the file sets none
-SOLVER = SimpleNamespace(
-    OPTIMIZER="ADAMW", BASE_LR=1e-4, WEIGHT_DECAY=1e-4, BACKBONE_MULTIPLIER=0.1,
-    LR_SCHEDULER_NAME="WarmupMultiStepLR", STEPS=(8000,), GAMMA=0.1, MAX_ITER=12000,
-    WARMUP_FACTOR=1.0, WARMUP_ITERS=10,
-    CLIP_GRADIENTS=SimpleNamespace(ENABLED=True, CLIP_TYPE="full_model", CLIP_VALUE=0.01),
-)
 
 # published H100 SXM peaks at 700 W (NVIDIA's data sheet): HBM bytes/s and
 # dense operations/s by operand type
@@ -504,22 +512,142 @@ def synthetic_video(seed: int, n_frames: int):
     return frames
 
 
-def phase_main_path(dev, kernels):
+def read_config(rel: str):
+    """A config file under ``configs/`` through the port's own reader, with the
+    project's keys (IDOL's, or SeqFormer's for ``seqformer/``)."""
+    from vnext_tpu_torch.config import add_idol_config, add_seqformer_config, get_cfg
+
+    cfg = get_cfg()
+    (add_seqformer_config if rel.startswith("seqformer") else add_idol_config)(cfg)
+    cfg.merge_from_file(str(Path(__file__).resolve().parent / "configs" / rel))
+    return cfg
+
+
+def synthetic_records():
+    """The two synthetic videos as an image store and their YTVIS records."""
+    videos = {vid: synthetic_video(vid, n) for vid, n in zip((1, 2), VIDEO_FRAMES)}
+    store = {f"v{vid}/{i:05d}.jpg": fr for vid, frames in videos.items() for i, fr in enumerate(frames)}
+    records = [
+        {"video_id": vid, "height": VIDEO_HW[0], "width": VIDEO_HW[1], "length": len(frames),
+         "file_names": [f"v{vid}/{i:05d}.jpg" for i in range(len(frames))]}
+        for vid, frames in videos.items()
+    ]
+    return store, records
+
+
+def raise_class_bias(model, probe):
+    """Random weights score every query alike, below the runners' thresholds
+    (the tracker's 0.2 birth score, SeqFormer's 0.05), so no instance would be
+    made and the writer would get no work. Raise the last class head's bias of
+    class 0 so that a tenth of the probed queries score 0.3 on it: the
+    tracker, the mask assembly and the writer then run for real."""
+    import torch
+
+    shift = float(np.log(0.3 / 0.7) - np.quantile(probe, 0.9))
+    with torch.no_grad():
+        getattr(model, f"class_embed_{model.dec_layers - 1}").bias[0] += shift
+    print(f"  class-0 bias raised by {shift:.3f} so that random weights make detections")
+
+
+def check_entries(results, n_classes: int):
+    """Every video's ``results.json`` entries well-formed; returns them all."""
+    from vnext_tpu_torch.evaluation.ytvis_json import video_output_to_json
+
+    entries = []
+    for rec, out in results:
+        js = video_output_to_json(out, rec["video_id"])
+        for e in js:
+            require(set(e) == {"video_id", "score", "category_id", "segmentations"}, f"entry keys {set(e)}")
+            require(0.0 <= e["score"] <= 1.0 and 1 <= e["category_id"] <= n_classes, f"bad entry {e['score']}")
+            require(len(e["segmentations"]) == rec["length"], "one segmentation per frame")
+            require(all(sg["size"] == list(VIDEO_HW) and isinstance(sg["counts"], str)
+                        for sg in e["segmentations"]), "RLE size / counts")
+        entries += js
+    require(len(entries) > 0, "no results.json entries: no instance was made")
+    json.dumps(entries)
+    return entries
+
+
+def describe(model, label: str, config: str, t0: float) -> None:
+    n = sum(p.numel() for p in model.parameters()) / 1e6
+    nb = sum(p.numel() for p in model.backbone.parameters()) / 1e6
+    print(f"  {label} from configs/{config} (the port's config reader) built in {time.perf_counter() - t0:.1f} s: "
+          f"{n:.2f} M parameters ({nb:.2f} M in the backbone), dtype {model.dtype}, seeded random weights "
+          "(the published checkpoints are not in the repository)")
+
+
+def module_ms(model, fn):
+    """Time inside the backbone and inside its Swin window-attention modules
+    (qkv, q·kᵀ, bias, mask, softmax, ·v, proj) during one call of ``fn``: CUDA
+    events recorded by forward hooks around each, summed (any idle gap
+    between their launches included)."""
+    import torch
+
+    from vnext_tpu_torch.models.backbones.swin import WindowAttention
+
+    spans = {"backbone": [], "window_attention": []}
+
+    def hooks(module, key):
+        def pre(*_):
+            spans[key].append([torch.cuda.Event(enable_timing=True)])
+            spans[key][-1][0].record()
+
+        def post(*_):
+            spans[key][-1].append(torch.cuda.Event(enable_timing=True))
+            spans[key][-1][1].record()
+
+        return [module.register_forward_pre_hook(pre), module.register_forward_hook(post)]
+
+    handles = hooks(model.backbone, "backbone")
+    for m in model.backbone.modules():
+        if isinstance(m, WindowAttention):
+            handles += hooks(m, "window_attention")
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+
+
+def forward_profile(model, fn, what: str, reps: int):
+    """The forward's time by events (median of ``reps``), peak memory, the
+    backbone's and the window attention's time, and the profiler's busy share."""
+    import torch
+
+    forward_ms = time_ms(fn, reps=reps, warmup=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    parts = module_ms(model, fn)
+    busy, wall = profile_busy(fn, what, top=15)
+    print(f"  forward only, {what} on the card (CUDA events, median of {reps}): {forward_ms:.2f} ms; peak memory "
+          f"{peak:.2f} GiB; inside the backbone {parts['backbone']:.2f} ms, inside its window attention "
+          f"{parts['window_attention']:.2f} ms (events around the modules, one call)")
+    return {"forward_ms": forward_ms, "device_busy_ms": busy, "profiled_forward_ms": wall, "peak_gib": peak,
+            "backbone_ms": parts["backbone"], "window_attention_ms": parts["window_attention"]}
+
+
+def phase_main_path(dev, kernels, config="idol/ytvis19_r50.yaml", label="IDOL-R50", tag="3"):
+    """IDOL serving from a config file: ``IDOLVideoInference`` on the two
+    synthetic videos with the launch counters read, then the forward of a clip
+    on the card alone."""
     import torch
 
     from vnext_tpu_torch.engine.vis_inference import IDOLVideoInference
-    from vnext_tpu_torch.evaluation.ytvis_json import video_output_to_json
+    from vnext_tpu_torch.models.backbones.resnet import ResNet
     from vnext_tpu_torch.models.idol import build_idol_model
 
+    cfg = read_config(config)
     t0 = time.perf_counter()
-    model = build_idol_model(device=dev, seed=0)
-    print(f"  IDOL-R50 built in {time.perf_counter() - t0:.1f} s: "
-          f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters, dtype {model.dtype}, "
-          "seeded random weights (MODEL.WEIGHTS is not in the repository)")
+    model = build_idol_model(cfg, device=dev, seed=0)
+    describe(model, label, config, t0)
 
-    videos = {vid: synthetic_video(vid, n) for vid, n in zip((1, 2), VIDEO_FRAMES)}
-    store = {f"v{vid}/{i:05d}.jpg": fr for vid, frames in videos.items() for i, fr in enumerate(frames)}
-    runner = IDOLVideoInference(model, image_loader=store.__getitem__)
+    store, records = synthetic_records()
+    runner = IDOLVideoInference.from_config(cfg, model, image_loader=store.__getitem__)
 
     clip_ms, outputs_finite = [], []
     infer = runner.infer_clip
@@ -532,21 +660,8 @@ def phase_main_path(dev, kernels):
         outputs_finite.append(all(np.isfinite(v).all() for v in out.values()))
         return out
 
-    records = [
-        {"video_id": vid, "height": VIDEO_HW[0], "width": VIDEO_HW[1], "length": len(frames),
-         "file_names": [f"v{vid}/{i:05d}.jpg" for i in range(len(frames))]}
-        for vid, frames in videos.items()
-    ]
-    # Random weights score every query alike (~0.07), below the tracker's 0.2 birth
-    # threshold, so no track would start and the writer would get no work. Raise
-    # the bias of class 0 so that a tenth of the queries of the first clip score
-    # 0.3 on it: the tracker, the mask assembly and the writer then run for real.
     first_clip = {**records[0], "file_names": records[0]["file_names"][:CLIP]}
-    probe = infer(*runner._prepare_frames(first_clip))["pred_logits"][..., 0]
-    shift = float(np.log(0.3 / 0.7) - np.quantile(probe, 0.9))
-    with torch.no_grad():
-        getattr(model, f"class_embed_{model.dec_layers - 1}").bias[0] += shift
-    print(f"  class-0 bias raised by {shift:.3f} so that random weights make detections")
+    raise_class_bias(model, infer(*runner._prepare_frames(first_clip))["pred_logits"][..., 0])
 
     runner.infer_clip = timed_clip
     # one warm-up video, not counted: first launches pay the library load and cuDNN / cuBLAS planning
@@ -562,51 +677,51 @@ def phase_main_path(dev, kernels):
     wall = time.perf_counter() - t0
     launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
 
-    n_clips = sum(-(-len(f) // CLIP) for f in videos.values())
-    expected = {"ms_deform_attn_fwd": 12 * n_clips, "stem_conv": 1 * n_clips,
-                "encoder_epilogue": 6 * n_clips}
+    n_clips = sum(-(-n // CLIP) for n in VIDEO_FRAMES)
+    expected = {"ms_deform_attn_fwd": 12 * n_clips, "encoder_epilogue": 6 * n_clips}
+    if isinstance(model.backbone, ResNet):
+        expected["stem_conv"] = n_clips
     print(f"  launches over {n_clips} clips: {launches} (expected {expected})")
     require(launches == expected, f"launch counts {launches} != {expected}")
     require(len(outputs_finite) == n_clips and all(outputs_finite), "non-finite model outputs")
-
-    entries = []
-    for rec, out in results:
-        js = video_output_to_json(out, rec["video_id"])
-        for e in js:
-            require(set(e) == {"video_id", "score", "category_id", "segmentations"}, f"entry keys {set(e)}")
-            require(0.0 <= e["score"] <= 1.0 and 1 <= e["category_id"] <= 40, f"bad entry {e['score']}")
-            require(len(e["segmentations"]) == rec["length"], "one segmentation per frame")
-            require(all(sg["size"] == list(VIDEO_HW) and isinstance(sg["counts"], str)
-                        for sg in e["segmentations"]), "RLE size / counts")
-        entries += js
-    require(len(entries) > 0, "no results.json entries: the tracker started no track")
-    json.dumps(entries)
+    entries = check_entries(results, cfg.MODEL.IDOL.NUM_CLASSES)
 
     # the forward alone, on a clip already on the card (no host copies)
     frames, size = runner._prepare_frames(first_clip)
     with torch.inference_mode():
         x = (torch.from_numpy(frames).to(dev).float() - runner.pixel_mean) / runner.pixel_std
         sizes = torch.tensor([size] * CLIP, dtype=torch.int32, device=dev)
-        forward_ms = time_ms(lambda: model.inference(x, sizes), reps=10, warmup=2)
-        busy_ms, _ = profile_busy(lambda: model.inference(x, sizes), f"IDOL-R50 serving forward ({CLIP}-frame clip)")
-    timing = {"clip_ms": statistics.median(clip_ms), "forward_ms": forward_ms, "device_busy_ms": busy_ms}
+        timing = forward_profile(model, lambda: model.inference(x, sizes),
+                                 f"{label} serving forward ({CLIP}-frame clip at {HEIGHT}x{WIDTH})", reps=10)
+    timing["clip_ms"] = statistics.median(clip_ms)
     print(f"  per-clip ms (model, host<->device copies included): "
           f"{', '.join(f'{x:.2f}' for x in clip_ms)}; median {timing['clip_ms']:.2f}")
-    print(f"  forward only, clip on the card (CUDA events, median of 10): {forward_ms:.2f} ms")
     print(f"  two videos ({sum(VIDEO_FRAMES)} frames) end to end incl. tracking and masks: {wall:.2f} s; "
           f"{len(entries)} results.json entries")
-    print("[phase 3] main path ran through every kernel; outputs finite; entries well-formed")
-    return model, runner, records[0], launches, timing
+    print(f"[phase {tag}] {label} serving ran through its kernels; outputs finite; entries well-formed")
+    return model, runner, records[0], cfg, launches, timing
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_numerics(model, runner, record):
+TRUNK_ROUNDINGS = {  # what the serving paths round in sequence, for the tolerances' reasons
+    "resnet": "~100 times in sequence (53 convolutions, 12 transformer layers, heads)",
+    "swin": "~300 times in sequence (24 Swin blocks of ~10 roundings each, 12 transformer layers, heads)",
+}
+
+
+def trunk_roundings(model) -> str:
+    from vnext_tpu_torch.models.backbones.resnet import ResNet
+
+    return TRUNK_ROUNDINGS["resnet" if isinstance(model.backbone, ResNet) else "swin"]
+
+
+def phase_numerics(model, runner, record, cfg, tag="4"):
     import torch
 
     from vnext_tpu_torch.models.idol import build_idol_model
 
     frames, size = runner._prepare_frames({**record, "file_names": record["file_names"][:1]})
-    cpu_model = build_idol_model(device="cpu", dtype=torch.float32, seed=1)
+    cpu_model = build_idol_model(cfg, device="cpu", dtype=torch.float32, seed=1)
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
 
     def run(m, device):
@@ -616,14 +731,13 @@ def phase_numerics(model, runner, record):
         with torch.inference_mode():
             return {k: v.float().cpu() for k, v in m.inference(x, sizes).items()}
 
-    card = run(model, model.backbone.conv1.weight.device)
+    card = run(model, next(model.parameters()).device)
     t0 = time.perf_counter()
     ref = run(cpu_model, "cpu")
     print(f"  CPU f32 reference forward: {time.perf_counter() - t0:.1f} s")
 
-    reason = ("bf16 keeps 8 significant bits (2^-9 relative per rounding) and the path rounds "
-              "~100 times in sequence (53 convolutions, 12 transformer layers, heads), so errors "
-              "that add like a random walk reach ~2%; 5% leaves headroom")
+    reason = (f"bf16 keeps 8 significant bits (2^-9 relative per rounding) and the path rounds "
+              f"{trunk_roundings(model)}, so errors that add like a random walk reach a few %; 5% leaves headroom")
 
     def rel(name, a, b, tol):
         err = float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -638,7 +752,7 @@ def phase_numerics(model, runner, record):
     rel("pred_logits (top-10 queries)", card["pred_logits"][0, top], ref["pred_logits"][0, top], 0.05)
     rel("pred_masks", card["pred_masks"], ref["pred_masks"], 0.05)
     rel("pred_inst_embed", card["pred_inst_embed"], ref["pred_inst_embed"], 0.05)
-    print("[phase 4] card (kernels, bf16) agrees with CPU (plain, f32) on frame 0")
+    print(f"[phase {tag}] card (kernels, bf16) agrees with CPU (plain, f32) on frame 0")
 
 
 
@@ -845,7 +959,7 @@ def phase_train(dev, kernels):
     from vnext_tpu_torch.solver import build as solver
     from vnext_tpu_torch.utils.events import CommonMetricPrinter, JSONWriter
 
-    cfg = SimpleNamespace(SOLVER=SOLVER)
+    cfg = read_config("idol/ytvis19_r50.yaml")   # its SOLVER node
     model = build_idol_model(device=dev, seed=0)
     print(f"  IDOL-R50 for training: dtype {model.dtype}, dropout 0.1, "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters")
@@ -1273,41 +1387,29 @@ def window_count(t: int, clip: int, stride: int) -> int:
     return n
 
 
-def phase_seqformer(dev, kernels):
+def phase_seqformer(dev, kernels, config="seqformer/ytvis19_r50.yaml", label="SeqFormer-R50", tag="7"):
+    """SeqFormer serving from a config file: both videos whole and the 13-frame
+    one clip-matched, with the launch counters read, then a clip's forward."""
     import torch
 
     from vnext_tpu_torch.engine.seqformer_inference import SeqFormerVideoInference
-    from vnext_tpu_torch.evaluation.ytvis_json import video_output_to_json
+    from vnext_tpu_torch.models.backbones.resnet import ResNet
     from vnext_tpu_torch.models.seqformer import build_seqformer_model
 
+    cfg = read_config(config)
     t0 = time.perf_counter()
-    model = build_seqformer_model(device=dev, seed=0)
-    print(f"  SeqFormer-R50 built in {time.perf_counter() - t0:.1f} s: "
-          f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters, dtype {model.dtype}, "
-          "seeded random weights (cocopretrain_seqformer_R50.pth is not in the repository)")
-    videos = {vid: synthetic_video(vid, n) for vid, n in zip((1, 2), VIDEO_FRAMES)}
-    store = {f"v{vid}/{i:05d}.jpg": fr for vid, frames in videos.items() for i, fr in enumerate(frames)}
-    records = [
-        {"video_id": vid, "height": VIDEO_HW[0], "width": VIDEO_HW[1], "length": len(frames),
-         "file_names": [f"v{vid}/{i:05d}.jpg" for i in range(len(frames))]}
-        for vid, frames in videos.items()
-    ]
-    whole = SeqFormerVideoInference(model, image_loader=store.__getitem__)
-    matched = SeqFormerVideoInference(model, clip_matching=True, clip_length=SEQ_CLIP_LENGTH,
-                                      clip_stride=1, image_loader=store.__getitem__)
+    model = build_seqformer_model(cfg, device=dev, seed=0)
+    describe(model, label, config, t0)
+    store, records = synthetic_records()
+    whole = SeqFormerVideoInference.from_config(cfg, model, image_loader=store.__getitem__)
+    matched = SeqFormerVideoInference.from_config(cfg, model, clip_matching=True, image_loader=store.__getitem__)
 
-    # Random weights score every query alike (~0.01), below the runner's 0.05
-    # threshold. Raise the bias of class 0 so that a tenth of the queries of the
-    # first 10 frames score 0.3 on it, so that instances, masks and entries are made.
     frames, size = whole._prepare_frames({**records[0], "file_names": records[0]["file_names"][:CLIP]})
     sizes = torch.tensor([size], dtype=torch.int32, device=dev)
     with torch.inference_mode():
         x = ((torch.from_numpy(frames).to(dev).float() - whole.pixel_mean) / whole.pixel_std)[None]
         probe = model.inference(x, sizes)["pred_logits"][:, 0].float().cpu().numpy()
-    shift = float(np.log(0.3 / 0.7) - np.quantile(probe, 0.9))
-    with torch.no_grad():
-        getattr(model, f"class_embed_{model.dec_layers - 1}").bias[0] += shift
-    print(f"  class-0 bias raised by {shift:.3f} so that random weights make detections")
+    raise_class_bias(model, probe)
 
     clip_ms, finite = [], []
     for runner in (whole, matched):
@@ -1334,51 +1436,38 @@ def phase_seqformer(dev, kernels):
     wall = time.perf_counter() - t0
     launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
 
-    n_clips = len(records) + window_count(VIDEO_FRAMES[1], SEQ_CLIP_LENGTH, 1)
-    expected = {"ms_deform_attn_fwd": 6 * n_clips, "stem_conv": n_clips, "encoder_epilogue": 6 * n_clips,
+    n_clips = len(records) + window_count(VIDEO_FRAMES[1], matched.clip_length, matched.clip_stride)
+    expected = {"ms_deform_attn_fwd": 6 * n_clips, "encoder_epilogue": 6 * n_clips,
                 "ms_deform_attn_v9_fwd": 6 * n_clips}
+    stem = isinstance(model.backbone, ResNet)
+    if stem:
+        expected["stem_conv"] = n_clips
     print(f"  launches over {n_clips} clips (2 whole videos, then the {VIDEO_FRAMES[1]}-frame one in windows "
-          f"of {SEQ_CLIP_LENGTH}): {launches} (expected {expected}: per clip one stem, 6 encoder layers of "
-          "K1's point form and K3, 6 decoder layers of K4 at batch nf, no K1 box form)")
+          f"of {matched.clip_length}): {launches} (expected {expected}: per clip {'one stem, ' if stem else ''}"
+          "6 encoder layers of K1's point form and K3, 6 decoder layers of K4 at batch nf, no K1 box form)")
     require(launches == expected, f"launch counts {launches} != {expected}")
     require(len(finite) == n_clips and all(finite), "non-finite SeqFormer outputs")
-
-    entries = []
-    for rec, out in results:
-        js = video_output_to_json(out, rec["video_id"])
-        for e in js:
-            require(set(e) == {"video_id", "score", "category_id", "segmentations"}, f"entry keys {set(e)}")
-            require(0.0 <= e["score"] <= 1.0 and 1 <= e["category_id"] <= 40, f"bad entry {e['score']}")
-            require(len(e["segmentations"]) == rec["length"], "one segmentation per frame")
-            require(all(sg["size"] == list(VIDEO_HW) and isinstance(sg["counts"], str)
-                        for sg in e["segmentations"]), "RLE size / counts")
-        entries += js
-    require(len(entries) > 0, "no results.json entries")
-    json.dumps(entries)
+    entries = check_entries(results, cfg.MODEL.SeqFormer.NUM_CLASSES)
 
     with torch.inference_mode():
-        forward_ms = time_ms(lambda: model.inference(x, sizes), reps=5, warmup=1)
-    with torch.inference_mode():
-        busy, prof_wall = profile_busy(lambda: model.inference(x, sizes),
-                                       f"SeqFormer-R50 forward ({CLIP}-frame clip)", top=10)
-    timing = {"clip_ms_by_frames": clip_ms, "forward_ms": forward_ms, "device_busy_ms": busy,
-              "profiled_forward_ms": prof_wall}
+        timing = forward_profile(model, lambda: model.inference(x, sizes),
+                                 f"{label} forward ({CLIP}-frame clip at {HEIGHT}x{WIDTH})", reps=5)
+    timing["clip_ms_by_frames"] = clip_ms
     print(f"  per-clip ms through the runner (forward, top-10 on the card, their masks to the host), "
           f"as frames: ms: {', '.join(f'{n}: {v:.2f}' for n, v in clip_ms)}")
-    print(f"  forward only, {CLIP}-frame clip on the card (CUDA events, median of 5): {forward_ms:.2f} ms")
     print(f"  2 videos whole + 1 clip-matched ({VIDEO_FRAMES[0] + 2 * VIDEO_FRAMES[1]} frames) end to end: "
           f"{wall:.2f} s; {len(entries)} results.json entries")
-    print("[phase 7] SeqFormer-R50 ran through K1 / K2 / K3 / K4; outputs finite; entries well-formed")
-    return model, whole, records[0], launches, timing
+    print(f"[phase {tag}] {label} ran through its kernels; outputs finite; entries well-formed")
+    return model, whole, records[0], cfg, launches, timing
 
 
-def phase_seqformer_numerics(model, runner, record):
+def phase_seqformer_numerics(model, runner, record, cfg, tag="8"):
     import torch
 
     from vnext_tpu_torch.models.seqformer import build_seqformer_model
 
     frames, size = runner._prepare_frames({**record, "file_names": record["file_names"][:2]})
-    cpu_model = build_seqformer_model(device="cpu", dtype=torch.float32, seed=1)
+    cpu_model = build_seqformer_model(cfg, device="cpu", dtype=torch.float32, seed=1)
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
 
     def run(m, device):
@@ -1392,8 +1481,8 @@ def phase_seqformer_numerics(model, runner, record):
     t0 = time.perf_counter()
     ref = run(cpu_model, "cpu")
     print(f"  CPU f32 reference forward (2 frames): {time.perf_counter() - t0:.1f} s")
-    reason = ("bf16 keeps 8 significant bits and the path rounds ~100 times in sequence (53 convolutions, "
-              "12 transformer layers, heads), so errors that add like a random walk reach ~2%")
+    reason = (f"bf16 keeps 8 significant bits and the path rounds {trunk_roundings(model)}, so errors that add "
+              "like a random walk reach a few %")
     box_err = float((card["pred_boxes"] - ref["pred_boxes"]).abs().max())
     print(f"  pred_boxes: max_abs_err {box_err:.4g} tolerance 0.05: sigmoids with slope <= 1/4")
     require(box_err <= 0.05, f"pred_boxes error {box_err}")
@@ -1403,7 +1492,7 @@ def phase_seqformer_numerics(model, runner, record):
         err = float((a - b).norm() / b.norm().clamp_min(1e-30))
         print(f"  {name}: relative L2 error {err:.4g} tolerance 0.05: {reason}")
         require(err <= 0.05, f"{name}: relative error {err}")
-    print("[phase 8] SeqFormer card (kernels, bf16) agrees with CPU (plain, f32) on a 2-frame clip")
+    print(f"[phase {tag}] SeqFormer card (kernels, bf16) agrees with CPU (plain, f32) on a 2-frame clip")
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1467,7 +1556,7 @@ def phase_selector_train(dev, kernels):
     from vnext_tpu_torch.models.layers import init_weights
     from vnext_tpu_torch.solver import build as solver
 
-    cfg = SimpleNamespace(SOLVER=SOLVER)
+    cfg = read_config("idol/ytvis19_r50.yaml")   # its SOLVER node
     model = IDOL(dtype=torch.bfloat16, msda_impl="pallas")
     init_weights(model, 5)
     model = model.to(dev)
@@ -1560,13 +1649,7 @@ def phase_minvis(dev, kernels):
     print(f"  MinVIS-R50 (Mask2Former, {MINVIS_CLASSES} classes, 100 queries, 6 pixel-decoder + 9 decoder "
           f"layers) built in {time.perf_counter() - t0:.1f} s: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} "
           f"M parameters, dtype {model.dtype}, seeded random weights")
-    videos = {vid: synthetic_video(vid, n) for vid, n in zip((1, 2), VIDEO_FRAMES)}
-    store = {f"v{vid}/{i:05d}.jpg": fr for vid, frames in videos.items() for i, fr in enumerate(frames)}
-    records = [
-        {"video_id": vid, "height": VIDEO_HW[0], "width": VIDEO_HW[1], "length": len(frames),
-         "file_names": [f"v{vid}/{i:05d}.jpg" for i in range(len(frames))]}
-        for vid, frames in videos.items()
-    ]
+    store, records = synthetic_records()
     runner = MinVISVideoInference(model, window_size=MINVIS_WINDOW, image_loader=store.__getitem__)
     infer, finite = runner.infer_clip, []
 
@@ -1733,6 +1816,82 @@ def phase_instmove(dev, kernels, minvis_model, record):
     return launches, {"ms_per_call": ms, "batch": INSTMOVE_BATCH, "card_vs_cpu_rel_l2": err}
 
 
+# ---------------------------------------------------------------- phase 16
+def phase_r101_and_import(dev, kernels, swin_model, swin_cfg):
+    """IDOL-R101 from its config file: one clip with the launch counters read,
+    its forward's profile, card vs CPU on one frame. Then IDOL-Swin-L's seeded
+    state, written out under the reference's names as a ``.pth``, imported
+    into a model of another seed: a clean report, and outputs equal bit for
+    bit to the seeded model's on a clip."""
+    import torch
+
+    from vnext_tpu_torch.checkpoint.torch_import import load_reference_weights, to_reference_names
+    from vnext_tpu_torch.engine.vis_inference import IDOLVideoInference
+    from vnext_tpu_torch.models.idol import build_idol_model
+
+    config = "idol/ytvis19_r101.yaml"
+    cfg = read_config(config)
+    t0 = time.perf_counter()
+    model = build_idol_model(cfg, device=dev, seed=0)
+    describe(model, "IDOL-R101", config, t0)
+    require(len(model.backbone.stage_blocks[2]) == 23 and model.backbone.layer2_0.conv2.stride == 2,
+            "IDOL-R101: 23 blocks in res4, the stride on the 3x3 (STRIDE_IN_1X1 False)")
+    store, records = synthetic_records()
+    runner = IDOLVideoInference.from_config(cfg, model, image_loader=store.__getitem__)
+    frames, size = runner._prepare_frames({**records[0], "file_names": records[0]["file_names"][:CLIP]})
+    runner.infer_clip(frames, size)         # warm-up, not counted
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = runner.infer_clip(frames, size)
+    clip_ms = (time.perf_counter() - t1) * 1e3
+    launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
+    expected = {"ms_deform_attn_fwd": 12, "stem_conv": 1, "encoder_epilogue": 6}
+    print(f"  launches over one clip: {launches} (expected {expected}); {clip_ms:.2f} ms through the runner")
+    require(launches == expected, f"launch counts {launches} != {expected}")
+    require(all(np.isfinite(v).all() for v in out.values()), "non-finite IDOL-R101 outputs")
+    with torch.inference_mode():
+        x = (torch.from_numpy(frames).to(dev).float() - runner.pixel_mean) / runner.pixel_std
+        sizes = torch.tensor([size] * CLIP, dtype=torch.int32, device=dev)
+        timing = forward_profile(model, lambda: model.inference(x, sizes),
+                                 f"IDOL-R101 serving forward ({CLIP}-frame clip at {HEIGHT}x{WIDTH})", reps=10)
+    timing["clip_ms"] = clip_ms
+    phase_numerics(model, runner, records[0], cfg, tag="16")
+    del model, runner
+    torch.cuda.empty_cache()
+
+    # the same clip (both files normalize alike) through the seeded IDOL-Swin-L and its imported copy
+    state = {k: v.detach().cpu() for k, v in swin_model.state_dict().items()}
+    reference = {f"module.{k}": v for k, v in to_reference_names(state, "idol").items()}
+    fresh = build_idol_model(swin_cfg, device=dev, seed=1)
+    require(not torch.equal(fresh.query_embed, swin_model.query_embed), "the second seed made the same weights")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "idol_swinL_seeded.pth"
+        torch.save({"model": reference}, path)
+        megabytes = path.stat().st_size / 2 ** 20
+        t0 = time.perf_counter()
+        report = load_reference_weights(str(path), fresh)
+        load_s = time.perf_counter() - t0
+    print(f"  IDOL-Swin-L's state under the reference's names ({len(reference)} tensors, {megabytes:.0f} MiB, "
+          f"'module.' prefixed) imported in {load_s:.1f} s: {report['matched']} of {len(state)} matched, "
+          f"missing {report['missing'][:5]}, unused {report['unused'][:5]}, shape mismatches "
+          f"{report['shape_mismatch'][:5]}")
+    require(report["matched"] == len(state) and not (report["missing"] or report["unused"]
+                                                     or report["shape_mismatch"]), "the import report is not clean")
+    with torch.inference_mode():
+        want = swin_model.inference(x, sizes)
+        got = fresh.inference(x, sizes)
+    differing = [k for k in want if not torch.equal(got[k], want[k])]
+    print(f"  imported vs seeded IDOL-Swin-L on a {CLIP}-frame clip: outputs {sorted(want)} equal bit for bit "
+          f"except {differing}")
+    require(not differing, f"the imported model's {differing} differ from the seeded model's")
+    print("[phase 16] IDOL-R101 ran through K1 / K2 / K3 and agrees with the CPU; the reference-format "
+          "IDOL-Swin-L import is clean and exact")
+    return launches, timing, {"tensors": len(reference), "mib": megabytes, "load_s": load_s,
+                              "matched": report["matched"], "outputs_bit_equal": not differing}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
                                                  "with no argument, every phase.")
@@ -1783,13 +1942,13 @@ def main(argv=None) -> int:
     measured.update(more)
     entry_launches = phase_entry_points(kernels, cm_inputs)
     del cm_inputs
-    model, runner, record, serve_launches, timing = phase_main_path(dev, kernels)
-    phase_numerics(model, runner, record)
+    model, runner, record, cfg, serve_launches, timing = phase_main_path(dev, kernels)
+    phase_numerics(model, runner, record, cfg)
     route_launches, route_forward_ms = phase_selector_serve(dev, kernels, model, runner, record)
     del model, runner
     torch.cuda.empty_cache()
-    seq_model, seq_runner, seq_record, seq_launches, seq_timing = phase_seqformer(dev, kernels)
-    phase_seqformer_numerics(seq_model, seq_runner, seq_record)
+    seq_model, seq_runner, seq_record, seq_cfg, seq_launches, seq_timing = phase_seqformer(dev, kernels)
+    phase_seqformer_numerics(seq_model, seq_runner, seq_record, seq_cfg)
     del seq_model, seq_runner
     torch.cuda.empty_cache()
     train_launches, train_timing = phase_train(dev, kernels)
@@ -1806,12 +1965,31 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     instmove_launches, instmove_timing = phase_instmove(dev, kernels, mv_model, mv_record)
     phase_seconds["13"] = time.perf_counter() - t0
-    print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
     del mv_model, mv_runner
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    swin_model, swin_runner, swin_record, swin_cfg, swin_launches, swin_timing = phase_main_path(
+        dev, kernels, "idol/ytvis19_swinL.yaml", "IDOL-Swin-L", tag="14")
+    phase_numerics(swin_model, swin_runner, swin_record, swin_cfg, tag="14")
+    del swin_runner
+    phase_seconds["14"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sq_model, sq_runner, sq_record, sq_cfg, seq_swin_launches, seq_swin_timing = phase_seqformer(
+        dev, kernels, "seqformer/swin_ytvis.yaml", "SeqFormer-Swin-L", tag="15")
+    phase_seqformer_numerics(sq_model, sq_runner, sq_record, sq_cfg, tag="15")
+    del sq_model, sq_runner
+    torch.cuda.empty_cache()
+    phase_seconds["15"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r101_launches, r101_timing, import_result = phase_r101_and_import(dev, kernels, swin_model, swin_cfg)
+    del swin_model
+    phase_seconds["16"] = time.perf_counter() - t0
+    print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
 
     print(json.dumps({
         "slice": timing, "seqformer": seq_timing, "train": train_timing, "minvis": minvis_timing,
-        "instmove": instmove_timing, "phase_seconds": phase_seconds,
+        "instmove": instmove_timing, "idol_swinL": swin_timing, "seqformer_swinL": seq_swin_timing,
+        "idol_r101": r101_timing, "reference_import": import_result, "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
         "k5_decoder_form": measured["bwd_decoder"], "k6_backward_decoder_form": measured["bwd6_decoder"],
@@ -1821,7 +1999,8 @@ def main(argv=None) -> int:
     paths = {"serve": serve_launches, "seqformer": seq_launches,
              **{f"serve_{impl}": route_launches[impl] for impl in ROUTES},
              "train": train_launches, "train_pallas": route_train_launches, "entry_points": entry_launches,
-             "minvis": minvis_launches, "instmove": instmove_launches}
+             "minvis": minvis_launches, "instmove": instmove_launches, "idol_swinL": swin_launches,
+             "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches}
     rows = [  # (kernel, the path its launches are reported from, the measurement it is reported by)
         (msda.KERNEL, "serve", "enc"),
         (stem_conv.KERNEL, "train", "stem_train"),

@@ -60,7 +60,8 @@ def test_package_never_imports_jax():
     count, names, bad = out.split(" ", 2)
     assert int(count) >= 15
     for name in ("models.seqformer", "engine.seqformer_inference", "tools.exp_dynstore", "models.mask2former",
-                 "engine.minvis_inference", "models.instmove"):
+                 "engine.minvis_inference", "models.instmove", "config", "config.cfgnode", "config.defaults",
+                 "config.extensions", "models.backbones", "models.backbones.swin", "checkpoint.torch_import"):
         assert f"vnext_tpu_torch.{name}" in names.split(","), name
     assert bad.strip() == "[]"
 
@@ -77,6 +78,9 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "from vnext_tpu_torch.models import idol, seqformer\n"
         "from vnext_tpu_torch.engine import seqformer_inference, minvis_inference\n"
         "from vnext_tpu_torch.models import mask2former, instmove\n"
+        "from vnext_tpu_torch.models.backbones import swin\n"
+        "from vnext_tpu_torch import config\n"
+        "from vnext_tpu_torch.checkpoint import torch_import\n"
         "from vnext_tpu_torch.tools import exp_dynstore\n"
         "from vnext_tpu_torch import _build\n"
         "print(shutil.which('nvcc'), _build.load_library.cache_info().currsize)\n",
@@ -135,6 +139,26 @@ def test_cpu_minvis_and_instmove_leave_launch_counters_alone():
             pred = motion(torch.rand(2, 4, 32, 32, 1), torch.randn(2, 64, 64, 3))
         assert all(torch.isfinite(v.float()).all() for v in out.values())
         assert pred.shape == (2, 1, 32, 32, 1) and torch.isfinite(pred.float()).all()
+    assert [k.launches for k in COUNTERS] == before
+
+
+def test_cpu_swin_and_r101_models_leave_launch_counters_alone():
+    """IDOL and SeqFormer on a tiny Swin and IDOL on ResNet-101 (MSRA layout)
+    on CPU tensors: the plain versions, in f32 and bf16 alike."""
+    before = [k.launches for k in COUNTERS]
+    swin = (32, (1, 1, 2, 1), (2, 2, 4, 4), 4, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for model, args in (
+                (IDOL(**TINY_IDOL, dtype=dtype, backbone_type="swin", swin=swin),
+                 (torch.randn(2, 64, 96, 3), torch.tensor([[64, 85]] * 2))),
+                (SeqFormer(**TINY_IDOL, dtype=dtype, backbone_type="swin", swin=swin),
+                 (torch.randn(1, 2, 64, 96, 3), torch.tensor([[64, 85]]))),
+                (IDOL(**TINY_IDOL, dtype=dtype, backbone_depth=101, stride_in_1x1=True),
+                 (torch.randn(1, 64, 96, 3), torch.tensor([[64, 85]])))):
+            init_weights(model, seed=0)
+            with torch.no_grad():
+                out = model.eval().inference(*args)
+            assert all(torch.isfinite(v.float()).all() for v in out.values())
     assert [k.launches for k in COUNTERS] == before
 
 

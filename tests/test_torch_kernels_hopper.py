@@ -6,7 +6,9 @@ given locations, standard and channel-major, on K1's loop with K5's
 prologue) and K9 (the dynamic-offset accumulate, one thread per output
 element) against their plain versions on the card, at the edges of their
 tilings and sampling rules, and K1 and K3 at MinVIS-R50's pixel-decoder shapes
-(3 levels, coarsest first).
+(3 levels, coarsest first). Also one Swin-L stage-3 block (no hand-written
+kernel: the window attention is library products) on the card in bf16 against
+the CPU in f32.
 
 Every test here needs a CUDA device (``cuda`` marker; skipped without one):
 ``python -m pytest -m cuda tests/test_torch_kernels_hopper.py``. This file
@@ -536,3 +538,27 @@ def test_dynstore_kernel_equals_plain(cuda_device, b, rows, w, starts, d, block_
     exp_dynstore.empty_launch(x.to(cuda_device), n)
     torch.cuda.synchronize()
     assert exp_dynstore.KERNEL.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 6], ids=["plain", "shifted"])
+def test_swin_large_stage3_block_card_vs_cpu(cuda_device, shift):
+    """One block of Swin-L's stage 3 (768 wide, 24 heads, window 12) on two
+    frames at 480x864 (its 30 x 54 map pads to 36 x 60: 150 windows a frame), bf16 on the card against f32 on the CPU on the same weights and the
+    same bf16 input: relative L2 within 1% (a block rounds to bf16 about ten
+    times in sequence, 2^-9 each, so ~0.5% at most if the errors add like a
+    random walk), and the padded and shifted windows leave no non-finite value."""
+    from vnext_tpu_torch.models.backbones.swin import SwinBlock
+    from vnext_tpu_torch.models.layers import init_weights
+
+    cpu = SwinBlock(768, 24, 12, shift)
+    init_weights(cpu, seed=0)
+    card = SwinBlock(768, 24, 12, shift, dtype=torch.bfloat16).to(cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 30, 54, 768, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    with torch.no_grad():
+        got = card(x.to(cuda_device)).float().cpu()
+        want = cpu(x.float())
+    assert got.shape == want.shape == (2, 30, 54, 768) and torch.isfinite(got).all()
+    err = float((got - want).norm() / want.norm())
+    assert err <= 0.01, err

@@ -325,15 +325,23 @@ def test_config_route_equals_defaults():
     defaults = {k: p.default for k, p in inspect.signature(SeqFormer.__init__).parameters.items()
                 if p.default is not inspect.Parameter.empty}
     assert kw == {k: defaults[k] for k in kw}
-    assert set(defaults) - set(kw) == {"dtype"}
+    # every argument but the dtype, and the Swin preset, which an R50 file does not select
+    assert set(defaults) - set(kw) == {"dtype", "swin"}
 
 
 def test_config_msda_impl_and_swin():
+    """The selector's key passes through; a Swin backbone name selects Swin from
+    MODEL.SWIN (the file's T defaults here, as the JAX builder reads them), and
+    STRIDE_IN_1X1, which the JAX builder ignores, raises."""
     cfg = _ytvis19_r50_cfg()
     cfg.TPU.MSDA_IMPL = "pallas_v8"
     assert seqformer_kwargs_from_cfg(cfg)["msda_impl"] == "pallas_v8"
     cfg.MODEL.BACKBONE.NAME = "D2SwinTransformer"
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    kw = seqformer_kwargs_from_cfg(cfg)
+    assert kw["backbone_type"] == "swin" and "backbone_depth" not in kw
+    assert kw["swin"] == (96, (2, 2, 6, 2), (3, 6, 12, 24), 7, 0.3)
+    cfg.MODEL.RESNETS.STRIDE_IN_1X1 = True
+    with pytest.raises(NotImplementedError, match="STRIDE_IN_1X1.*ignores"):
         seqformer_kwargs_from_cfg(cfg)
 
 

@@ -131,8 +131,9 @@ class SeqFormerVideoInference(IDOLVideoInference):
         self.topk = topk
 
     @classmethod
-    def from_config(cls, cfg, model) -> "SeqFormerVideoInference":
-        return cls(model, **seqformer_runner_kwargs_from_cfg(cfg))
+    def from_config(cls, cfg, model, **kwargs) -> "SeqFormerVideoInference":
+        """The runner a config node describes; ``kwargs`` add to or override its values."""
+        return cls(model, **{**seqformer_runner_kwargs_from_cfg(cfg), **kwargs})
 
     def infer_topk(self, frames: np.ndarray, size: Tuple[int, int]):
         """One clip of uint8 frames [T, H, W, 3] through ``SeqFormer.inference``:

@@ -151,8 +151,10 @@ class IDOLVideoInference:
         self.image_loader = image_loader or _default_loader
 
     @classmethod
-    def from_config(cls, cfg, model) -> "IDOLVideoInference":
-        return cls(model, **runner_kwargs_from_cfg(cfg))
+    def from_config(cls, cfg, model, **kwargs) -> "IDOLVideoInference":
+        """The runner a config node (``vnext_tpu_torch.config``) describes;
+        ``kwargs`` (an ``image_loader``, say) add to or override its values."""
+        return cls(model, **{**runner_kwargs_from_cfg(cfg), **kwargs})
 
     # ------------------------------------------------------------------ frames
     def _prepare_frames(self, record: dict):

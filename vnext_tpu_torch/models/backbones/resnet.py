@@ -1,7 +1,8 @@
-"""ResNet-50 trunk with frozen BN, returning the stages it is asked for (res3..res5 by default).
+"""ResNet-50/101/152 trunk with frozen BN, returning the stages it is asked for (res3..res5 by default).
 
-Counterpart of ``vnext_tpu.models.backbones.resnet.ResNet`` at depth 50 with the
-torchvision layout (``stride_in_1x1=False``: the stride sits on the 3x3). The
+Counterpart of ``vnext_tpu.models.backbones.resnet.ResNet`` at the Bottleneck
+depths, in the torchvision layout (``stride_in_1x1=False``: the stride sits on
+the 3x3) or the MSRA one (``stride_in_1x1=True``: on the first 1x1). The
 input is NHWC, as the JAX package's; inside, tensors are NCHW and, on the card,
 in ``channels_last`` memory, which is the stem kernel's NHWC output as it is.
 Outputs are NCHW.
@@ -22,17 +23,17 @@ from torch import nn
 from ...ops.stem_conv import stem_conv7x7s2_bn_relu
 from ..layers import Conv, FrozenBatchNorm
 
-BLOCKS_PER_STAGE = {50: (3, 4, 6, 3)}
+BLOCKS_PER_STAGE = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride) -> 1x1 with a residual; frozen BN."""
 
-    def __init__(self, in_ch: int, mid: int, out_ch: int, stride: int, dtype):
+    def __init__(self, in_ch: int, mid: int, out_ch: int, stride: int, dtype, stride_in_1x1: bool = False):
         super().__init__()
-        self.conv1 = Conv(in_ch, mid, 1, bias=False, dtype=dtype)
+        self.conv1 = Conv(in_ch, mid, 1, stride if stride_in_1x1 else 1, bias=False, dtype=dtype)
         self.bn1 = FrozenBatchNorm(mid, dtype)
-        self.conv2 = Conv(mid, mid, 3, stride, 1, bias=False, dtype=dtype)
+        self.conv2 = Conv(mid, mid, 3, 1 if stride_in_1x1 else stride, 1, bias=False, dtype=dtype)
         self.bn2 = FrozenBatchNorm(mid, dtype)
         self.conv3 = Conv(mid, out_ch, 1, bias=False, dtype=dtype)
         self.bn3 = FrozenBatchNorm(out_ch, dtype)
@@ -52,8 +53,11 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     def __init__(self, depth: int = 50, dtype=torch.float32,
-                 out_features: Sequence[str] = ("res3", "res4", "res5")):
+                 out_features: Sequence[str] = ("res3", "res4", "res5"), stride_in_1x1: bool = False):
         super().__init__()
+        if depth in (18, 34):
+            raise NotImplementedError(f"ResNet-{depth} (BasicBlock stages) is not ported yet: "
+                                      "ROADMAP Queue 1, item 11")
         if depth not in BLOCKS_PER_STAGE:
             raise ValueError(f"the port has ResNet depths {sorted(BLOCKS_PER_STAGE)}, got {depth}")
         unknown = set(out_features) - {"res2", "res3", "res4", "res5"}
@@ -70,11 +74,15 @@ class ResNet(nn.Module):
             for i in range(n):
                 name = f"layer{stage + 1}_{i}"
                 stride = 2 if (stage > 0 and i == 0) else 1
-                self.add_module(name, Bottleneck(in_ch, mid, out_ch, stride, dtype))
+                self.add_module(name, Bottleneck(in_ch, mid, out_ch, stride, dtype, stride_in_1x1))
                 names.append(name)
                 in_ch = out_ch
             self.stage_blocks.append(names)
             mid, out_ch = mid * 2, out_ch * 2
+
+    @property
+    def output_channels(self) -> Dict[str, int]:
+        return {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC input -> NCHW stride-2 activation (before the max-pool)."""

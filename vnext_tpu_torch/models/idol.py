@@ -1,4 +1,4 @@
-"""IDOL meta-architecture (ResNet-50 backbone): training and inference.
+"""IDOL meta-architecture (ResNet-50/101/152 or Swin backbone): training and inference.
 
 Counterpart of ``vnext_tpu.models.idol.IDOL``: backbone, input projections with
 sine positions, the deformable transformer with box refinement, the class / box
@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from .backbones.resnet import ResNet
+from .backbones import SWIN_PRESETS, backbone_kwargs_from_cfg, make_backbone
 from .condinst import MaskHeadSmallConv, num_dynamic_params, run_dynamic_mask_head
 from .criterion import Targets, loss_boxes, loss_labels, loss_masks, loss_reid
 from .deformable_transformer import DeformableTransformer
@@ -33,7 +33,6 @@ from .matcher import match, pos_neg_masks
 from .position_encoding import sine_position_embedding
 
 FEATURE_STRIDES = (8, 16, 32, 64)
-BACKBONE_CHANNELS = (512, 1024, 2048)   # res3, res4, res5 of ResNet-50
 CLASS_PRIOR = 0.01
 
 
@@ -76,7 +75,8 @@ class IDOL(DeformableVIS):
     def __init__(self, num_classes: int = 40, hidden_dim: int = 256, num_queries: int = 300,
                  nheads: int = 8, dim_feedforward: int = 1024, enc_layers: int = 6,
                  dec_layers: int = 6, num_feature_levels: int = 4, enc_n_points: int = 4,
-                 dec_n_points: int = 4, backbone_depth: int = 50, mask_out_stride: int = 4,
+                 dec_n_points: int = 4, backbone_type: str = "resnet", backbone_depth: int = 50,
+                 stride_in_1x1: bool = False, swin: tuple = SWIN_PRESETS["L"], mask_out_stride: int = 4,
                  dropout: float = 0.1, max_insts: int = 48, dtype=torch.float32,
                  msda_impl: str = "auto"):
         super().__init__()
@@ -87,10 +87,12 @@ class IDOL(DeformableVIS):
         self.dec_layers = dec_layers
         self.hidden_dim = hidden_dim
         self.mask_out_stride = mask_out_stride
-        self.backbone = ResNet(backbone_depth, dtype)
+        self.backbone = make_backbone(backbone_type, depth=backbone_depth, stride_in_1x1=stride_in_1x1,
+                                      swin=swin, dtype=dtype)
+        channels = [self.backbone.output_channels[f"res{i}"] for i in (3, 4, 5)]
         for i in range(num_feature_levels):
             extra = i >= 3
-            in_ch = BACKBONE_CHANNELS[min(i, 2)] if i <= 3 else hidden_dim
+            in_ch = channels[min(i, 2)] if i <= 3 else hidden_dim
             self.add_module(f"input_proj_{i}", ConvGN(
                 in_ch, hidden_dim, 3 if extra else 1, 2 if extra else 1, dtype=dtype))
         self.transformer = DeformableTransformer(
@@ -218,23 +220,20 @@ class IDOL(DeformableVIS):
 
 def idol_kwargs_from_cfg(cfg) -> dict:
     """IDOL constructor arguments from a config node with the JAX package's keys
-    (``MODEL.IDOL.*``, ``MODEL.RESNETS.*``, ``TPU.COMPUTE_DTYPE``,
-    ``TPU.MSDA_IMPL``); the port reads
-    the node by attribute and does not import the JAX package."""
-    if "swin" in cfg.MODEL.BACKBONE.NAME.lower():
-        raise NotImplementedError("IDOL-Swin-L is not ported yet (ROADMAP Queue 1, Swin backbone)")
-    if cfg.MODEL.RESNETS.STRIDE_IN_1X1:
-        raise NotImplementedError("the port's ResNet has the stride on the 3x3 (STRIDE_IN_1X1=False)")
+    (``MODEL.IDOL.*``, ``MODEL.BACKBONE.NAME``, ``MODEL.RESNETS.*``,
+    ``MODEL.SWIN.*``, ``TPU.COMPUTE_DTYPE``, ``TPU.MSDA_IMPL``), as the JAX
+    package's ``build_idol_model`` reads them; the port reads the node by
+    attribute (``vnext_tpu_torch.config`` reads the yaml files)."""
     c = cfg.MODEL.IDOL
     return dict(
         num_classes=c.NUM_CLASSES, hidden_dim=c.HIDDEN_DIM, num_queries=c.NUM_OBJECT_QUERIES,
         nheads=c.NHEADS, dim_feedforward=c.DIM_FEEDFORWARD, enc_layers=c.ENC_LAYERS,
         dec_layers=c.DEC_LAYERS, num_feature_levels=c.NUM_FEATURE_LEVELS,
         enc_n_points=c.ENC_N_POINTS, dec_n_points=c.DEC_N_POINTS,
-        backbone_depth=cfg.MODEL.RESNETS.DEPTH, mask_out_stride=c.MASK_STRIDE,
+        stride_in_1x1=cfg.MODEL.RESNETS.STRIDE_IN_1X1, mask_out_stride=c.MASK_STRIDE,
         dropout=c.DROPOUT, max_insts=cfg.TPU.MAX_INSTANCES,
         dtype=torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32,
-        msda_impl=cfg.TPU.MSDA_IMPL,
+        msda_impl=cfg.TPU.MSDA_IMPL, **backbone_kwargs_from_cfg(cfg),
     )
 
 

@@ -82,21 +82,23 @@ def _empty(*shape) -> nn.Parameter:
 
 # ---------------------------------------------------------------- layers
 class Dense(nn.Module):
-    """Linear layer (flax nn.Dense): weight [out, in], bias [out]."""
+    """Linear layer (flax nn.Dense): weight [out, in], bias [out] unless ``bias=False``."""
 
     def __init__(self, in_features: int, out_features: int, dtype=torch.float32,
                  kernel_init: str = "lecun",
-                 bias_init: Optional[Callable[[torch.Tensor], None]] = None):
+                 bias_init: Optional[Callable[[torch.Tensor], None]] = None, bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.kernel_init = kernel_init
         self.bias_init = bias_init
         self.weight = _empty(out_features, in_features)
-        self.bias = _empty(out_features)
+        self.bias = _empty(out_features) if bias else None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         out_f, in_f = self.weight.shape
         _kernel_init(self.weight, self.kernel_init, in_f, out_f, gen)
+        if self.bias is None:
+            return
         if self.bias_init is None:
             nn.init.zeros_(self.bias)
         else:
@@ -104,7 +106,8 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class Conv(nn.Module):

@@ -1,4 +1,4 @@
-"""Mask2Former (ResNet-50 backbone) frame inference, and MinVIS frame matching.
+"""Mask2Former (ResNet-50/101/152 or Swin backbone) frame inference, and MinVIS frame matching.
 
 Counterpart of ``vnext_tpu.models.mask2former``: the deformable pixel decoder
 (its encoder layers are the port's ``EncoderLayer`` over 3 levels, so in eval
@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from ..ops.interpolate import resize_bilinear
-from .backbones.resnet import ResNet
+from .backbones import SWIN_PRESETS, backbone_kwargs_from_cfg, make_backbone
 from .deformable_transformer import EncoderLayer, encoder_reference_points
 from .layers import MLP, Conv, Dense, GroupNorm, LayerNorm, MultiHeadAttention, init_weights
 from .position_encoding import sine_position_embedding
@@ -33,7 +33,7 @@ from .position_encoding import sine_position_embedding
 # the pixel decoder's levels, coarsest first (the reference reverses its
 # transformer_in_features): input_proj_0 and level_embed[0] belong to res5
 DECODER_LEVELS = ("res5", "res4", "res3")
-RES_CHANNELS = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}   # ResNet-50
+RES_CHANNELS = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}   # ResNet-50/101/152
 
 
 def _full_positions(b: int, h: int, w: int, c: int, device) -> torch.Tensor:
@@ -48,19 +48,20 @@ class MSDeformAttnPixelDecoder(nn.Module):
     mask features."""
 
     def __init__(self, hidden_dim: int = 256, mask_dim: int = 256, num_encoder_layers: int = 6,
-                 n_heads: int = 8, n_points: int = 4, dtype=torch.float32, msda_impl: str = "auto"):
+                 n_heads: int = 8, n_points: int = 4, dtype=torch.float32, msda_impl: str = "auto",
+                 in_channels: Dict[str, int] = RES_CHANNELS):
         super().__init__()
         self.hidden_dim, self.dtype = hidden_dim, dtype
         self.num_encoder_layers = num_encoder_layers
         for lvl, name in enumerate(DECODER_LEVELS):
-            self.add_module(f"input_proj_{lvl}", Conv(RES_CHANNELS[name], hidden_dim, 1, dtype=dtype))
+            self.add_module(f"input_proj_{lvl}", Conv(in_channels[name], hidden_dim, 1, dtype=dtype))
             self.add_module(f"input_norm_{lvl}", GroupNorm(32, hidden_dim, dtype))
         self.level_embed = nn.Parameter(torch.empty(len(DECODER_LEVELS), hidden_dim))
         for i in range(num_encoder_layers):
             self.add_module(f"encoder_{i}", EncoderLayer(
                 hidden_dim, hidden_dim * 4, len(DECODER_LEVELS), n_heads, n_points, dtype, msda_impl))
         # the reference's lateral and output convolutions carry GroupNorm, hence no bias
-        self.adapter_res2 = Conv(RES_CHANNELS["res2"], hidden_dim, 1, bias=False, dtype=dtype)
+        self.adapter_res2 = Conv(in_channels["res2"], hidden_dim, 1, bias=False, dtype=dtype)
         self.adapter_norm = GroupNorm(32, hidden_dim, dtype)
         self.output_conv = Conv(hidden_dim, hidden_dim, 3, padding=1, bias=False, dtype=dtype)
         self.output_norm = GroupNorm(32, hidden_dim, dtype)
@@ -190,13 +191,16 @@ class MaskFormer(nn.Module):
 
     def __init__(self, num_classes: int = 25, hidden_dim: int = 256, num_queries: int = 100,
                  dec_layers: int = 9, enc_layers: int = 6, dim_feedforward: int = 2048,
-                 backbone_depth: int = 50, dtype=torch.float32, msda_impl: str = "auto"):
+                 backbone_type: str = "resnet", backbone_depth: int = 50, swin: tuple = SWIN_PRESETS["L"],
+                 dtype=torch.float32, msda_impl: str = "auto"):
         super().__init__()
         self.dtype = dtype
         self.num_classes = num_classes
-        self.backbone = ResNet(backbone_depth, dtype, out_features=("res2", "res3", "res4", "res5"))
+        self.backbone = make_backbone(backbone_type, depth=backbone_depth, swin=swin, dtype=dtype,
+                                      out_features=("res2", "res3", "res4", "res5"))
         self.pixel_decoder = MSDeformAttnPixelDecoder(
-            hidden_dim, hidden_dim, enc_layers, dtype=dtype, msda_impl=msda_impl)
+            hidden_dim, hidden_dim, enc_layers, dtype=dtype, msda_impl=msda_impl,
+            in_channels=self.backbone.output_channels)
         self.transformer_decoder = MaskedTransformerDecoder(
             num_classes, hidden_dim, num_queries, dim_feedforward=dim_feedforward,
             dec_layers=dec_layers, mask_dim=hidden_dim, dtype=dtype)
@@ -272,19 +276,23 @@ def minvis_postprocess(outputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 def maskformer_kwargs_from_cfg(cfg) -> dict:
     """MaskFormer constructor arguments from a config node with the JAX
     package's keys (``MODEL.MASK_FORMER.*``, ``MODEL.RESNETS.*``,
-    ``TPU.COMPUTE_DTYPE``, ``TPU.MSDA_IMPL``), read by attribute. The decoder's
-    8 heads are fixed, as in the JAX package."""
-    if "swin" in cfg.MODEL.BACKBONE.NAME.lower():
-        raise NotImplementedError("MaskFormer-Swin is not ported yet (ROADMAP Queue 1, Swin backbone)")
+    ``MODEL.BACKBONE.NAME``, ``MODEL.SWIN.*``, ``TPU.COMPUTE_DTYPE``,
+    ``TPU.MSDA_IMPL``), read by attribute. The decoder's 8 heads are fixed, as
+    in the JAX package.
+
+    ``MODEL.RESNETS.STRIDE_IN_1X1`` set raises: the JAX package's
+    ``build_maskformer_model`` ignores the key (its ResNet keeps the stride on
+    the 3x3), and the port would rather refuse than build another network than
+    the file names (ROADMAP Queue 3)."""
     if cfg.MODEL.RESNETS.STRIDE_IN_1X1:
-        raise NotImplementedError("the port's ResNet has the stride on the 3x3 (STRIDE_IN_1X1=False)")
+        raise NotImplementedError("MODEL.RESNETS.STRIDE_IN_1X1: the JAX package's MaskFormer builder ignores "
+                                  "the key (stride on the 3x3), so the port refuses it (ROADMAP Queue 3)")
     m = cfg.MODEL.MASK_FORMER
     return dict(
         num_classes=m.NUM_CLASSES, hidden_dim=m.HIDDEN_DIM, num_queries=m.NUM_OBJECT_QUERIES,
         dec_layers=m.DEC_LAYERS, enc_layers=m.ENC_LAYERS, dim_feedforward=m.DIM_FEEDFORWARD,
-        backbone_depth=cfg.MODEL.RESNETS.DEPTH,
         dtype=torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32,
-        msda_impl=cfg.TPU.MSDA_IMPL,
+        msda_impl=cfg.TPU.MSDA_IMPL, **backbone_kwargs_from_cfg(cfg),
     )
 
 

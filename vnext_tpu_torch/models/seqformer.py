@@ -1,4 +1,4 @@
-"""SeqFormer meta-architecture (ResNet-50 backbone): offline clip inference.
+"""SeqFormer meta-architecture (ResNet-50/101/152 or Swin backbone): offline clip inference.
 
 Counterpart of ``vnext_tpu.models.seqformer``: one set of video-level instance
 queries decodes every frame of a clip. The backbone and the encoder see the
@@ -27,11 +27,11 @@ import torch
 from torch import nn
 
 from ..ops.ms_deform_attn import check_impl, ms_deform_attn_standard
-from .backbones.resnet import ResNet
+from .backbones import SWIN_PRESETS, backbone_kwargs_from_cfg, make_backbone
 from .condinst import MaskHeadSmallConv, num_dynamic_params, run_dynamic_mask_head
 from .deformable_transformer import (DeformableEncoder, bbox_embed, offset_bias_grid,
                                      refine_boxes, sampling_locations)
-from .idol import BACKBONE_CHANNELS, CLASS_PRIOR, DeformableVIS
+from .idol import CLASS_PRIOR, DeformableVIS
 from .layers import MLP, ConvGN, Dense, LayerNorm, MultiHeadAttention, dropout, init_weights
 
 
@@ -198,7 +198,8 @@ class SeqFormer(DeformableVIS):
     def __init__(self, num_classes: int = 40, hidden_dim: int = 256, num_queries: int = 300,
                  nheads: int = 8, dim_feedforward: int = 1024, enc_layers: int = 6,
                  dec_layers: int = 6, num_feature_levels: int = 4, enc_n_points: int = 4,
-                 dec_n_points: int = 4, backbone_depth: int = 50, mask_out_stride: int = 4,
+                 dec_n_points: int = 4, backbone_type: str = "resnet", backbone_depth: int = 50,
+                 swin: tuple = SWIN_PRESETS["L"], mask_out_stride: int = 4,
                  dropout: float = 0.1, max_insts: int = 24, dtype=torch.float32,
                  msda_impl: str = "auto"):
         super().__init__()
@@ -212,10 +213,11 @@ class SeqFormer(DeformableVIS):
         self.dec_layers = dec_layers
         self.hidden_dim = hidden_dim
         self.mask_out_stride = mask_out_stride
-        self.backbone = ResNet(backbone_depth, dtype)
+        self.backbone = make_backbone(backbone_type, depth=backbone_depth, swin=swin, dtype=dtype)
+        channels = [self.backbone.output_channels[f"res{i}"] for i in (3, 4, 5)]
         for i in range(num_feature_levels):
             extra = i >= 3
-            in_ch = BACKBONE_CHANNELS[min(i, 2)]
+            in_ch = channels[min(i, 2)]
             self.add_module(f"input_proj_{i}", ConvGN(
                 in_ch, hidden_dim, 3 if extra else 1, 2 if extra else 1, dtype=dtype))
         self.transformer = SeqFormerTransformer(
@@ -309,22 +311,26 @@ class SeqFormer(DeformableVIS):
 
 def seqformer_kwargs_from_cfg(cfg) -> dict:
     """SeqFormer constructor arguments from a config node with the JAX package's
-    keys (``MODEL.SeqFormer.*``, ``MODEL.RESNETS.*``, ``TPU.COMPUTE_DTYPE``,
-    ``TPU.MAX_INSTANCES``, ``TPU.MSDA_IMPL``), read by attribute."""
-    if "swin" in cfg.MODEL.BACKBONE.NAME.lower():
-        raise NotImplementedError("SeqFormer-Swin-L is not ported yet (ROADMAP Queue 1, Swin backbone)")
+    keys (``MODEL.SeqFormer.*``, ``MODEL.BACKBONE.NAME``, ``MODEL.RESNETS.*``,
+    ``MODEL.SWIN.*``, ``TPU.COMPUTE_DTYPE``, ``TPU.MAX_INSTANCES``,
+    ``TPU.MSDA_IMPL``), read by attribute.
+
+    ``MODEL.RESNETS.STRIDE_IN_1X1`` set raises: the JAX package's
+    ``build_seqformer_model`` ignores the key (its SeqFormer ResNet keeps the
+    stride on the 3x3), and the port would rather refuse than build another
+    network than the file names (ROADMAP Queue 3)."""
     if cfg.MODEL.RESNETS.STRIDE_IN_1X1:
-        raise NotImplementedError("the port's ResNet has the stride on the 3x3 (STRIDE_IN_1X1=False)")
+        raise NotImplementedError("MODEL.RESNETS.STRIDE_IN_1X1: the JAX package's SeqFormer builder ignores "
+                                  "the key (stride on the 3x3), so the port refuses it (ROADMAP Queue 3)")
     c = cfg.MODEL.SeqFormer
     return dict(
         num_classes=c.NUM_CLASSES, hidden_dim=c.HIDDEN_DIM, num_queries=c.NUM_OBJECT_QUERIES,
         nheads=c.NHEADS, dim_feedforward=c.DIM_FEEDFORWARD, enc_layers=c.ENC_LAYERS,
         dec_layers=c.DEC_LAYERS, num_feature_levels=c.NUM_FEATURE_LEVELS,
-        enc_n_points=c.ENC_N_POINTS, dec_n_points=c.DEC_N_POINTS,
-        backbone_depth=cfg.MODEL.RESNETS.DEPTH, mask_out_stride=c.MASK_STRIDE,
+        enc_n_points=c.ENC_N_POINTS, dec_n_points=c.DEC_N_POINTS, mask_out_stride=c.MASK_STRIDE,
         dropout=c.DROPOUT, max_insts=cfg.TPU.MAX_INSTANCES,
         dtype=torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32,
-        msda_impl=cfg.TPU.MSDA_IMPL,
+        msda_impl=cfg.TPU.MSDA_IMPL, **backbone_kwargs_from_cfg(cfg),
     )
 
 
