@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --only train_numerics    # phases 1 and 6 alone
+    python3 chip_smoke.py --only entry_point       # phases 1 and 17 alone
 
 Phases, each printed as it ends; any failure raises and exits non-zero. Each
 path zeroes every kernel's launch counter just before it runs and reads them
@@ -100,6 +101,28 @@ port's own reader (``vnext_tpu_torch.config``).
     (``checkpoint/torch_import.py``): a clean report, and outputs equal bit for
     bit to the seeded model's on a clip.
     The seconds of phases 11-16 are printed.
+17. IDOL's entry point (``vnext_tpu_torch.tools.train_net.main``, in-process)
+    on a synthetic YTVIS dataset written to a temporary directory (2 videos x
+    20 frames at 480x853, PNG): ``--eval-only`` with
+    ``configs/idol/ytvis19_r50.yaml`` at full width (its seeded model's
+    class-0 bias raised as in phase 3, the counters zeroed after that probe):
+    K1 / K2 / K3 = 48 / 4 / 24 over the 4 clips, ``results.json`` well-formed,
+    the AP dict's values fractions in [0, 1] (NaN where an area bin holds no
+    ground truth); the ground truth through ``YTVISEvaluator`` (its native C
+    path) scores AP 1.0; training (4 clips a step, 4 steps, checkpoints every
+    2) with K4 / K5 / K2 = 24 / 24 / 2 per step, finite losses,
+    ``metrics.json`` and ``last_checkpoint``, and the evaluation after
+    training on K1 / K2 / K3 and no K4; then ``--resume`` to 6 steps, which
+    starts at iteration 4 at the schedule's rate with the saved model,
+    optimizer and scheduler state bit for bit. It prints per-video ms
+    through ``do_eval``, the evaluator's seconds, the step period through
+    the entry point beside the time ``next(loader)`` blocked, and the
+    checkpoint's save and load seconds and size. ``--only entry_point``
+    runs phases 1 and 17 alone, and adds two measurements: the steady step
+    period through the entry point over 20 steps with no checkpoint saved
+    and no evaluation inside the window, with the live loader and on the same
+    batches made beforehand, alternately, twice each; and a host profile
+    (``cProfile``) of a second ``--eval-only`` run.
 
 Then a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -113,6 +136,7 @@ import argparse
 import contextlib
 import json
 import logging
+import os
 import statistics
 import subprocess
 import sys
@@ -950,6 +974,7 @@ def synthetic_batch(rng, n_clips=TRAIN_CLIPS):
 def phase_train(dev, kernels):
     import torch
 
+    from vnext_tpu_torch.checkpoint.checkpointer import Checkpointer
     from vnext_tpu_torch.engine.hooks import (HookBase, IterationTimer, LRTracker,
                                               PeriodicCheckpointer, PeriodicWriter)
     from vnext_tpu_torch.engine.train_step import TrainState, dropout_generator, make_train_step
@@ -990,7 +1015,7 @@ def phase_train(dev, kernels):
         trainer = VISTrainer(step_fn, state, iter(batches), dev)
         trainer.register_hooks([
             SyncTimer(), IterationTimer(warmup_iter=1), LRTracker(solver.build_lr_schedule(cfg)),
-            PeriodicCheckpointer(out_dir, period=TRAIN_STEPS),
+            PeriodicCheckpointer(Checkpointer(out_dir), period=TRAIN_STEPS),
             PeriodicWriter([JSONWriter(f"{out_dir}/metrics.json"), CommonMetricPrinter(TRAIN_STEPS)],
                            period=1),
         ])
@@ -1892,19 +1917,454 @@ def phase_r101_and_import(dev, kernels, swin_model, swin_cfg):
                               "matched": report["matched"], "outputs_bit_equal": not differing}
 
 
+# ---------------------------------------------------------------- phase 17
+ENTRY_DATASET = "ytvis_synthetic_entry_point"
+ENTRY_TRAIN_STEPS, ENTRY_RESUME_STEPS = 4, 6
+ENTRY_CHECKPOINT_PERIOD = 2
+ENTRY_STEADY_STEPS = 20       # step periods taken in each steady run (--only entry_point)
+
+
+@contextlib.contextmanager
+def patched(owner, name, value):
+    """``owner.name`` replaced by ``value`` inside the block."""
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+def zero(kernels):
+    for kern in kernels.values():
+        kern.launches = 0
+
+
+def counts(kernels):
+    return {name: kern.launches for name, kern in kernels.items() if kern.launches}
+
+
+def minus(a, b):
+    return {k: a.get(k, 0) - b.get(k, 0) for k in a if a.get(k, 0) - b.get(k, 0)}
+
+
+def register_ytvis19_synthetic(root):
+    """The synthetic YTVIS dataset (2 videos x 20 frames at 480x853) under
+    ``root``, its json listing YouTube-VIS 2019's 40 categories (the synthetic
+    objects take ids 1-3), registered as ``ENTRY_DATASET``: every label of the
+    40-class model then has a dataset category, as on ytvis_2019_val."""
+    from vnext_tpu_torch.data.datasets.synthetic import generate_synthetic_ytvis
+    from vnext_tpu_torch.data.datasets.ytvis import YTVIS_2019_CLASSES, register_ytvis_instances
+
+    json_file = generate_synthetic_ytvis(root, h=VIDEO_HW[0], w=VIDEO_HW[1], num_frames=VIDEO_FRAMES[0])
+    with open(json_file) as f:
+        data = json.load(f)
+    data["categories"] = [{"id": i + 1, "name": n} for i, n in enumerate(YTVIS_2019_CLASSES)]
+    with open(json_file, "w") as f:
+        json.dump(data, f)
+    register_ytvis_instances(ENTRY_DATASET, {"thing_classes": list(YTVIS_2019_CLASSES)}, json_file,
+                             f"{root}/JPEGImages")
+
+
+def ground_truth_outputs(records):
+    """Each video's ground truth as a runner's output: one instance per
+    annotation id, its mask on every frame where it is annotated, score 1."""
+    from vnext_tpu_torch.data.dataset_mapper import decode_segmentation
+
+    outputs = []
+    for rec in records:
+        h, w = rec["height"], rec["width"]
+        insts = {}
+        for f, objs in enumerate(rec["annotations"]):
+            for o in objs:
+                entry = insts.setdefault(o["id"], {"label": o["category_id"], "masks": [None] * rec["length"]})
+                entry["masks"][f] = decode_segmentation(o["segmentation"], h, w)
+        outputs.append({"image_size": (h, w), "pred_scores": [1.0] * len(insts),
+                        "pred_labels": [v["label"] for v in insts.values()],
+                        "pred_masks": [v["masks"] for v in insts.values()]})
+    return outputs
+
+
+def check_stats(stats, what):
+    """The evaluator's keys, each a finite fraction in [0, 1], or NaN where an
+    area bin holds no ground truth (the evaluator reports fractions: 1.0 is an
+    AP of 100)."""
+    keys = {"AP", "AP50", "AP75", "APs", "APm", "APl", "AR@1", "AR@10", "AR@100"}
+    require(set(stats) == keys, f"{what}: stats keys {sorted(stats)}")
+    for k, v in stats.items():
+        require(np.isnan(v) or 0.0 <= v <= 1.0, f"{what}: {k} = {v}")
+    require(all(np.isfinite(stats[k]) for k in ("AP", "AP50", "AP75", "AR@100")), f"{what}: {stats}")
+
+
+def phase_entry_point(dev, kernels, smi, measure=False):
+    """IDOL through the port's own entry point (``vnext_tpu_torch.tools.train_net.main``,
+    in-process) on a synthetic YTVIS dataset of 2 videos x 20 frames at 480x853:
+    ``--eval-only`` at ytvis19_r50 width, the ground truth through the
+    evaluator, training with periodic checkpoints, and ``--resume``. With
+    ``measure``, also the steady step (``entry_point_steady``) and a host
+    profile of ``--eval-only``."""
+    import torch
+
+    from vnext_tpu_torch.checkpoint.checkpointer import Checkpointer
+    from vnext_tpu_torch.data import DatasetCatalog
+    from vnext_tpu_torch.evaluation import native
+    from vnext_tpu_torch.evaluation.ytvis_eval import YTVISEvaluator
+    from vnext_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        register_ytvis19_synthetic(f"{tmp}/data")
+        records = DatasetCatalog.get(ENTRY_DATASET)
+        print(f"  synthetic YTVIS dataset: {len(records)} videos x {records[0]['length']} frames at "
+              f"{records[0]['height']}x{records[0]['width']} (PNG), {sum(len(r['annotations'][0]) for r in records)} "
+              f"instances, written in {time.perf_counter() - t0:.1f} s")
+        config = str(Path(__file__).resolve().parent / "configs" / "idol" / "ytvis19_r50.yaml")
+        common = ["--config-file", config, "MODEL.WEIGHTS", "", "DATASETS.TEST", f"('{ENTRY_DATASET}',)",
+                  "DATASETS.TRAIN", f"('{ENTRY_DATASET}',)"]
+
+        # ---- --eval-only
+        video_ms, evaluate_s = [], []
+        build_model, build_evaluator = train_net.build_idol_model, train_net.build_evaluator
+
+        def model_with_detections(cfg, device, seed=0):
+            """The entry point's seeded model, its class-0 bias raised as phase 3
+            does so that tracks are born; the counters zeroed after the probe."""
+            model = build_model(cfg, device=device, seed=seed)
+            runner = train_net.IDOLVideoInference.from_config(cfg, model)
+            first = {**records[0], "file_names": records[0]["file_names"][:CLIP]}
+            raise_class_bias(model, runner.infer_clip(*runner._prepare_frames(first))["pred_logits"][..., 0])
+            torch.cuda.synchronize()
+            zero(kernels)
+            return model
+
+        class TimedRunner(train_net.IDOLVideoInference):
+            def __call__(self, record):
+                t1 = time.perf_counter()
+                out = super().__call__(record)
+                video_ms.append((time.perf_counter() - t1) * 1e3)
+                return out
+
+        def timed_evaluator(cfg, name):
+            ev = build_evaluator(cfg, name)
+            evaluate = ev.evaluate
+
+            def timed():
+                t1 = time.perf_counter()
+                out = evaluate()
+                evaluate_s.append(time.perf_counter() - t1)
+                return out
+
+            ev.evaluate = timed
+            return ev
+
+        eval_dir = f"{tmp}/eval"
+        zero(kernels)
+        with patched(train_net, "build_idol_model", model_with_detections), \
+                patched(train_net, "IDOLVideoInference", TimedRunner), \
+                patched(train_net, "build_evaluator", timed_evaluator):
+            results = train_net.main(["--eval-only", *common, "OUTPUT_DIR", eval_dir])
+        torch.cuda.synchronize()
+        eval_launches = counts(kernels)
+        n_clips = len(records) * -(-VIDEO_FRAMES[0] // CLIP)
+        expected = {"ms_deform_attn_fwd": 12 * n_clips, "stem_conv": n_clips, "encoder_epilogue": 6 * n_clips}
+        print(f"  --eval-only: launches over {n_clips} clips {eval_launches} (expected {expected})")
+        require(eval_launches == expected, f"eval launch counts {eval_launches} != {expected}")
+        with open(f"{eval_dir}/results.json") as f:
+            entries = json.load(f)
+        require(len(entries) > 0, "--eval-only wrote no results.json entry")
+        for e in entries:
+            require(set(e) == {"video_id", "score", "category_id", "segmentations"}, f"entry keys {set(e)}")
+            require(0.0 <= e["score"] <= 1.0 and 1 <= e["category_id"] <= 40, f"bad entry {e['score']}")
+            require(len(e["segmentations"]) == VIDEO_FRAMES[0] and all(
+                sg["size"] == list(VIDEO_HW) for sg in e["segmentations"]), "one 480x853 RLE per frame")
+        stats = results[ENTRY_DATASET]["segm"]
+        check_stats(stats, "--eval-only")
+        print(f"  --eval-only: {len(entries)} results.json entries; AP dict {stats}; per video "
+              f"{', '.join(f'{v:.1f}' for v in video_ms)} ms through do_eval (decode, clips, tracker, masks; "
+              f"seeded weights); the evaluator {evaluate_s[0]:.3f} s (results.json and the tube-IoU AP)")
+        result["eval"] = {"video_ms": list(video_ms), "evaluator_s": evaluate_s[0], "entries": len(entries),
+                          "stats": stats}
+        torch.cuda.empty_cache()
+
+        if measure:
+            # the host's time in --eval-only by function (the main thread; the card's work is
+            # asynchronous, so waits on it show in the calls that synchronize)
+            import cProfile
+            import io
+            import pstats
+
+            video_ms.clear()
+            evaluate_s.clear()
+            profiler = cProfile.Profile()
+            with patched(train_net, "build_idol_model", model_with_detections), \
+                    patched(train_net, "IDOLVideoInference", TimedRunner), \
+                    patched(train_net, "build_evaluator", timed_evaluator):
+                t0 = time.perf_counter()
+                profiler.enable()
+                train_net.main(["--eval-only", *common, "OUTPUT_DIR", f"{tmp}/eval_profiled"])
+                profiler.disable()
+                wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            for order in ("tottime", "cumulative"):
+                text = io.StringIO()
+                pstats.Stats(profiler, stream=text).strip_dirs().sort_stats(order).print_stats(22)
+                rows = text.getvalue().splitlines()
+                start = next(i for i, r in enumerate(rows) if r.lstrip().startswith("ncalls"))
+                print(f"  --eval-only under cProfile, {wall:.2f} s (per video "
+                      f"{', '.join(f'{v:.1f}' for v in video_ms)} ms, the evaluator {evaluate_s[0]:.3f} s; "
+                      f"the model's build and the class-bias probe included), top functions by {order}:")
+                for r in rows[start:]:
+                    if r.strip():
+                        print(f"    {r.strip()[:170]}")
+            result["eval_profile"] = {"wall_s": wall, "video_ms": list(video_ms), "evaluator_s": evaluate_s[0]}
+            torch.cuda.empty_cache()
+
+        # ---- the ground truth as predictions
+        require(native.available(), "the evaluator's native C library did not build on this machine")
+        ev = YTVISEvaluator(ENTRY_DATASET, output_dir=f"{tmp}/gt")
+        ev.reset()
+        for rec, out in zip(records, ground_truth_outputs(records)):
+            ev.process([rec], [out])
+        t0 = time.perf_counter()
+        gt_stats = ev.evaluate()["segm"]
+        gt_s = time.perf_counter() - t0
+        check_stats(gt_stats, "ground truth")
+        print(f"  the ground truth as predictions through YTVISEvaluator (native C tube IoU and matching): "
+              f"{gt_stats} in {gt_s:.3f} s")
+        require(gt_stats["AP"] == 1.0, f"the ground truth scored AP {gt_stats['AP']}, not 1.0 (100%)")
+        result["ground_truth_stats"] = gt_stats
+
+        # ---- training and --resume
+        train_dir = f"{tmp}/train"
+        train = ["--config-file", config, *common[2:], "OUTPUT_DIR", train_dir, "SOLVER.IMS_PER_BATCH",
+                 str(TRAIN_CLIPS), "SOLVER.CHECKPOINT_PERIOD", str(ENTRY_CHECKPOINT_PERIOD)]
+        step_starts, waits, eval_deltas, saves, loads = [], [], [], [], []
+        do_eval, build_loader = train_net.do_eval, train_net.build_vis_train_loader
+        save, resume_or_load = Checkpointer.save, Checkpointer.resume_or_load
+
+        class TimedTrainer(train_net.VISTrainer):
+            def run_step(self):
+                step_starts.append(time.perf_counter())
+                super().run_step()
+
+        class TimedLoader:
+            def __init__(self, it):
+                self._it = it
+
+            def __iter__(self):
+                return self
+
+            def __next__(self):
+                t1 = time.perf_counter()
+                batch = next(self._it)
+                waits.append((time.perf_counter() - t1) * 1e3)
+                return batch
+
+        def counted_eval(cfg, model=None):
+            before = counts(kernels)
+            out = do_eval(cfg, model)
+            torch.cuda.synchronize()
+            eval_deltas.append(minus(counts(kernels), before))
+            return out
+
+        def timed_save(self, name, state):
+            t1 = time.perf_counter()
+            path = save(self, name, state)
+            saves.append((t1, time.perf_counter(), os.path.getsize(path)))
+            return path
+
+        loaded = {}
+
+        def checked_resume(self, weights_path, state, resume=True):
+            path = self.get_checkpoint_file()
+            t1 = time.perf_counter()
+            state, start = resume_or_load(self, weights_path, state, resume)
+            torch.cuda.synchronize()
+            loads.append(time.perf_counter() - t1)
+            if resume:
+                saved = torch.load(path, map_location="cpu", weights_only=True)
+                loaded.update(path=path, start=start, saved=saved, lr=[g["lr"] for g in state.optimizer.param_groups],
+                              model=all(torch.equal(v.cpu(), saved["model"][k])
+                                        for k, v in state.model.state_dict().items()),
+                              optimizer=same_optimizer_state(state.optimizer.state_dict(), saved["optimizer"]),
+                              scheduler=state.scheduler.state_dict() == saved["scheduler"])
+            return state, start
+
+        runs = {}
+        for label, argv, steps in (("train", [*train, "SOLVER.MAX_ITER", str(ENTRY_TRAIN_STEPS)], ENTRY_TRAIN_STEPS),
+                                   ("resume", ["--resume", *train, "SOLVER.MAX_ITER", str(ENTRY_RESUME_STEPS)],
+                                    ENTRY_RESUME_STEPS)):
+            step_starts.clear()
+            waits.clear()
+            eval_deltas.clear()
+            zero(kernels)
+            t0 = time.perf_counter()
+            with patched(train_net, "VISTrainer", TimedTrainer), \
+                    patched(train_net, "build_vis_train_loader", lambda *a, **k: TimedLoader(build_loader(*a, **k))), \
+                    patched(train_net, "do_eval", counted_eval), \
+                    patched(Checkpointer, "save", timed_save), patched(Checkpointer, "resume_or_load", checked_resume):
+                trainer = train_net.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            total = counts(kernels)
+            require(len(eval_deltas) == 1, f"{label}: {len(eval_deltas)} evaluations, expected the one after training")
+            in_eval = eval_deltas[0]
+            in_train = minus(total, in_eval)
+            n = steps - trainer.start_iter
+            expected_train = {"ms_deform_attn_v9_fwd": 24 * n, "ms_deform_attn_v9_bwd": 24 * n, "stem_conv": 2 * n}
+            print(f"  {label}: iterations {trainer.start_iter}..{trainer.iter - 1}; launches in the train steps "
+                  f"{in_train} (expected {expected_train}), in the evaluation after training {in_eval} "
+                  f"(expected K1 / K2 / K3 = {expected['ms_deform_attn_fwd']} / {expected['stem_conv']} / "
+                  f"{expected['encoder_epilogue']}, no K4)")
+            require(in_train == expected_train, f"{label}: train launch counts {in_train} != {expected_train}")
+            require(in_eval == expected, f"{label}: evaluation launch counts {in_eval} != {expected}")
+            hist = trainer.storage.histories()
+            losses = sorted(k for k in hist if k.startswith("loss_")) + ["total_loss"]
+            for k in losses:
+                require(hist[k].count() == n and np.isfinite(hist[k].values()).all(), f"{label} {k}: {hist[k].values()}")
+            with open(f"{train_dir}/metrics.json") as f:
+                written = [json.loads(line) for line in f]
+            marker = Path(f"{train_dir}/last_checkpoint").read_text()
+            require(marker == f"model_{steps - 1:07d}.pth", f"{label}: last_checkpoint names {marker}")
+            require(any("total_loss" in w and w["iteration"] == steps for w in written),
+                    f"{label}: metrics.json lacks the last step's losses")
+            # from one step's start to the next, less the checkpoint saved between them
+            periods = [(b - a - sum(e - s for s, e, _ in saves if a <= s < b)) * 1e3
+                       for a, b in zip(step_starts, step_starts[1:])]
+            runs[label] = {"iterations": [trainer.start_iter, trainer.iter], "launches": in_train,
+                           "eval_launches": in_eval, "step_period_ms": periods,
+                           "step_ms": statistics.median(periods[1:] if len(periods) > 1 else periods),
+                           "loader_wait_ms": list(waits), "loader_wait_median_ms": statistics.median(waits[1:] or waits),
+                           "total_loss": hist["total_loss"].values(), "wall_s": wall}
+            print(f"  {label}: total_loss {', '.join(f'{v:.3f}' for v in hist['total_loss'].values())}; "
+                  f"metrics.json ({len(written)} lines) and {marker} written; {wall:.1f} s with the evaluation")
+            print(f"  {label}: step period through the entry point (host clock between step starts, less a "
+                  f"checkpoint save between them; no synchronization added) "
+                  f"{', '.join(f'{v:.1f}' for v in periods)} ms, median after the first "
+                  f"{runs[label]['step_ms']:.1f}; next(loader) blocked {', '.join(f'{v:.1f}' for v in waits)} ms, "
+                  f"median after the first {runs[label]['loader_wait_median_ms']:.1f}")
+            del trainer
+            torch.cuda.empty_cache()
+
+        require(loaded.get("start") == ENTRY_TRAIN_STEPS, f"--resume started at {loaded.get('start')}")
+        lr = train_net.build_lr_schedule(read_config("idol/ytvis19_r50.yaml"))(ENTRY_TRAIN_STEPS)
+        want_lr = [lr * 0.1, lr]                 # the backbone group at BACKBONE_MULTIPLIER, then the rest
+        require(all(abs(a - b) <= 1e-12 * b for a, b in zip(loaded["lr"], want_lr)),
+                f"--resume learning rates {loaded['lr']}, the schedule's for iteration 4 {want_lr}")
+        require(loaded["model"] and loaded["optimizer"] and loaded["scheduler"],
+                f"--resume restored state differs from {loaded['path']}: model {loaded['model']}, optimizer "
+                f"{loaded['optimizer']}, scheduler {loaded['scheduler']}")
+        save_s = [e - s for s, e, _ in saves]
+        size_mib = saves[-1][2] / 2 ** 20
+        print(f"  --resume from {Path(loaded['path']).name}: started at iteration {loaded['start']} at learning rates "
+              f"{loaded['lr']} (the schedule's for iteration 4); model, optimizer and scheduler state equal to the "
+              f"file bit for bit")
+        print(f"  checkpoints: {len(saves)} saved in {', '.join(f'{s:.2f}' for s in save_s)} s, "
+              f"{size_mib:.1f} MiB each; resume_or_load (torch.load + restore onto the card) {loads[-1]:.2f} s")
+        result.update(train=runs["train"], resume=runs["resume"], checkpoint_save_s=save_s,
+                      checkpoint_mib=size_mib, checkpoint_load_s=loads[-1])
+        if measure:
+            result["steady"] = entry_point_steady(kernels, [*train, "OUTPUT_DIR", f"{tmp}/steady"])
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {smi}")
+    print(f"[phase 17] the entry point: --eval-only K1 / K2 / K3 = {expected['ms_deform_attn_fwd']} / "
+          f"{expected['stem_conv']} / {expected['encoder_epilogue']}, the ground truth AP 1.0, training and --resume "
+          f"through K4 / K5 / K2 = 24 / 24 / 2 per step, the state restored bit for bit; {result['phase_s']:.1f} s")
+    return {"entry_eval": eval_launches, "entry_train": runs["train"]["launches"]}, result
+
+
+def entry_point_steady(kernels, train):
+    """The entry point's steady step: ``ENTRY_STEADY_STEPS`` step periods after
+    a first step of warm-up, no checkpoint saved and no evaluation inside the
+    window (the one save follows the last step's start, the evaluation after
+    training is skipped). Runs alternate the live loader (its prefetch thread
+    mapping beside the steps) and the same batches made beforehand (no thread),
+    twice each; the model, the seeds and the batches are the same in every run."""
+    import torch
+
+    from vnext_tpu_torch.tools import train_net
+
+    steps = ENTRY_STEADY_STEPS + 2
+    argv = [*train, "SOLVER.MAX_ITER", str(steps), "SOLVER.CHECKPOINT_PERIOD", str(10 * steps)]
+    build_loader = train_net.build_vis_train_loader
+    batches, step_starts, waits = [], [], []
+
+    class TimedTrainer(train_net.VISTrainer):
+        def run_step(self):
+            step_starts.append(time.perf_counter())
+            super().run_step()
+
+    def live_loader(*a, **k):
+        it = build_loader(*a, **k)
+
+        def gen():
+            while True:
+                t1 = time.perf_counter()
+                batch = next(it)
+                waits.append((time.perf_counter() - t1) * 1e3)
+                if len(batches) < steps:
+                    batches.append(batch)
+                yield batch
+
+        return gen()
+
+    runs = {"live": [], "premade": []}
+    for source in ("live", "premade", "live", "premade"):
+        step_starts.clear()
+        waits.clear()
+        zero(kernels)
+        loader = live_loader if source == "live" else (lambda *a, **k: iter(list(batches)))
+        with patched(train_net, "VISTrainer", TimedTrainer), patched(train_net, "build_vis_train_loader", loader), \
+                patched(train_net, "do_eval", lambda cfg, model=None: {}):
+            trainer = train_net.main(argv)
+        torch.cuda.synchronize()
+        n = trainer.iter - trainer.start_iter
+        expected = {"ms_deform_attn_v9_fwd": 24 * n, "ms_deform_attn_v9_bwd": 24 * n, "stem_conv": 2 * n}
+        require(counts(kernels) == expected, f"steady {source}: launches {counts(kernels)} != {expected}")
+        require(np.isfinite(trainer.storage.history("total_loss").values()).all(), f"steady {source}: a loss")
+        periods = [(b - a) * 1e3 for a, b in zip(step_starts, step_starts[1:])][1:]
+        require(len(periods) == ENTRY_STEADY_STEPS, f"steady {source}: {len(periods)} periods")
+        run = {"periods_ms": periods, "median_ms": statistics.median(periods),
+               "loader_wait_ms": list(waits[1:]) if source == "live" else []}
+        runs[source].append(run)
+        wait = (f"; next(loader) blocked median {statistics.median(run['loader_wait_ms']):.2f} ms, max "
+                f"{max(run['loader_wait_ms']):.2f}" if source == "live" else "")
+        print(f"  steady step, {source} batches: {ENTRY_STEADY_STEPS} periods median {run['median_ms']:.1f} ms "
+              f"(min {min(periods):.1f}, max {max(periods):.1f}){wait}")
+        del trainer
+        torch.cuda.empty_cache()
+    live = statistics.median([v for r in runs["live"] for v in r["periods_ms"]])
+    premade = statistics.median([v for r in runs["premade"] for v in r["periods_ms"]])
+    print(f"  steady step through the entry point (host clock between step starts, {2 * ENTRY_STEADY_STEPS} "
+          f"periods each): live loader median {live:.1f} ms, batches made beforehand {premade:.1f} ms, "
+          f"ratio {live / premade:.4f}")
+    return {"runs": runs, "live_median_ms": live, "premade_median_ms": premade}
+
+
+def same_optimizer_state(a, b):
+    """Two optimizer state dicts equal: the groups' values and every state tensor bit for bit."""
+    import torch
+
+    if a["param_groups"] != b["param_groups"] or a["state"].keys() != b["state"].keys():
+        return False
+    return all(torch.equal(a["state"][i][k].cpu(), b["state"][i][k].cpu()) for i in a["state"] for k in a["state"][i])
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
                                                  "with no argument, every phase.")
-    parser.add_argument("--only", choices=("train_numerics",),
-                        help="phase 1 and this phase alone (train_numerics: phase 6)")
+    parser.add_argument("--only", choices=("train_numerics", "entry_point"),
+                        help="phase 1 and this phase alone (train_numerics: phase 6; entry_point: phase 17)")
     parser.add_argument("--tree", help="with --only: import vnext_tpu_torch from this checkout (an "
                                        "earlier commit's `git archive`) in place of the one beside this script")
     parser.add_argument("--swap-plain", action="append", default=[], choices=("K2", "K4"),
                         help="with --only train_numerics: also run the card's forward with this "
                              "kernel's plain version on the card (repeatable)")
     args = parser.parse_args(argv)
-    if (args.tree or args.swap_plain) and not args.only:
-        parser.error("--tree and --swap-plain go with --only")
+    if (args.tree or args.swap_plain) and args.only != "train_numerics":
+        parser.error("--tree and --swap-plain go with --only train_numerics")
     try:
         import torch
     except ImportError:
@@ -1920,7 +2380,16 @@ def main(argv=None) -> int:
         sys.path.insert(0, str(Path(args.tree).resolve()))
     if args.only:
         smi = phase_card()
-        phase_train_numerics(dev, args.swap_plain)
+        if args.only == "train_numerics":
+            phase_train_numerics(dev, args.swap_plain)
+        else:
+            from vnext_tpu_torch.ops import encoder_epilogue, stem_conv
+            from vnext_tpu_torch.ops import ms_deform_attn as msda
+
+            kernels = {k.name: k for k in (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL, msda.KERNEL_V9_FWD,
+                                           msda.KERNEL_V9_BWD)}
+            _, entry = phase_entry_point(dev, kernels, smi, measure=True)
+            print(json.dumps({"entry_point": entry}))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -1984,12 +2453,15 @@ def main(argv=None) -> int:
     r101_launches, r101_timing, import_result = phase_r101_and_import(dev, kernels, swin_model, swin_cfg)
     del swin_model
     phase_seconds["16"] = time.perf_counter() - t0
+    entry_point_launches, entry_result = phase_entry_point(dev, kernels, smi)
+    phase_seconds["17"] = entry_result["phase_s"]
     print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
 
     print(json.dumps({
         "slice": timing, "seqformer": seq_timing, "train": train_timing, "minvis": minvis_timing,
         "instmove": instmove_timing, "idol_swinL": swin_timing, "seqformer_swinL": seq_swin_timing,
-        "idol_r101": r101_timing, "reference_import": import_result, "phase_seconds": phase_seconds,
+        "idol_r101": r101_timing, "reference_import": import_result, "entry_point": entry_result,
+        "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
         "k5_decoder_form": measured["bwd_decoder"], "k6_backward_decoder_form": measured["bwd6_decoder"],
@@ -2000,7 +2472,7 @@ def main(argv=None) -> int:
              **{f"serve_{impl}": route_launches[impl] for impl in ROUTES},
              "train": train_launches, "train_pallas": route_train_launches, "entry_points": entry_launches,
              "minvis": minvis_launches, "instmove": instmove_launches, "idol_swinL": swin_launches,
-             "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches}
+             "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches, **entry_point_launches}
     rows = [  # (kernel, the path its launches are reported from, the measurement it is reported by)
         (msda.KERNEL, "serve", "enc"),
         (stem_conv.KERNEL, "train", "stem_train"),

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from vnext_tpu.utils.events import HistoryBuffer as JaxHistoryBuffer
+from vnext_tpu_torch.checkpoint.checkpointer import Checkpointer
 from vnext_tpu_torch.engine.hooks import (HookBase, IterationTimer, LRTracker, PeriodicCheckpointer,
                                           PeriodicWriter)
 from vnext_tpu_torch.engine.train_step import TrainState, dropout_generator, make_train_step
@@ -94,7 +95,7 @@ def test_metrics_one_step_late_writers_and_checkpoints(tmp_path):
     trainer.register_hooks([rec, IterationTimer(warmup_iter=0), LRTracker(lambda step: 0.1 * (step + 1)),
                             PeriodicWriter([JSONWriter(str(tmp_path / "metrics.json")), CommonMetricPrinter(3)],
                                            period=1),
-                            PeriodicCheckpointer(str(tmp_path), period=2)])
+                            PeriodicCheckpointer(Checkpointer(str(tmp_path)), period=2)])
     trainer.train(0, 3)
     # step i's metrics are in the storage after step i + 1 (the last after the loop)
     assert rec.calls == ["before_train", "before_0", "after_0:[]", "before_1", "after_1:[5.0]",
@@ -108,6 +109,7 @@ def test_metrics_one_step_late_writers_and_checkpoints(tmp_path):
     assert sorted(p.name for p in tmp_path.glob("*.pth")) == ["model_0000001.pth", "model_0000002.pth"]
     saved = torch.load(tmp_path / "model_0000002.pth", weights_only=False)
     assert saved["step"] == 3 and set(saved) == {"step", "model", "optimizer", "scheduler"}
+    assert (tmp_path / "last_checkpoint").read_text() == "model_0000002.pth"
 
 
 def test_non_finite_loss_raises():

@@ -61,7 +61,11 @@ def test_package_never_imports_jax():
     assert int(count) >= 15
     for name in ("models.seqformer", "engine.seqformer_inference", "tools.exp_dynstore", "models.mask2former",
                  "engine.minvis_inference", "models.instmove", "config", "config.cfgnode", "config.defaults",
-                 "config.extensions", "models.backbones", "models.backbones.swin", "checkpoint.torch_import"):
+                 "config.extensions", "models.backbones", "models.backbones.swin", "checkpoint.torch_import",
+                 "data", "data.catalog", "data.datasets.ytvis", "data.datasets.synthetic", "data.transforms",
+                 "data.dataset_mapper", "data.build", "structures.masks", "evaluation.rle", "evaluation.native",
+                 "evaluation.ytvos_eval", "evaluation.ytvis_eval", "evaluation.evaluator", "evaluation.testing",
+                 "checkpoint.checkpointer", "engine.launch", "utils.logger", "tools.train_net"):
         assert f"vnext_tpu_torch.{name}" in names.split(","), name
     assert bad.strip() == "[]"
 
@@ -81,7 +85,7 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "from vnext_tpu_torch.models.backbones import swin\n"
         "from vnext_tpu_torch import config\n"
         "from vnext_tpu_torch.checkpoint import torch_import\n"
-        "from vnext_tpu_torch.tools import exp_dynstore\n"
+        "from vnext_tpu_torch.tools import exp_dynstore, train_net\n"
         "from vnext_tpu_torch import _build\n"
         "print(shutil.which('nvcc'), _build.load_library.cache_info().currsize)\n",
         env=env,
@@ -173,6 +177,35 @@ def test_every_kernel_names_its_source_and_tpu_twin():
 
 
 # ---------------------------------------------------------------- on the card
+@pytest.mark.cuda
+def test_entry_point_runs_on_the_card_by_default(cuda_device, tmp_path):
+    """The entry point with its defaults' MODEL.DEVICE ("tpu", read as the card):
+    --eval-only at ytvis19_r50 width on a small synthetic dataset runs K1 / K2 /
+    K3, and one train step (one clip) runs K4 / K5 / K2 with the model on the
+    card. (The quick-schedule config's widths, hidden 64 in 4 heads, are not
+    the kernels': it runs on the CPU.)"""
+    from vnext_tpu_torch.data.datasets.synthetic import register_synthetic_ytvis
+    from vnext_tpu_torch.tools import train_net
+
+    register_synthetic_ytvis("card_entry_point", root=str(tmp_path / "data"), num_videos=2, num_frames=3)
+    # the synthetic dataset's 3 categories: every label the model predicts has one
+    args = ["--config-file", os.path.join(REPO, "configs", "idol", "ytvis19_r50.yaml"), "MODEL.WEIGHTS", "",
+            "MODEL.IDOL.NUM_CLASSES", "3", "DATASETS.TEST", "('card_entry_point',)",
+            "DATASETS.TRAIN", "('card_entry_point',)", "OUTPUT_DIR", str(tmp_path / "out")]
+    before = {k.name: k.launches for k in COUNTERS}
+    results = train_net.main(["--eval-only", *args])
+    moved = {k.name: k.launches - before[k.name] for k in COUNTERS if k.launches != before[k.name]}
+    assert set(moved) == {"ms_deform_attn_fwd", "stem_conv", "encoder_epilogue"}, moved
+    assert set(results["card_entry_point"]["segm"]) >= {"AP", "AP50", "AR@100"}
+
+    before = {k.name: k.launches for k in COUNTERS}
+    trainer = train_net.main([*args, "SOLVER.IMS_PER_BATCH", "1", "SOLVER.MAX_ITER", "1", "TEST.EVAL_PERIOD", "0"])
+    moved = {k.name: k.launches - before[k.name] for k in COUNTERS if k.launches != before[k.name]}
+    assert moved["ms_deform_attn_v9_fwd"] == 24 and moved["ms_deform_attn_v9_bwd"] == 24, moved
+    assert next(trainer.state.model.parameters()).is_cuda
+    assert (tmp_path / "out" / "last_checkpoint").read_text() == "model_0000000.pth"
+
+
 BF16_ULP = 2.0 ** -7
 LEVELS = ((12, 16), (6, 8), (3, 4), (2, 2))
 

@@ -17,31 +17,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..data.dataset_mapper import _load_image
+from ..data.transforms import get_resize_shortest_edge
 from ..ops.interpolate import resize_bilinear, resize_nearest
 from ..tracking.idol_tracker import IDOLTracker, _sigmoid
-
-
-def get_resize_shortest_edge(h: int, w: int, short_edge: int, max_size: int) -> Tuple[int, int]:
-    """detectron2 ResizeShortestEdge geometry: the (new_h, new_w) of an h x w image."""
-    scale = short_edge / min(h, w)
-    if h < w:
-        new_h, new_w = short_edge, int(round(scale * w))
-    else:
-        new_h, new_w = int(round(scale * h)), short_edge
-    if max(new_h, new_w) > max_size:
-        scale2 = max_size / max(new_h, new_w)
-        new_h, new_w = int(round(new_h * scale2)), int(round(new_w * scale2))
-    return new_h, new_w
-
-
-def resize_image(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
-    """PIL bilinear resize, as the JAX package's ResizeTransform; PIL is imported
-    only when a frame actually changes size."""
-    if img.shape[:2] == (new_h, new_w):
-        return img
-    from PIL import Image
-
-    return np.asarray(Image.fromarray(img).resize((new_w, new_h), Image.BILINEAR))
 
 
 def box_cxcywh_to_xyxy(x: np.ndarray) -> np.ndarray:
@@ -72,13 +51,6 @@ def _nms_numpy(boxes: np.ndarray, scores: np.ndarray, idxs: np.ndarray, thr: flo
         suppressed[order[iou > thr]] = True
         suppressed[i] = False
     return np.asarray(keep, np.int64)
-
-
-def _default_loader(path: str) -> np.ndarray:
-    from PIL import Image
-
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
 
 
 def runner_kwargs_from_cfg(cfg) -> dict:
@@ -148,7 +120,7 @@ class IDOLVideoInference:
         self.temporal_score_type = temporal_score_type
         self.pixel_mean = torch.tensor(pixel_mean, dtype=torch.float32, device=self.device)
         self.pixel_std = torch.tensor(pixel_std, dtype=torch.float32, device=self.device)
-        self.image_loader = image_loader or _default_loader
+        self.image_loader = image_loader or _load_image
 
     @classmethod
     def from_config(cls, cfg, model, **kwargs) -> "IDOLVideoInference":
@@ -162,9 +134,8 @@ class IDOLVideoInference:
         frames, size = [], None
         for path in record["file_names"]:
             img = self.image_loader(path)
-            new_h, new_w = get_resize_shortest_edge(
-                img.shape[0], img.shape[1], self.test_short_edge, self.test_max_size)
-            img = resize_image(img, new_h, new_w)[:th, :tw]
+            resize = get_resize_shortest_edge(img.shape[0], img.shape[1], self.test_short_edge, self.test_max_size)
+            img = resize.apply_image(img)[:th, :tw]
             h, w = img.shape[:2]
             pad = np.zeros((th, tw, 3), np.uint8)
             pad[:h, :w] = img

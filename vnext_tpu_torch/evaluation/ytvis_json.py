@@ -1,60 +1,34 @@
-"""YouTube-VIS ``results.json`` entries: COCO RLE masks and the per-video writer.
+"""YouTube-VIS ``results.json`` entries: the per-video writer.
 
-Counterpart of ``vnext_tpu.evaluation.rle.rle_encode`` and
-``vnext_tpu.evaluation.ytvis_eval.video_output_to_json``: column-major run
-lengths compressed with COCO's 5-bit delta scheme, byte-compatible with
-pycocotools, and one entry per (instance, class) with the category remapped
-from 0-based contiguous ids to 1-based.
+Counterpart of ``vnext_tpu.evaluation.ytvis_eval.video_output_to_json``: one
+entry per (instance, class) of a video's predictions, every frame's mask as a
+compressed COCO RLE (``evaluation/rle.py``), the category remapped from the
+contiguous id to the dataset's (by default 0-based to 1-based).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import List, Optional
 
 import numpy as np
 
+from .rle import rle_encode
 
-def mask_to_counts(mask: np.ndarray) -> List[int]:
-    """Binary HxW mask -> column-major run lengths, starting with a zero-run."""
-    flat = np.asarray(mask, dtype=np.uint8).flatten(order="F")
-    if flat.size == 0:
-        return [0]
-    change = np.flatnonzero(flat[1:] != flat[:-1]) + 1
-    runs = np.diff(np.concatenate([[0], change, [flat.size]])).tolist()
-    if flat[0] == 1:
-        runs = [0] + runs
-    return runs
+__all__ = ["rle_encode", "video_output_to_json"]
 
 
-def compress_counts(counts: List[int]) -> str:
-    """COCO compression: 5-bit groups, delta-coded from counts[i-2]."""
-    out = []
-    for i, c in enumerate(counts):
-        x = int(c)
-        if i > 2:
-            x -= int(counts[i - 2])
-        more = True
-        while more:
-            c5 = x & 0x1F
-            x >>= 5
-            more = not ((x == 0 and not (c5 & 0x10)) or (x == -1 and (c5 & 0x10)))
-            if more:
-                c5 |= 0x20
-            out.append(chr(c5 + 48))
-    return "".join(out)
-
-
-def rle_encode(mask: np.ndarray) -> Dict:
-    """HxW bool mask -> compressed COCO RLE dict."""
-    h, w = mask.shape
-    return {"size": [int(h), int(w)], "counts": compress_counts(mask_to_counts(mask))}
-
-
-def video_output_to_json(output: dict, video_id: int) -> List[dict]:
-    """One video's predictions (``IDOLVideoInference`` output) -> results.json
-    entries, categories 1-based. A frame where the instance is absent gets an
-    all-zero full-size mask."""
-    height, width = output["image_size"]
+def video_output_to_json(
+    output: dict,
+    video_id: int,
+    height: Optional[int] = None,
+    width: Optional[int] = None,
+    reverse_id_map: Optional[dict] = None,
+) -> List[dict]:
+    """One video's predictions (a runner's output) -> results.json entries. A
+    frame where the instance is absent gets an all-zero mask of the video's
+    size (``height`` x ``width``, by default the output's ``image_size``)."""
+    if height is None or width is None:
+        height, width = output["image_size"]
     results = []
     for score, label, inst_masks in zip(
         output["pred_scores"], output["pred_labels"], output["pred_masks"]
@@ -63,10 +37,11 @@ def video_output_to_json(output: dict, video_id: int) -> List[dict]:
             rle_encode(np.zeros((height, width), bool) if m is None else np.asarray(m, bool))
             for m in inst_masks
         ]
+        category_id = reverse_id_map[int(label)] if reverse_id_map else int(label) + 1
         results.append({
             "video_id": int(video_id),
             "score": float(score),
-            "category_id": int(label) + 1,
+            "category_id": int(category_id),
             "segmentations": segms,
         })
     return results

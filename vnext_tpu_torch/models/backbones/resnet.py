@@ -1,8 +1,10 @@
-"""ResNet-50/101/152 trunk with frozen BN, returning the stages it is asked for (res3..res5 by default).
+"""ResNet-18/34/50/101/152 trunk with frozen BN, returning the stages it is asked for (res3..res5 by default).
 
-Counterpart of ``vnext_tpu.models.backbones.resnet.ResNet`` at the Bottleneck
-depths, in the torchvision layout (``stride_in_1x1=False``: the stride sits on
-the 3x3) or the MSRA one (``stride_in_1x1=True``: on the first 1x1). The
+Counterpart of ``vnext_tpu.models.backbones.resnet.ResNet``: BasicBlock stages
+(two 3x3 convolutions, no expansion) at depths 18 and 34, Bottleneck stages at
+50, 101 and 152, in the torchvision layout (``stride_in_1x1=False``: the
+stride sits on the 3x3) or the MSRA one (``stride_in_1x1=True``: on the first
+1x1), which only the Bottleneck has. The
 input is NHWC, as the JAX package's; inside, tensors are NCHW and, on the card,
 in ``channels_last`` memory, which is the stem kernel's NHWC output as it is.
 Outputs are NCHW.
@@ -23,7 +25,30 @@ from torch import nn
 from ...ops.stem_conv import stem_conv7x7s2_bn_relu
 from ..layers import Conv, FrozenBatchNorm
 
-BLOCKS_PER_STAGE = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+BLOCKS_PER_STAGE = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3),
+                    152: (3, 8, 36, 3)}
+
+
+class BasicBlock(nn.Module):
+    """3x3 (stride) -> 3x3 with a residual; frozen BN (ResNet-18/34)."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int, dtype):
+        super().__init__()
+        self.conv1 = Conv(in_ch, out_ch, 3, stride, 1, bias=False, dtype=dtype)
+        self.bn1 = FrozenBatchNorm(out_ch, dtype)
+        self.conv2 = Conv(out_ch, out_ch, 3, 1, 1, bias=False, dtype=dtype)
+        self.bn2 = FrozenBatchNorm(out_ch, dtype)
+        if in_ch != out_ch or stride != 1:
+            self.downsample_conv = Conv(in_ch, out_ch, 1, stride, bias=False, dtype=dtype)
+            self.downsample_bn = FrozenBatchNorm(out_ch, dtype)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        identity = x if self.downsample_conv is None else self.downsample_bn(self.downsample_conv(x))
+        return torch.relu(out + identity)
 
 
 class Bottleneck(nn.Module):
@@ -55,26 +80,27 @@ class ResNet(nn.Module):
     def __init__(self, depth: int = 50, dtype=torch.float32,
                  out_features: Sequence[str] = ("res3", "res4", "res5"), stride_in_1x1: bool = False):
         super().__init__()
-        if depth in (18, 34):
-            raise NotImplementedError(f"ResNet-{depth} (BasicBlock stages) is not ported yet: "
-                                      "ROADMAP Queue 1, item 11")
         if depth not in BLOCKS_PER_STAGE:
             raise ValueError(f"the port has ResNet depths {sorted(BLOCKS_PER_STAGE)}, got {depth}")
         unknown = set(out_features) - {"res2", "res3", "res4", "res5"}
         if unknown:
             raise ValueError(f"ResNet has no outputs {sorted(unknown)}")
         self.dtype = dtype
+        self.depth = depth
         self.out_features = tuple(out_features)
         self.conv1 = Conv(3, 64, 7, 2, 3, bias=False, dtype=dtype)
         self.bn1 = FrozenBatchNorm(64, dtype)
-        in_ch, mid, out_ch = 64, 64, 256
+        basic = depth < 50
+        in_ch, mid, out_ch = 64, 64, 64 if basic else 256
         self.stage_blocks = []
         for stage, n in enumerate(BLOCKS_PER_STAGE[depth]):
             names = []
             for i in range(n):
                 name = f"layer{stage + 1}_{i}"
                 stride = 2 if (stage > 0 and i == 0) else 1
-                self.add_module(name, Bottleneck(in_ch, mid, out_ch, stride, dtype, stride_in_1x1))
+                block = (BasicBlock(in_ch, out_ch, stride, dtype) if basic
+                         else Bottleneck(in_ch, mid, out_ch, stride, dtype, stride_in_1x1))
+                self.add_module(name, block)
                 names.append(name)
                 in_ch = out_ch
             self.stage_blocks.append(names)
@@ -82,6 +108,8 @@ class ResNet(nn.Module):
 
     @property
     def output_channels(self) -> Dict[str, int]:
+        if self.depth < 50:  # BasicBlock stages have no 4x expansion
+            return {"res2": 64, "res3": 128, "res4": 256, "res5": 512}
         return {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:

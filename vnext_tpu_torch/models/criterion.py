@@ -108,12 +108,17 @@ def loss_reid(key_embeds, ref_embeds, matched_query_per_gt, pos_mask, neg_mask,
     return {"loss_reid": contras.sum() / num_items, "loss_reid_aux": aux.sum() / num_items}
 
 
-def default_weight_dict(dec_layers: int = 6) -> Dict[str, float]:
-    """Loss weights of the IDOL recipe (class 2, L1 5, GIoU 2, ReID 2 and its
-    cosine term 3, mask 2, dice 5); ``_i`` keys weigh decoder layer i < last."""
-    base = {"loss_ce": 2.0, "loss_bbox": 5.0, "loss_giou": 2.0, "loss_reid": 2.0,
-            "loss_reid_aux": 3.0, "loss_mask": 2.0, "loss_dice": 5.0}
-    w = dict(base)
-    for i in range(dec_layers - 1):
-        w.update({f"{k}_{i}": v for k, v in base.items()})
+def default_weight_dict(class_weight: float = 2.0, l1_weight: float = 5.0, giou_weight: float = 2.0,
+                        mask_weight: float = 2.0, dice_weight: float = 5.0, reid_weight: float = 2.0,
+                        dec_layers: int = 6, deep_supervision: bool = True) -> Dict[str, float]:
+    """Loss weights of the IDOL recipe (``MODEL.IDOL.*_WEIGHT``; by default class
+    2, L1 5, GIoU 2, ReID 2 and its cosine term 1.5x that, mask 2, dice 5); with
+    deep supervision, ``_i`` keys weigh decoder layer i < last alike."""
+    w = {"loss_ce": class_weight, "loss_bbox": l1_weight, "loss_giou": giou_weight,
+         "loss_reid": reid_weight, "loss_reid_aux": reid_weight * 1.5, "loss_mask": mask_weight,
+         "loss_dice": dice_weight}
+    if deep_supervision:
+        base = dict(w)
+        for i in range(dec_layers - 1):
+            w.update({f"{k}_{i}": v for k, v in base.items()})
     return w
