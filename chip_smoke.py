@@ -4,6 +4,8 @@
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --only train_numerics    # phases 1 and 6 alone
     python3 chip_smoke.py --only entry_point       # phases 1 and 17 alone
+    python3 chip_smoke.py --only minvis_entry      # phases 1, 2b's new shapes and 18 alone
+    python3 chip_smoke.py --only seqformer_train   # phases 1 and 19 alone
 
 Phases, each printed as it ends; any failure raises and exits non-zero. Each
 path zeroes every kernel's launch counter just before it runs and reads them
@@ -21,7 +23,11 @@ all just after; the counts must be what the code implies.
    entry and K3 refuse autograd. 2b: K4, K5 (held element by element, with its
    value-gradient reduction traffic: in-range corners x 128 B over its time),
    the v6 route's backward (K5 through ``TPU.MSDA_IMPL`` "pallas") and K2's
-   forward and backward at the train step's shapes. 2c: K4 and the selector's routes
+   forward and backward at the train step's shapes; then K4 and K5 at
+   MinVIS-R50's train shape (4 frames at 512x768, Q = S = 8064 over 3 levels
+   coarsest first, L * P = 12) and at SeqFormer-R50's encoder and box-form
+   decoder shapes (4 clips x 5 frames, Q = S = 6800 and Q = 300), and K2's
+   forward and backward at both steps' frames. 2c: K4 and the selector's routes
    ("pallas", "pallas_v7", "pallas_v8") at the serving encoder and decoder
    shapes (the decoder's is SeqFormer's), K4b (the channel-major entry) at the
    encoder's, and K9 at its own beside an empty kernel launched on its grid
@@ -123,6 +129,35 @@ port's own reader (``vnext_tpu_torch.config``).
     and no evaluation inside the window, with the live loader and on the same
     batches made beforehand, alternately, twice each; and a host profile
     (``cProfile``) of a second ``--eval-only`` run.
+
+18. MinVIS-R50 through its entry point (``vnext_tpu_torch.tools.train_net_video.main``,
+    in-process) at ``configs/minvis/ovis_r50.yaml``'s width (R50, hidden 256,
+    100 queries, 6 + 9 layers, 12544 sampled points, bf16, seeded weights) on
+    a synthetic dataset as phase 17's whose json lists OVIS's 25 categories:
+    ``--eval-only`` in windows of 3 (K2 / K1 / K3 = 1 / 6 / 6 a window, 10
+    entries a video, per-video ms, the evaluator's seconds), the ground truth
+    through ``YTVISEvaluator`` at AP 1.0; 4 training steps of 2 clips (key +
+    reference, one card's share of ``IMS_PER_BATCH`` 16 on 8 cards) at
+    512x768 with checkpoints every 2 (K4 / K5 / K2 = 6 / 6 / 1 a step; the
+    step period beside the time ``next(loader)`` blocked, the host time of
+    the assignment, peak memory), ``--resume`` to 6 (state bit-equal to the
+    file), and ``ovis_r50_motion.yaml``'s ``ValueError`` at 120x216 masks. Then
+    one clip's train forward and backward card (bf16) vs CPU (f32) on point
+    coordinates drawn once on the CPU: losses within 5%, gradients by group
+    within 10%, at the card's own assignment and at the CPU's (how many
+    assignments differ is printed).
+19. SeqFormer-R50's clip-level train step (``configs/seqformer/ytvis19_r50.yaml``:
+    hidden 256, 300 queries, 6 + 6 layers, bf16, dropout 0.1, seeded weights)
+    through ``make_train_step`` on seeded synthetic ``ClipTargets`` (4 clips x
+    5 frames at 512x640, up to 24 instances): 3 steps, K4 / K5 / K2 = 12 / 12
+    / 1 a step, losses finite, frozen parameters bit-equal, and each
+    trainable one reached by a gradient (a non-zero AdamW first moment), moved
+    no further than AdamW's steps allow, and moved wherever the last update
+    was 4 ulps of an element or more (the warm-up's first updates round away
+    on larger elements); the step's
+    forward / backward / update split beside the
+    device's busy time, the assignment's host time and peak memory; one clip
+    card vs CPU at dropout 0, as phase 18's.
 
 Then a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -538,11 +573,12 @@ def synthetic_video(seed: int, n_frames: int):
 
 def read_config(rel: str):
     """A config file under ``configs/`` through the port's own reader, with the
-    project's keys (IDOL's, or SeqFormer's for ``seqformer/``)."""
-    from vnext_tpu_torch.config import add_idol_config, add_seqformer_config, get_cfg
+    project's keys (IDOL's, SeqFormer's for ``seqformer/``, MaskFormer's for
+    ``minvis/``)."""
+    from vnext_tpu_torch.config import add_idol_config, add_maskformer_config, add_seqformer_config, get_cfg
 
     cfg = get_cfg()
-    (add_seqformer_config if rel.startswith("seqformer") else add_idol_config)(cfg)
+    {"seqformer": add_seqformer_config, "minvis": add_maskformer_config}.get(rel.split("/")[0], add_idol_config)(cfg)
     cfg.merge_from_file(str(Path(__file__).resolve().parent / "configs" / rel))
     return cfg
 
@@ -787,7 +823,6 @@ def phase_train_kernels(dev):
     import torch
 
     from vnext_tpu_torch.ops import ms_deform_attn as msda
-    from vnext_tpu_torch.ops import stem_conv as stem
 
     rng = np.random.RandomState(1)
     bf16 = torch.bfloat16
@@ -891,16 +926,36 @@ def phase_train_kernels(dev):
         print(f"  K6 backward route ({form}) {ms6:.4f} ms (K5 through impl='pallas'), plain {plain_ms:.4f} ms")
         results[f"bwd6_{form}"] = kernel_entry(max(err_v, err_a, err_l), ms6, plain_ms, bwd_bound)
 
-    # K2's forward at the train step's shape
-    x = t(rng.randn(TRAIN_CLIPS, *TRAIN_HW, 3))
+    results["stem_train"] = stem_train_case(dev, rng, TRAIN_CLIPS, TRAIN_HW, "train shape")
+    print("[phase 2b] K4, K5 (and the v6 route's backward) and K2 agree with their plain versions at "
+          "train-step shapes; K2 has a backward")
+    return results
+
+
+def stem_train_case(dev, rng, n, hw, label):
+    """K2's forward at [n, *hw, 3] against its plain version, with times, the
+    bound and cuDNN's bf16 convolution; then its backward (the autograd of the
+    f32 linearization point) against the autograd of the plain version on the
+    same batch, with both passes timed. Returns the forward's kernel entry with
+    the backward's error and times beside it."""
+    import torch
+
+    from vnext_tpu_torch.ops import stem_conv as stem
+
+    bf16 = torch.bfloat16
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, dtype)
+
+    shape = f"[{n},{hw[0]},{hw[1]},3]"
+    x = t(rng.randn(n, *hw, 3))
     k = t(rng.randn(7, 7, 3, 64) * 0.1)
     scale, bias = t(rng.rand(64) + 0.5), t(rng.randn(64) * 0.1)
     with torch.no_grad():
         got = stem.stem_conv7x7s2_bn_relu(x, k, scale, bias)
         want = stem.stem_conv_plain(x, k, scale, bias)
         torch.cuda.synchronize()
-        err = compare(f"K2 stem_conv [{TRAIN_CLIPS},{TRAIN_HW[0]},{TRAIN_HW[1]},3]", got, want,
-                      BF16_ULP * float(want.float().abs().max()),
+        err = compare(f"K2 stem_conv {shape}", got, want, BF16_ULP * float(want.float().abs().max()),
                       "one bf16 ulp at the largest output: both sum exact products of bf16-rounded "
                       "operands in f32 and round once to bf16, in different orders")
         plain_ms = time_ms(lambda: stem.stem_conv_plain(x, k, scale, bias))
@@ -909,9 +964,10 @@ def phase_train_kernels(dev):
         kb = k.to(bf16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         library_ms = time_ms(lambda: torch.nn.functional.conv2d(xb, kb, stride=2, padding=3))
     bound = bound_ms(nbytes(x, k, scale, bias, got), 2.0 * got.numel() * 7 * 7 * 3, "bf16")
-    print(f"  K2 (train shape) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN bf16 conv2d "
+    print(f"  K2 ({label}, {shape}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN bf16 conv2d "
           f"{library_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}")
-    results["stem_train"] = kernel_entry(err, ms, plain_ms, bound, library_ms)
+    entry = kernel_entry(err, ms, plain_ms, bound, library_ms)
+    del got, want, xb, kb
 
     # K2's backward: the autograd of the f32 linearization point, against the
     # autograd of the plain version. The plain version rounds the input to bf16
@@ -919,35 +975,42 @@ def phase_train_kernels(dev):
     # both get an input that bf16 holds exactly: then they linearize at the same
     # point (a ReLU mask that differs on ~0.1% of outputs would otherwise move the
     # random-sign sums by ~sqrt(1e-3) = 3%)
-    x = t(rng.randn(2, *TRAIN_HW, 3), bf16).float()
-    args = [t(rng.randn(7, 7, 3, 64) * 0.1), t(rng.rand(64) + 0.5), t(rng.randn(64) * 0.1)]
-    g = t(rng.randn(2, TRAIN_HW[0] // 2, TRAIN_HW[1] // 2, 64), bf16)
-    leaves = [a.clone().requires_grad_() for a in args]
-    stem.stem_conv7x7s2_bn_relu(x, *leaves).backward(g)
-    plain = [a.clone().requires_grad_() for a in args]
-    stem.stem_conv_plain(x, *plain).backward(g)
-    for name, a, w in zip(("kernel", "scale", "bias"), leaves, plain):
-        err = float((a.grad - w.grad).norm() / w.grad.norm())
-        print(f"  K2 backward d{name}: relative L2 {err:.3g} tolerance 0.001: the same f32 products "
-              "summed in other orders, and dkernel rounded to bf16 on both sides")
-        require(err <= 1e-3, f"K2 backward d{name}: relative error {err}")
-    print("[phase 2b] K4, K5 (and the v6 route's backward) and K2 agree with their plain versions at "
-          "train-step shapes; K2 has a backward")
-    return results
+    x = x.to(bf16).float()
+    g = t(rng.randn(n, hw[0] // 2, hw[1] // 2, 64), bf16)
+    args = (k, scale, bias)
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in args]
+        fn(x, *leaves).backward(g)
+        return [a.grad for a in leaves]
+
+    errs = {}
+    for name, a, w in zip(("kernel", "scale", "bias"), grads(stem.stem_conv7x7s2_bn_relu),
+                          grads(stem.stem_conv_plain)):
+        errs[name] = float((a - w).norm() / w.norm())
+        print(f"  K2 backward ({label}) d{name}: relative L2 {errs[name]:.3g} tolerance 0.001: the same f32 "
+              "products summed in other orders, and dkernel rounded to bf16 on both sides")
+        require(errs[name] <= 1e-3, f"K2 backward ({label}) d{name}: relative error {errs[name]}")
+    train_ms = time_ms(lambda: grads(stem.stem_conv7x7s2_bn_relu), reps=5, warmup=1)
+    plain_train_ms = time_ms(lambda: grads(stem.stem_conv_plain), reps=5, warmup=1)
+    print(f"  K2 forward + backward ({label}) {train_ms:.4f} ms, plain's {plain_train_ms:.4f} ms")
+    return {**entry, "backward_rel_l2": errs, "forward_backward_ms": train_ms,
+            "plain_forward_backward_ms": plain_train_ms}
 
 
 # ---------------------------------------------------------------- phase 5
-def synthetic_batch(rng, n_clips=TRAIN_CLIPS):
+def synthetic_batch(rng, n_clips=TRAIN_CLIPS, hw=TRAIN_HW, n_classes=40):
     """A collated loader batch (``batch_to_model_inputs``'s format): key and
-    reference frames [B, 512, 640, 3] uint8 with coloured rectangles, and up to
-    48 instances per clip with labels, cxcywh boxes, stride-4 masks and ids; the
-    reference frame moves each box a little and drops a few instances."""
-    h, w = TRAIN_HW
+    reference frames [B, 512, 640, 3] (``hw``) uint8 with coloured rectangles,
+    and up to 48 instances per clip with labels below ``n_classes``, cxcywh
+    boxes, stride-4 masks and ids; the reference frame moves each box a little
+    and drops a few instances."""
+    h, w = hw
     batch = {}
     n_inst = rng.randint(8, MAX_INSTS + 1, size=n_clips)
     centre = rng.rand(n_clips, MAX_INSTS, 2) * 0.7 + 0.15
     extent = rng.rand(n_clips, MAX_INSTS, 2) * 0.25 + 0.05
-    labels = rng.randint(0, 40, size=(n_clips, MAX_INSTS)).astype(np.int32)
+    labels = rng.randint(0, n_classes, size=(n_clips, MAX_INSTS)).astype(np.int32)
     for prefix in ("key", "ref"):
         c = centre + (rng.randn(*centre.shape) * 0.01 if prefix == "ref" else 0.0)
         valid = np.arange(MAX_INSTS)[None] < n_inst[:, None]
@@ -1948,22 +2011,22 @@ def minus(a, b):
     return {k: a.get(k, 0) - b.get(k, 0) for k in a if a.get(k, 0) - b.get(k, 0)}
 
 
-def register_ytvis19_synthetic(root):
-    """The synthetic YTVIS dataset (2 videos x 20 frames at 480x853) under
-    ``root``, its json listing YouTube-VIS 2019's 40 categories (the synthetic
-    objects take ids 1-3), registered as ``ENTRY_DATASET``: every label of the
-    40-class model then has a dataset category, as on ytvis_2019_val."""
+def register_synthetic(root, name, classes):
+    """The synthetic YTVIS-format dataset (2 videos x 20 frames at 480x853)
+    under ``root``, its json listing ``classes`` as its categories (the
+    synthetic objects take ids 1-3), registered as ``name``: every label of a
+    model of that many classes then has a dataset category, as on the real
+    dataset (phase 17: YouTube-VIS 2019's 40; phase 18: OVIS's 25)."""
     from vnext_tpu_torch.data.datasets.synthetic import generate_synthetic_ytvis
-    from vnext_tpu_torch.data.datasets.ytvis import YTVIS_2019_CLASSES, register_ytvis_instances
+    from vnext_tpu_torch.data.datasets.ytvis import register_ytvis_instances
 
     json_file = generate_synthetic_ytvis(root, h=VIDEO_HW[0], w=VIDEO_HW[1], num_frames=VIDEO_FRAMES[0])
     with open(json_file) as f:
         data = json.load(f)
-    data["categories"] = [{"id": i + 1, "name": n} for i, n in enumerate(YTVIS_2019_CLASSES)]
+    data["categories"] = [{"id": i + 1, "name": n} for i, n in enumerate(classes)]
     with open(json_file, "w") as f:
         json.dump(data, f)
-    register_ytvis_instances(ENTRY_DATASET, {"thing_classes": list(YTVIS_2019_CLASSES)}, json_file,
-                             f"{root}/JPEGImages")
+    register_ytvis_instances(name, {"thing_classes": list(classes)}, json_file, f"{root}/JPEGImages")
 
 
 def ground_truth_outputs(records):
@@ -2007,6 +2070,7 @@ def phase_entry_point(dev, kernels, smi, measure=False):
 
     from vnext_tpu_torch.checkpoint.checkpointer import Checkpointer
     from vnext_tpu_torch.data import DatasetCatalog
+    from vnext_tpu_torch.data.datasets.ytvis import YTVIS_2019_CLASSES
     from vnext_tpu_torch.evaluation import native
     from vnext_tpu_torch.evaluation.ytvis_eval import YTVISEvaluator
     from vnext_tpu_torch.tools import train_net
@@ -2015,7 +2079,7 @@ def phase_entry_point(dev, kernels, smi, measure=False):
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        register_ytvis19_synthetic(f"{tmp}/data")
+        register_synthetic(f"{tmp}/data", ENTRY_DATASET, YTVIS_2019_CLASSES)
         records = DatasetCatalog.get(ENTRY_DATASET)
         print(f"  synthetic YTVIS dataset: {len(records)} videos x {records[0]['length']} frames at "
               f"{records[0]['height']}x{records[0]['width']} (PNG), {sum(len(r['annotations'][0]) for r in records)} "
@@ -2352,11 +2416,690 @@ def same_optimizer_state(a, b):
     return all(torch.equal(a["state"][i][k].cpu(), b["state"][i][k].cpu()) for i in a["state"] for k in a["state"][i])
 
 
+# ---------------------------------------------------------------- phase 2b, the new train steps' shapes
+# MinVIS-R50's train step (configs/minvis/ovis_r50.yaml: TPU.TRAIN_IMAGE_SIZE 512x768, one card's
+# share of IMS_PER_BATCH 16 on 8 cards: 2 clips of key + reference frame), its pixel decoder's
+# levels coarsest first (strides 32, 16, 8)
+MINVIS_TRAIN_CLIPS, MINVIS_TRAIN_HW = 2, (512, 768)
+MINVIS_TRAIN_LEVELS = ((16, 24), (32, 48), (64, 96))
+# SeqFormer-R50's train step (configs/seqformer/ytvis19_r50.yaml: 512x640, MAX_INSTANCES 24, clips
+# of INPUT.SAMPLING_FRAME_NUM 5 frames), 4 clips as bench.py's single-chip share of its batch
+SEQ_TRAIN_CLIPS, SEQ_TRAIN_FRAMES, SEQ_MAX_INSTS, SEQ_TRAIN_STEPS = 4, 5, 24, 3
+
+
+def msda_train_case(dev, rng, label, levels, b, q, box, backward):
+    """K4 (and K5 with ``backward``) at ``levels`` against their plain versions,
+    with times, the bound and K4's gather rate; ``box``: the locations are the
+    decoder's box form (``sampling_locations`` of box references)."""
+    import torch
+
+    from vnext_tpu_torch.models.deformable_transformer import sampling_locations
+    from vnext_tpu_torch.ops import ms_deform_attn as msda
+
+    bf16 = torch.bfloat16
+    m, d, l, p = 8, 32, len(levels), 4
+    s = sum(h * w for h, w in levels)
+    wh = np.asarray([[w, h] for h, w in levels], np.float64)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, dtype)
+
+    value = t(rng.randn(b, s, m, d), bf16)
+    if box:
+        ref = np.concatenate([rng.rand(b, q, l, 2) * 0.8 + 0.1, rng.rand(b, q, l, 2) * 0.4 + 0.02], -1)
+        off = t(rng.randn(b, q, m, l, p, 2) * 3.0, bf16)
+        loc = sampling_locations(levels, off, t(ref)).contiguous()
+    else:
+        loc = rng.rand(b, q, m, l, p, 2) * 1.2 - 0.1
+        k = rng.randint(0, 10 ** 6, size=loc.shape) % wh[None, None, None, :, None, :].astype(int)
+        centre = rng.rand(b, q, m, l, p) < 0.25
+        loc[centre] = ((k + 0.5) / wh[None, None, None, :, None, :])[centre]
+        far = rng.rand(b, q, m, l, p) < 0.02
+        loc[far] = rng.choice([-4.0, 5.0], size=(int(far.sum()), 2))
+        loc = t(loc)
+    logits = torch.from_numpy(rng.randn(b, q, m, l * p).astype(np.float32) * 2.0).to(dev)
+    attn = torch.softmax(logits, -1).to(bf16).view(b, q, m, l, p).contiguous()
+    pix = loc * torch.tensor(wh, dtype=torch.float32, device=dev)[:, None, :] - 0.5
+    with torch.no_grad():
+        got = msda.ms_deform_attn_standard(value, levels, loc, attn, "pallas_v9")
+    want = msda.ms_deform_attn_core_plain(value, levels, loc, attn)
+    torch.cuda.synchronize()
+    err = compare(f"K4 ms_deform_attn_v9_fwd ({label}, B={b}, Q={q}, L*P={l * p})", got, want,
+                  BF16_ULP * float(want.float().abs().max()),
+                  "one bf16 ulp at the largest output: both sum the same bf16 inputs in f32 and round once")
+    with torch.no_grad():
+        ms = time_ms(lambda: msda.ms_deform_attn_standard(value, levels, loc, attn, "pallas_v9"))
+    plain_ms = time_ms(lambda: msda.ms_deform_attn_core_plain(value, levels, loc, attn))
+    bound = bound_ms(nbytes(value, loc, attn, got), 10.0 * samples_in_range(pix, levels, strict=True) * d, "f32")
+    print(f"  K4 ({label}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}; "
+          f"{gathered(pix, levels, ms)}")
+    out = {"fwd": kernel_entry(err, ms, plain_ms, bound)}
+    if not backward:
+        return out
+    grad = t(rng.randn(b, q, m * d), bf16)
+    dv, dl, da = msda.ms_deform_attn_v9_backward(value, levels, loc, attn, grad)
+    wv, wl, wa = msda.ms_deform_attn_grad_plain(value, levels, loc, attn, grad)
+    sv, _, sa = msda.ms_deform_attn_grad_plain(value.abs(), levels, loc, attn, grad.abs())
+    torch.cuda.synchronize()
+    err_v = compare_each(f"K5 dvalue ({label})", dv, wv, sv)
+    err_a = compare_each(f"K5 dattn ({label})", da, wa, sa)
+    err_l = compare(f"K5 dloc ({label})", dl, wl, 1e-5 * float(wl.abs().max()),
+                    "1e-5 of the largest element: f32 sums of the same products in another order")
+    ms = time_ms(lambda: msda.ms_deform_attn_v9_backward(value, levels, loc, attn, grad))
+    plain_ms = time_ms(lambda: msda.ms_deform_attn_grad_plain(value, levels, loc, attn, grad))
+    bound = bound_ms(nbytes(value, loc, attn, grad, dv, dl, da),
+                     30.0 * samples_in_range(pix, levels, strict=False) * d, "f32")
+    red_gb = corners_in_range(pix, levels, strict=False) * 128 / 1e9
+    print(f"  K5 ({label}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}; "
+          f"dvalue reductions {red_gb:.4f} GB at {red_gb / (ms * 1e-3) / 1e3:.3f} TB/s")
+    out["bwd"] = kernel_entry(max(err_v, err_a, err_l), ms, plain_ms, bound)
+    return out
+
+
+def phase_new_train_kernels(dev):
+    """The kernels of the two new train steps at the shapes those steps give
+    them: K4 and K5 at MinVIS-R50's encoder shape (4 frames, Q = S = 8064 over
+    3 levels coarsest first, L * P = 12: K5's batches of 4 samples, not its
+    L * P = 16 path), at SeqFormer-R50's encoder shape (4 clips x 5 frames,
+    Q = S = 6800) and at its box-form decoder shape (Q = 300 per frame); K2's
+    forward and backward at each step's frames (4 at 512x768, 20 at 512x640)."""
+    rng = np.random.RandomState(12)
+    s = sum(h * w for h, w in MINVIS_TRAIN_LEVELS)
+    seq_frames = SEQ_TRAIN_CLIPS * SEQ_TRAIN_FRAMES
+    minvis = msda_train_case(dev, rng, "MinVIS train encoder, 3 levels coarsest first", MINVIS_TRAIN_LEVELS,
+                             2 * MINVIS_TRAIN_CLIPS, s, box=False, backward=True)
+    seq_enc = msda_train_case(dev, rng, "SeqFormer train encoder", TRAIN_LEVELS, seq_frames,
+                              sum(h * w for h, w in TRAIN_LEVELS), box=False, backward=True)
+    seq_dec = msda_train_case(dev, rng, "SeqFormer train decoder, box form", TRAIN_LEVELS, seq_frames, 300,
+                              box=True, backward=True)
+    stem_minvis = stem_train_case(dev, rng, 2 * MINVIS_TRAIN_CLIPS, MINVIS_TRAIN_HW, "MinVIS train")
+    stem_seq = stem_train_case(dev, rng, seq_frames, TRAIN_HW, "SeqFormer train")
+    print("[phase 2b] K4 and K5 agree with their plain versions at MinVIS's train shape (L*P = 12) and at "
+          "SeqFormer's encoder and box-form decoder shapes; K2's forward and backward at both steps' frames")
+    return {"fwd_minvis_train": minvis["fwd"], "bwd_minvis_train": minvis["bwd"],
+            "fwd_seqformer_enc": seq_enc["fwd"], "bwd_seqformer_enc": seq_enc["bwd"],
+            "fwd_seqformer_dec": seq_dec["fwd"], "bwd_seqformer_dec": seq_dec["bwd"],
+            "stem_minvis_train": stem_minvis, "stem_seqformer_train": stem_seq}
+
+
+# ---------------------------------------------------------------- card vs CPU of a train forward
+class AssignmentTap:
+    """``assign_batched`` of a model module, wrapped: it records each call's
+    assignment (on the host) and the seconds the call took once the card has
+    finished the work queued before it (its copy to the host waits for that
+    work anyway: the seconds are the copy and the solve), and can replay
+    recorded assignments instead of solving (moved to the caller's device)."""
+
+    def __init__(self, module):
+        self.module, self.solve = module, module.assign_batched
+        self.recorded, self.replay, self.seconds = [], None, []
+
+    def __call__(self, cost, valid):
+        import torch
+
+        if self.replay is not None:
+            return self.replay.pop(0).to(cost.device)
+        if cost.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.solve(cost, valid)
+        self.seconds.append(time.perf_counter() - t0)
+        self.recorded.append(out.cpu())
+        return out
+
+    def __enter__(self):
+        self.module.assign_batched = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.assign_batched = self.solve
+
+
+def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights):
+    """One train forward and backward of ``card`` (bf16, kernels) and ``cpu``
+    (f32, plain versions; the card's weights) on the same inputs: each loss
+    within 5% relative, each parameter group's gradient within 10% relative L2,
+    at the card's own assignment and again with the CPU's replayed on the card.
+    ``module`` is the model's module (``mask2former`` or ``seqformer``); a
+    MaskFormer's sampled-loss coordinates are drawn once, on the CPU's run, and
+    the card's runs take the same."""
+    import torch
+
+    from vnext_tpu_torch.models import mask2former
+    from vnext_tpu_torch.ops import point_sample
+
+    coords, replay_coords = [], []
+
+    def sampled(src, tgt, valid, num, num_points=12544, generator=None):
+        if replay_coords:
+            c = replay_coords.pop(0).to(src.device)
+        else:
+            with torch.no_grad():
+                c = point_sample.get_uncertain_point_coords_with_randomness(
+                    src.detach(), num_points, torch.Generator(device=src.device).manual_seed(5 + len(coords)))
+            coords.append(c.cpu())
+        return point_sample.mask_losses_at(src, tgt, c, valid, num)
+
+    def run(model, device, replay=None):
+        model.zero_grad(set_to_none=True)
+        replay_coords[:] = coords
+        with AssignmentTap(module) as tap, patched(mask2former, "sampled_mask_losses", sampled):
+            tap.replay = None if replay is None else list(replay)
+            losses = model(*inputs_on(device))
+            total = sum(losses[k] * weights[k] for k in losses if k in weights)
+            total.backward()
+        grads = {}
+        for group, prefixes in groups:
+            gs = [p.grad.detach().float().cpu().reshape(-1) for n, p in model.named_parameters()
+                  if n.startswith(prefixes) and p.grad is not None]
+            grads[group] = torch.cat(gs)
+        return {k: float(v.detach()) for k, v in losses.items()}, grads, tap.recorded
+
+    t0 = time.perf_counter()
+    want_losses, want_grads, cpu_assign = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    got_losses, got_grads, card_assign = run(card, "card")
+    differ = sum(int((a != b).sum()) for a, b in zip(card_assign, cpu_assign))
+    total = sum(int((b >= 0).sum()) for b in cpu_assign)
+    print(f"  {label}: CPU f32 forward + backward {cpu_s:.1f} s; the card's matching picked another query for "
+          f"{differ} of {total} assigned ground-truth slots (bf16 outputs beside f32 ones)")
+    forced_losses, forced_grads, _ = run(card, "card", replay=cpu_assign)
+    reason = ("bf16 keeps 8 significant bits, and the forward and backward round ~100 times in sequence, so "
+              "errors that add like a random walk reach a few percent")
+    result = {"assignments_differing": differ, "assigned": total, "cpu_s": cpu_s}
+    for tag, losses, grads in (("own", got_losses, got_grads), ("cpu_assignment", forced_losses, forced_grads)):
+        loss_err = {k: abs(losses[k] - v) / max(abs(v), 1e-6) for k, v in want_losses.items()}
+        grad_err = {g: float((grads[g] - want_grads[g]).norm() / want_grads[g].norm().clamp_min(1e-30))
+                    for g in want_grads}
+        worst = max(loss_err, key=loss_err.get)
+        where = "its own assignment" if tag == "own" else "the CPU's assignment"
+        print(f"  {label}, card at {where}: losses relative "
+              f"error max {loss_err[worst]:.4g} ({worst}) tolerance 0.05; gradients relative L2 "
+              + ", ".join(f"{g} {e:.4g}" for g, e in grad_err.items()) + f" tolerance 0.10: {reason}")
+        result[tag] = {"loss_rel_err": loss_err, "grad_rel_l2": grad_err}
+        if tag == "cpu_assignment" or differ == 0:
+            for k, e in loss_err.items():
+                require(e <= 0.05, f"{label} ({tag}): {k} relative error {e}")
+            for g, e in grad_err.items():
+                require(e <= 0.10, f"{label} ({tag}): gradient of {g} relative L2 {e}")
+    return result
+
+
+MINVIS_GROUPS = (
+    ("backbone", ("backbone.",)),
+    ("pixel decoder", ("pixel_decoder.",)),
+    ("masked decoder", ("transformer_decoder.",)),
+)
+SEQ_GROUPS = (
+    ("backbone", ("backbone.",)),
+    ("input projections", ("input_proj_",)),
+    ("encoder", ("transformer.encoder_", "transformer.level_embed")),
+    ("decoder", ("transformer.decoder_", "transformer.reference_points", "transformer.bbox_embed_",
+                 "query_embed")),
+    ("heads", ("class_embed_", "controller.", "mask_head.")),
+)
+
+
+# ---------------------------------------------------------------- phase 18
+MINVIS_DATASET = "ovis_synthetic_entry_point"
+MINVIS_TRAIN_STEPS, MINVIS_RESUME_STEPS = 4, 6
+
+
+def phase_minvis_entry(dev, kernels, smi):
+    """MinVIS-R50 through the port's ``train_net_video.main``, in-process, on a
+    synthetic OVIS-category dataset: ``--eval-only`` in windows of 3, the ground
+    truth through the evaluator, training with periodic checkpoints,
+    ``--resume``, the motion config's ``ValueError``; then one clip's train
+    forward on the card against the CPU."""
+    import torch
+
+    from vnext_tpu_torch.checkpoint.checkpointer import Checkpointer
+    from vnext_tpu_torch.data import OVIS_CLASSES, DatasetCatalog
+    from vnext_tpu_torch.evaluation.ytvis_eval import YTVISEvaluator
+    from vnext_tpu_torch.models import mask2former
+    from vnext_tpu_torch.tools import train_net_video as tv
+
+    t_phase = time.perf_counter()
+    result = {}
+    configs = Path(__file__).resolve().parent / "configs" / "minvis"
+    with tempfile.TemporaryDirectory() as tmp:
+        register_synthetic(f"{tmp}/data", MINVIS_DATASET, OVIS_CLASSES)
+        records = DatasetCatalog.get(MINVIS_DATASET)
+        common = ["--config-file", str(configs / "ovis_r50.yaml"), "DATASETS.TEST", f"('{MINVIS_DATASET}',)",
+                  "DATASETS.TRAIN", f"('{MINVIS_DATASET}',)"]
+
+        # ---- --eval-only
+        video_ms, evaluate_s, build_evaluator = [], [], tv.build_evaluator
+
+        class TimedRunner(tv.MinVISVideoInference):
+            def __call__(self, record):
+                t1 = time.perf_counter()
+                out = super().__call__(record)
+                video_ms.append((time.perf_counter() - t1) * 1e3)
+                return out
+
+        def timed_evaluator(cfg, name, output_dir=None):
+            ev = build_evaluator(cfg, name, output_dir)
+            evaluate = ev.evaluate
+
+            def timed():
+                t1 = time.perf_counter()
+                out = evaluate()
+                evaluate_s.append(time.perf_counter() - t1)
+                return out
+
+            ev.evaluate = timed
+            return ev
+
+        eval_dir = f"{tmp}/eval"
+        zero(kernels)
+        with patched(tv, "MinVISVideoInference", TimedRunner), patched(tv, "build_evaluator", timed_evaluator):
+            results = tv.main(["--eval-only", *common, "OUTPUT_DIR", eval_dir])
+        torch.cuda.synchronize()
+        eval_launches = counts(kernels)
+        n_windows = len(records) * -(-VIDEO_FRAMES[0] // MINVIS_WINDOW)
+        expected = {"stem_conv": n_windows, "ms_deform_attn_fwd": 6 * n_windows, "encoder_epilogue": 6 * n_windows}
+        print(f"  --eval-only: launches over {n_windows} windows of {MINVIS_WINDOW} {eval_launches} "
+              f"(expected {expected}: per window K2 / K1 / K3 = 1 / 6 / 6)")
+        require(eval_launches == expected, f"MinVIS eval launch counts {eval_launches} != {expected}")
+        with open(f"{eval_dir}/results.json") as f:
+            entries = json.load(f)
+        require(len(entries) == 10 * len(records), f"{len(entries)} entries: MinVIS keeps 10 a video")
+        for e in entries:
+            require(1 <= e["category_id"] <= MINVIS_CLASSES and 0.0 <= e["score"] <= 1.0, f"bad entry {e['score']}")
+            require(len(e["segmentations"]) == VIDEO_FRAMES[0] and all(
+                sg["size"] == list(VIDEO_HW) for sg in e["segmentations"]), "one 480x853 RLE per frame")
+        stats = results[MINVIS_DATASET]["segm"]
+        check_stats(stats, "MinVIS --eval-only")
+        print(f"  --eval-only: {len(entries)} results.json entries; AP dict {stats}; per video "
+              f"{', '.join(f'{v:.1f}' for v in video_ms)} ms through do_eval (decode, windows, matching, top 10, "
+              f"masks at 480x853; seeded weights); the evaluator {evaluate_s[0]:.3f} s")
+        result["eval"] = {"video_ms": list(video_ms), "evaluator_s": evaluate_s[0], "entries": len(entries),
+                          "stats": stats, "launches": eval_launches, "windows": n_windows}
+
+        ev = YTVISEvaluator(MINVIS_DATASET, output_dir=f"{tmp}/gt")
+        ev.reset()
+        for rec, out in zip(records, ground_truth_outputs(records)):
+            ev.process([rec], [out])
+        gt_stats = ev.evaluate()["segm"]
+        require(gt_stats["AP"] == 1.0, f"the ground truth scored AP {gt_stats['AP']}, not 1.0")
+        print(f"  the ground truth as predictions through YTVISEvaluator on the OVIS-category json: {gt_stats}")
+        result["ground_truth_stats"] = gt_stats
+        torch.cuda.empty_cache()
+
+        # ---- training and --resume
+        train_dir = f"{tmp}/train"
+        train = [*common, "OUTPUT_DIR", train_dir, "SOLVER.IMS_PER_BATCH", str(MINVIS_TRAIN_CLIPS),
+                 "SOLVER.CHECKPOINT_PERIOD", "2"]
+        step_starts, waits, eval_deltas, saves = [], [], [], []
+        do_eval, build_loader, save = tv.do_eval, tv.build_vis_train_loader, Checkpointer.save
+        resume_or_load, loaded = Checkpointer.resume_or_load, {}
+
+        class TimedTrainer(tv.VISTrainer):
+            def run_step(self):
+                step_starts.append(time.perf_counter())
+                super().run_step()
+
+        def timed_loader(*a, **k):
+            it = build_loader(*a, **k)
+
+            def gen():
+                while True:
+                    t1 = time.perf_counter()
+                    batch = next(it)
+                    waits.append((time.perf_counter() - t1) * 1e3)
+                    yield batch
+
+            return gen()
+
+        def counted_eval(cfg, model=None):
+            before = counts(kernels)
+            out = do_eval(cfg, model)
+            torch.cuda.synchronize()
+            eval_deltas.append(minus(counts(kernels), before))
+            return out
+
+        def timed_save(self, name, state):
+            t1 = time.perf_counter()
+            path = save(self, name, state)
+            saves.append((t1, time.perf_counter(), os.path.getsize(path)))
+            return path
+
+        def checked_resume(self, weights_path, state, resume=True):
+            path = self.get_checkpoint_file()
+            state, start = resume_or_load(self, weights_path, state, resume)
+            if resume:
+                saved = torch.load(path, map_location="cpu", weights_only=True)
+                loaded.update(path=path, start=start, model=all(torch.equal(v.cpu(), saved["model"][k])
+                                                                for k, v in state.model.state_dict().items()),
+                              optimizer=same_optimizer_state(state.optimizer.state_dict(), saved["optimizer"]),
+                              scheduler=state.scheduler.state_dict() == saved["scheduler"])
+            return state, start
+
+        runs = {}
+        for label, argv, steps in (("train", [*train, "SOLVER.MAX_ITER", str(MINVIS_TRAIN_STEPS)], MINVIS_TRAIN_STEPS),
+                                   ("resume", ["--resume", *train, "SOLVER.MAX_ITER", str(MINVIS_RESUME_STEPS)],
+                                    MINVIS_RESUME_STEPS)):
+            step_starts.clear()
+            waits.clear()
+            eval_deltas.clear()
+            tap = AssignmentTap(mask2former)
+            zero(kernels)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            with patched(tv, "VISTrainer", TimedTrainer), patched(tv, "build_vis_train_loader", timed_loader), \
+                    patched(tv, "do_eval", counted_eval), tap, \
+                    patched(Checkpointer, "save", timed_save), patched(Checkpointer, "resume_or_load", checked_resume):
+                trainer = tv.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            require(len(eval_deltas) == 1, f"MinVIS {label}: {len(eval_deltas)} evaluations")
+            in_train = minus(counts(kernels), eval_deltas[0])
+            n = steps - trainer.start_iter
+            want = {"ms_deform_attn_v9_fwd": 6 * n, "ms_deform_attn_v9_bwd": 6 * n, "stem_conv": n}
+            print(f"  {label}: iterations {trainer.start_iter}..{trainer.iter - 1}; launches in the train steps "
+                  f"{in_train} (expected {want}: per step the pixel decoder's 6 layers through K4 and K5, one stem "
+                  f"over the {2 * MINVIS_TRAIN_CLIPS} frames), in the evaluation after training {eval_deltas[0]}")
+            require(in_train == want, f"MinVIS {label}: train launch counts {in_train} != {want}")
+            require(eval_deltas[0] == expected, f"MinVIS {label}: evaluation launches {eval_deltas[0]} != {expected}")
+            hist = trainer.storage.histories()
+            keys = sorted(k for k in hist if k.startswith("loss_"))
+            require(len(keys) == 3 * 10, f"MinVIS {label}: loss keys {keys}")
+            for k in keys + ["total_loss"]:
+                require(hist[k].count() == n and np.isfinite(hist[k].values()).all(), f"{label} {k}")
+            marker = Path(f"{train_dir}/last_checkpoint").read_text()
+            require(marker == f"model_{steps - 1:07d}.pth", f"MinVIS {label}: last_checkpoint names {marker}")
+            periods = [(b - a - sum(e - s for s, e, _ in saves if a <= s < b)) * 1e3
+                       for a, b in zip(step_starts, step_starts[1:])]
+            # the training steps' matchings: the calls before the evaluation's none (eval has no matching)
+            assign_s = [v * 1e3 for v in tap.seconds]
+            runs[label] = {"iterations": [trainer.start_iter, trainer.iter], "launches": in_train,
+                           "step_period_ms": periods, "loader_wait_ms": list(waits), "assignment_host_ms": assign_s,
+                           "total_loss": hist["total_loss"].values(), "peak_memory_gb": peak_gb, "wall_s": wall}
+            print(f"  {label}: total_loss {', '.join(f'{v:.3f}' for v in hist['total_loss'].values())}; step period "
+                  f"through the entry point (host clock between step starts, less a save) "
+                  f"{', '.join(f'{v:.1f}' for v in periods)} ms; next(loader) blocked "
+                  f"{', '.join(f'{v:.1f}' for v in waits)} ms; the assignment (one copy of 10 predictions x "
+                  f"{2 * MINVIS_TRAIN_CLIPS} frames of [48, 100] costs to the host, scipy) "
+                  f"{', '.join(f'{v:.1f}' for v in assign_s)} ms a step; peak memory {peak_gb:.2f} GiB; {wall:.1f} s")
+            del trainer
+            torch.cuda.empty_cache()
+        require(loaded.get("start") == MINVIS_TRAIN_STEPS, f"MinVIS --resume started at {loaded.get('start')}")
+        require(loaded["model"] and loaded["optimizer"] and loaded["scheduler"],
+                f"MinVIS --resume: restored state differs from {loaded['path']}")
+        print(f"  --resume from {Path(loaded['path']).name}: started at iteration {loaded['start']}; model, optimizer "
+              f"and scheduler state equal to the file bit for bit; checkpoints {saves[-1][2] / 2 ** 20:.1f} MiB, "
+              f"saved in {', '.join(f'{e - s:.2f}' for s, e, _ in saves)} s")
+        result.update(train=runs["train"], resume=runs["resume"], checkpoint_mib=saves[-1][2] / 2 ** 20)
+
+        # ---- the motion config at the runner's 480x864: 120x216 masks
+        try:
+            tv.main(["--eval-only", "--config-file", str(configs / "ovis_r50_motion.yaml"), *common[2:],
+                     "OUTPUT_DIR", f"{tmp}/motion"])
+        except ValueError as e:
+            require("120x216" in str(e), f"the motion config raised another ValueError: {e}")
+            print(f"  ovis_r50_motion.yaml --eval-only raised before any video, as in the JAX package: {e}")
+        else:
+            require(False, "ovis_r50_motion.yaml --eval-only ran at 120x216 masks")
+    torch.cuda.empty_cache()
+
+    # ---- one clip's train forward, card vs CPU
+    cfg = read_config("minvis/ovis_r50.yaml")
+    card = mask2former.build_maskformer_model(cfg, device=dev, seed=3).train()
+    cpu = mask2former.build_maskformer_model(cfg, device="cpu", dtype=torch.float32, seed=4).train()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batch = synthetic_batch(np.random.RandomState(18), n_clips=1, hw=MINVIS_TRAIN_HW, n_classes=MINVIS_CLASSES)
+    adapters = {"card": tv.minvis_batch_adapter(cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, dev),
+                "cpu": tv.minvis_batch_adapter(cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, "cpu")}
+    result["card_vs_cpu"] = train_card_vs_cpu(
+        "MinVIS train forward (one clip, key + reference at 512x768)", mask2former, card, cpu,
+        lambda d: adapters[d](batch), MINVIS_GROUPS, mask2former.maskformer_weight_dict(cfg))
+    del card, cpu
+    torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {smi}")
+    print(f"[phase 18] MinVIS through train_net_video: --eval-only K2 / K1 / K3 = 1 / 6 / 6 per window, the ground "
+          f"truth AP 1.0, training and --resume through K4 / K5 / K2 = 6 / 6 / 1 per step, the state restored bit "
+          f"for bit, the motion config refused; card agrees with CPU; {result['phase_s']:.1f} s")
+    return {"minvis_entry_eval": eval_launches, "minvis_entry_train": runs["train"]["launches"]}, result
+
+
+# ---------------------------------------------------------------- phase 19
+def seqformer_clip_batch(rng, n_clips, dev, pixel_mean, pixel_std):
+    """Seeded synthetic clips for SeqFormer's train forward: frames [B, 5, 512,
+    640, 3] (normalized f32) with coloured rectangles drifting over the clip,
+    valid sizes [B, 2], and ``ClipTargets`` of 8..24 instances a clip (boxes
+    cxcywh per frame, stride-4 masks; a few absent on a frame)."""
+    import torch
+
+    from vnext_tpu_torch.models.seqformer import ClipTargets
+
+    h, w = TRAIN_HW
+    nf, k = SEQ_TRAIN_FRAMES, SEQ_MAX_INSTS
+    images = rng.randint(0, 50, (n_clips, nf, h, w, 3)).astype(np.uint8)
+    boxes = np.zeros((n_clips, k, nf, 4), np.float32)
+    masks = np.zeros((n_clips, k, nf, h // 4, w // 4), bool)
+    n_inst = rng.randint(8, k + 1, size=n_clips)
+    valid = np.arange(k)[None] < n_inst[:, None]
+    labels = rng.randint(0, 40, (n_clips, k)).astype(np.int32)
+    for i in range(n_clips):
+        for j in np.flatnonzero(valid[i]):
+            c0, v = rng.rand(2) * 0.6 + 0.2, (rng.rand(2) - 0.5) * 0.04
+            ext = rng.rand(2) * 0.25 + 0.05
+            colour = rng.randint(0, 256, 3)
+            for f in range(nf):
+                if f > 0 and rng.rand() < 0.05:
+                    continue                                    # absent on this frame
+                c = c0 + v * f
+                x0, x1 = ((c[0] + np.array([-0.5, 0.5]) * ext[0]) * w).clip(0, w).astype(int)
+                y0, y1 = ((c[1] + np.array([-0.5, 0.5]) * ext[1]) * h).clip(0, h).astype(int)
+                images[i, f, y0:y1, x0:x1] = colour
+                masks[i, j, f, y0 // 4:y1 // 4 + 1, x0 // 4:x1 // 4 + 1] = True
+                boxes[i, j, f] = [c[0], c[1], ext[0], ext[1]]
+    mean = torch.tensor(pixel_mean, dtype=torch.float32, device=dev)
+    std = torch.tensor(pixel_std, dtype=torch.float32, device=dev)
+    x = (torch.from_numpy(images).to(dev).float() - mean) / std
+    sizes = torch.tensor([[h, w]] * n_clips, dtype=torch.int32, device=dev)
+    targets = ClipTargets(*(torch.from_numpy(a).to(dev) for a in (labels, boxes, masks, valid)))
+    return x, sizes, targets
+
+
+def check_update_landed(model, optimizer, before, lrs):
+    """Hold an AdamW run's update of ``model`` against the parameters
+    ``before`` it and each step's learning rate by group (``lrs``): frozen
+    parameters stayed bit-equal; each trainable one was reached by the steps'
+    gradients (a non-zero first moment), moved no further than AdamW allows
+    (|m_hat / sqrt(v_hat)| <= 1.004 a step for any gradients over 3 steps at
+    betas (0.9, 0.999), by Cauchy-Schwarz, plus the decoupled decay and an ulp
+    of rounding a step), and moved wherever the last step's update was at
+    least 4 ulps of an element: the warm-up's first updates (lr ~1e-7, ~1e-8
+    in the backbone) round away on the larger elements. Returns the counts of
+    frozen parameters, of trainable ones that moved, and of trainable ones
+    with an element the last update had to move."""
+    import torch
+
+    from vnext_tpu_torch.solver import build as solver
+
+    group_of = {id(p): i for i, g in enumerate(optimizer.param_groups) for p in g["params"]}
+    unreached, too_far, stuck, frozen_moved = [], [], [], []
+    frozen = moved = landable = 0
+    for n, p in model.named_parameters():
+        old = before[n].float()
+        if solver.is_frozen(n):
+            frozen += 1
+            frozen_moved += [] if torch.equal(p.detach(), before[n]) else [n]
+            continue
+        moved += not torch.equal(p.detach(), before[n])
+        st = optimizer.state.get(p, {})
+        if "exp_avg" not in st or not bool(st["exp_avg"].abs().max() > 0):
+            unreached.append(n)
+            continue
+        gi = group_of[id(p)]
+        group, ulp = optimizer.param_groups[gi], torch.finfo(p.dtype).eps
+        (beta1, beta2), t = group["betas"], float(st["step"])
+        delta = (p.detach().float() - old).abs()
+        limit = sum(lr[gi] for lr in lrs) * (1.01 + group["weight_decay"] * old.abs()) + len(lrs) * ulp * old.abs()
+        too_far += [n] if bool((delta > limit).any()) else []
+        last = lrs[-1][gi] * (st["exp_avg"] / (1 - beta1 ** t)) / (
+            (st["exp_avg_sq"] / (1 - beta2 ** t)).sqrt() + group["eps"])
+        lands = last.abs() >= 4 * ulp * old.abs()
+        if bool(lands.any()):
+            landable += 1
+            stuck += [] if bool((delta[lands] > 0).any()) else [n]
+    require(not unreached, f"trainable parameters no gradient reached: {unreached[:10]}")
+    require(not too_far, f"trainable parameters that moved further than AdamW's steps allow: {too_far[:10]}")
+    require(not stuck, f"trainable parameters whose update did not land: {stuck[:10]}")
+    require(not frozen_moved, f"frozen parameters that moved: {frozen_moved[:10]}")
+    return frozen, moved, landable
+
+
+def phase_seqformer_train(dev, kernels, smi):
+    """SeqFormer-R50's clip-level train step at ytvis19_r50 width through
+    ``make_train_step``: 4 clips x 5 frames at 512x640 a step, 3 steps, then
+    the step's parts, the device's busy time, and one clip's train forward on
+    the card against the CPU."""
+    import torch
+
+    from vnext_tpu_torch.engine.train_step import TrainState, dropout_generator, make_train_step
+    from vnext_tpu_torch.models import seqformer
+    from vnext_tpu_torch.models.layers import init_weights
+    from vnext_tpu_torch.solver import build as solver
+
+    t_phase = time.perf_counter()
+    cfg = read_config("seqformer/ytvis19_r50.yaml")
+    model = seqformer.build_seqformer_model(cfg, device=dev, seed=0).train()
+    describe(model, "SeqFormer-R50 for training", "seqformer/ytvis19_r50.yaml", t_phase)
+    optimizer = solver.build_optimizer(cfg, model)
+    state = TrainState.create(model, optimizer, solver.build_lr_scheduler(cfg, optimizer))
+    weights = seqformer.seqformer_weight_dict(cfg)
+    clip = solver.build_grad_clip(cfg)
+    step = make_train_step(model, optimizer, weights, clip)
+    mean, std = tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD)
+    inputs = [seqformer_clip_batch(np.random.RandomState(190 + i), SEQ_TRAIN_CLIPS, dev, mean, std)
+              for i in range(SEQ_TRAIN_STEPS)]
+    print(f"  batches: {SEQ_TRAIN_CLIPS} clips x {SEQ_TRAIN_FRAMES} frames at {TRAIN_HW[0]}x{TRAIN_HW[1]}, instances "
+          f"per clip {[int(v) for v in inputs[0][2].valid.sum(1)]} (first batch), up to {SEQ_MAX_INSTS}")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    tap = AssignmentTap(seqformer)
+    step_ms, per_step = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    lrs = []                         # each step's learning rate by parameter group
+    with tap:
+        for x in inputs:
+            lrs.append([g["lr"] for g in optimizer.param_groups])
+            zero(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, x)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(counts(kernels))
+            losses = {k: float(v) for k, v in metrics.items()}
+            require(all(np.isfinite(v) for v in losses.values()), f"SeqFormer losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    want = {"ms_deform_attn_v9_fwd": 12, "ms_deform_attn_v9_bwd": 12, "stem_conv": 1}
+    print(f"  launches per step {per_step} (expected {want}: 6 encoder and 6 decoder MSDA layers over the "
+          f"{SEQ_TRAIN_CLIPS * SEQ_TRAIN_FRAMES} frames, forward and backward, one stem)")
+    require(all(c == want for c in per_step), f"SeqFormer train launch counts {per_step} != {want}")
+    require(len([k for k in losses if k.startswith("loss_")]) == 5 * model.dec_layers, f"loss keys {sorted(losses)}")
+    frozen, moved, landable = check_update_landed(model, optimizer, before, lrs)
+    del before
+    n_trainable = len(list(model.parameters())) - frozen
+    print(f"  {SEQ_TRAIN_STEPS} steps, every loss finite (total {losses['total_loss']:.4f} at the last); "
+          f"every one of {n_trainable} trainable parameters reached by a gradient (AdamW's first moment non-zero) "
+          f"and within AdamW's reach; {landable} of them have elements the last update (lr "
+          f"{', '.join(f'{v:.3g}' for v in lrs[-1])} by group) moves by 4 ulps or more, and each of those moved; "
+          f"{moved} moved in all; {frozen} frozen ones bit-equal; "
+          f"step ms (synchronized) {', '.join(f'{v:.1f}' for v in step_ms)}; the assignment (one copy of 6 "
+          f"layers x {SEQ_TRAIN_CLIPS} clips of [24, 300] costs, scipy) "
+          f"{', '.join(f'{v * 1e3:.1f}' for v in tap.seconds)} ms a step; peak memory {peak_gb:.2f} GiB")
+
+    # the step's parts, synchronized, and the device's busy time over one step
+    params = list(model.parameters())
+    parts = {"forward": [], "backward": [], "update": []}
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = model(*inputs[0], generator=dropout_generator(0, 100 + i, dev))
+        total = sum(losses[k] * weights[k] for k in losses if k in weights)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.zero_grad(set_to_none=True)
+        total.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        clip(params)
+        optimizer.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k].append(v * 1e3)
+    split = {k: min(v) for k, v in parts.items()}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = model(*inputs[1], generator=dropout_generator(0, 200, dev))
+        total = sum(losses[k] * weights[k] for k in losses if k in weights)
+        model.zero_grad(set_to_none=True)
+        total.backward()
+        clip(params)
+        optimizer.step()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    events.sort(key=lambda e: -e.self_device_time_total)
+    print(f"  step split (the faster of 2, synchronized): forward {split['forward']:.1f} ms, backward "
+          f"{split['backward']:.1f} ms, clip + AdamW {split['update']:.1f} ms; torch.profiler over one step: device "
+          f"busy {busy:.1f} ms of {prof_wall:.1f} ms wall ({busy / prof_wall:.1%}); top kernels, ms per step:")
+    print_kernel_rows(events, 1, 10)
+    result = {"step_ms": step_ms, "forward_ms": split["forward"], "backward_ms": split["backward"],
+              "update_ms": split["update"], "device_busy_ms": busy, "profiled_step_ms": prof_wall,
+              "peak_memory_gb": peak_gb, "assignment_host_ms": [v * 1e3 for v in tap.seconds],
+              "launches_per_step": per_step}
+    del model, state, optimizer, step, inputs, prof, events
+    torch.cuda.empty_cache()
+
+    # ---- one clip, card vs CPU, dropout 0
+    kwargs = {**seqformer.seqformer_kwargs_from_cfg(cfg), "dropout": 0.0}
+    card = seqformer.SeqFormer(**kwargs)
+    init_weights(card, 3)
+    card = card.to(dev).train()
+    cpu = seqformer.SeqFormer(**{**kwargs, "dtype": torch.float32}).train()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    clip_inputs = seqformer_clip_batch(np.random.RandomState(19), 1, "cpu", mean, std)
+
+    def on(device):
+        x, sizes, t = clip_inputs
+        if device == "cpu":
+            return x, sizes, t
+        return x.to(dev), sizes.to(dev), type(t)(*(a.to(dev) for a in t))
+
+    result["card_vs_cpu"] = train_card_vs_cpu(
+        f"SeqFormer train forward (one clip of {SEQ_TRAIN_FRAMES} frames at 512x640)", seqformer, card, cpu, on,
+        SEQ_GROUPS, weights)
+    del card, cpu
+    torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {smi}")
+    print(f"[phase 19] SeqFormer-R50's train step ran {SEQ_TRAIN_STEPS} steps through K4 / K5 / K2 = 12 / 12 / 1 a "
+          f"step; losses finite; trainable reached and landed ({moved} moved), frozen stayed; card agrees with CPU; "
+          f"{result['phase_s']:.1f} s")
+    return {"seqformer_train": {k: sum(c.get(k, 0) for c in per_step) for k in per_step[0]}}, result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
                                                  "with no argument, every phase.")
-    parser.add_argument("--only", choices=("train_numerics", "entry_point"),
-                        help="phase 1 and this phase alone (train_numerics: phase 6; entry_point: phase 17)")
+    parser.add_argument("--only", choices=("train_numerics", "entry_point", "minvis_entry", "seqformer_train"),
+                        help="phase 1 and this phase alone (train_numerics: phase 6; entry_point: phase 17; "
+                             "minvis_entry: phase 2b's MinVIS and SeqFormer shapes and phase 18; seqformer_train: "
+                             "phase 19)")
     parser.add_argument("--tree", help="with --only: import vnext_tpu_torch from this checkout (an "
                                        "earlier commit's `git archive`) in place of the one beside this script")
     parser.add_argument("--swap-plain", action="append", default=[], choices=("K2", "K4"),
@@ -2380,16 +3123,23 @@ def main(argv=None) -> int:
         sys.path.insert(0, str(Path(args.tree).resolve()))
     if args.only:
         smi = phase_card()
+        from vnext_tpu_torch.ops import encoder_epilogue, stem_conv
+        from vnext_tpu_torch.ops import ms_deform_attn as msda
+
+        kernels = {k.name: k for k in (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL, msda.KERNEL_V9_FWD,
+                                       msda.KERNEL_V9_BWD)}
         if args.only == "train_numerics":
             phase_train_numerics(dev, args.swap_plain)
-        else:
-            from vnext_tpu_torch.ops import encoder_epilogue, stem_conv
-            from vnext_tpu_torch.ops import ms_deform_attn as msda
-
-            kernels = {k.name: k for k in (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL, msda.KERNEL_V9_FWD,
-                                           msda.KERNEL_V9_BWD)}
+        elif args.only == "entry_point":
             _, entry = phase_entry_point(dev, kernels, smi, measure=True)
             print(json.dumps({"entry_point": entry}))
+        elif args.only == "minvis_entry":
+            shapes = phase_new_train_kernels(dev)
+            launches, entry = phase_minvis_entry(dev, kernels, smi)
+            print(json.dumps({"kernels_at_new_shapes": shapes, "minvis_entry": entry, "launches": launches}))
+        else:
+            launches, train = phase_seqformer_train(dev, kernels, smi)
+            print(json.dumps({"seqformer_train": train, "launches": launches}))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -2407,6 +3157,7 @@ def main(argv=None) -> int:
     smi = phase_card()
     measured = phase_kernels(dev)
     measured.update(phase_train_kernels(dev))
+    measured.update(phase_new_train_kernels(dev))
     more, cm_inputs = phase_more_kernels(dev)
     measured.update(more)
     entry_launches = phase_entry_points(kernels, cm_inputs)
@@ -2455,13 +3206,18 @@ def main(argv=None) -> int:
     phase_seconds["16"] = time.perf_counter() - t0
     entry_point_launches, entry_result = phase_entry_point(dev, kernels, smi)
     phase_seconds["17"] = entry_result["phase_s"]
+    torch.cuda.empty_cache()
+    minvis_entry_launches, minvis_entry_result = phase_minvis_entry(dev, kernels, smi)
+    phase_seconds["18"] = minvis_entry_result["phase_s"]
+    seq_train_launches, seq_train_result = phase_seqformer_train(dev, kernels, smi)
+    phase_seconds["19"] = seq_train_result["phase_s"]
     print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
 
     print(json.dumps({
         "slice": timing, "seqformer": seq_timing, "train": train_timing, "minvis": minvis_timing,
         "instmove": instmove_timing, "idol_swinL": swin_timing, "seqformer_swinL": seq_swin_timing,
         "idol_r101": r101_timing, "reference_import": import_result, "entry_point": entry_result,
-        "phase_seconds": phase_seconds,
+        "minvis_entry": minvis_entry_result, "seqformer_train": seq_train_result, "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
         "k5_decoder_form": measured["bwd_decoder"], "k6_backward_decoder_form": measured["bwd6_decoder"],
@@ -2472,7 +3228,20 @@ def main(argv=None) -> int:
              **{f"serve_{impl}": route_launches[impl] for impl in ROUTES},
              "train": train_launches, "train_pallas": route_train_launches, "entry_points": entry_launches,
              "minvis": minvis_launches, "instmove": instmove_launches, "idol_swinL": swin_launches,
-             "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches, **entry_point_launches}
+             "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches, **entry_point_launches,
+             **minvis_entry_launches, **seq_train_launches}
+    for path, names in (("minvis_entry_eval", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
+                        ("minvis_entry_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
+                        ("seqformer_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL))):
+        for kern in names:
+            require(paths[path].get(kern.name, 0) > 0, f"{kern.name}: no launch on the {path} path")
+    # K4, K5 and K2 at the new train steps' shapes, beside their rows' train-step shape
+    at_shapes = {kern.name: {"minvis_train_encoder": measured[f"{d}_minvis_train"],
+                             "seqformer_train_encoder": measured[f"{d}_seqformer_enc"],
+                             "seqformer_train_decoder": measured[f"{d}_seqformer_dec"]}
+                 for kern, d in ((msda.KERNEL_V9_FWD, "fwd"), (msda.KERNEL_V9_BWD, "bwd"))}
+    at_shapes[stem_conv.KERNEL.name] = {"minvis_train": measured["stem_minvis_train"],
+                                        "seqformer_train": measured["stem_seqformer_train"]}
     rows = [  # (kernel, the path its launches are reported from, the measurement it is reported by)
         (msda.KERNEL, "serve", "enc"),
         (stem_conv.KERNEL, "train", "stem_train"),
@@ -2492,7 +3261,7 @@ def main(argv=None) -> int:
         {"name": kern.name, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
          "launches": paths[path][kern.name],
          "launches_by_path": {p: launches.get(kern.name, 0) for p, launches in paths.items()},
-         **measured[key]}
+         **measured[key], **({"at_shapes": at_shapes[kern.name]} if kern.name in at_shapes else {})}
         for kern, path, key in rows
     ]}))
     print(smi)

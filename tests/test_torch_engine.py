@@ -112,6 +112,22 @@ def test_metrics_one_step_late_writers_and_checkpoints(tmp_path):
     assert (tmp_path / "last_checkpoint").read_text() == "model_0000002.pth"
 
 
+def test_batch_adapter_makes_the_step_inputs():
+    """``VISTrainer(batch_adapter=)`` hands the step what the adapter makes of
+    each batch (MinVIS's entry point passes one), in place of IDOL's inputs."""
+    seen = []
+
+    def step(state, inputs):
+        seen.append(inputs)
+        return state, {"total_loss": torch.tensor(1.0)}
+
+    state = TrainState.create(torch.nn.Linear(2, 2), torch.optim.SGD([torch.nn.Parameter(torch.zeros(1))], lr=0.1))
+    trainer = VISTrainer(step, state, _batches(2), "cpu", batch_adapter=lambda b: ("adapted", b["key_size"]))
+    trainer.train(0, 2)
+    assert [s[0] for s in seen] == ["adapted", "adapted"]
+    np.testing.assert_array_equal(seen[1][1], tiny_batch(1, n_valid=(2,))["key_size"])
+
+
 def test_non_finite_loss_raises():
     state = TrainState.create(torch.nn.Linear(2, 2), torch.optim.SGD([torch.nn.Parameter(torch.zeros(1))], lr=0.1))
     trainer = VISTrainer(_fake_step([1.0, float("nan"), 1.0, 1.0]), state, _batches(4), "cpu")

@@ -65,7 +65,8 @@ def test_package_never_imports_jax():
                  "data", "data.catalog", "data.datasets.ytvis", "data.datasets.synthetic", "data.transforms",
                  "data.dataset_mapper", "data.build", "structures.masks", "evaluation.rle", "evaluation.native",
                  "evaluation.ytvos_eval", "evaluation.ytvis_eval", "evaluation.evaluator", "evaluation.testing",
-                 "checkpoint.checkpointer", "engine.launch", "utils.logger", "tools.train_net"):
+                 "checkpoint.checkpointer", "engine.launch", "utils.logger", "tools.train_net",
+                 "tools.train_net_video", "ops.hungarian", "ops.point_sample"):
         assert f"vnext_tpu_torch.{name}" in names.split(","), name
     assert bad.strip() == "[]"
 
@@ -202,6 +203,35 @@ def test_entry_point_runs_on_the_card_by_default(cuda_device, tmp_path):
     trainer = train_net.main([*args, "SOLVER.IMS_PER_BATCH", "1", "SOLVER.MAX_ITER", "1", "TEST.EVAL_PERIOD", "0"])
     moved = {k.name: k.launches - before[k.name] for k in COUNTERS if k.launches != before[k.name]}
     assert moved["ms_deform_attn_v9_fwd"] == 24 and moved["ms_deform_attn_v9_bwd"] == 24, moved
+    assert next(trainer.state.model.parameters()).is_cuda
+    assert (tmp_path / "out" / "last_checkpoint").read_text() == "model_0000000.pth"
+
+
+@pytest.mark.cuda
+def test_train_net_video_runs_on_the_card_by_default(cuda_device, tmp_path):
+    """MinVIS's entry point with its defaults' MODEL.DEVICE ("tpu", read as the
+    card) at ovis_r50 width on a small synthetic dataset: --eval-only runs K1 /
+    K2 / K3, and one train step (one clip, key + reference frame) runs K4 / K5
+    / K2 = 6 / 6 / 1 with the model on the card. (The quick-schedule config's
+    hidden 64 in 8 heads is not the kernels' width: it runs on the CPU.)"""
+    from vnext_tpu_torch.data.datasets.synthetic import register_synthetic_ytvis
+    from vnext_tpu_torch.tools import train_net_video
+
+    register_synthetic_ytvis("card_entry_point_video", root=str(tmp_path / "data"), num_videos=2, num_frames=3)
+    args = ["--config-file", os.path.join(REPO, "configs", "minvis", "ovis_r50.yaml"),
+            "MODEL.MASK_FORMER.NUM_CLASSES", "3", "DATASETS.TEST", "('card_entry_point_video',)",
+            "DATASETS.TRAIN", "('card_entry_point_video',)", "OUTPUT_DIR", str(tmp_path / "out")]
+    before = {k.name: k.launches for k in COUNTERS}
+    results = train_net_video.main(["--eval-only", *args])
+    moved = {k.name: k.launches - before[k.name] for k in COUNTERS if k.launches != before[k.name]}
+    assert set(moved) == {"ms_deform_attn_fwd", "stem_conv", "encoder_epilogue"}, moved
+    assert set(results["card_entry_point_video"]["segm"]) >= {"AP", "AP50", "AR@100"}
+
+    before = {k.name: k.launches for k in COUNTERS}
+    trainer = train_net_video.main([*args, "SOLVER.IMS_PER_BATCH", "1", "SOLVER.MAX_ITER", "1",
+                                    "TEST.EVAL_PERIOD", "0"])
+    moved = {k.name: k.launches - before[k.name] for k in COUNTERS if k.launches != before[k.name]}
+    assert moved["ms_deform_attn_v9_fwd"] == 6 and moved["ms_deform_attn_v9_bwd"] == 6, moved
     assert next(trainer.state.model.parameters()).is_cuda
     assert (tmp_path / "out" / "last_checkpoint").read_text() == "model_0000000.pth"
 

@@ -492,6 +492,75 @@ def test_msda_kernel_at_sampling_edges_coarsest_first(cuda_device, box):
     assert err <= BF16_ULP * scale, err
 
 
+# MinVIS-R50's train step: 512x768 frames, the pixel decoder's levels coarsest first
+MINVIS_TRAIN_LEVELS = ((16, 24), (32, 48), (64, 96))
+# SeqFormer-R50's train step: 512x640 frames at strides 8 to 64
+SEQFORMER_TRAIN_LEVELS = ((64, 80), (32, 40), (16, 20), (8, 10))
+
+
+# (levels, frames, queries, box form) of the two new train steps' MSDA: MinVIS's
+# pixel-decoder encoder (L * P = 12), SeqFormer's encoder and box-form decoder
+# over 4 clips x 5 frames
+TRAIN_SHAPES = [(MINVIS_TRAIN_LEVELS, 4, 8064, False), (SEQFORMER_TRAIN_LEVELS, 20, 6800, False),
+                (SEQFORMER_TRAIN_LEVELS, 20, 300, True)]
+TRAIN_SHAPE_IDS = ["minvis-encoder", "seqformer-encoder", "seqformer-decoder"]
+
+
+def _train_inputs(dev, levels, b, q, box):
+    """value, locations and weights at a train step's MSDA shape (M = 8, P =
+    4): the encoder's locations as ``_k5_locations`` makes them, the decoder's
+    as ``sampling_locations`` makes them of box references."""
+    m, p = 8, 4
+    if not box:
+        return _k4_inputs(dev, levels, b, q, m, p, seed=q + b)
+    from vnext_tpu_torch.models.deformable_transformer import sampling_locations
+
+    rng = np.random.RandomState(q + b)
+    value = torch.tensor(rng.randn(b, sum(h * w for h, w in levels), m, 32), dtype=torch.bfloat16, device=dev)
+    attn = torch.softmax(torch.tensor(rng.randn(b, q, m, len(levels) * p) * 2.0, device=dev).float(),
+                         -1).to(torch.bfloat16).view(b, q, m, len(levels), p).contiguous()
+    ref = np.concatenate([rng.rand(b, q, len(levels), 2), rng.rand(b, q, len(levels), 2) * 0.5 + 0.02], -1)
+    off = torch.tensor(rng.randn(b, q, m, len(levels), p, 2) * 3.0, dtype=torch.bfloat16, device=dev)
+    loc = sampling_locations(levels, off, torch.tensor(ref, dtype=torch.float32, device=dev)).contiguous()
+    return value, loc, attn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,b,q,box", TRAIN_SHAPES, ids=TRAIN_SHAPE_IDS)
+def test_msda_backward_kernel_at_train_shapes(cuda_device, levels, b, q, box):
+    """K5 as the new train steps run it: MinVIS-R50's pixel decoder (4 frames,
+    Q = S = 8064 over 3 levels coarsest first, L * P = 12: the batches of 4
+    samples, not the L * P = 16 fast path) and SeqFormer-R50's encoder and
+    box-form decoder over 20 frames, element by element as
+    test_msda_backward_kernel_at_sampling_edges holds it."""
+    value, loc, attn = _train_inputs(cuda_device, levels, b, q, box)
+    grad = torch.tensor(np.random.RandomState(b).randn(b, q, 8 * 32), dtype=torch.bfloat16, device=cuda_device)
+    before = ms_deform_attn.KERNEL_V9_BWD.launches
+    got = ms_deform_attn.ms_deform_attn_v9_backward(value, levels, loc, attn, grad)
+    assert ms_deform_attn.KERNEL_V9_BWD.launches == before + 1
+    want = ms_deform_attn.ms_deform_attn_grad_plain(value, levels, loc, attn, grad)
+    abs_sums = ms_deform_attn.ms_deform_attn_grad_plain(value.abs(), levels, loc, attn, grad.abs())
+    for i in (0, 2):
+        g, w, limit = got[i].float(), want[i].float(), abs_sums[i].float()
+        excess = (g - w).abs() - (BF16_ULP * w.abs() + 2.0 ** -16 * limit)
+        assert float(excess.max()) <= 0.0, (i, float(excess.max()))
+    err, scale = _max_err(got[1], want[1])
+    assert err <= 1e-5 * scale, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,b,q,box", TRAIN_SHAPES, ids=TRAIN_SHAPE_IDS)
+def test_msda_loc_kernel_at_train_shapes(cuda_device, levels, b, q, box):
+    """K4 at the new train steps' shapes against the plain core, within one
+    bf16 ulp at the largest output."""
+    value, loc, attn = _train_inputs(cuda_device, levels, b, q, box)
+    got, launches = _k4_entry("standard", value, levels, loc, attn)
+    want = ms_deform_attn.ms_deform_attn_core_plain(value, levels, loc, attn)
+    assert launches == 1 and got.shape == (b, q, 8 * 32)
+    err, scale = _max_err(got, want)
+    assert err <= BF16_ULP * scale, err
+
+
 @pytest.mark.cuda
 def test_epilogue_kernel_at_minvis_tokens(cuda_device):
     """K3 on MinVIS-R50's pixel decoder tokens: 3 frames x 8505 (a ragged last

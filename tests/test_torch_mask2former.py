@@ -285,7 +285,10 @@ def test_build_needs_a_card_and_training_is_not_ported(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_maskformer_model()
-    tiny = MaskFormer(**TINY)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tiny(torch.zeros(1, H, W, 3))
+    # the train forward is ported but for a Swin backbone's drop-path (ROADMAP Queue 1)
+    swin = MaskFormer(**TINY, backbone_type="swin", swin=(32, (2, 2, 2, 2), (2, 2, 2, 2), 4, 0.1)).train()
+    targets = m2f.MaskTargets(torch.zeros(1, 2, dtype=torch.int64), torch.zeros(1, 2, H // 4, W // 4, dtype=torch.bool),
+                              torch.zeros(1, 2, dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="drop-path"):
+        swin(torch.zeros(1, H, W, 3), torch.tensor([[H, W]]), targets)
     assert m2f.DECODER_LEVELS == ("res5", "res4", "res3")

@@ -6,7 +6,7 @@ hidden 32, 12 queries) with one random flax tree, bridged to the port by
 references), the decoder layer (first and later), the transformer,
 ``SeqFormer.forward_single`` and ``SeqFormer.inference``. Also: the
 constructor's defaults equal the JAX config, ``build_seqformer_model`` raises
-without a card, and training is not ported yet.
+without a card, and a Swin backbone's drop-path in training is not ported yet.
 
 On the JAX ResNet's features the input projections are held level by level,
 and what follows them runs on the JAX package's projected features: at this
@@ -32,7 +32,7 @@ from vnext_tpu.models.seqformer import SeqFormerDecodeMSDA as JaxDecodeMSDA
 from vnext_tpu.models.seqformer import SeqFormerDecoderLayer as JaxDecoderLayer
 from vnext_tpu.models.seqformer import SeqFormerTransformer as JaxTransformer
 from vnext_tpu_torch.checkpoint.from_jax import load_from_jax, params_from_jax
-from vnext_tpu_torch.models.seqformer import (SeqFormer, SeqFormerDecodeMSDA, SeqFormerDecoderLayer,
+from vnext_tpu_torch.models.seqformer import (ClipTargets, SeqFormer, SeqFormerDecodeMSDA, SeqFormerDecoderLayer,
                                               build_seqformer_model, seqformer_kwargs_from_cfg)
 
 from _torch_helpers import random_params, t
@@ -218,8 +218,28 @@ def _conv_gn_f64(x, p, stride, pad, groups=32, eps=1e-6):
     return (out * scale + bias).permute(0, 2, 3, 1)                    # [N, H, W, C]
 
 
+@pytest.fixture(scope="module")
+def jax_backbone(models):
+    images, _, params, _ = models
+    return _jax_backbone(params, images)
+
+
+@pytest.fixture(scope="module")
+def jax_features(models):
+    """The JAX model's projected features, one ``jit`` shared by every test here."""
+    images, jmodel, params, _ = models
+    return _jax_features(params, jmodel, images)
+
+
+@pytest.fixture(scope="module")
+def port_features(models, jax_backbone):
+    """The port's projected features on the JAX ResNet's."""
+    images, _, _, port = models
+    return _port_inference(port, images, jax_backbone, method="extract_features")
+
+
 @pytest.mark.parametrize("level", [0, 1, 2, 3])
-def test_input_projection_matches_jax(models, level):
+def test_input_projection_matches_jax(models, jax_backbone, jax_features, port_features, level):
     """Each level's input projection (ConvGN) on the JAX ResNet's features.
     Levels 0-2 element by element (rtol 1e-4, atol 1e-5). Level 3 is the
     stride-64 3x3 projection of res5 onto a 1 x 2 map: with hidden 32 and 32
@@ -232,10 +252,7 @@ def test_input_projection_matches_jax(models, level):
     package and f64. So level 3 is held against the f64 evaluation of the
     stage, within rtol 1e-4 / atol 1e-5 plus twice the JAX package's own f32
     error on that stage alone: the port must be as exact as the reference."""
-    images, jmodel, params, port = models
-    feats = _jax_backbone(params, images)
-    got = _port_inference(port, images, feats, method="extract_features")
-    want = _jax_features(params, jmodel, images)
+    params, feats, got, want = models[2], jax_backbone, port_features, jax_features
     for g, w in zip(got, want):
         assert len(g) == len(w) == 4
     _close(got[1][level], want[1][level], rtol=0, atol=0)
@@ -255,16 +272,16 @@ def jax_inference(models):
         params, jnp.asarray(images), jnp.asarray(SIZES))
 
 
-def test_inference_matches_jax(models, jax_inference):
+def test_inference_matches_jax(models, jax_inference, jax_features):
     """Everything after the input projections (the backbone's own parity is
     tests/test_torch_idol.py's, the projections' test_input_projection_matches_jax):
     the port runs on the JAX model's projected features. Logits and boxes
     element by element (rtol 1e-4, atol 1e-5); the mask logits reach +-50 and
     cross zero, where f32 sums of that size differ by more than 1e-5 in another
     order, so they are held to 1e-4 of their largest magnitude."""
-    images, jmodel, params, port = models
+    port = models[3]
     want = jax_inference
-    got = _port_on_jax_features(port, _jax_features(params, jmodel, images), "inference")
+    got = _port_on_jax_features(port, jax_features, "inference")
     assert set(got) == set(want) == {"pred_logits", "pred_boxes", "pred_masks"}
     assert got["pred_masks"].shape == (TINY["num_queries"], NF, H // 4, W // 4)
     assert got["pred_boxes"].shape == (NF, TINY["num_queries"], 4)
@@ -285,7 +302,7 @@ def test_inference_with_its_own_backbone_matches_jax(models, jax_inference):
         _close(got[k], w, rtol=0, atol=2e-4 * max(1.0, np.abs(w).max()))
 
 
-def test_forward_single_matches_jax(models):
+def test_forward_single_matches_jax(models, jax_features):
     """Every decoder layer's class logits, boxes and mask reference points, on
     the JAX model's projected features (as test_inference_matches_jax), element
     by element (rtol 1e-4, atol 1e-5)."""
@@ -293,7 +310,7 @@ def test_forward_single_matches_jax(models):
     want = jax.jit(lambda p, x, s: jmodel.apply({"params": p}, x, s, False,
                                                 method=JaxSeqFormer.forward_single))(
         params, jnp.asarray(images), jnp.asarray(SIZES))
-    got = _port_on_jax_features(port, _jax_features(params, jmodel, images), "forward_single")
+    got = _port_on_jax_features(port, jax_features, "forward_single")
     assert got["logits"].shape == (TINY["dec_layers"], 1, TINY["num_queries"], TINY["num_classes"])
     for name in ("logits", "boxes"):
         _close(got[name], want[name])
@@ -303,9 +320,14 @@ def test_forward_single_matches_jax(models):
 
 
 def test_training_is_not_ported(models):
-    *_, port = models
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        port(torch.zeros(1, NF, H, W, 3), torch.from_numpy(SIZES), None)
+    """The train forward is ported (tests/test_torch_seqformer_train.py) but for
+    a Swin backbone's drop-path (ROADMAP Queue 1)."""
+    swin = SeqFormer(**TINY, backbone_type="swin", swin=(32, (2, 2, 2, 2), (2, 2, 2, 2), 4, 0.1)).train()
+    k = 2
+    targets = ClipTargets(torch.zeros(1, k, dtype=torch.int64), torch.zeros(1, k, NF, 4),
+                          torch.zeros(1, k, NF, H // 4, W // 4, dtype=torch.bool), torch.zeros(1, k, dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="drop-path"):
+        swin(torch.zeros(1, NF, H, W, 3), torch.from_numpy(SIZES), targets)
 
 
 def _ytvis19_r50_cfg():

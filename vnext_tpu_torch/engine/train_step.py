@@ -1,4 +1,5 @@
-"""One optimization step of IDOL.
+"""One optimization step of a model whose train forward returns a loss dict
+(IDOL, MaskFormer, SeqFormer).
 
 Counterpart of ``vnext_tpu.engine.train_step``: one call does the train forward,
 the weighted total over the keys of ``weight_dict``, the backward, the gradient
@@ -40,8 +41,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     weight_dict: Mapping[str, float], clip: Optional[GradClip] = None,
                     seed: int = 0) -> Callable:
     """Returns ``train_step(state, inputs) -> (state, metrics)``. ``inputs`` is
-    the tuple ``(key_images, key_sizes, ref_images, ref_sizes, det_targets,
-    ref_targets)`` on the model's device; ``metrics`` holds every loss and
+    the tuple of the train forward's arguments on the model's device (IDOL's
+    ``(key_images, key_sizes, ref_images, ref_sizes, det_targets,
+    ref_targets)``), the step's generator passed beside them as
+    ``generator``; ``metrics`` holds every loss and
     ``total_loss``, detached and still on the device (reading one waits for the
     step). The clip runs over every parameter, frozen ones included."""
     params = list(model.parameters())

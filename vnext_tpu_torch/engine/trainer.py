@@ -107,10 +107,12 @@ def batch_to_model_inputs(batch: Dict[str, np.ndarray], pixel_mean, pixel_std, d
 
 
 class VISTrainer(TrainerBase):
-    """Data -> train step -> metrics, for the clip format of IDOL."""
+    """Data -> train step -> metrics. ``batch_adapter(batch)`` makes the model's
+    inputs on the device from a collated batch; without it the batch is IDOL's
+    clip format (``batch_to_model_inputs``)."""
 
     def __init__(self, train_step_fn, state: TrainState, data_iter, device,
-                 pixel_mean=PIXEL_MEAN, pixel_std=PIXEL_STD):
+                 pixel_mean=PIXEL_MEAN, pixel_std=PIXEL_STD, batch_adapter=None):
         super().__init__()
         self._train_step = train_step_fn
         self.state = state
@@ -118,11 +120,15 @@ class VISTrainer(TrainerBase):
         self._device = torch.device(device)
         self._pixel_mean = pixel_mean
         self._pixel_std = pixel_std
+        self._batch_adapter = batch_adapter
         self._pending_metrics = None
 
     def run_step(self):
         batch = next(self._data_iter)
-        inputs = batch_to_model_inputs(batch, self._pixel_mean, self._pixel_std, self._device)
+        if self._batch_adapter is not None:
+            inputs = self._batch_adapter(batch)
+        else:
+            inputs = batch_to_model_inputs(batch, self._pixel_mean, self._pixel_std, self._device)
         self.state, metrics = self._train_step(self.state, inputs)
         # the previous step's metrics, now that this step is queued
         if self._pending_metrics is not None:

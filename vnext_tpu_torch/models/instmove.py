@@ -235,6 +235,20 @@ def lstm_state_hw(h: int, w: int) -> Tuple[int, int]:
     return math.ceil(math.ceil(h / 2) / 2), math.ceil(math.ceil(w / 2) / 2)
 
 
+def check_mask_size(h: int, w: int) -> Tuple[int, int]:
+    """The ConvLSTM state's sides for h x w masks; a ``ValueError`` unless they
+    are the memory feature's too, which holds only when both sides are
+    multiples of 16 (the JAX package fails at their concat)."""
+    mem_hw, lstm_hw = motion_memory_hw(h, w), lstm_state_hw(h, w)
+    if mem_hw != lstm_hw:
+        raise ValueError(
+            f"InstMove at {h}x{w} masks: the motion memory feature is {mem_hw[0]}x{mem_hw[1]} "
+            f"(4 * floor(side / 16)) and the ConvLSTM state {lstm_hw[0]}x{lstm_hw[1]} (ceil(side / 4)); "
+            "they meet only when both mask sides are multiples of 16 (the JAX package fails at "
+            "their concat too)")
+    return lstm_hw
+
+
 class InstMovePredictor(nn.Module):
     """Predict the next instance masks from past masks and the current image.
     The defaults are ``MODEL.INSTMOVE.*``'s."""
@@ -267,13 +281,7 @@ class InstMovePredictor(nn.Module):
         """short_x [B, T, H, W, 1] past masks (probabilities); image [B, H', W', 3]
         normalized. Returns mask logits [B, out_len, H, W, 1]."""
         b, t, h, w, _ = short_x.shape
-        mem_hw, lstm_hw = motion_memory_hw(h, w), lstm_state_hw(h, w)
-        if mem_hw != lstm_hw:
-            raise ValueError(
-                f"InstMove at {h}x{w} masks: the motion memory feature is {mem_hw[0]}x{mem_hw[1]} "
-                f"(4 * floor(side / 16)) and the ConvLSTM state {lstm_hw[0]}x{lstm_hw[1]} (ceil(side / 4)); "
-                "they meet only when both mask sides are multiples of 16 (the JAX package fails at "
-                "their concat too)")
+        lstm_hw = check_mask_size(h, w)
         masks = short_x[..., 0]
         memory_feature = self.memory(masks)
         img_feats = self.encoder_img(image)

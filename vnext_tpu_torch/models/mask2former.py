@@ -1,4 +1,4 @@
-"""Mask2Former (ResNet-50/101/152 or Swin backbone) frame inference, and MinVIS frame matching.
+"""Mask2Former (ResNet-50/101/152 or Swin backbone): frame training and inference, and MinVIS frame matching.
 
 Counterpart of ``vnext_tpu.models.mask2former``: the deformable pixel decoder
 (its encoder layers are the port's ``EncoderLayer`` over 3 levels, so in eval
@@ -10,21 +10,31 @@ across frames. Public layouts are the JAX package's: ``inference`` takes frames
 ``pred_masks [T, Q, H/4, W/4]`` f32 and ``pred_embds [T, Q, C]``. Module and
 parameter names follow the flax tree.
 
-Only inference is ported: the JAX package's training (``MaskFormer.__call__``,
-its Hungarian matching and point-sampled mask losses) waits, and ``forward``
-raises. The pixel decoder is token-major only: the JAX package's channel-major
-twin of its eval encoder is a TPU relayout and computes the same function.
+``forward`` is the train forward of ``MaskFormer.__call__``: frames [B, H, W,
+3] with their padded ``MaskTargets`` in, the loss dict out. Each of the
+``dec_layers`` + 1 predictions is matched alone (class, mask BCE and dice cost,
+solved on the host in one copy for all of them) and scored by the softmax CE
+with the no-object weight and the mask BCE and dice, point-sampled
+(``TRAIN_NUM_POINTS`` > 0, the draws from the caller's generator) or dense. In
+train mode the pixel decoder's encoder takes the MSDA standard entry (K4 and
+K5 on the card) at dropout 0, as the JAX package's does. The pixel decoder is
+token-major only: the JAX package's channel-major twin of its eval encoder is
+a TPU relayout and computes the same function.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops.hungarian import assign_batched
 from ..ops.interpolate import resize_bilinear
+from ..ops.losses import dice_loss, sigmoid_bce_with_logits
+from ..ops.point_sample import sampled_mask_losses
 from .backbones import SWIN_PRESETS, backbone_kwargs_from_cfg, make_backbone
 from .deformable_transformer import EncoderLayer, encoder_reference_points
 from .layers import MLP, Conv, Dense, GroupNorm, LayerNorm, MultiHeadAttention, init_weights
@@ -34,6 +44,14 @@ from .position_encoding import sine_position_embedding
 # transformer_in_features): input_proj_0 and level_embed[0] belong to res5
 DECODER_LEVELS = ("res5", "res4", "res3")
 RES_CHANNELS = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}   # ResNet-50/101/152
+
+
+class MaskTargets(NamedTuple):
+    """Padded per-frame ground truth; K is the fixed instance capacity."""
+
+    labels: torch.Tensor     # [B, K] int class ids (padding arbitrary)
+    masks_s4: torch.Tensor   # [B, K, H/4, W/4] bool
+    valid: torch.Tensor      # [B, K] bool
 
 
 def _full_positions(b: int, h: int, w: int, c: int, device) -> torch.Tensor:
@@ -185,17 +203,45 @@ class MaskedTransformerDecoder(nn.Module):
         return pred_logits, pred_masks, attn_masks, self.decoder_norm(output)
 
 
+def maskformer_match_cost(logits: torch.Tensor, masks: torch.Tensor, gt_labels: torch.Tensor,
+                          gt_masks: torch.Tensor, gt_valid: torch.Tensor, cost_class: float = 2.0,
+                          cost_mask: float = 5.0, cost_dice: float = 5.0) -> torch.Tensor:
+    """[..., Q, K] matching cost of the class logits [..., Q, C+1] and mask
+    logits [..., Q, H, W] against the labels [..., K] and masks [..., K, H, W]:
+    -p(class), the mean BCE over the pixels and the dice distance, weighed; 1e9
+    on invalid ground truth. Any leading dimensions are a batch."""
+    probs = torch.softmax(logits.float(), -1)
+    c_class = -torch.gather(probs, -1, gt_labels.long()[..., None, :].expand(*probs.shape[:-1], -1))
+    m = masks.float().flatten(-2)
+    g = gt_masks.float().flatten(-2)
+    gt_t = g.transpose(-1, -2)
+    pos = sigmoid_bce_with_logits(m, torch.ones_like(m)) @ gt_t
+    neg = sigmoid_bce_with_logits(m, torch.zeros_like(m)) @ (1 - gt_t)
+    c_mask = (pos + neg) / m.shape[-1]
+    prob_m = torch.sigmoid(m)
+    numer = 2 * (prob_m @ gt_t)
+    denom = prob_m.sum(-1)[..., None] + g.sum(-1)[..., None, :]
+    c_dice = 1 - (numer + 1) / (denom + 1)
+    cost = cost_class * c_class + cost_mask * c_mask + cost_dice * c_dice
+    return torch.where(gt_valid[..., None, :], cost, 1e9)
+
+
 class MaskFormer(nn.Module):
     """Frame-level Mask2Former. The defaults are MinVIS-R50 as
-    ``configs/minvis/ovis_r50.yaml`` configures it."""
+    ``configs/minvis/ovis_r50.yaml`` configures it, with the config defaults'
+    losses (no-object weight 0.1, deep supervision, 12544 sampled points)."""
 
     def __init__(self, num_classes: int = 25, hidden_dim: int = 256, num_queries: int = 100,
                  dec_layers: int = 9, enc_layers: int = 6, dim_feedforward: int = 2048,
                  backbone_type: str = "resnet", backbone_depth: int = 50, swin: tuple = SWIN_PRESETS["L"],
+                 no_object_weight: float = 0.1, deep_supervision: bool = True, num_points: int = 12544,
                  dtype=torch.float32, msda_impl: str = "auto"):
         super().__init__()
         self.dtype = dtype
         self.num_classes = num_classes
+        self.no_object_weight = no_object_weight
+        self.deep_supervision = deep_supervision
+        self.num_points = num_points
         self.backbone = make_backbone(backbone_type, depth=backbone_depth, swin=swin, dtype=dtype,
                                       out_features=("res2", "res3", "res4", "res5"))
         self.pixel_decoder = MSDeformAttnPixelDecoder(
@@ -219,10 +265,56 @@ class MaskFormer(nn.Module):
         return {"feats": feats, "mask_features": mask_features, "multi_scale": multi_scale,
                 "logits": logits, "masks": masks, "attn_masks": attn_masks, "embeds": embeds}
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MaskFormer training (Hungarian matching, point-sampled mask losses) is not ported yet: "
-            "ROADMAP Queue 1, MinVIS / InstMove training")
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor, targets: MaskTargets,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The train forward: frames [B, H, W, 3] (normalized f32), their valid
+        sizes [B, 2] (unused, as in the JAX package) and targets -> the loss
+        dict, ``loss_ce`` / ``loss_mask`` / ``loss_dice`` of the decoder's output
+        and ``_{i}`` for prediction i before it (with deep supervision). The
+        point draws come from ``generator``."""
+        out = self.forward_frames(images)
+        logits_l, masks_l = out["logits"], out["masks"]
+        last = len(logits_l) - 1
+        layers = list(range(len(logits_l))) if self.deep_supervision else [last]
+        cost = torch.stack([maskformer_match_cost(logits_l[i].detach(), masks_l[i].detach(), targets.labels,
+                                                  targets.masks_s4, targets.valid) for i in layers])
+        assignment = assign_batched(cost.transpose(-1, -2), targets.valid.expand(len(layers), -1, -1))
+        losses: Dict[str, torch.Tensor] = {}
+        for n, i in enumerate(layers):
+            suffix = "" if i == last else f"_{i}"
+            for k, v in self._losses(logits_l[i], masks_l[i], assignment[n], targets, generator).items():
+                losses[f"{k}{suffix}"] = v
+        return losses
+
+    def _losses(self, logits, masks, assignment, targets: MaskTargets, generator):
+        """Softmax CE (the no-object class weighed ``no_object_weight``) over
+        every query, and the mask BCE and dice of each matched (query, gt)."""
+        b, q, _ = logits.shape
+        k = assignment.shape[1]
+        q_idx = assignment.clamp(0, q - 1)
+        valid = targets.valid & (assignment >= 0)
+
+        target_classes = torch.full((b, q + 1), self.num_classes, dtype=torch.int64, device=logits.device)
+        target_classes.scatter_(1, torch.where(valid, q_idx, q), targets.labels.long())
+        target_classes = target_classes[:, :q]
+        ce = -torch.gather(F.log_softmax(logits.float(), -1), -1, target_classes[..., None])[..., 0]
+        w = torch.where(target_classes == self.num_classes, self.no_object_weight, 1.0)
+        loss_ce = (ce * w).sum() / w.sum().clamp_min(1.0)
+
+        hw = masks.shape[-2:]
+        src_masks = torch.gather(masks.float(), 1, q_idx[..., None, None].expand(-1, -1, *hw))
+        gt = targets.masks_s4.float()
+        num = valid.sum().clamp_min(1).float()
+        flat_valid = valid.reshape(-1)
+        if self.num_points > 0:
+            loss_mask, loss_dice = sampled_mask_losses(
+                src_masks.reshape(b * k, *hw), gt.reshape(b * k, *hw), flat_valid, num,
+                num_points=self.num_points, generator=generator)
+        else:
+            flat_src, flat_gt = src_masks.reshape(b * k, -1), gt.reshape(b * k, -1)
+            loss_mask = (sigmoid_bce_with_logits(flat_src, flat_gt).mean(-1) * flat_valid).sum() / num
+            loss_dice = dice_loss(flat_src, flat_gt, num, valid=flat_valid)
+        return {"loss_ce": loss_ce, "loss_mask": loss_mask, "loss_dice": loss_dice}
 
     def inference(self, images: torch.Tensor, image_sizes: Optional[torch.Tensor] = None
                   ) -> Dict[str, torch.Tensor]:
@@ -291,6 +383,8 @@ def maskformer_kwargs_from_cfg(cfg) -> dict:
     return dict(
         num_classes=m.NUM_CLASSES, hidden_dim=m.HIDDEN_DIM, num_queries=m.NUM_OBJECT_QUERIES,
         dec_layers=m.DEC_LAYERS, enc_layers=m.ENC_LAYERS, dim_feedforward=m.DIM_FEEDFORWARD,
+        no_object_weight=m.NO_OBJECT_WEIGHT, deep_supervision=m.DEEP_SUPERVISION,
+        num_points=m.TRAIN_NUM_POINTS,
         dtype=torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32,
         msda_impl=cfg.TPU.MSDA_IMPL, **backbone_kwargs_from_cfg(cfg),
     )
@@ -315,3 +409,16 @@ def build_maskformer_model(cfg=None, device="cuda", dtype=None, seed: int = 0) -
     model = MaskFormer(**kwargs)
     init_weights(model, seed)
     return model.to(device).eval()
+
+
+def maskformer_weight_dict(cfg) -> Dict[str, float]:
+    """Loss weights (``MODEL.MASK_FORMER.{CLASS,MASK,DICE}_WEIGHT``); with deep
+    supervision the ``_{i}`` keys of the ``DEC_LAYERS`` predictions before the
+    last weigh alike."""
+    m = cfg.MODEL.MASK_FORMER
+    base = {"loss_ce": m.CLASS_WEIGHT, "loss_mask": m.MASK_WEIGHT, "loss_dice": m.DICE_WEIGHT}
+    out = dict(base)
+    if m.DEEP_SUPERVISION:
+        for i in range(m.DEC_LAYERS):
+            out.update({f"{k}_{i}": v for k, v in base.items()})
+    return out

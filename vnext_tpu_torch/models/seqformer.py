@@ -14,25 +14,76 @@ The encoder is the port's token-major ``EncoderLayer``: in eval mode K1's point
 form and K3 on the card (the JAX package runs its channel-major twin, the same
 function). The decoder's cross attention runs the standard MSDA entry at batch
 B * nf through the implementation selector (``msda_impl``): K4 on the card for
-``auto``. Training (``__call__`` in the JAX package, with the clip-level
-Hungarian matching) is not ported yet.
+``auto``. ``forward`` is the train forward of the JAX package's ``__call__``:
+clips with their padded ``ClipTargets`` in, the loss dict out. Every decoder
+layer is matched alone at clip level (focal class cost, the euclidean distance
+of the concatenated per-frame boxes, GIoU averaged over the frames; solved on
+the host in one copy for every layer) and scored by the focal CE, the L1 and
+GIoU over the frames and the dynamic mask head's focal and dice losses on the
+matched queries' clip masks. In train mode every MSDA call, the encoder's and
+the decoder's, takes the standard entry (K4 and K5 on the card).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops.hungarian import assign_batched
+from ..ops.losses import dice_loss, sigmoid_focal_loss, sigmoid_focal_loss_elementwise
 from ..ops.ms_deform_attn import check_impl, ms_deform_attn_standard
+from ..structures.boxes import box_cxcywh_to_xyxy, elementwise_giou_loss, generalized_box_iou
 from .backbones import SWIN_PRESETS, backbone_kwargs_from_cfg, make_backbone
 from .condinst import MaskHeadSmallConv, num_dynamic_params, run_dynamic_mask_head
+from .criterion import default_weight_dict
 from .deformable_transformer import (DeformableEncoder, bbox_embed, offset_bias_grid,
                                      refine_boxes, sampling_locations)
 from .idol import CLASS_PRIOR, DeformableVIS
 from .layers import MLP, ConvGN, Dense, LayerNorm, MultiHeadAttention, dropout, init_weights
+
+
+class ClipTargets(NamedTuple):
+    """Padded clip-level ground truth: K slots x nf frames."""
+
+    labels: torch.Tensor     # [B, K] int
+    boxes: torch.Tensor      # [B, K, nf, 4] normalized cxcywh (zeros where absent)
+    masks_s4: torch.Tensor   # [B, K, nf, H/4, W/4] bool
+    valid: torch.Tensor      # [B, K] bool
+
+
+def seqformer_match_cost(logits: torch.Tensor, boxes: torch.Tensor, gt_labels: torch.Tensor,
+                         gt_boxes: torch.Tensor, gt_valid: torch.Tensor, cost_class_w: float = 2.0,
+                         cost_bbox_w: float = 5.0, cost_giou_w: float = 2.0) -> torch.Tensor:
+    """[B, Q, K] clip-level matching cost of the logits [B, Q, C] and boxes
+    [B, nf, Q, 4] against the labels [B, K] and boxes [B, K, nf, 4]: the focal
+    class cost, the euclidean distance (``cdist`` p=2) of the frames' boxes
+    concatenated, and -GIoU averaged over the frames, weighed; 1e9 on invalid
+    ground truth."""
+    prob = torch.sigmoid(logits.float())
+    alpha, gamma = 0.25, 2.0
+    neg = (1 - alpha) * prob ** gamma * (-torch.log(1 - prob + 1e-8))
+    pos = alpha * (1 - prob) ** gamma * (-torch.log(prob + 1e-8))
+    idx = gt_labels.long()[:, None, :].expand(-1, prob.shape[1], -1)
+    cost_class = torch.gather(pos, 2, idx) - torch.gather(neg, 2, idx)
+
+    b, nf, q, _ = boxes.shape
+    out_flat = boxes.float().permute(0, 2, 1, 3).reshape(b, q, nf * 4)
+    gt_clip = gt_boxes.float().clamp(1e-7, 1.0)
+    gt_flat = gt_clip.reshape(b, gt_clip.shape[1], nf * 4)
+    diff = out_flat[:, :, None] - gt_flat[:, None]
+    cost_bbox = (diff * diff).sum(-1).clamp_min(1e-12).sqrt()
+
+    cost_giou = torch.zeros_like(cost_bbox)
+    for f in range(nf):
+        cost_giou = cost_giou - generalized_box_iou(box_cxcywh_to_xyxy(boxes[:, f].float()),
+                                                    box_cxcywh_to_xyxy(gt_clip[:, :, f]))
+    cost_giou = cost_giou / nf
+    cost = cost_class_w * cost_class + cost_bbox_w * cost_bbox + cost_giou_w * cost_giou
+    return torch.where(gt_valid[:, None, :], cost, 1e9)
 
 
 class SeqFormerDecodeMSDA(nn.Module):
@@ -287,10 +338,65 @@ class SeqFormer(DeformableVIS):
                                        mask_out_stride=self.mask_out_stride)   # [B*nf, N, H4, W4]
         return logits.view(b, nf, n, *logits.shape[-2:]).transpose(1, 2)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SeqFormer training (clip-level Hungarian matching and its losses) is not ported yet: "
-            "ROADMAP Queue 1, item 11")
+    # ------------------------------------------------------------ training
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor, targets: ClipTargets,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The train forward: clips [B, nf, H, W, 3] (normalized f32), their
+        valid sizes [B, 2] and targets -> the loss dict: ``loss_ce``,
+        ``loss_bbox``, ``loss_giou``, ``loss_mask``, ``loss_dice`` of the last
+        decoder layer and ``_{i}`` of layer i before it. Dropout draws from
+        ``generator``."""
+        nf = images.shape[1]
+        out = self.forward_single(images, image_sizes, generator)
+        mask_feats = self._mask_features(out["memory"].flatten(0, 1), out["spatial_shapes"])
+        num_boxes = targets.valid.sum().clamp_min(1).float()
+        cost = torch.stack([seqformer_match_cost(out["logits"][i].detach(), out["boxes"][i].detach(),
+                                                 targets.labels, targets.boxes, targets.valid)
+                            for i in range(self.dec_layers)])
+        assignment = assign_batched(cost.transpose(-1, -2), targets.valid.expand(self.dec_layers, -1, -1))
+        losses: Dict[str, torch.Tensor] = {}
+        for lvl in range(self.dec_layers):
+            suffix = "" if lvl == self.dec_layers - 1 else f"_{lvl}"
+            for k, v in self._layer_losses(
+                    out["logits"][lvl], out["boxes"][lvl], assignment[lvl], targets, num_boxes,
+                    out["hs"][lvl], out["pre_refs"][lvl], mask_feats, image_sizes, nf).items():
+                losses[f"{k}{suffix}"] = v
+        return losses
+
+    def _layer_losses(self, logits, boxes, assignment, targets: ClipTargets, num_boxes, hs, pre_ref,
+                      mask_feats, image_sizes, nf: int, focal_alpha: float = 0.25):
+        b, q, _ = logits.shape
+        k = assignment.shape[1]
+        q_idx = assignment.clamp(0, q - 1)
+        valid = targets.valid & (assignment >= 0)
+
+        # classification: focal over every query, the unmatched ones against no class
+        target_classes = torch.full((b, q + 1), self.num_classes, dtype=torch.int64, device=logits.device)
+        target_classes.scatter_(1, torch.where(valid, q_idx, q), targets.labels.long())
+        onehot = F.one_hot(target_classes[:, :q], self.num_classes + 1)[..., :-1].float()
+        ce = sigmoid_focal_loss_elementwise(logits.float(), onehot, focal_alpha)
+        losses = {"loss_ce": ce.sum() / num_boxes}
+
+        # boxes of the matched queries [B, K, nf, 4], L1 and GIoU averaged over the frames
+        src_boxes = torch.gather(boxes.float().transpose(1, 2), 1, q_idx[..., None, None].expand(-1, -1, nf, 4))
+        gt_boxes = targets.boxes.float()
+        l1 = (src_boxes - gt_boxes).abs().sum(-1).mean(-1)
+        giou = elementwise_giou_loss(box_cxcywh_to_xyxy(src_boxes),
+                                     box_cxcywh_to_xyxy(gt_boxes.clamp(1e-7, 1.0))).mean(-1)
+        losses["loss_bbox"] = (l1 * valid).sum() / num_boxes
+        losses["loss_giou"] = (giou * valid).sum() / num_boxes
+
+        # the matched queries' clip masks by the dynamic mask head
+        params = self.controller(hs)                                                   # [B, Q, P]
+        params_sel = torch.gather(params, 1, q_idx[..., None].expand(-1, -1, params.shape[-1]))
+        ref_sel = torch.gather(pre_ref, 2, q_idx[:, None, :, None].expand(-1, nf, -1, 2))   # [B, nf, K, 2]
+        mask_logits = self._clip_masks(mask_feats, ref_sel, params_sel, image_sizes, nf)
+        flat_logits = mask_logits.reshape(b * k, -1).float()
+        flat_gt = targets.masks_s4.reshape(b * k, -1).float()
+        flat_valid = valid.reshape(-1)
+        losses["loss_mask"] = sigmoid_focal_loss(flat_logits, flat_gt, num_boxes, valid=flat_valid)
+        losses["loss_dice"] = dice_loss(flat_logits, flat_gt, num_boxes, valid=flat_valid)
+        return losses
 
     # ------------------------------------------------------------ inference
     def inference(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -332,6 +438,17 @@ def seqformer_kwargs_from_cfg(cfg) -> dict:
         dtype=torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32,
         msda_impl=cfg.TPU.MSDA_IMPL, **backbone_kwargs_from_cfg(cfg),
     )
+
+
+def seqformer_weight_dict(cfg) -> Dict[str, float]:
+    """Loss weights from ``MODEL.SeqFormer.*_WEIGHT`` through IDOL's
+    ``default_weight_dict`` with no ReID term (the JAX package has no weight
+    dict of SeqFormer's own); ``_{i}`` keys of the layers before the last with
+    deep supervision."""
+    c = cfg.MODEL.SeqFormer
+    return default_weight_dict(class_weight=c.CLASS_WEIGHT, l1_weight=c.L1_WEIGHT, giou_weight=c.GIOU_WEIGHT,
+                               mask_weight=c.MASK_WEIGHT, dice_weight=c.DICE_WEIGHT, reid_weight=0.0,
+                               dec_layers=c.DEC_LAYERS, deep_supervision=c.DEEP_SUPERVISION)
 
 
 def build_seqformer_model(cfg=None, device="cuda", dtype=None, seed: int = 0) -> SeqFormer:

@@ -62,11 +62,11 @@ def default_argument_parser():
     return parser
 
 
-def setup(args):
-    """The frozen config of the file and the KEY VALUE overrides; creates
-    ``OUTPUT_DIR`` with the log and the config's dump in it."""
+def setup(args, add_config=add_idol_config):
+    """The frozen config (``add_config``'s keys, the file, the KEY VALUE
+    overrides); creates ``OUTPUT_DIR`` with the log and the config's dump in it."""
     cfg = get_cfg()
-    add_idol_config(cfg)
+    add_config(cfg)
     if args.config_file:
         cfg.merge_from_file(args.config_file)
     if args.opts:
@@ -167,31 +167,41 @@ def do_train(cfg, resume: bool = False) -> VISTrainer:
     return trainer
 
 
-def _main(args):
-    cfg = setup(args)
-    arch = cfg.MODEL.META_ARCHITECTURE
-    if arch != "IDOL":
-        raise NotImplementedError(
-            f"MODEL.META_ARCHITECTURE {arch!r}: the port's entry point runs IDOL; the image "
-            "meta-architectures come with the Detectron2 families (ROADMAP Queue 1, item 11), SeqFormer and "
-            "MinVIS with tools/train_net_video.py (ROADMAP Queue 1, items 5b and 8)")
-    if args.eval_only:
-        results = do_eval(cfg)
-        if cfg.TEST.EXPECTED_RESULTS and results:
-            verify_results(cfg, next(iter(results.values())) or {})
-        print(results)
-        return results
-    return do_train(cfg, resume=args.resume)
-
-
-def main(argv=None):
-    """Parse ``argv`` (default ``sys.argv[1:]``) and run; returns the eval
-    results with ``--eval-only``, else the trainer."""
+def run(argv, setup, arch: str, elsewhere: str, do_eval, do_train):
+    """An entry point's command line: parse ``argv`` (default ``sys.argv[1:]``),
+    make the config with ``setup(args)`` and run ``do_eval(cfg)`` with
+    ``--eval-only`` (its first dataset's results held to
+    ``TEST.EXPECTED_RESULTS``) or else ``do_train(cfg, resume=)``. Returns the
+    eval results or the trainer. A ``MODEL.META_ARCHITECTURE`` other than
+    ``arch`` raises, saying where it runs (``elsewhere``)."""
     args = default_argument_parser().parse_args(argv)
     if args.machine_rank is not None or args.dist_url is not None:
         raise NotImplementedError("--machine-rank and --dist-url: the port runs one process on one card until "
                                   "its distribution is ported (ROADMAP Queue 1, item 12)")
-    return launch(_main, args.num_gpus, num_machines=args.num_machines, args=(args,))
+
+    def main_func():
+        cfg = setup(args)
+        if cfg.MODEL.META_ARCHITECTURE != arch:
+            raise NotImplementedError(f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE!r}: this entry "
+                                      f"point runs {arch}; {elsewhere}")
+        if args.eval_only:
+            results = do_eval(cfg)
+            if cfg.TEST.EXPECTED_RESULTS and results:
+                verify_results(cfg, next(iter(results.values())) or {})
+            print(results)
+            return results
+        return do_train(cfg, resume=args.resume)
+
+    return launch(main_func, args.num_gpus, num_machines=args.num_machines)
+
+
+def main(argv=None):
+    """Parse ``argv`` (default ``sys.argv[1:]``) and run IDOL; returns the eval
+    results with ``--eval-only``, else the trainer."""
+    return run(argv, setup, "IDOL",
+               "MinVIS's MaskFormer runs through vnext_tpu_torch.tools.train_net_video, SeqFormer has no entry "
+               "point in either package, and the image meta-architectures come with the Detectron2 families "
+               "(ROADMAP Queue 1, item 11)", do_eval, do_train)
 
 
 if __name__ == "__main__":
