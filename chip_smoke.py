@@ -6,6 +6,9 @@
     python3 chip_smoke.py --only entry_point       # phases 1 and 17 alone
     python3 chip_smoke.py --only minvis_entry      # phases 1, 2b's new shapes and 18 alone
     python3 chip_smoke.py --only seqformer_train   # phases 1 and 19 alone
+    python3 chip_smoke.py --only swin_train        # phases 1, 20 and 21 alone
+    python3 chip_smoke.py --only instmove_train    # phase 1, K2 at InstMove's call and phase 22 alone
+    python3 chip_smoke.py --only fused_tracker     # phases 1 and 23 alone
 
 Phases, each printed as it ends; any failure raises and exits non-zero. Each
 path zeroes every kernel's launch counter just before it runs and reads them
@@ -27,7 +30,8 @@ all just after; the counts must be what the code implies.
    MinVIS-R50's train shape (4 frames at 512x768, Q = S = 8064 over 3 levels
    coarsest first, L * P = 12) and at SeqFormer-R50's encoder and box-form
    decoder shapes (4 clips x 5 frames, Q = S = 6800 and Q = 300), and K2's
-   forward and backward at both steps' frames. 2c: K4 and the selector's routes
+   forward and backward at both steps' frames. 2a also holds K2 at InstMove's
+   call (bench.py's ``bench_instmove``: 32 frames at 128x128). 2c: K4 and the selector's routes
    ("pallas", "pallas_v7", "pallas_v8") at the serving encoder and decoder
    shapes (the decoder's is SeqFormer's), K4b (the channel-major entry) at the
    encoder's, and K9 at its own beside an empty kernel launched on its grid
@@ -158,6 +162,34 @@ port's own reader (``vnext_tpu_torch.config``).
     forward / backward / update split beside the
     device's busy time, the assignment's host time and peak memory; one clip
     card vs CPU at dropout 0, as phase 18's.
+20. IDOL-Swin-L training (``configs/idol/ytvis19_swinL.yaml``: Swin-L at its
+    published drop-path 0.3, bf16, seeded weights): 3 steps of 4 clips (key +
+    reference at 512x640) through ``make_train_step``, K4 / K5 = 24 / 24 a step,
+    the update held landed as phase 19's, the step's split, busy share and
+    peak memory; every Swin block's rate from the linspace table and, over the
+    steps' draws, its kept share within 4 sigma of 1 - rate; two forwards from
+    one (seed, step) draw the same masks. One clip card vs CPU at drop-path 0
+    and dropout 0, the CPU's simOTA matching and ReID selection replayed on
+    the card. Then ``train_net.main`` on a synthetic dataset (2 videos x 6
+    frames): 2 steps with a checkpoint, ``--resume`` to 3, the restored state
+    equal to the file bit for bit.
+21. SeqFormer-Swin-L's train step (``configs/seqformer/swin_ytvis.yaml``) as
+    phase 19, 4 clips x 5 frames at 512x640, K4 / K5 = 12 / 12 a step, with
+    phase 20's drop-path checks; card vs CPU on one clip of 5 frames at
+    384x480 (the CPU's f32 reference near a minute).
+22. InstMove training through ``vnext_tpu_torch.tools.train_instmove.main``
+    (``configs/minvis/ovis_r50_motion.yaml``, full width, f32, TF32 off) on a
+    synthetic dataset of 2 videos x 20 frames: 20 steps of 16 sequences at
+    192x192, no hand-written kernel (K2 runs in bf16 only), the step time,
+    peak memory and loss curve, checkpoints and ``instmove_final``; the first
+    step card vs CPU on the tool's own first batch.
+23. IDOL-R50 with ``TPU.FUSED_TRACKER`` on the two videos: K1 / K2 / K3 = 12 /
+    1 / 6 a clip, the on-device tracker's steps under the sync debug mode set
+    to raise (no copy to the host inside a clip), its per-frame (query, track
+    id) associations against the host tracker's on the same outputs (at
+    capacities no frame fills, and at the defaults' 32 / 64 up to the first
+    frame where they bind), the device kernels it launches a frame, and the
+    time per video beside the host tracker's runner.
 
 Then a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -169,6 +201,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import logging
 import os
@@ -401,6 +434,39 @@ def phase_card():
     return smi
 
 
+def stem_serving_case(dev, rng, shape):
+    """K2's forward at a serving shape (bf16 frames [N, H, W, 3]) against its
+    plain version, its time, bound and cuDNN's bf16 convolution alone."""
+    import torch
+
+    from vnext_tpu_torch.ops import stem_conv as stem
+
+    bf16 = torch.bfloat16
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    x = t(rng.randn(*shape))
+    k = t(rng.randn(7, 7, 3, 64) * 0.1)
+    scale, bias = t(rng.rand(64) + 0.5), t(rng.randn(64) * 0.1)
+    got = stem.stem_conv7x7s2_bn_relu(x, k, scale, bias)
+    want = stem.stem_conv_plain(x, k, scale, bias)
+    torch.cuda.synchronize()
+    err = compare(f"K2 stem_conv [{','.join(map(str, shape))}]", got, want, BF16_ULP * float(want.float().abs().max()),
+                  "one bf16 ulp at the largest output: both sum exact products of bf16-rounded "
+                  "operands in f32 and round once to bf16, in different orders")
+    plain_ms = time_ms(lambda: stem.stem_conv_plain(x, k, scale, bias))
+    ms = time_ms(lambda: stem.stem_conv7x7s2_bn_relu(x, k, scale, bias))
+    # the library's convolution alone (cuDNN, bf16, channels-last), without the affine and ReLU
+    xb = x.to(bf16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    kb = k.to(bf16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    library_ms = time_ms(lambda: torch.nn.functional.conv2d(xb, kb, stride=2, padding=3))
+    bound = bound_ms(nbytes(x, k, scale, bias, got), 2.0 * got.numel() * 7 * 7 * 3, "bf16")
+    print(f"  K2 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (f32 conv of bf16-rounded operands, TF32 off), "
+          f"cuDNN bf16 conv2d {library_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}")
+    return kernel_entry(err, ms, plain_ms, bound, library_ms)
+
+
 def epilogue_case(t, rng, b: int, s: int, label: str):
     """K3 against its plain version on [b, s, 256] tokens with FFN 1024, drawn
     from ``rng``, with its time beside cuBLAS's two products alone. Returns the
@@ -508,26 +574,9 @@ def phase_kernels(dev):
     logits_dec = t(rng.randn(b, q, m, l * p), bf16)
     results["dec"] = msda_case("decoder box form", q, ref_dec_t, offsets_dec)
 
-    # K2 stem
-    x = t(rng.randn(CLIP, HEIGHT, WIDTH, 3))
-    k = t(rng.randn(7, 7, 3, 64) * 0.1)
-    scale, bias = t(rng.rand(64) + 0.5), t(rng.randn(64) * 0.1)
-    got = stem.stem_conv7x7s2_bn_relu(x, k, scale, bias)
-    want = stem.stem_conv_plain(x, k, scale, bias)
-    torch.cuda.synchronize()
-    err = compare("K2 stem_conv [10,480,864,3]", got, want, BF16_ULP * float(want.float().abs().max()),
-                  "one bf16 ulp at the largest output: both sum exact products of bf16-rounded "
-                  "operands in f32 and round once to bf16, in different orders")
-    plain_ms = time_ms(lambda: stem.stem_conv_plain(x, k, scale, bias))
-    ms = time_ms(lambda: stem.stem_conv7x7s2_bn_relu(x, k, scale, bias))
-    # the library's convolution alone (cuDNN, bf16, channels-last), without the affine and ReLU
-    xb = x.to(bf16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-    kb = k.to(bf16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    library_ms = time_ms(lambda: torch.nn.functional.conv2d(xb, kb, stride=2, padding=3))
-    bound = bound_ms(nbytes(x, k, scale, bias, got), 2.0 * got.numel() * 7 * 7 * 3, "bf16")
-    print(f"  K2 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (f32 conv of bf16-rounded operands, TF32 off), "
-          f"cuDNN bf16 conv2d {library_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}")
-    results["stem"] = kernel_entry(err, ms, plain_ms, bound, library_ms)
+    # K2 stem, at IDOL's clip and at InstMove's call (bench.py's bench_instmove: B = 32 at 128x128)
+    results["stem"] = stem_serving_case(dev, rng, (CLIP, HEIGHT, WIDTH, 3))
+    results["stem_instmove"] = stem_serving_case(dev, np.random.RandomState(13), (INSTMOVE_BATCH, *INSTMOVE_HW, 3))
 
     # K3 encoder epilogue
     results["epilogue"], (attn, src, params) = epilogue_case(t, rng, CLIP, s, f"[{CLIP},{s},256]")
@@ -2011,16 +2060,16 @@ def minus(a, b):
     return {k: a.get(k, 0) - b.get(k, 0) for k in a if a.get(k, 0) - b.get(k, 0)}
 
 
-def register_synthetic(root, name, classes):
-    """The synthetic YTVIS-format dataset (2 videos x 20 frames at 480x853)
-    under ``root``, its json listing ``classes`` as its categories (the
+def register_synthetic(root, name, classes, num_frames=VIDEO_FRAMES[0]):
+    """The synthetic YTVIS-format dataset (2 videos x ``num_frames`` frames at
+    480x853) under ``root``, its json listing ``classes`` as its categories (the
     synthetic objects take ids 1-3), registered as ``name``: every label of a
     model of that many classes then has a dataset category, as on the real
     dataset (phase 17: YouTube-VIS 2019's 40; phase 18: OVIS's 25)."""
     from vnext_tpu_torch.data.datasets.synthetic import generate_synthetic_ytvis
     from vnext_tpu_torch.data.datasets.ytvis import register_ytvis_instances
 
-    json_file = generate_synthetic_ytvis(root, h=VIDEO_HW[0], w=VIDEO_HW[1], num_frames=VIDEO_FRAMES[0])
+    json_file = generate_synthetic_ytvis(root, h=VIDEO_HW[0], w=VIDEO_HW[1], num_frames=num_frames)
     with open(json_file) as f:
         data = json.load(f)
     data["categories"] = [{"id": i + 1, "name": n} for i, n in enumerate(classes)]
@@ -2523,46 +2572,56 @@ def phase_new_train_kernels(dev):
 
 
 # ---------------------------------------------------------------- card vs CPU of a train forward
-class AssignmentTap:
-    """``assign_batched`` of a model module, wrapped: it records each call's
-    assignment (on the host) and the seconds the call took once the card has
-    finished the work queued before it (its copy to the host waits for that
-    work anyway: the seconds are the copy and the solve), and can replay
-    recorded assignments instead of solving (moved to the caller's device)."""
+def moved(out, device):
+    """A tensor, or a tuple of tensors (a ``MatchResult``), on ``device``."""
+    if isinstance(out, tuple):
+        parts = [moved(o, device) for o in out]
+        return type(out)(*parts) if hasattr(out, "_fields") else tuple(parts)
+    return out.to(device)
 
-    def __init__(self, module):
-        self.module, self.solve = module, module.assign_batched
+
+class AssignmentTap:
+    """A model module's matching function (``assign_batched`` by default;
+    IDOL's simOTA ``match`` and ``pos_neg_masks``), wrapped: it records each
+    call's result (on the host) and the seconds the call took once the card
+    has finished the work queued before it (its copy to the host waits for
+    that work anyway: the seconds are the copy and the solve), and can replay
+    recorded results instead of matching (moved to the caller's device)."""
+
+    def __init__(self, module, name="assign_batched"):
+        self.module, self.name, self.solve = module, name, getattr(module, name)
         self.recorded, self.replay, self.seconds = [], None, []
 
-    def __call__(self, cost, valid):
+    def __call__(self, cost, *args):
         import torch
 
         if self.replay is not None:
-            return self.replay.pop(0).to(cost.device)
+            return moved(self.replay.pop(0), cost.device)
         if cost.is_cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = self.solve(cost, valid)
+        out = self.solve(cost, *args)
         self.seconds.append(time.perf_counter() - t0)
-        self.recorded.append(out.cpu())
+        self.recorded.append(moved(out, "cpu"))
         return out
 
     def __enter__(self):
-        self.module.assign_batched = self
+        setattr(self.module, self.name, self)
         return self
 
     def __exit__(self, *exc):
-        self.module.assign_batched = self.solve
+        setattr(self.module, self.name, self.solve)
 
 
-def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights):
+def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights, taps=("assign_batched",)):
     """One train forward and backward of ``card`` (bf16, kernels) and ``cpu``
     (f32, plain versions; the card's weights) on the same inputs: each loss
     within 5% relative, each parameter group's gradient within 10% relative L2,
     at the card's own assignment and again with the CPU's replayed on the card.
-    ``module`` is the model's module (``mask2former`` or ``seqformer``); a
-    MaskFormer's sampled-loss coordinates are drawn once, on the CPU's run, and
-    the card's runs take the same."""
+    ``module`` is the model's module (``mask2former``, ``seqformer`` or
+    ``idol``) and ``taps`` its matching functions (IDOL: simOTA's ``match`` and
+    the ReID ``pos_neg_masks``); a MaskFormer's sampled-loss coordinates are
+    drawn once, on the CPU's run, and the card's runs take the same."""
     import torch
 
     from vnext_tpu_torch.models import mask2former
@@ -2583,8 +2642,11 @@ def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights):
     def run(model, device, replay=None):
         model.zero_grad(set_to_none=True)
         replay_coords[:] = coords
-        with AssignmentTap(module) as tap, patched(mask2former, "sampled_mask_losses", sampled):
-            tap.replay = None if replay is None else list(replay)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(mask2former, "sampled_mask_losses", sampled))
+            tapped = [stack.enter_context(AssignmentTap(module, name)) for name in taps]
+            for i, tap in enumerate(tapped):
+                tap.replay = None if replay is None else list(replay[i])
             losses = model(*inputs_on(device))
             total = sum(losses[k] * weights[k] for k in losses if k in weights)
             total.backward()
@@ -2593,16 +2655,19 @@ def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights):
             gs = [p.grad.detach().float().cpu().reshape(-1) for n, p in model.named_parameters()
                   if n.startswith(prefixes) and p.grad is not None]
             grads[group] = torch.cat(gs)
-        return {k: float(v.detach()) for k, v in losses.items()}, grads, tap.recorded
+        return {k: float(v.detach()) for k, v in losses.items()}, grads, [tap.recorded for tap in tapped]
 
     t0 = time.perf_counter()
     want_losses, want_grads, cpu_assign = run(cpu, "cpu")
     cpu_s = time.perf_counter() - t0
     got_losses, got_grads, card_assign = run(card, "card")
-    differ = sum(int((a != b).sum()) for a, b in zip(card_assign, cpu_assign))
-    total = sum(int((b >= 0).sum()) for b in cpu_assign)
-    print(f"  {label}: CPU f32 forward + backward {cpu_s:.1f} s; the card's matching picked another query for "
-          f"{differ} of {total} assigned ground-truth slots (bf16 outputs beside f32 ones)")
+    # the first tap's first field: an assignment's gt slot per query, simOTA's selected queries
+    first = [(a[0] if isinstance(a, tuple) else a, b[0] if isinstance(b, tuple) else b)
+             for a, b in zip(card_assign[0], cpu_assign[0])]
+    differ = sum(int((a != b).sum()) for a, b in first)
+    total = sum(int((b >= 0).sum()) if b.dtype != torch.bool else int(b.sum()) for _, b in first)
+    print(f"  {label}: CPU f32 forward + backward {cpu_s:.1f} s; the card's matching differs from the CPU's in "
+          f"{differ} of {total} assigned entries (bf16 outputs beside f32 ones)")
     forced_losses, forced_grads, _ = run(card, "card", replay=cpu_assign)
     reason = ("bf16 keeps 8 significant bits, and the forward and backward round ~100 times in sequence, so "
               "errors that add like a random walk reach a few percent")
@@ -2866,16 +2931,16 @@ def phase_minvis_entry(dev, kernels, smi):
 
 
 # ---------------------------------------------------------------- phase 19
-def seqformer_clip_batch(rng, n_clips, dev, pixel_mean, pixel_std):
+def seqformer_clip_batch(rng, n_clips, dev, pixel_mean, pixel_std, hw=TRAIN_HW):
     """Seeded synthetic clips for SeqFormer's train forward: frames [B, 5, 512,
-    640, 3] (normalized f32) with coloured rectangles drifting over the clip,
-    valid sizes [B, 2], and ``ClipTargets`` of 8..24 instances a clip (boxes
-    cxcywh per frame, stride-4 masks; a few absent on a frame)."""
+    640, 3] (``hw``; normalized f32) with coloured rectangles drifting over the
+    clip, valid sizes [B, 2], and ``ClipTargets`` of 8..24 instances a clip
+    (boxes cxcywh per frame, stride-4 masks; a few absent on a frame)."""
     import torch
 
     from vnext_tpu_torch.models.seqformer import ClipTargets
 
-    h, w = TRAIN_HW
+    h, w = hw
     nf, k = SEQ_TRAIN_FRAMES, SEQ_MAX_INSTS
     images = rng.randint(0, 50, (n_clips, nf, h, w, 3)).astype(np.uint8)
     boxes = np.zeros((n_clips, k, nf, 4), np.float32)
@@ -2954,38 +3019,27 @@ def check_update_landed(model, optimizer, before, lrs):
     return frozen, moved, landable
 
 
-def phase_seqformer_train(dev, kernels, smi):
-    """SeqFormer-R50's clip-level train step at ytvis19_r50 width through
-    ``make_train_step``: 4 clips x 5 frames at 512x640 a step, 3 steps, then
-    the step's parts, the device's busy time, and one clip's train forward on
-    the card against the CPU."""
+def measured_train_steps(label, dev, kernels, model, optimizer, state, step, inputs, weights, clip, want, n_loss_keys,
+                         taps=()):
+    """``step`` over ``inputs`` (one batch a step), each step synchronized and
+    timed with its launch counts (each must equal ``want``), losses finite and
+    ``n_loss_keys`` of them named ``loss_*`` (deep supervision's layers), then
+    ``check_update_landed``; the step's forward / backward / update split (the
+    faster of 2, synchronized) and one profiled step's device busy time. ``taps``
+    are ``AssignmentTap``s over the steps (their host seconds are reported)."""
     import torch
 
-    from vnext_tpu_torch.engine.train_step import TrainState, dropout_generator, make_train_step
-    from vnext_tpu_torch.models import seqformer
-    from vnext_tpu_torch.models.layers import init_weights
-    from vnext_tpu_torch.solver import build as solver
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    t_phase = time.perf_counter()
-    cfg = read_config("seqformer/ytvis19_r50.yaml")
-    model = seqformer.build_seqformer_model(cfg, device=dev, seed=0).train()
-    describe(model, "SeqFormer-R50 for training", "seqformer/ytvis19_r50.yaml", t_phase)
-    optimizer = solver.build_optimizer(cfg, model)
-    state = TrainState.create(model, optimizer, solver.build_lr_scheduler(cfg, optimizer))
-    weights = seqformer.seqformer_weight_dict(cfg)
-    clip = solver.build_grad_clip(cfg)
-    step = make_train_step(model, optimizer, weights, clip)
-    mean, std = tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD)
-    inputs = [seqformer_clip_batch(np.random.RandomState(190 + i), SEQ_TRAIN_CLIPS, dev, mean, std)
-              for i in range(SEQ_TRAIN_STEPS)]
-    print(f"  batches: {SEQ_TRAIN_CLIPS} clips x {SEQ_TRAIN_FRAMES} frames at {TRAIN_HW[0]}x{TRAIN_HW[1]}, instances "
-          f"per clip {[int(v) for v in inputs[0][2].valid.sum(1)]} (first batch), up to {SEQ_MAX_INSTS}")
+    from vnext_tpu_torch.engine.train_step import dropout_generator
+
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    tap = AssignmentTap(seqformer)
-    step_ms, per_step = [], []
+    step_ms, per_step, lrs = [], [], []       # lrs: each step's learning rate by parameter group
     torch.cuda.reset_peak_memory_stats(dev)
-    lrs = []                         # each step's learning rate by parameter group
-    with tap:
+    with contextlib.ExitStack() as stack:
+        for tap in taps:
+            stack.enter_context(tap)
         for x in inputs:
             lrs.append([g["lr"] for g in optimizer.param_groups])
             zero(kernels)
@@ -2996,26 +3050,25 @@ def phase_seqformer_train(dev, kernels, smi):
             step_ms.append((time.perf_counter() - t0) * 1e3)
             per_step.append(counts(kernels))
             losses = {k: float(v) for k, v in metrics.items()}
-            require(all(np.isfinite(v) for v in losses.values()), f"SeqFormer losses {losses}")
+            require(all(np.isfinite(v) for v in losses.values()), f"{label} losses {losses}")
+            loss_keys = sorted(k for k in losses if k.startswith("loss_"))
+            require(len(loss_keys) == n_loss_keys, f"{label}: {len(loss_keys)} loss keys, not {n_loss_keys}: "
+                                                   f"{loss_keys}")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    want = {"ms_deform_attn_v9_fwd": 12, "ms_deform_attn_v9_bwd": 12, "stem_conv": 1}
-    print(f"  launches per step {per_step} (expected {want}: 6 encoder and 6 decoder MSDA layers over the "
-          f"{SEQ_TRAIN_CLIPS * SEQ_TRAIN_FRAMES} frames, forward and backward, one stem)")
-    require(all(c == want for c in per_step), f"SeqFormer train launch counts {per_step} != {want}")
-    require(len([k for k in losses if k.startswith("loss_")]) == 5 * model.dec_layers, f"loss keys {sorted(losses)}")
+    print(f"  launches per step {per_step} (expected {want})")
+    require(all(c == want for c in per_step), f"{label} train launch counts {per_step} != {want}")
     frozen, moved, landable = check_update_landed(model, optimizer, before, lrs)
     del before
     n_trainable = len(list(model.parameters())) - frozen
-    print(f"  {SEQ_TRAIN_STEPS} steps, every loss finite (total {losses['total_loss']:.4f} at the last); "
-          f"every one of {n_trainable} trainable parameters reached by a gradient (AdamW's first moment non-zero) "
-          f"and within AdamW's reach; {landable} of them have elements the last update (lr "
+    host = "".join(f"; {tap.name} on the host {', '.join(f'{v * 1e3:.1f}' for v in tap.seconds)} ms" for tap in taps)
+    print(f"  {len(inputs)} steps, every loss finite and {n_loss_keys} loss_* keys a step (total "
+          f"{losses['total_loss']:.4f} at the last); every one of "
+          f"{n_trainable} trainable parameters reached by a gradient (AdamW's first moment non-zero) and within "
+          f"AdamW's reach; {landable} of them have elements the last update (lr "
           f"{', '.join(f'{v:.3g}' for v in lrs[-1])} by group) moves by 4 ulps or more, and each of those moved; "
-          f"{moved} moved in all; {frozen} frozen ones bit-equal; "
-          f"step ms (synchronized) {', '.join(f'{v:.1f}' for v in step_ms)}; the assignment (one copy of 6 "
-          f"layers x {SEQ_TRAIN_CLIPS} clips of [24, 300] costs, scipy) "
-          f"{', '.join(f'{v * 1e3:.1f}' for v in tap.seconds)} ms a step; peak memory {peak_gb:.2f} GiB")
+          f"{moved} moved in all; {frozen} frozen ones bit-equal; step ms (synchronized) "
+          f"{', '.join(f'{v:.1f}' for v in step_ms)}{host}; peak memory {peak_gb:.2f} GiB")
 
-    # the step's parts, synchronized, and the device's busy time over one step
     params = list(model.parameters())
     parts = {"forward": [], "backward": [], "update": []}
     for i in range(2):
@@ -3036,9 +3089,6 @@ def phase_seqformer_train(dev, kernels, smi):
         for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
             parts[k].append(v * 1e3)
     split = {k: min(v) for k, v in parts.items()}
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3058,21 +3108,134 @@ def phase_seqformer_train(dev, kernels, smi):
           f"{split['backward']:.1f} ms, clip + AdamW {split['update']:.1f} ms; torch.profiler over one step: device "
           f"busy {busy:.1f} ms of {prof_wall:.1f} ms wall ({busy / prof_wall:.1%}); top kernels, ms per step:")
     print_kernel_rows(events, 1, 10)
-    result = {"step_ms": step_ms, "forward_ms": split["forward"], "backward_ms": split["backward"],
-              "update_ms": split["update"], "device_busy_ms": busy, "profiled_step_ms": prof_wall,
-              "peak_memory_gb": peak_gb, "assignment_host_ms": [v * 1e3 for v in tap.seconds],
-              "launches_per_step": per_step}
-    del model, state, optimizer, step, inputs, prof, events
+    return {"step_ms": step_ms, "forward_ms": split["forward"], "backward_ms": split["backward"],
+            "update_ms": split["update"], "device_busy_ms": busy, "profiled_step_ms": prof_wall,
+            "peak_memory_gb": peak_gb, "launches_per_step": per_step, "trainable_moved": moved,
+            **{f"{tap.name}_host_ms": [v * 1e3 for v in tap.seconds] for tap in taps}}
+
+
+class DropPathTap:
+    """Swin's ``drop_path_mask``, wrapped: it records each draw's keep
+    probability and mask (left on the device)."""
+
+    def __init__(self):
+        from vnext_tpu_torch.models.backbones import swin
+
+        self.swin, self.draw, self.draws = swin, swin.drop_path_mask, []
+
+    def __call__(self, n, keep, generator, device):
+        mask = self.draw(n, keep, generator, device)
+        self.draws.append((keep, mask))
+        return mask
+
+    def __enter__(self):
+        self.swin.drop_path_mask = self
+        return self
+
+    def __exit__(self, *exc):
+        self.swin.drop_path_mask = self.draw
+
+
+def check_drop_path(model, draws, label):
+    """Every Swin block but the first has its rate from
+    ``linspace(0, DROP_PATH_RATE, sum(depths))``, and over the steps' draws the
+    kept share of each block sits within 4 sigma of its keep probability (the
+    blocks' rates differ, so a draw's probability names its block)."""
+    import torch
+
+    from vnext_tpu_torch.models.backbones.swin import SwinBlock
+
+    rates = [m.drop_path for m in model.backbone.modules() if isinstance(m, SwinBlock)]
+    want = np.linspace(0, model.backbone.drop_path_rate, len(rates)).tolist()
+    require(rates == want, f"{label}: block rates {rates} != {want}")
+    by_block = {}
+    for keep, mask in draws:
+        by_block.setdefault(keep, []).append(mask.flatten())
+    require(len(by_block) == len(rates) - 1, f"{label}: {len(by_block)} blocks drew, not {len(rates) - 1}")
+    z = {}
+    for keep, masks in by_block.items():
+        kept = torch.cat(masks).float()
+        share = float(kept.mean())
+        z[keep] = abs(share - keep) / (keep * (1 - keep) / kept.numel()) ** 0.5
+        require(z[keep] <= 4.0, f"{label}: a block of keep {keep:.4f} kept {share:.4f} of {kept.numel()} samples")
+    n = sum(m.numel() for m in by_block[max(by_block)])
+    print(f"  drop-path: {len(rates)} blocks at rates 0 .. {want[-1]:.2f} (linspace), the first drawing nothing; "
+          f"{len(draws)} draws, {n} samples a block; kept share within {max(z.values()):.2f} sigma of 1 - rate at "
+          f"worst (limit 4)")
+    return {"blocks_drawing": len(by_block), "samples_per_block": n, "max_sigma": max(z.values())}
+
+
+def check_draws_repeat(model, inputs, dev, label):
+    """Two train forwards with the generator of one (seed, step) draw the same
+    drop-path masks bit for bit."""
+    import torch
+
+    from vnext_tpu_torch.engine.train_step import dropout_generator
+
+    runs = []
+    for _ in range(2):
+        with torch.no_grad(), DropPathTap() as tap:
+            model(*inputs, generator=dropout_generator(0, 7, dev))
+        runs.append([m for _, m in tap.draws])
+    require(len(runs[0]) == len(runs[1]) > 0 and all(torch.equal(a, b) for a, b in zip(*runs)),
+            f"{label}: two draws from one (seed, step) differ")
+    print(f"  drop-path: two forwards from the generator of one (seed, step) drew the same {len(runs[0])} masks")
+
+
+def phase_seqformer_train(dev, kernels, smi, config="seqformer/ytvis19_r50.yaml", label="SeqFormer-R50", tag="19",
+                          n_clips=SEQ_TRAIN_CLIPS, cpu_hw=TRAIN_HW, path="seqformer_train"):
+    """SeqFormer's clip-level train step at its config's width through
+    ``make_train_step``: ``n_clips`` clips x 5 frames at 512x640 a step, 3
+    steps, then the step's parts, the device's busy time, and one clip (at
+    ``cpu_hw``) train forward on the card against the CPU. For Swin-L, also
+    drop-path's rates and draws."""
+    import torch
+
+    from vnext_tpu_torch.engine.train_step import TrainState, make_train_step
+    from vnext_tpu_torch.models import seqformer
+    from vnext_tpu_torch.models.layers import init_weights
+    from vnext_tpu_torch.solver import build as solver
+
+    t_phase = time.perf_counter()
+    cfg = read_config(config)
+    model = seqformer.build_seqformer_model(cfg, device=dev, seed=0).train()
+    describe(model, f"{label} for training", config, t_phase)
+    swin = "swin" in cfg.MODEL.BACKBONE.NAME.lower()          # as backbone_kwargs_from_cfg selects Swin
+    optimizer = solver.build_optimizer(cfg, model)
+    state = TrainState.create(model, optimizer, solver.build_lr_scheduler(cfg, optimizer))
+    weights = seqformer.seqformer_weight_dict(cfg)
+    clip = solver.build_grad_clip(cfg)
+    step = make_train_step(model, optimizer, weights, clip)
+    mean, std = tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD)
+    inputs = [seqformer_clip_batch(np.random.RandomState(190 + i), n_clips, dev, mean, std)
+              for i in range(SEQ_TRAIN_STEPS)]
+    print(f"  batches: {n_clips} clips x {SEQ_TRAIN_FRAMES} frames at {TRAIN_HW[0]}x{TRAIN_HW[1]}, instances "
+          f"per clip {[int(v) for v in inputs[0][2].valid.sum(1)]} (first batch), up to {SEQ_MAX_INSTS}")
+    want = {"ms_deform_attn_v9_fwd": 12, "ms_deform_attn_v9_bwd": 12, **({} if swin else {"stem_conv": 1})}
+    print(f"  expected launches a step: {want} (6 encoder and 6 decoder MSDA layers over the "
+          f"{n_clips * SEQ_TRAIN_FRAMES} frames, forward and backward{'' if swin else ', one stem'})")
+    with DropPathTap() as drops:
+        result = measured_train_steps(label, dev, kernels, model, optimizer, state, step, inputs, weights, clip,
+                                      want, 5 * model.dec_layers, taps=(AssignmentTap(seqformer),))
+    if swin:
+        result["drop_path"] = check_drop_path(model, drops.draws, label)
+        check_draws_repeat(model, inputs[0], dev, label)
+    else:
+        require(not drops.draws, f"{label}: a ResNet drew drop-path masks")
+    per_step = result["launches_per_step"]
+    del model, state, optimizer, step, inputs, drops
     torch.cuda.empty_cache()
 
-    # ---- one clip, card vs CPU, dropout 0
+    # ---- one clip, card vs CPU, dropout 0 (and drop-path 0)
     kwargs = {**seqformer.seqformer_kwargs_from_cfg(cfg), "dropout": 0.0}
+    if swin:
+        kwargs["swin"] = kwargs["swin"][:4] + (0.0,)
     card = seqformer.SeqFormer(**kwargs)
     init_weights(card, 3)
     card = card.to(dev).train()
     cpu = seqformer.SeqFormer(**{**kwargs, "dtype": torch.float32}).train()
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
-    clip_inputs = seqformer_clip_batch(np.random.RandomState(19), 1, "cpu", mean, std)
+    clip_inputs = seqformer_clip_batch(np.random.RandomState(19), 1, "cpu", mean, std, hw=cpu_hw)
 
     def on(device):
         x, sizes, t = clip_inputs
@@ -3081,25 +3244,448 @@ def phase_seqformer_train(dev, kernels, smi):
         return x.to(dev), sizes.to(dev), type(t)(*(a.to(dev) for a in t))
 
     result["card_vs_cpu"] = train_card_vs_cpu(
-        f"SeqFormer train forward (one clip of {SEQ_TRAIN_FRAMES} frames at 512x640)", seqformer, card, cpu, on,
-        SEQ_GROUPS, weights)
+        f"{label} train forward (one clip of {SEQ_TRAIN_FRAMES} frames at {cpu_hw[0]}x{cpu_hw[1]})", seqformer, card,
+        cpu, on, SEQ_GROUPS, weights)
     del card, cpu
     torch.cuda.empty_cache()
     result["phase_s"] = time.perf_counter() - t_phase
     print(f"  {smi}")
-    print(f"[phase 19] SeqFormer-R50's train step ran {SEQ_TRAIN_STEPS} steps through K4 / K5 / K2 = 12 / 12 / 1 a "
-          f"step; losses finite; trainable reached and landed ({moved} moved), frozen stayed; card agrees with CPU; "
-          f"{result['phase_s']:.1f} s")
-    return {"seqformer_train": {k: sum(c.get(k, 0) for c in per_step) for k in per_step[0]}}, result
+    print(f"[phase {tag}] {label}'s train step ran {SEQ_TRAIN_STEPS} steps of {n_clips} clips through "
+          f"{' / '.join(f'{k} {v}' for k, v in want.items())} a step; losses finite; trainable reached and landed "
+          f"({result['trainable_moved']} moved), frozen stayed; card agrees with CPU; {result['phase_s']:.1f} s")
+    return {path: {k: sum(c.get(k, 0) for c in per_step) for k in per_step[0]}}, result
+
+
+def phase_seqformer_swin_train(dev, kernels, smi):
+    """Phase 21: phase 19 on SeqFormer-Swin-L (configs/seqformer/swin_ytvis.yaml),
+    drop-path 0.3, card vs CPU on one clip of 5 frames at 384x480."""
+    return phase_seqformer_train(dev, kernels, smi, "seqformer/swin_ytvis.yaml", "SeqFormer-Swin-L", "21",
+                                 SEQ_SWIN_TRAIN_CLIPS, SEQ_SWIN_CPU_HW, "seqformer_swinl_train")
+
+
+# ---------------------------------------------------------------- phase 20
+SWIN_TRAIN_CLIPS, SWIN_TRAIN_STEPS = 4, 3
+# SeqFormer-Swin-L: 2 clips x 5 frames a step (4 clips ran out of the card's 80 GB in the first step's
+# forward, with 78.19 GiB allocated: NVIDIA H100 80GB HBM3, 700 W); its card-vs-CPU clip at 384x480 keeps
+# the CPU's f32 forward and backward of 5 Swin-L frames near a minute
+SEQ_SWIN_TRAIN_CLIPS, SEQ_SWIN_CPU_HW = 2, (384, 480)
+SWIN_ENTRY_DATASET, SWIN_ENTRY_FRAMES = "ytvis_synthetic_swin_entry", 6
+IDOL_GROUPS = SEQ_GROUPS[:4] + (("heads", ("class_embed_", "controller.", "mask_head.", "reid_embed.")),)
+
+
+def idol_weight_dict(cfg):
+    """The entry point's loss weights for IDOL (``tools/train_net.do_train``'s)."""
+    from vnext_tpu_torch.models.criterion import default_weight_dict
+
+    c = cfg.MODEL.IDOL
+    return default_weight_dict(class_weight=c.CLASS_WEIGHT, l1_weight=c.L1_WEIGHT, giou_weight=c.GIOU_WEIGHT,
+                               mask_weight=c.MASK_WEIGHT, dice_weight=c.DICE_WEIGHT, reid_weight=c.REID_WEIGHT,
+                               dec_layers=c.DEC_LAYERS, deep_supervision=c.DEEP_SUPERVISION)
+
+
+def phase_idol_swin_train(dev, kernels, smi):
+    """IDOL-Swin-L training at full width: 3 steps of 4 clips (key + reference
+    at 512x640) through ``make_train_step`` at drop-path 0.3, the step's parts,
+    busy share and peak memory; drop-path's rates and draws on the card; one
+    clip card vs CPU at drop-path 0 and dropout 0; then ``train_net`` on a
+    synthetic dataset with ``--resume``."""
+    import torch
+
+    from vnext_tpu_torch.checkpoint.checkpointer import Checkpointer
+    from vnext_tpu_torch.data.datasets.ytvis import YTVIS_2019_CLASSES
+    from vnext_tpu_torch.engine.train_step import TrainState, make_train_step
+    from vnext_tpu_torch.engine.trainer import PIXEL_MEAN, PIXEL_STD, batch_to_model_inputs
+    from vnext_tpu_torch.models import idol
+    from vnext_tpu_torch.models.layers import init_weights
+    from vnext_tpu_torch.solver import build as solver
+    from vnext_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    config = "idol/ytvis19_swinL.yaml"
+    cfg = read_config(config)
+    model = idol.build_idol_model(cfg, device=dev, seed=0).train()
+    describe(model, "IDOL-Swin-L for training", config, t_phase)
+    optimizer = solver.build_optimizer(cfg, model)
+    state = TrainState.create(model, optimizer, solver.build_lr_scheduler(cfg, optimizer))
+    weights, clip = idol_weight_dict(cfg), solver.build_grad_clip(cfg)
+    step = make_train_step(model, optimizer, weights, clip)
+    inputs = [batch_to_model_inputs(synthetic_batch(np.random.RandomState(200 + i), n_clips=SWIN_TRAIN_CLIPS),
+                                    PIXEL_MEAN, PIXEL_STD, dev) for i in range(SWIN_TRAIN_STEPS)]
+    want = {"ms_deform_attn_v9_fwd": 24, "ms_deform_attn_v9_bwd": 24}
+    print(f"  batches: {SWIN_TRAIN_CLIPS} clips of key + reference at {TRAIN_HW[0]}x{TRAIN_HW[1]}, up to "
+          f"{MAX_INSTS} instances; expected launches a step {want} (6 encoder and 6 decoder MSDA layers on the key "
+          f"and on the reference frames, forward and backward; a patch embed, no stem)")
+    with DropPathTap() as drops:
+        result = measured_train_steps("IDOL-Swin-L", dev, kernels, model, optimizer, state, step, inputs, weights,
+                                      clip, want, 5 * model.dec_layers + 2)
+    result["drop_path"] = check_drop_path(model, drops.draws, "IDOL-Swin-L")
+    check_draws_repeat(model, inputs[0], dev, "IDOL-Swin-L")
+    per_step = result["launches_per_step"]
+    del model, state, optimizer, step, inputs, drops
+    torch.cuda.empty_cache()
+
+    # ---- one clip, card vs CPU, drop-path 0 and dropout 0, the CPU's matching replayed on the card
+    kwargs = {**idol.idol_kwargs_from_cfg(cfg), "dropout": 0.0}
+    kwargs["swin"] = kwargs["swin"][:4] + (0.0,)
+    card = idol.IDOL(**kwargs)
+    init_weights(card, 3)
+    card = card.to(dev).train()
+    cpu = idol.IDOL(**{**kwargs, "dtype": torch.float32}).train()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batch = synthetic_batch(np.random.RandomState(20), n_clips=1)
+    result["card_vs_cpu"] = train_card_vs_cpu(
+        "IDOL-Swin-L train forward (one clip, key + reference at 512x640)", idol, card, cpu,
+        lambda d: batch_to_model_inputs(batch, PIXEL_MEAN, PIXEL_STD, dev if d == "card" else "cpu"),
+        IDOL_GROUPS, weights, taps=("match", "pos_neg_masks"))
+    del card, cpu
+    torch.cuda.empty_cache()
+
+    # ---- the entry point: training with a checkpoint, then --resume
+    with tempfile.TemporaryDirectory() as tmp:
+        register_synthetic(f"{tmp}/data", SWIN_ENTRY_DATASET, YTVIS_2019_CLASSES, num_frames=SWIN_ENTRY_FRAMES)
+        argv = ["--config-file", str(Path(__file__).resolve().parent / "configs" / config), "MODEL.WEIGHTS", "",
+                "DATASETS.TRAIN", f"('{SWIN_ENTRY_DATASET}',)", "DATASETS.TEST", f"('{SWIN_ENTRY_DATASET}',)",
+                "OUTPUT_DIR", f"{tmp}/train", "SOLVER.IMS_PER_BATCH", str(SWIN_TRAIN_CLIPS),
+                "SOLVER.CHECKPOINT_PERIOD", "2"]
+        resume_or_load, loaded = Checkpointer.resume_or_load, {}
+
+        def checked_resume(self, weights_path, state, resume=True):
+            path = self.get_checkpoint_file()
+            state, start = resume_or_load(self, weights_path, state, resume)
+            if resume:
+                saved = torch.load(path, map_location="cpu", weights_only=True)
+                loaded.update(path=path, start=start, model=all(torch.equal(v.cpu(), saved["model"][k])
+                                                                for k, v in state.model.state_dict().items()),
+                              optimizer=same_optimizer_state(state.optimizer.state_dict(), saved["optimizer"]),
+                              scheduler=state.scheduler.state_dict() == saved["scheduler"])
+            return state, start
+
+        runs = {}
+        with patched(Checkpointer, "resume_or_load", checked_resume):
+            for run, run_argv, steps in (("train", [*argv, "SOLVER.MAX_ITER", "2"], 2),
+                                         ("resume", ["--resume", *argv, "SOLVER.MAX_ITER", "3"], 3)):
+                t0 = time.perf_counter()
+                trainer = train_net.main(run_argv)
+                torch.cuda.synchronize()
+                hist = trainer.storage.history("total_loss")
+                require(trainer.iter == steps and np.isfinite(hist.values()).all(),
+                        f"IDOL-Swin-L train_net {run}: iterations {trainer.start_iter}..{trainer.iter}, "
+                        f"total_loss {hist.values()}")
+                marker = Path(f"{tmp}/train/last_checkpoint").read_text()
+                require(marker == f"model_{steps - 1:07d}.pth", f"IDOL-Swin-L {run}: last_checkpoint names {marker}")
+                runs[run] = {"iterations": [trainer.start_iter, trainer.iter], "total_loss": hist.values(),
+                             "wall_s": time.perf_counter() - t0}
+                print(f"  train_net {run}: iterations {trainer.start_iter}..{trainer.iter - 1}, total_loss "
+                      f"{', '.join(f'{v:.3f}' for v in hist.values())}, {runs[run]['wall_s']:.1f} s with the "
+                      f"evaluation after training")
+                del trainer
+                gc.collect()              # the trainer and its hooks refer to each other
+                torch.cuda.empty_cache()
+        require(loaded.get("start") == 2, f"IDOL-Swin-L --resume started at {loaded.get('start')}")
+        require(loaded["model"] and loaded["optimizer"] and loaded["scheduler"],
+                f"IDOL-Swin-L --resume: restored state differs from {loaded['path']}")
+        print(f"  --resume from {Path(loaded['path']).name}: started at iteration 2; model, optimizer and scheduler "
+              f"state equal to the file bit for bit")
+        result["entry_point"] = runs
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {smi}")
+    print(f"[phase 20] IDOL-Swin-L's train step ran {SWIN_TRAIN_STEPS} steps of {SWIN_TRAIN_CLIPS} clips through K4 / "
+          f"K5 = 24 / 24 a step at drop-path 0.3; losses finite; trainable reached and landed; card agrees with "
+          f"CPU; train_net trained and resumed bit for bit; {result['phase_s']:.1f} s")
+    return {"idol_swinl_train": {k: sum(c.get(k, 0) for c in per_step) for k in per_step[0]}}, result
+
+
+# ---------------------------------------------------------------- phase 22
+INSTMOVE_DATASET, INSTMOVE_TRAIN_STEPS, INSTMOVE_TRAIN_BATCH = "ytvis_synthetic_instmove", 20, 16
+INSTMOVE_GROUPS = (
+    ("mask encoder", ("enc1.", "enc2.", "enc3.", "enc4.")),
+    ("ConvLSTM", ("convlstm_",)),
+    ("memory", ("memory.",)),
+    ("image ResNet-50", ("encoder_img.",)),
+    ("gate", ("attn_fc",)),
+    ("decoder", ("decoder.",)),
+)
+
+
+def phase_instmove_train(dev, kernels, smi):
+    """InstMove training through ``train_instmove.main`` (full width, f32, TF32
+    off) on a synthetic YTVIS dataset of 2 videos x 20 frames: 20 steps of 16
+    sequences at 192x192, the step time, peak memory and loss curve,
+    ``instmove_final``; then the first step's losses and gradients on the card
+    against the CPU's on the tool's own first batch."""
+    import torch
+
+    from vnext_tpu_torch.data.datasets.synthetic import THING_CLASSES
+    from vnext_tpu_torch.models.instmove import build_instmove_model, instmove_loss
+    from vnext_tpu_torch.tools import train_instmove as ti
+
+    t_phase = time.perf_counter()
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        register_synthetic(f"{tmp}/data", INSTMOVE_DATASET, THING_CLASSES)
+        config = str(Path(__file__).resolve().parent / "configs" / "minvis" / "ovis_r50_motion.yaml")
+        argv = ["--config-file", config, "DATASETS.TRAIN", f"('{INSTMOVE_DATASET}',)", "OUTPUT_DIR", f"{tmp}/out",
+                "SOLVER.MAX_ITER", str(INSTMOVE_TRAIN_STEPS), "SOLVER.IMS_PER_BATCH", str(INSTMOVE_TRAIN_BATCH),
+                "SOLVER.CHECKPOINT_PERIOD", "10"]
+        step_ms, make_step = [], ti.make_instmove_step
+
+        def timed_make_step(model, optimizer):
+            inner = make_step(model, optimizer)
+
+            def step(*batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(*batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            return step
+
+        zero(kernels)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with patched(ti, "make_instmove_step", timed_make_step):
+            model, storage = ti.main(argv)
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        require(counts(kernels) == {}, f"InstMove training launched hand-written kernels {counts(kernels)} (f32: "
+                                       "the stem kernel runs in bf16 only)")
+        curve = storage.history("total_loss").values()
+        require(len(curve) == INSTMOVE_TRAIN_STEPS and np.isfinite(curve).all(), f"InstMove losses {curve}")
+        require(next(model.parameters()).is_cuda and model.dtype == torch.float32, "InstMove trained off the card")
+        files = sorted(p.name for p in Path(f"{tmp}/out").glob("*.pth"))
+        require(files == ["instmove_0000010.pth", "instmove_0000020.pth", "instmove_final.pth"], f"checkpoints {files}")
+        cfg = ti.setup(ti.default_argument_parser().parse_args(argv), ti.add_maskformer_config)
+        samples = ti.build_mask_sequences(INSTMOVE_DATASET, cfg.MODEL.INSTMOVE.SEQ_LEN,
+                                          tuple(cfg.MODEL.INSTMOVE.MASK_SIZE))
+        print(f"  train_instmove: {len(samples)} mask sequences of {cfg.MODEL.INSTMOVE.SEQ_LEN} + 1 frames at "
+              f"{cfg.MODEL.INSTMOVE.MASK_SIZE[0]}x{cfg.MODEL.INSTMOVE.MASK_SIZE[1]}; {INSTMOVE_TRAIN_STEPS} steps of "
+              f"{INSTMOVE_TRAIN_BATCH} in {wall:.1f} s; step ms (synchronized) "
+              f"{', '.join(f'{v:.1f}' for v in step_ms)}; peak memory {peak_gb:.2f} GiB; total_loss "
+              f"{', '.join(f'{v:.4f}' for v in curve)}; checkpoints {files}")
+        result.update(step_ms=step_ms, peak_memory_gb=peak_gb, total_loss=curve, sequences=len(samples), wall_s=wall)
+        del model
+        torch.cuda.empty_cache()
+
+        # ---- the first step, card vs CPU: the tool's seeded model and its first batch
+        rng = np.random.RandomState(max(cfg.SEED, 0))
+        rng.randint(0, len(samples), INSTMOVE_TRAIN_BATCH)
+        batch = ti.make_batch(samples, rng, INSTMOVE_TRAIN_BATCH, tuple(cfg.MODEL.INSTMOVE.MASK_SIZE),
+                              np.asarray(cfg.MODEL.PIXEL_MEAN), np.asarray(cfg.MODEL.PIXEL_STD))
+        got = {}
+        for where in ("cpu", "card"):
+            device = "cpu" if where == "cpu" else dev
+            m = build_instmove_model(cfg, device=device, seed=0).train()
+            t0 = time.perf_counter()
+            past, nxt, imgs = (torch.from_numpy(a).to(device) for a in batch)
+            losses = instmove_loss(m(past, imgs, out_len=1), nxt)
+            (losses["loss_mask"] + losses["loss_dice"]).backward()
+            grads = {g: torch.cat([p.grad.detach().cpu().reshape(-1) for n, p in m.named_parameters()
+                                   if n.startswith(prefixes) and p.grad is not None]) for g, prefixes in INSTMOVE_GROUPS}
+            got[where] = ({k: float(v.detach()) for k, v in losses.items()}, grads)
+            if where == "cpu":
+                t_cpu = time.perf_counter() - t0
+            del m
+        loss_err = {k: abs(got["card"][0][k] - v) / max(abs(v), 1e-6) for k, v in got["cpu"][0].items()}
+        grad_err = {g: float((got["card"][1][g] - v).norm() / v.norm().clamp_min(1e-30))
+                    for g, v in got["cpu"][1].items()}
+        print(f"  first step card vs CPU (both f32, TF32 off; the CPU's forward + backward {t_cpu:.1f} s): losses "
+              f"relative error {', '.join(f'{k} {e:.3g}' for k, e in loss_err.items())} tolerance 0.05; gradients "
+              f"relative L2 {', '.join(f'{g} {e:.3g}' for g, e in grad_err.items())} tolerance 0.10: f32 sums in "
+              "other orders (cuDNN's and the CPU's convolutions)")
+        for k, e in loss_err.items():
+            require(e <= 0.05, f"InstMove first step: {k} relative error {e}")
+        for g, e in grad_err.items():
+            require(e <= 0.10, f"InstMove first step: gradient of {g} relative L2 {e}")
+        result["card_vs_cpu"] = {"loss_rel_err": loss_err, "grad_rel_l2": grad_err, "cpu_s": t_cpu}
+    torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {smi}")
+    print(f"[phase 22] train_instmove trained {INSTMOVE_TRAIN_STEPS} steps of {INSTMOVE_TRAIN_BATCH} on the card (f32, "
+          f"no hand-written kernel), wrote instmove_final; card agrees with CPU; {result['phase_s']:.1f} s")
+    return result
+
+
+# ---------------------------------------------------------------- phase 23
+# tracklet slots and detections a frame that no frame of the two videos fills: at random weights the raised
+# class bias leaves ~290 of the 300 queries candidates after NMS a frame, and ~500 tracklets live at once
+ROOMY = (1024, 300)
+
+
+def phase_fused_tracker(dev, kernels, smi):
+    """IDOL-R50 with ``TPU.FUSED_TRACKER``: the two synthetic videos through the
+    fused runner (K1 / K2 / K3 = 12 / 1 / 6 a clip), and its per-frame (query,
+    track id) pairs from the serving loop (``_run_clips_fused``) against the
+    host tracker's on the same outputs: on every frame at capacities that
+    cannot bind, and up to the first frame where the defaults' 32 / 64 bind.
+    Also no copy to the host inside a clip (the sync debug mode raising),
+    launches per frame, and the time per video beside the host tracker's, at
+    the defaults and at the capacities that do not bind (the like-for-like
+    one: at the defaults the fused tracker handles a capped subset)."""
+    import torch
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vnext_tpu_torch.engine import vis_inference as vi
+    from vnext_tpu_torch.models.idol import build_idol_model
+    from vnext_tpu_torch.ops import encoder_epilogue, stem_conv
+    from vnext_tpu_torch.ops import ms_deform_attn as msda
+
+    t_phase = time.perf_counter()
+    cfg = read_config("idol/ytvis19_r50.yaml")
+    cfg.TPU.FUSED_TRACKER = True
+    model = build_idol_model(cfg, device=dev, seed=0)
+    store, records = synthetic_records()
+    fused = vi.IDOLVideoInference.from_config(cfg, model, image_loader=store.__getitem__)
+    host = vi.IDOLVideoInference.from_config(cfg, model, image_loader=store.__getitem__, fused_tracker=False)
+    require(fused.fused_tracker and (fused.fused_capacity, fused.fused_dets) == (32, 64),
+            f"the fused runner from the config: {fused.fused_tracker}, {fused.fused_capacity}, {fused.fused_dets}")
+    first_clip = {**records[0], "file_names": records[0]["file_names"][:CLIP]}
+    raise_class_bias(model, host.infer_clip(*host._prepare_frames(first_clip))["pred_logits"][..., 0])
+
+    track_frames = fused._track_frames
+
+    def no_sync_frames(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return track_frames(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    fused._track_frames = no_sync_frames
+    roomy = vi.IDOLVideoInference.from_config(cfg, model, image_loader=store.__getitem__, fused_capacity=ROOMY[0],
+                                              fused_dets=ROOMY[1])
+    for runner in (fused, host, roomy):         # warm-up, not counted
+        runner(records[1])
+    zero(kernels)
+    fused_ms, outs = [], []
+    for rec in records:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fused(rec))
+        torch.cuda.synchronize()
+        fused_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = counts(kernels)
+    n_clips = sum(-(-r["length"] // CLIP) for r in records)
+    want = {msda.KERNEL.name: 12 * n_clips, stem_conv.KERNEL.name: n_clips, encoder_epilogue.KERNEL.name: 6 * n_clips}
+    require(launches == want, f"fused serving launches {launches} != {want}")
+    check_entries(list(zip(records, outs)), 40)
+    video_ms = {"host": [], "roomy": []}
+    for rec in records:
+        for name, runner in (("host", host), ("roomy", roomy)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner(rec)
+            torch.cuda.synchronize()
+            video_ms[name].append((time.perf_counter() - t0) * 1e3)
+
+    def associations(per_frame):
+        return [sorted((int(q), int(i)) for q, i in frame) for frame in per_frame]
+
+    def host_pairs(outputs):
+        """The host association; the tracker's per-frame candidate and
+        live-tracklet counts, and its time."""
+        tracker, dets, live = host.make_tracker(), [], []
+        match = tracker.match
+
+        def counted(*a, **k):
+            out = match(*a, **k)
+            dets.append(len(a[5]))
+            live.append(len(tracker.tracklets))
+            return out
+
+        tracker.match = counted
+        t0 = time.perf_counter()
+        pairs = host.host_track(outputs, tracker)
+        return associations(pairs), dets, live, (time.perf_counter() - t0) * 1e3
+
+    def timed_tracking(runner, outputs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.fused_track_video(outputs)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # the pairs of the serving loop, each run against the host tracker on that run's own outputs: at the
+    # defaults and at capacities no frame can fill
+    equal_frames, bind_at, tracking_ms = 0, [], {"fused": [], "roomy": [], "host": []}
+    for rec in records:
+        frames, size = fused._prepare_frames(rec)
+        outputs, pairs = fused._run_clips_fused(frames, size)
+        want_pairs, dets, live, host_ms_video = host_pairs(outputs)
+        tracking_ms["host"].append(host_ms_video)
+        tracking_ms["fused"].append(timed_tracking(fused, outputs))
+        tracking_ms["roomy"].append(timed_tracking(roomy, outputs))
+        roomy_outputs, roomy_pairs = roomy._run_clips_fused(frames, size)
+        roomy_want, roomy_dets, roomy_live, _ = host_pairs(roomy_outputs)
+        roomy_pairs, pairs = associations(roomy_pairs), associations(pairs)
+        require(len(pairs) == len(roomy_pairs) == rec["length"],
+                f"video {rec['video_id']}: {len(pairs)} / {len(roomy_pairs)} frames tracked of {rec['length']}")
+        for t, (a, b) in enumerate(zip(roomy_pairs, roomy_want)):
+            if a != b:
+                print(f"  video {rec['video_id']} frame {t}: fused {a}, host {b}; the frame's top scores "
+                      f"{np.sort(1 / (1 + np.exp(-roomy_outputs['pred_logits'][t].max(-1))))[::-1][:6]}")
+                break
+        require(max(roomy_live) <= ROOMY[0] and max(roomy_dets) <= ROOMY[1],
+                f"video {rec['video_id']}: {max(roomy_live)} live tracklets, {max(roomy_dets)} candidates: capacities "
+                f"{ROOMY} bind")
+        require(roomy_pairs == roomy_want, f"video {rec['video_id']}: the served fused tracker at capacities {ROOMY} "
+                                           "differs from the host tracker")
+        binds = [t for t in range(len(dets)) if dets[t] > fused.fused_dets or live[t] > fused.fused_capacity]
+        upto = binds[0] if binds else len(dets)
+        bind_at.append(binds[0] if binds else None)
+        require(pairs[:upto] == want_pairs[:upto], f"video {rec['video_id']}: the fused tracker differs from the host "
+                                                   f"tracker before capacity binds (frame {upto})")
+        equal_frames += upto
+        print(f"  video {rec['video_id']}: {len(dets)} frames in {-(-len(dets) // CLIP)} clips (the last padded), "
+              f"candidates after NMS a frame {min(dets)}..{max(dets)} (cap {fused.fused_dets}), live tracklets "
+              f"{min(live)}..{max(live)} (cap {fused.fused_capacity}); "
+              + (f"capacity binds from frame {binds[0]}, " if binds else "capacity never binds, ")
+              + f"served pairs equal to the host tracker's on {upto} frames at the defaults and on all "
+                f"{len(roomy_pairs)} at {ROOMY[0]} / {ROOMY[1]}")
+    # launches per frame: the fused tracker's device kernels over one clip
+    frames, size = fused._prepare_frames(first_clip)
+    out = fused.forward_clip(frames, size)
+    state = fused.init_fused_state(out["pred_logits"].shape[1], out["pred_inst_embed"].shape[-1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        track_frames(state, out, CLIP, 0)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    per_frame = sum(e.count for e in events) / CLIP
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / CLIP
+    def ms(values):
+        return ", ".join(f"{v:.1f}" for v in values)
+
+    print(f"  serving per video: fused at the defaults {ms(fused_ms)} ms (a capped subset), fused at {ROOMY[0]} / "
+          f"{ROOMY[1]} {ms(video_ms['roomy'])} ms (the same work as the host), host tracker {ms(video_ms['host'])} ms; "
+          f"the tracking alone per video (host outputs in): fused at the defaults {ms(tracking_ms['fused'])} ms, at "
+          f"{ROOMY[0]} / {ROOMY[1]} {ms(tracking_ms['roomy'])} ms, host {ms(tracking_ms['host'])} ms; the fused "
+          f"tracker launches {per_frame:.0f} device kernels a frame at the defaults (busy {busy:.3f} ms a frame); no "
+          "copy to the host inside a clip (the sync debug mode raising)")
+    result = {"fused_video_ms": fused_ms, "roomy_video_ms": video_ms["roomy"], "host_video_ms": video_ms["host"],
+              "tracking_ms": tracking_ms, "launches_per_frame": per_frame, "device_busy_ms_per_frame": busy,
+              "capacity_binds_at": bind_at, "frames_equal_at_defaults": equal_frames}
+    del model, fused, host, roomy, prof
+    torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {smi}")
+    print(f"[phase 23] IDOL-R50 with TPU.FUSED_TRACKER: K1 / K2 / K3 = 12 / 1 / 6 a clip, served tracks equal to the "
+          f"host tracker's where capacity does not bind, no host copy inside a clip; {result['phase_s']:.1f} s")
+    return {"idol_fused_serving": launches}, result
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
                                                  "with no argument, every phase.")
-    parser.add_argument("--only", choices=("train_numerics", "entry_point", "minvis_entry", "seqformer_train"),
+    parser.add_argument("--only", choices=("train_numerics", "entry_point", "minvis_entry", "seqformer_train",
+                                           "swin_train", "instmove_train", "fused_tracker"),
                         help="phase 1 and this phase alone (train_numerics: phase 6; entry_point: phase 17; "
                              "minvis_entry: phase 2b's MinVIS and SeqFormer shapes and phase 18; seqformer_train: "
-                             "phase 19)")
+                             "phase 19; swin_train: phases 20 and 21; instmove_train: K2 at InstMove's shape and "
+                             "phase 22; fused_tracker: phase 23)")
     parser.add_argument("--tree", help="with --only: import vnext_tpu_torch from this checkout (an "
                                        "earlier commit's `git archive`) in place of the one beside this script")
     parser.add_argument("--swap-plain", action="append", default=[], choices=("K2", "K4"),
@@ -3137,9 +3723,20 @@ def main(argv=None) -> int:
             shapes = phase_new_train_kernels(dev)
             launches, entry = phase_minvis_entry(dev, kernels, smi)
             print(json.dumps({"kernels_at_new_shapes": shapes, "minvis_entry": entry, "launches": launches}))
-        else:
+        elif args.only == "seqformer_train":
             launches, train = phase_seqformer_train(dev, kernels, smi)
             print(json.dumps({"seqformer_train": train, "launches": launches}))
+        elif args.only == "swin_train":
+            idol_launches, idol_train = phase_idol_swin_train(dev, kernels, smi)
+            seq_launches, seq_train = phase_seqformer_swin_train(dev, kernels, smi)
+            print(json.dumps({"idol_swinl_train": idol_train, "seqformer_swinl_train": seq_train,
+                              "launches": {**idol_launches, **seq_launches}}))
+        elif args.only == "instmove_train":
+            k2 = stem_serving_case(dev, np.random.RandomState(13), (INSTMOVE_BATCH, *INSTMOVE_HW, 3))
+            print(json.dumps({"k2_instmove": k2, "instmove_train": phase_instmove_train(dev, kernels, smi)}))
+        else:
+            launches, fused = phase_fused_tracker(dev, kernels, smi)
+            print(json.dumps({"fused_tracker": fused, "launches": launches}))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -3211,13 +3808,23 @@ def main(argv=None) -> int:
     phase_seconds["18"] = minvis_entry_result["phase_s"]
     seq_train_launches, seq_train_result = phase_seqformer_train(dev, kernels, smi)
     phase_seconds["19"] = seq_train_result["phase_s"]
+    swin_train_launches, swin_train_result = phase_idol_swin_train(dev, kernels, smi)
+    phase_seconds["20"] = swin_train_result["phase_s"]
+    seq_swin_train_launches, seq_swin_train_result = phase_seqformer_swin_train(dev, kernels, smi)
+    phase_seconds["21"] = seq_swin_train_result["phase_s"]
+    instmove_train_result = phase_instmove_train(dev, kernels, smi)
+    phase_seconds["22"] = instmove_train_result["phase_s"]
+    fused_launches, fused_result = phase_fused_tracker(dev, kernels, smi)
+    phase_seconds["23"] = fused_result["phase_s"]
     print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
 
     print(json.dumps({
         "slice": timing, "seqformer": seq_timing, "train": train_timing, "minvis": minvis_timing,
         "instmove": instmove_timing, "idol_swinL": swin_timing, "seqformer_swinL": seq_swin_timing,
         "idol_r101": r101_timing, "reference_import": import_result, "entry_point": entry_result,
-        "minvis_entry": minvis_entry_result, "seqformer_train": seq_train_result, "phase_seconds": phase_seconds,
+        "minvis_entry": minvis_entry_result, "seqformer_train": seq_train_result,
+        "idol_swinl_train": swin_train_result, "seqformer_swinl_train": seq_swin_train_result,
+        "instmove_train": instmove_train_result, "fused_tracker": fused_result, "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
         "k5_decoder_form": measured["bwd_decoder"], "k6_backward_decoder_form": measured["bwd6_decoder"],
@@ -3229,10 +3836,14 @@ def main(argv=None) -> int:
              "train": train_launches, "train_pallas": route_train_launches, "entry_points": entry_launches,
              "minvis": minvis_launches, "instmove": instmove_launches, "idol_swinL": swin_launches,
              "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches, **entry_point_launches,
-             **minvis_entry_launches, **seq_train_launches}
+             **minvis_entry_launches, **seq_train_launches, **swin_train_launches, **seq_swin_train_launches,
+             **fused_launches}
     for path, names in (("minvis_entry_eval", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
                         ("minvis_entry_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
-                        ("seqformer_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL))):
+                        ("seqformer_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
+                        ("idol_swinl_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD)),
+                        ("seqformer_swinl_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD)),
+                        ("idol_fused_serving", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL))):
         for kern in names:
             require(paths[path].get(kern.name, 0) > 0, f"{kern.name}: no launch on the {path} path")
     # K4, K5 and K2 at the new train steps' shapes, beside their rows' train-step shape
@@ -3241,7 +3852,8 @@ def main(argv=None) -> int:
                              "seqformer_train_decoder": measured[f"{d}_seqformer_dec"]}
                  for kern, d in ((msda.KERNEL_V9_FWD, "fwd"), (msda.KERNEL_V9_BWD, "bwd"))}
     at_shapes[stem_conv.KERNEL.name] = {"minvis_train": measured["stem_minvis_train"],
-                                        "seqformer_train": measured["stem_seqformer_train"]}
+                                        "seqformer_train": measured["stem_seqformer_train"],
+                                        "instmove_serving": measured["stem_instmove"]}
     rows = [  # (kernel, the path its launches are reported from, the measurement it is reported by)
         (msda.KERNEL, "serve", "enc"),
         (stem_conv.KERNEL, "train", "stem_train"),

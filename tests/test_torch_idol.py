@@ -144,8 +144,13 @@ def test_config_route_equals_defaults():
 
 
 def test_fused_tracker_is_not_ported():
+    """The on-device tracker is ported now: ``TPU.FUSED_TRACKER`` builds the
+    fused runner, with the capacities of ``TPU.FUSED_TRACKER_CAPACITY`` /
+    ``_DETS`` as the JAX entry point passes them (tests/test_torch_device_tracker.py
+    holds its tracks against JAX's)."""
     cfg = _ytvis19_r50_cfg()
     cfg.TPU.FUSED_TRACKER = True
-    tiny = IDOL(**TINY_IDOL)
-    with pytest.raises(NotImplementedError, match="on-device tracker"):
-        IDOLVideoInference.from_config(cfg, tiny)
+    cfg.TPU.FUSED_TRACKER_CAPACITY, cfg.TPU.FUSED_TRACKER_DETS = 24, 48
+    runner = IDOLVideoInference.from_config(cfg, IDOL(**TINY_IDOL))
+    assert runner.fused_tracker and (runner.fused_capacity, runner.fused_dets) == (24, 48)
+    assert not IDOLVideoInference.from_config(_ytvis19_r50_cfg(), IDOL(**TINY_IDOL)).fused_tracker

@@ -631,3 +631,176 @@ def test_swin_large_stage3_block_card_vs_cpu(cuda_device, shift):
     assert got.shape == want.shape == (2, 30, 54, 768) and torch.isfinite(got).all()
     err = float((got - want).norm() / want.norm())
     assert err <= 0.01, err
+
+
+# ---------------------------------------------------------------- Swin training, InstMove training, the fused tracker
+def _read_config(rel, add):
+    import os
+
+    from vnext_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    add(cfg)
+    cfg.merge_from_file(os.path.join(os.path.dirname(__file__), "..", "configs", rel))
+    return cfg
+
+
+@pytest.mark.cuda
+def test_swin_drop_path_on_the_card(cuda_device, monkeypatch):
+    """A block of Swin-L's stage 1 (192 wide, window 12) in train mode at rate
+    0.3 on 256 frames of 24 x 24 tokens, bf16, drawing from a card generator:
+    each of its two draws keeps 1 - 0.3 of the frames within 4 sigma; a
+    generator of the same seed draws the same masks and gives the same output
+    bit for bit; a frame whose two branches were both dropped comes out equal
+    to its input."""
+    from vnext_tpu_torch.models.backbones import swin
+    from vnext_tpu_torch.models.layers import init_weights
+
+    masks = []
+    draw = swin.drop_path_mask
+    monkeypatch.setattr(swin, "drop_path_mask", lambda *a: masks.append(draw(*a)) or masks[-1])
+    block = swin.SwinBlock(192, 6, 12, 0, drop_path=0.3, dtype=torch.bfloat16)
+    init_weights(block, seed=0)
+    block = block.to(cuda_device).train()
+    x = torch.randn(256, 24, 24, 192, device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad():
+        a = block(x, torch.Generator(device=cuda_device).manual_seed(4))
+        b = block(x, torch.Generator(device=cuda_device).manual_seed(4))
+    assert torch.equal(a, b) and all(torch.equal(m, n) for m, n in zip(masks[:2], masks[2:]))
+    sigma = (0.3 * 0.7 / 256) ** 0.5
+    for m in masks[:2]:
+        assert m.shape == (256, 1, 1, 1) and abs(float(m.float().mean()) - 0.7) <= 4 * sigma
+    both = ~(masks[0] | masks[1])[:, 0, 0, 0]
+    assert both.any() and torch.equal(a[both], x[both])
+
+
+def _idol_batch(rng, n, hw, k=8):
+    h, w = hw
+    batch = {}
+    for prefix in ("key", "ref"):
+        boxes = np.concatenate([rng.rand(n, k, 2) * 0.5 + 0.25, rng.rand(n, k, 2) * 0.3 + 0.1], -1)
+        masks = np.zeros((n, k, h // 4, w // 4), bool)
+        for j in range(k):
+            masks[:, j, 4 * j: 4 * j + 12, 3 * j: 3 * j + 16] = True
+        batch.update({f"{prefix}_image": rng.randint(0, 256, (n, h, w, 3)).astype(np.uint8),
+                      f"{prefix}_size": np.asarray([[h, w]] * n, np.int32),
+                      f"{prefix}_labels": rng.randint(0, 40, (n, k)).astype(np.int32),
+                      f"{prefix}_boxes": boxes.astype(np.float32), f"{prefix}_masks_s4": masks,
+                      f"{prefix}_valid": np.ones((n, k), bool),
+                      f"{prefix}_inst_id": np.tile(np.arange(k, dtype=np.int32), (n, 1))})
+    return batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["idol", "seqformer"])
+def test_swin_large_train_step_on_the_card(cuda_device, family):
+    """The published Swin-L files' train step at full width (drop-path 0.3,
+    bf16) on small frames (one clip at 256x320: key + reference for IDOL, 5
+    frames for SeqFormer), two steps through ``make_train_step``: finite
+    losses, parameters moved, and the MSDA train kernels launched as the
+    paths imply (IDOL K4 / K5 = 24 / 24 a step, SeqFormer 12 / 12)."""
+    from vnext_tpu_torch.config import add_idol_config, add_seqformer_config
+    from vnext_tpu_torch.engine.train_step import TrainState, make_train_step
+    from vnext_tpu_torch.solver.build import build_grad_clip, build_lr_scheduler, build_optimizer
+
+    rng = np.random.RandomState(0)
+    if family == "idol":
+        from vnext_tpu_torch.engine.trainer import PIXEL_MEAN, PIXEL_STD, batch_to_model_inputs
+        from vnext_tpu_torch.models.criterion import default_weight_dict
+        from vnext_tpu_torch.models.idol import build_idol_model
+
+        cfg = _read_config("idol/ytvis19_swinL.yaml", add_idol_config)
+        model = build_idol_model(cfg, device=cuda_device, seed=0)
+        weights, per_step = default_weight_dict(dec_layers=cfg.MODEL.IDOL.DEC_LAYERS), 24
+        inputs = batch_to_model_inputs(_idol_batch(rng, 1, (256, 320)), PIXEL_MEAN, PIXEL_STD, cuda_device)
+    else:
+        from vnext_tpu_torch.models.seqformer import ClipTargets, build_seqformer_model, seqformer_weight_dict
+
+        cfg = _read_config("seqformer/swin_ytvis.yaml", add_seqformer_config)
+        model = build_seqformer_model(cfg, device=cuda_device, seed=0)
+        weights, per_step, nf, k = seqformer_weight_dict(cfg), 12, 5, 6
+        masks = np.zeros((1, k, nf, 64, 80), bool)
+        for j in range(k):
+            masks[0, j, :, 4 * j: 4 * j + 12, 3 * j: 3 * j + 16] = True
+        boxes = np.concatenate([rng.rand(1, k, nf, 2) * 0.5 + 0.25, rng.rand(1, k, nf, 2) * 0.3 + 0.1], -1)
+        targets = ClipTargets(*(torch.from_numpy(a).to(cuda_device) for a in (
+            rng.randint(0, 40, (1, k)).astype(np.int32), boxes.astype(np.float32), masks, np.ones((1, k), bool))))
+        inputs = (torch.randn(1, nf, 256, 320, 3, device=cuda_device),
+                  torch.tensor([[256, 320]], dtype=torch.int32, device=cuda_device), targets)
+    assert model.backbone.layers_3_blocks_1.drop_path == pytest.approx(0.3)     # the last block's rate
+    optimizer = build_optimizer(cfg, model)
+    state = TrainState.create(model, optimizer, build_lr_scheduler(cfg, optimizer))
+    step = make_train_step(model, optimizer, weights, build_grad_clip(cfg))
+    before = model.backbone.layers_0_blocks_1.attn.qkv.weight.detach().clone()
+    launches = (ms_deform_attn.KERNEL_V9_FWD.launches, ms_deform_attn.KERNEL_V9_BWD.launches)
+    for _ in range(2):
+        state, metrics = step(state, inputs)
+        assert all(torch.isfinite(v).all() for v in metrics.values())
+    torch.cuda.synchronize()
+    assert ms_deform_attn.KERNEL_V9_FWD.launches - launches[0] == 2 * per_step
+    assert ms_deform_attn.KERNEL_V9_BWD.launches - launches[1] == 2 * per_step
+    assert not torch.equal(before, model.backbone.layers_0_blocks_1.attn.qkv.weight)
+
+
+@pytest.mark.cuda
+def test_train_instmove_on_the_card(cuda_device, tmp_path):
+    """``train_instmove`` at full width (memory 100, 4 ConvLSTM layers of 128,
+    f32) on a synthetic YTVIS dataset of 2 videos x 8 frames: 2 steps of 2
+    samples at 64x64 on the card, finite losses, ``instmove_final`` written."""
+    import os
+
+    from vnext_tpu_torch.data.datasets.synthetic import register_synthetic_ytvis
+    from vnext_tpu_torch.tools import train_instmove
+
+    name = "ytvis_synthetic_instmove_card"
+    register_synthetic_ytvis(name, root=str(tmp_path / name), num_frames=8)
+    config = os.path.join(os.path.dirname(__file__), "..", "configs", "minvis", "ovis_r50_motion.yaml")
+    model, storage = train_instmove.main([
+        "--config-file", config, "DATASETS.TRAIN", f"('{name}',)", "OUTPUT_DIR", str(tmp_path / "out"),
+        "SOLVER.MAX_ITER", "2", "SOLVER.IMS_PER_BATCH", "2", "MODEL.INSTMOVE.MASK_SIZE", "[64, 64]"])
+    assert next(model.parameters()).is_cuda and model.dtype == torch.float32
+    assert np.isfinite(storage.history("total_loss").values()).all()
+    assert (tmp_path / "out" / "instmove_final.pth").exists()
+
+
+@pytest.mark.cuda
+def test_device_tracker_on_the_card_equals_the_cpu_without_a_sync(cuda_device):
+    """The fused runner's tracker step (long-term memory, frame and temporal
+    weights) over a random episode of 12 frames x 64 detections at 120x216
+    masks, on the card with the sync debug mode raising on any copy to the
+    host, and on the CPU: ids, keeps and every state leaf equal (floats within
+    rtol 1e-5: the same f32 formulas, other reduction orders)."""
+    from vnext_tpu_torch.tracking import idol_tracker_device as dt
+
+    rng = np.random.RandomState(0)
+    nd, c = 64, 256
+    kw = dict(nms_thr_pre=0.5, nms_thr_post=0.05, init_score_thr=0.2, addnew_score_thr=0.2, match_score_thr=0.5,
+              memo_tracklet_frames=10, memo_momentum=0.8, long_match=True, frame_weight=True,
+              temporal_weight=True)
+    obj = rng.randn(12, c).astype(np.float32) * 3
+    card, cpu = dt.init_state(32, nd, c, device=cuda_device), dt.init_state(32, nd, c)
+    for fid in range(12):
+        which = rng.randint(0, 12, nd)
+        boxes = rng.rand(nd, 5).astype(np.float32)
+        masks = np.zeros((nd, 120, 216), bool)
+        for i, o in enumerate(which):
+            masks[i, 10 * (o % 6): 10 * (o % 6) + 20 + rng.randint(4), 36 * (o // 6): 36 * (o // 6) + 30] = True
+        args = [torch.from_numpy(a) for a in (boxes, rng.randint(0, 40, nd), masks,
+                                              obj[which] + 0.3 * rng.randn(nd, c).astype(np.float32),
+                                              rng.rand(nd) > 0.1)]
+        cpu, ids, keep = dt.tracker_step(cpu, *args, fid, **kw)
+        on_card = [a.to(cuda_device) for a in args]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card, card_ids, card_keep = dt.tracker_step(card, *on_card, fid, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(card_ids.cpu(), ids) and torch.equal(card_keep.cpu(), keep), fid
+        for name in dt.TrackerState._fields:
+            got, want = getattr(card, name).cpu(), getattr(cpu, name)
+            if want.dtype.is_floating_point:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            else:
+                assert torch.equal(got, want), (fid, name)
+    assert int(cpu.num_tracklets) >= 4

@@ -34,7 +34,7 @@ from vnext_tpu.models.position_encoding import sine_position_embedding as jax_si
 from vnext_tpu_torch.checkpoint.from_jax import load_from_jax, params_from_jax
 from vnext_tpu_torch.models import mask2former as m2f
 from vnext_tpu_torch.models.backbones.resnet import ResNet
-from vnext_tpu_torch.models.layers import MultiHeadAttention
+from vnext_tpu_torch.models.layers import MultiHeadAttention, init_weights
 from vnext_tpu_torch.models.mask2former import (MaskFormer, build_maskformer_model,
                                                 maskformer_kwargs_from_cfg, minvis_postprocess)
 from vnext_tpu_torch.models.position_encoding import sine_position_embedding
@@ -285,10 +285,15 @@ def test_build_needs_a_card_and_training_is_not_ported(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_maskformer_model()
-    # the train forward is ported but for a Swin backbone's drop-path (ROADMAP Queue 1)
-    swin = MaskFormer(**TINY, backbone_type="swin", swin=(32, (2, 2, 2, 2), (2, 2, 2, 2), 4, 0.1)).train()
+    # training is ported with a Swin backbone's drop-path too: its masks and the
+    # point draws come from the generator, so one seed gives the same losses
+    swin = MaskFormer(**TINY, backbone_type="swin", swin=(32, (2, 2, 2, 2), (2, 2, 2, 2), 4, 0.1))
+    init_weights(swin, 0)
+    swin.train()
     targets = m2f.MaskTargets(torch.zeros(1, 2, dtype=torch.int64), torch.zeros(1, 2, H // 4, W // 4, dtype=torch.bool),
                               torch.zeros(1, 2, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="drop-path"):
-        swin(torch.zeros(1, H, W, 3), torch.tensor([[H, W]]), targets)
+    x = torch.randn(1, H, W, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        a, b = (swin(x, torch.tensor([[H, W]]), targets, generator=torch.Generator().manual_seed(2)) for _ in range(2))
+    assert a.keys() == b.keys() and all(torch.isfinite(a[k]) and torch.equal(a[k], b[k]) for k in a)
     assert m2f.DECODER_LEVELS == ("res5", "res4", "res3")

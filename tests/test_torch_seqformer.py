@@ -6,7 +6,8 @@ hidden 32, 12 queries) with one random flax tree, bridged to the port by
 references), the decoder layer (first and later), the transformer,
 ``SeqFormer.forward_single`` and ``SeqFormer.inference``. Also: the
 constructor's defaults equal the JAX config, ``build_seqformer_model`` raises
-without a card, and a Swin backbone's drop-path in training is not ported yet.
+without a card, and a Swin backbone trains with its drop-path drawn from the
+step's generator.
 
 On the JAX ResNet's features the input projections are held level by level,
 and what follows them runs on the JAX package's projected features: at this
@@ -195,7 +196,7 @@ def _jax_features(params, jmodel, images):
 def _port_on_jax_features(port, features, method):
     """The port from its transformer on: ``extract_features`` returns the JAX
     model's projected features."""
-    port.extract_features = lambda images, sizes: features
+    port.extract_features = lambda images, sizes, generator=None: features
     try:
         with torch.no_grad():
             return getattr(port, method)(torch.zeros(1, NF, H, W, 3), torch.from_numpy(SIZES))
@@ -320,14 +321,21 @@ def test_forward_single_matches_jax(models, jax_features):
 
 
 def test_training_is_not_ported(models):
-    """The train forward is ported (tests/test_torch_seqformer_train.py) but for
-    a Swin backbone's drop-path (ROADMAP Queue 1)."""
-    swin = SeqFormer(**TINY, backbone_type="swin", swin=(32, (2, 2, 2, 2), (2, 2, 2, 2), 4, 0.1)).train()
+    """The train forward is ported (tests/test_torch_seqformer_train.py), with a
+    Swin backbone's drop-path too (tests/test_torch_swin_train.py): one mask per
+    frame from the generator, so one seed gives the same losses."""
+    from vnext_tpu_torch.models.layers import init_weights
+
+    swin = SeqFormer(**TINY, backbone_type="swin", swin=(32, (2, 2, 2, 2), (2, 2, 2, 2), 4, 0.1))
+    init_weights(swin, 0)
+    swin.train()
     k = 2
     targets = ClipTargets(torch.zeros(1, k, dtype=torch.int64), torch.zeros(1, k, NF, 4),
                           torch.zeros(1, k, NF, H // 4, W // 4, dtype=torch.bool), torch.zeros(1, k, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="drop-path"):
-        swin(torch.zeros(1, NF, H, W, 3), torch.from_numpy(SIZES), targets)
+    x = torch.randn(1, NF, H, W, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        a, b = (swin(x, torch.from_numpy(SIZES), targets, generator=torch.Generator().manual_seed(2)) for _ in range(2))
+    assert a.keys() == b.keys() and all(torch.isfinite(a[k]) and torch.equal(a[k], b[k]) for k in a)
 
 
 def _ytvis19_r50_cfg():

@@ -13,7 +13,8 @@ rule of Swin's own:
 
 res2..res5 element by element at rtol 1e-4 / atol 1e-5. Also: the relative
 position index and the shift mask equal the JAX package's, the outputs are
-``channels_last`` views, and train mode with drop-path raises.
+``channels_last`` views, and train mode with drop-path draws from the
+generator it is given (tests/test_torch_swin_train.py holds it against JAX).
 """
 
 import jax
@@ -26,6 +27,7 @@ from vnext_tpu.models.backbones import swin as jax_swin
 from vnext_tpu_torch.checkpoint.from_jax import load_from_jax, params_from_jax
 from vnext_tpu_torch.models.backbones import swin
 from vnext_tpu_torch.models.backbones import SWIN_PRESETS, make_backbone
+from vnext_tpu_torch.models.layers import init_weights
 
 from _torch_helpers import random_params, t
 
@@ -90,9 +92,16 @@ def test_output_subset_and_train_mode():
     net = swin.SwinTransformer(**kw, out_features=("res3", "res4", "res5"))
     assert not hasattr(net, "out_norm0") and hasattr(net, "out_norm3")
     assert net.output_channels == {"res2": 32, "res3": 64, "res4": 128, "res5": 256}
+    # train mode with drop-path runs, and its draws are a function of the generator
+    x = torch.randn(3, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    init_weights(net, 0)
     net.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-        net(torch.zeros(1, 32, 32, 3))
+    a, b = (net(x, torch.Generator().manual_seed(5)) for _ in range(2))
+    assert set(a) == {"res3", "res4", "res5"}
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    with torch.no_grad():
+        eval_out = net.eval()(x)
+    assert any(not torch.equal(a[k], eval_out[k]) for k in a)
     bare = swin.SwinTransformer(**kw, drop_path_rate=0.0).train()
     assert set(bare(torch.zeros(1, 32, 32, 3))) == {"res2", "res3", "res4", "res5"}
 

@@ -21,7 +21,8 @@ package's ``tools/train_net.py``, on the CPU with the quick-schedule config
   names it.
 - ``main`` refuses an image meta-architecture, ``INPUT.COCO_PRETRAIN``, more
   than one GPU or process, and a run on the card when no CUDA device is
-  visible.
+  visible; ``--eval-only`` with ``TPU.FUSED_TRACKER True`` runs the on-device
+  tracker.
 """
 
 import importlib.util
@@ -169,9 +170,10 @@ def test_main_refuses_what_the_port_lacks(synthetic, tmp_path, monkeypatch):
     for flag in (["--num-gpus", "2"], ["--machine-rank", "1"], ["--dist-url", "tcp://127.0.0.1:29500"]):
         with pytest.raises(NotImplementedError, match="item 12"):
             train_net.main(["--config-file", INSTANT, *flag, "MODEL.DEVICE", "cpu", *out])
-    with pytest.raises(NotImplementedError, match="on-device tracker"):
-        train_net.main(["--config-file", INSTANT, "--eval-only", "MODEL.DEVICE", "cpu", "TPU.FUSED_TRACKER", "True",
-                        *out])
+    # the on-device tracker is ported: --eval-only runs through it on the CPU
+    fused = train_net.main(["--config-file", INSTANT, "--eval-only", "MODEL.DEVICE", "cpu", "TPU.FUSED_TRACKER",
+                            "True", *out])
+    assert list(fused) == ["ytvis_synthetic_tiny"] and "AP" in fused["ytvis_synthetic_tiny"]["segm"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in ("tpu", "cuda"):
         with pytest.raises(RuntimeError, match="no CUDA device is visible"):

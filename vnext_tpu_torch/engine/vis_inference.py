@@ -1,12 +1,19 @@
 """IDOL whole-video inference runner.
 
-Counterpart of ``vnext_tpu.engine.vis_inference.IDOLVideoInference`` with the host
-tracker: frames are resized (shortest edge) and padded to one fixed clip shape,
-the video runs through ``IDOL.inference`` in clips of ``batch_infer_len`` frames
-(the last clip padded with black frames), uint8 frames are normalized on the
-device, and per-frame candidate selection, NMS and the streaming tracker run on
-the host over the small per-query outputs. Masks are materialized at the video's
-resolution per output instance.
+Counterpart of ``vnext_tpu.engine.vis_inference.IDOLVideoInference``: frames are
+resized (shortest edge) and padded to one fixed clip shape, the video runs
+through ``IDOL.inference`` in clips of ``batch_infer_len`` frames (the last clip
+padded with black frames), and uint8 frames are normalized on the device. With
+the host tracker (the default) per-frame candidate selection, NMS and the
+streaming tracker run on the host over the small per-query outputs. With
+``fused_tracker`` (``TPU.FUSED_TRACKER``) the same selection, a fixed-shape
+class-aware NMS and the on-device tracker (``tracking/idol_tracker_device.py``)
+run on the clip's outputs where the forward left them, and one copy of the
+clip's (query, id) pairs reaches the host after its last frame; capacities of
+``fused_dets`` detections a frame and ``fused_capacity`` tracklets
+(``TPU.FUSED_TRACKER_DETS`` / ``_CAPACITY``, 64 and 32, as the JAX entry
+point passes them) are the only difference, and only where they bind. Masks
+are materialized at the video's resolution per output instance.
 """
 
 from __future__ import annotations
@@ -20,7 +27,10 @@ import torch
 from ..data.dataset_mapper import _load_image
 from ..data.transforms import get_resize_shortest_edge
 from ..ops.interpolate import resize_bilinear, resize_nearest
+from ..ops.nms import batched_nms_mask
+from ..structures.boxes import box_cxcywh_to_xyxy as box_cxcywh_to_xyxy_t
 from ..tracking.idol_tracker import IDOLTracker, _sigmoid
+from ..tracking.idol_tracker_device import init_state, tracker_step
 
 
 def box_cxcywh_to_xyxy(x: np.ndarray) -> np.ndarray:
@@ -29,12 +39,15 @@ def box_cxcywh_to_xyxy(x: np.ndarray) -> np.ndarray:
 
 
 def _nms_numpy(boxes: np.ndarray, scores: np.ndarray, idxs: np.ndarray, thr: float) -> np.ndarray:
-    """Class-aware greedy NMS (host, small N). Returns kept indices in score order."""
+    """Class-aware greedy NMS (host, small N). Returns kept indices in score
+    order, candidates that tie exactly in score in index order, as the fused
+    path's stable sort keeps them (the JAX package's unstable ``np.argsort``
+    leaves that order to numpy)."""
     if len(boxes) == 0:
         return np.zeros((0,), np.int64)
     offs = idxs.astype(np.float64)[:, None] * (boxes.max() + 1)
     b = boxes.astype(np.float64) + offs
-    order = np.argsort(-scores)
+    order = np.argsort(-scores, kind="stable")
     keep = []
     suppressed = np.zeros(len(boxes), bool)
     areas = (b[:, 2] - b[:, 0]).clip(0) * (b[:, 3] - b[:, 1]).clip(0)
@@ -74,6 +87,8 @@ def runner_kwargs_from_cfg(cfg) -> dict:
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
         pixel_std=tuple(cfg.MODEL.PIXEL_STD),
         fused_tracker=cfg.TPU.FUSED_TRACKER,
+        fused_capacity=cfg.TPU.FUSED_TRACKER_CAPACITY,
+        fused_dets=cfg.TPU.FUSED_TRACKER_DETS,
     )
 
 
@@ -99,10 +114,9 @@ class IDOLVideoInference:
         pixel_std: Sequence[float] = (58.395, 57.120, 57.375),
         image_loader=None,
         fused_tracker: bool = False,
+        fused_capacity: int = 32,
+        fused_dets: int = 64,
     ):
-        if fused_tracker:
-            raise NotImplementedError(
-                "the on-device tracker is not ported yet (ROADMAP Queue 1, on-device tracker)")
         self.model = model
         self.device = next(model.parameters()).device
         self.test_short_edge = test_short_edge
@@ -121,6 +135,9 @@ class IDOLVideoInference:
         self.pixel_mean = torch.tensor(pixel_mean, dtype=torch.float32, device=self.device)
         self.pixel_std = torch.tensor(pixel_std, dtype=torch.float32, device=self.device)
         self.image_loader = image_loader or _load_image
+        self.fused_tracker = fused_tracker
+        self.fused_capacity = fused_capacity
+        self.fused_dets = fused_dets
 
     @classmethod
     def from_config(cls, cfg, model, **kwargs) -> "IDOLVideoInference":
@@ -143,48 +160,146 @@ class IDOLVideoInference:
             size = (h, w)
         return np.stack(frames), size
 
-    def infer_clip(self, frames: np.ndarray, size: Tuple[int, int]) -> Dict[str, np.ndarray]:
-        """One clip of uint8 frames [T, H, W, 3] -> host f32 outputs."""
+    def forward_clip(self, frames: np.ndarray, size: Tuple[int, int]) -> Dict[str, torch.Tensor]:
+        """One clip of uint8 frames [T, H, W, 3] -> its f32 outputs on the device."""
         imgs = torch.from_numpy(frames).to(self.device)
         sizes = torch.tensor([size] * len(frames), dtype=torch.int32, device=self.device)
         with torch.inference_mode():
             x = (imgs.float() - self.pixel_mean) / self.pixel_std
             out = self.model.inference(x, sizes)
-        return {k: v.float().cpu().numpy() for k, v in out.items()}
+        return {k: v.float() for k, v in out.items()}
 
-    def _run_clips(self, frames: np.ndarray, size: Tuple[int, int]) -> Dict[str, np.ndarray]:
+    def infer_clip(self, frames: np.ndarray, size: Tuple[int, int]) -> Dict[str, np.ndarray]:
+        """One clip of uint8 frames [T, H, W, 3] -> host f32 outputs."""
+        return {k: v.cpu().numpy() for k, v in self.forward_clip(frames, size).items()}
+
+    def _clips(self, frames: np.ndarray):
+        """(clip, its count of real frames) in order; the last clip padded to
+        the fixed clip length with black frames."""
         t, cl = frames.shape[0], self.batch_infer_len
-        outs: Dict[str, List[np.ndarray]] = {}
         for c in range(max(1, math.ceil(t / cl))):
             chunk = frames[c * cl:(c + 1) * cl]
             n = chunk.shape[0]
-            if n < cl:  # pad the last clip to the fixed clip length
+            if n < cl:
                 chunk = np.concatenate([chunk, np.zeros((cl - n, *chunk.shape[1:]), chunk.dtype)])
+            yield chunk, n
+
+    def _run_clips(self, frames: np.ndarray, size: Tuple[int, int]) -> Dict[str, np.ndarray]:
+        outs: Dict[str, List[np.ndarray]] = {}
+        for chunk, n in self._clips(frames):
             for k, v in self.infer_clip(chunk, size).items():
                 outs.setdefault(k, []).append(v[:n])
         return {k: np.concatenate(v, axis=0) for k, v in outs.items()}
 
+    def _run_clips_fused(self, frames: np.ndarray, size: Tuple[int, int]):
+        """Every clip's host outputs, concatenated, and the per-frame (query,
+        track id) pairs of the on-device tracker, run on each clip's outputs
+        before they are copied."""
+        outs: Dict[str, List[np.ndarray]] = {}
+
+        def clips():
+            for chunk, n in self._clips(frames):
+                out = self.forward_clip(chunk, size)
+                yield out, n
+                for k, v in out.items():
+                    outs.setdefault(k, []).append(v.cpu().numpy()[:n])
+
+        per_frame = self._track_clips(clips())
+        return {k: np.concatenate(v, axis=0) for k, v in outs.items()}, per_frame
+
+    def _track_clips(self, clips) -> List[List[Tuple[int, int]]]:
+        """The on-device tracker over (device outputs [T, Q, ...], count of
+        real frames) clips in video order, its state carried from clip to clip;
+        per-frame [(query, track id), ...]."""
+        state, per_frame = None, []
+        for out, n in clips:
+            if state is None:
+                state = self.init_fused_state(out["pred_logits"].shape[1], out["pred_inst_embed"].shape[-1])
+            state, pairs = self.track_clip(state, out, n, len(per_frame))
+            per_frame += pairs
+        return per_frame
+
+    # ------------------------------------------------------------- fused path
+    def _tracker_kwargs(self) -> dict:
+        return dict(nms_thr_pre=self.nms_pre, nms_thr_post=0.05, init_score_thr=0.2,
+                    addnew_score_thr=self.add_new_score, match_score_thr=0.5, memo_tracklet_frames=10,
+                    memo_momentum=0.8, match_metric="bisoftmax", long_match=self.inference_tw,
+                    frame_weight=(self.inference_tw | self.inference_fw), temporal_weight=self.inference_tw)
+
+    def init_fused_state(self, num_queries: int, embed_dim: int):
+        return init_state(self.fused_capacity, min(self.fused_dets, num_queries), embed_dim,
+                          memory_len=self.memory_len, device=self.device)
+
+    def track_clip(self, state, outputs: Dict[str, torch.Tensor], n: int, frame0: int):
+        """``_track_frames`` and one copy of its pairs to the host: (state,
+        per-frame [(query, track id), ...])."""
+        state, pairs = self._track_frames(state, outputs, n, frame0)
+        if pairs is None:
+            return state, []
+        return state, [[(int(q), int(i)) for q, i, kp in zip(*frame) if kp and i > -1]
+                       for frame in pairs.cpu().numpy()]
+
+    def _track_frames(self, state, outputs: Dict[str, torch.Tensor], n: int, frame0: int):
+        """The on-device tracker over the first ``n`` frames of one clip's
+        outputs (f32 device tensors [T, Q, ...]): per frame the candidates
+        (max class score above ``inference_select_thres``, else the best
+        query), class-aware NMS at 0.9, the top ``fused_dets`` by score (ties to
+        the lower query) and ``tracker_step``. Returns (state, [n, 3, fused_dets]
+        int32 rows of query, id and keep on the device, or None for n = 0);
+        nothing is copied to the host."""
+        kw = self._tracker_kwargs()
+        logits, boxes = outputs["pred_logits"], outputs["pred_boxes"]
+        embeds, masks = outputs["pred_inst_embed"], outputs["pred_masks"]
+        k = min(self.fused_dets, logits.shape[1])
+        per_frame = []
+        for t in range(n):
+            scores = torch.sigmoid(logits[t])                                # [Q, C]
+            mx = scores.amax(-1)
+            cls = scores.argmax(-1)
+            cand = mx > self.inference_select_thres
+            force = torch.arange(len(mx), device=mx.device) == mx.argmax()
+            cand = torch.where(cand.any(), cand, force)
+            keepn = batched_nms_mask(box_cxcywh_to_xyxy_t(boxes[t]), mx, cls, 0.9, valid=cand)
+            s = torch.where(keepn, mx, torch.full_like(mx, -torch.inf))
+            top = torch.sort(s, descending=True, stable=True)
+            qidx = top.indices[:k]
+            det_boxes = torch.cat([boxes[t][qidx], mx[qidx, None]], -1)
+            det_masks = torch.sigmoid(masks[t][qidx]) > 0.5
+            state, ids, keep = tracker_step(state, det_boxes, cls[qidx], det_masks, embeds[t][qidx],
+                                            torch.isfinite(top.values[:k]), frame0 + t, **kw)
+            per_frame.append(torch.stack([qidx.to(torch.int32), ids, keep.to(torch.int32)]))
+        return state, torch.stack(per_frame) if per_frame else None
+
+    def fused_track_video(self, outputs: Dict[str, np.ndarray]) -> List[List[Tuple[int, int]]]:
+        """The on-device tracker over whole-video host outputs, clip by clip
+        through the serving path's ``_track_clips``; per-frame [(query, track
+        id), ...] as the host association gives them."""
+        cl, t = self.batch_infer_len, len(outputs["pred_logits"])
+        return self._track_clips(
+            ({k: torch.from_numpy(np.asarray(v[c * cl:(c + 1) * cl], np.float32)).to(self.device)
+              for k, v in outputs.items()}, min(cl, t - c * cl))
+            for c in range(max(1, math.ceil(t / cl))))
+
     # ------------------------------------------------------------------ video
     def __call__(self, record: dict) -> Dict:
         frames, size = self._prepare_frames(record)
+        ori_size = (record["height"], record["width"])
+        if self.fused_tracker:
+            outputs, per_frame = self._run_clips_fused(frames, size)
+            return self._build_video_dict(outputs, per_frame, ori_size, size)
         outputs = self._run_clips(frames, size)
-        tracker = IDOLTracker(
-            init_score_thr=0.2,
-            obj_score_thr=0.1,
-            nms_thr_pre=self.nms_pre,
-            nms_thr_post=0.05,
-            addnew_score_thr=self.add_new_score,
-            memo_tracklet_frames=10,
-            memo_momentum=0.8,
-            long_match=self.inference_tw,
-            frame_weight=(self.inference_tw | self.inference_fw),
-            temporal_weight=self.inference_tw,
-            memory_len=self.memory_len,
-        )
-        return self._assemble_video(outputs, tracker, (record["height"], record["width"]), size)
+        return self._assemble_video(outputs, self.make_tracker(), ori_size, size)
+
+    def make_tracker(self) -> IDOLTracker:
+        """The host tracker with this runner's settings (the reference's inference values)."""
+        return IDOLTracker(obj_score_thr=0.1, memory_len=self.memory_len, **self._tracker_kwargs())
 
     def _assemble_video(self, outputs, tracker, ori_size, image_size) -> Dict:
-        """Per-frame candidate selection, class-aware NMS and tracker association."""
+        return self._build_video_dict(outputs, self.host_track(outputs, tracker), ori_size, image_size)
+
+    def host_track(self, outputs, tracker) -> List[List[Tuple[int, int]]]:
+        """Per-frame candidate selection, class-aware NMS and the host tracker's
+        association: [(query, track id), ...] a frame."""
         logits, masks = outputs["pred_logits"], outputs["pred_masks"]
         boxes, embeds = outputs["pred_boxes"], outputs["pred_inst_embed"]
         per_frame = []
@@ -205,7 +320,7 @@ class IDOLVideoInference:
             _, _, ids, kept_indices = tracker.match(
                 det_bboxes, det_labels, masks[t][indices], embeds[t][indices], t, list(indices))
             per_frame.append([(q, int(i)) for q, i in zip(kept_indices, ids) if i > -1])
-        return self._build_video_dict(outputs, per_frame, ori_size, image_size)
+        return per_frame
 
     def _build_video_dict(self, outputs, per_frame, ori_size, image_size) -> Dict:
         """Mask/score assembly from per-frame (query, track-id) pairs."""

@@ -47,3 +47,12 @@ def backbone_kwargs_from_cfg(cfg) -> dict:
         return {"backbone_type": "swin",
                 "swin": (s.EMBED_DIM, tuple(s.DEPTHS), tuple(s.NUM_HEADS), s.WINDOW_SIZE, s.DROP_PATH_RATE)}
     return {"backbone_type": "resnet", "backbone_depth": cfg.MODEL.RESNETS.DEPTH}
+
+
+def backbone_features(backbone, images, generator=None):
+    """The backbone's feature maps; in train mode Swin's drop-path draws from
+    ``generator`` (a ResNet draws nothing), as the JAX models pass ``train`` to
+    Swin alone."""
+    if isinstance(backbone, SwinTransformer):
+        return backbone(images, generator)
+    return backbone(images)

@@ -20,9 +20,16 @@ memory, no copy). Module and parameter names follow the flax tree
 bridges it with no rule of its own.
 
 The JAX package computes the window attention in XLA, outside any Pallas
-kernel; here it is plain ``torch.matmul`` and ``softmax``. Drop-path (Swin
-training) is not ported: a module in train mode with a drop-path rate above 0
-raises.
+kernel; here it is plain ``torch.matmul`` and ``softmax``.
+
+Drop-path in train mode, as JAX's ``SwinBlock._drop_path``: block i of all the
+blocks in order has the rate ``np.linspace(0, drop_path_rate, sum(depths))[i]``
+(so the first block draws nothing); its attention branch before the first
+residual add and its MLP branch before the second become
+``x * keep_mask.to(x.dtype) / keep``, in x's dtype and in that order, with one
+keep draw per sample ([B, 1, 1, 1]; B counts frames). The draws come from the
+``generator`` the forward is given (the train step's), so a resumed run draws
+what a straight run draws at the same step; they cannot equal JAX's bits.
 """
 
 from __future__ import annotations
@@ -95,12 +102,19 @@ class WindowAttention(nn.Module):
         return self.proj(out)
 
 
+def drop_path_mask(n: int, keep: float, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """[n, 1, 1, 1] bool: which of n samples keep the branch, each with
+    probability ``keep``."""
+    return torch.rand((n, 1, 1, 1), generator=generator, device=device) < keep
+
+
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, qk_scale: Optional[float] = None,
-                 dtype=torch.float32):
+                 drop_path: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.window_size, self.shift_size, self.dtype = window_size, shift_size, dtype
+        self.drop_path = drop_path
         self.norm1 = LayerNorm(dim, dtype)
         self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias, qk_scale, dtype)
         self.norm2 = LayerNorm(dim, dtype)
@@ -116,8 +130,17 @@ class SwinBlock(nn.Module):
                 _shift_attn_mask(hp, wp, self.window_size, self.shift_size)).to(device)
         return self._masks[key]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, H, W, C] in the compute dtype."""
+    def _drop_path(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.drop_path == 0.0:
+            return x
+        keep = 1.0 - self.drop_path
+        mask = drop_path_mask(x.shape[0], keep, generator, x.device).to(x.dtype)
+        # JAX divides by the rate rounded to x's dtype (a weakly typed Python float)
+        return x * mask / torch.tensor(keep, dtype=x.dtype).item()
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B, H, W, C] in the compute dtype; ``generator`` draws drop-path's
+        masks in train mode."""
         b, h0, w0, c = x.shape
         win, shift = self.window_size, self.shift_size
         shortcut = x
@@ -134,9 +157,9 @@ class SwinBlock(nn.Module):
         x = x.view(b, hp // win, wp // win, win, win, c).permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = shortcut + x[:, :h0, :w0]
+        x = shortcut + self._drop_path(x[:, :h0, :w0], generator)
         y = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x))))
-        return x + y
+        return x + self._drop_path(y, generator)
 
 
 class PatchMerging(nn.Module):
@@ -165,6 +188,7 @@ class SwinTransformer(nn.Module):
         self.embed_dim, self.depths = embed_dim, tuple(depths)
         self.patch_size, self.drop_path_rate = patch_size, drop_path_rate
         self.out_features = tuple(out_features)
+        rates = np.linspace(0, drop_path_rate, sum(self.depths)).tolist()
         self.patch_embed = Conv(3, embed_dim, patch_size, patch_size, dtype=dtype)
         self.patch_norm = LayerNorm(embed_dim, dtype) if patch_norm else None
         for stage, depth in enumerate(self.depths):
@@ -172,7 +196,7 @@ class SwinTransformer(nn.Module):
             for d in range(depth):
                 self.add_module(f"layers_{stage}_blocks_{d}", SwinBlock(
                     dim, num_heads[stage], window_size, 0 if d % 2 == 0 else window_size // 2,
-                    mlp_ratio, qkv_bias, qk_scale, dtype))
+                    mlp_ratio, qkv_bias, qk_scale, rates.pop(0), dtype))
             if f"res{stage + 2}" in self.out_features:
                 self.add_module(f"out_norm{stage}", LayerNorm(dim, dtype))
             if stage < len(self.depths) - 1:
@@ -182,10 +206,9 @@ class SwinTransformer(nn.Module):
     def output_channels(self) -> Dict[str, int]:
         return {f"res{i + 2}": self.embed_dim * 2 ** i for i in range(len(self.depths))}
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x [B, H, W, 3] normalized -> {res2..res5 of ``out_features``} NCHW."""
-        if self.training and self.drop_path_rate > 0:
-            raise NotImplementedError("Swin training (drop-path) is not ported yet: ROADMAP Queue 1, item 8")
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """x [B, H, W, 3] normalized -> {res2..res5 of ``out_features``} NCHW.
+        In train mode drop-path draws from ``generator``."""
         p = self.patch_size
         h, w = x.shape[1], x.shape[2]
         x = F.pad(x, (0, 0, 0, (p - w % p) % p, 0, (p - h % p) % p))
@@ -195,7 +218,7 @@ class SwinTransformer(nn.Module):
         outputs = {}
         for stage, depth in enumerate(self.depths):
             for d in range(depth):
-                x = getattr(self, f"layers_{stage}_blocks_{d}")(x)
+                x = getattr(self, f"layers_{stage}_blocks_{d}")(x, generator)
             name = f"res{stage + 2}"
             if name in self.out_features:
                 outputs[name] = getattr(self, f"out_norm{stage}")(x).permute(0, 3, 1, 2)

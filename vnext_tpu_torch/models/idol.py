@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from .backbones import SWIN_PRESETS, backbone_kwargs_from_cfg, make_backbone
+from .backbones import SWIN_PRESETS, backbone_features, backbone_kwargs_from_cfg, make_backbone
 from .condinst import MaskHeadSmallConv, num_dynamic_params, run_dynamic_mask_head
 from .criterion import Targets, loss_boxes, loss_labels, loss_masks, loss_reid
 from .deformable_transformer import DeformableTransformer
@@ -116,7 +116,7 @@ class IDOL(DeformableVIS):
         """Backbone, transformer and every decoder layer's boxes for one batch of
         frames [B, H, W, 3] (normalized f32); no class heads."""
         if base_feats is None:
-            feats = self.backbone(images)
+            feats = backbone_features(self.backbone, images, generator)
             base_feats = [feats["res3"], feats["res4"], feats["res5"]]
         srcs, valid_hw, poses = self.project_features(base_feats, image_sizes)
         spatial_shapes = tuple((int(s.shape[1]), int(s.shape[2])) for s in srcs)

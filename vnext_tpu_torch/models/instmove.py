@@ -19,15 +19,20 @@ encoder's VALID max-pools) and doubles them twice; the ConvLSTM state halves
 them twice with ceil (SAME stride-2 convolutions). The two meet only when both
 mask sides are multiples of 16. Elsewhere the JAX package fails at their concat
 with a ``TypeError``; the port raises a ``ValueError`` naming both shapes, and
-neither pads nor resizes. Only the inference path (phase 2, the matching
-encoder) is ported: training (``instmove_loss``, ``tools/train_instmove.py``)
-waits.
+neither pads nor resizes.
+
+Both phases are ported. Phase 2 (inference, and what ``tools/train_instmove.py``
+trains) reads the memory from the past masks through ``motion_matching_encoder``;
+phase 1 reads it from a longer sequence ``long_x`` through
+``motion_context_encoder``. flax creates only the encoder its init phase calls,
+so a predictor holds only its phase's, and its state dict stays key for key the
+flax tree of that phase. ``instmove_loss`` is the training loss.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -168,12 +173,17 @@ class MotionEncoder3D(nn.Module):
 
 class MotionMemory(nn.Module):
     """Learned motion memory with cosine addressing; two stride-2 transposed
-    convolutions bring the read-out to a quarter of the mask sides."""
+    convolutions bring the read-out to a quarter of the mask sides. Phase 1
+    encodes its input with ``motion_context_encoder``, phase 2 with
+    ``motion_matching_encoder``."""
 
-    def __init__(self, memory_size: int = 100, embed_channels: int = 128, dtype=torch.float32):
+    ENCODER = {1: "motion_context_encoder", 2: "motion_matching_encoder"}
+
+    def __init__(self, memory_size: int = 100, embed_channels: int = 128, dtype=torch.float32, phase: int = 2):
         super().__init__()
         self.dtype = dtype
-        self.motion_matching_encoder = MotionEncoder3D(dtype)
+        self.encoder_name = self.ENCODER[phase]
+        self.add_module(self.encoder_name, MotionEncoder3D(dtype))
         self.memory_w = _empty(memory_size, 512)
         self.embed1 = ConvTranspose(512, embed_channels * 2, 3, 2, dtype)
         self.embed2 = ConvTranspose(embed_channels * 2, embed_channels, 3, 2, dtype)
@@ -184,7 +194,7 @@ class MotionMemory(nn.Module):
     def forward(self, masks: torch.Tensor) -> torch.Tensor:
         """masks [B, T, H, W] -> [B, embed_channels, 4 * (H // 16), 4 * (W // 16)]."""
         diff = (masks[:, 1:] - masks[:, :-1])[:, None]
-        query = self.motion_matching_encoder(diff)                           # [B, 512, h, w]
+        query = getattr(self, self.encoder_name)(diff)                       # [B, 512, h, w]
         b, c, h, w = query.shape
         q = query.permute(0, 2, 3, 1).reshape(-1, c)
         qn = q / q.float().norm(dim=1, keepdim=True).clamp_min(1e-12).to(q.dtype)
@@ -251,13 +261,14 @@ def check_mask_size(h: int, w: int) -> Tuple[int, int]:
 
 class InstMovePredictor(nn.Module):
     """Predict the next instance masks from past masks and the current image.
-    The defaults are ``MODEL.INSTMOVE.*``'s."""
+    The defaults are ``MODEL.INSTMOVE.*``'s; ``phase`` is the JAX call's (2:
+    the memory reads the past masks; 1: it reads ``long_x``)."""
 
     def __init__(self, memory_size: int = 100, num_lstm_layers: int = 4, lstm_channels: int = 128,
-                 dtype=torch.float32):
+                 dtype=torch.float32, phase: int = 2):
         super().__init__()
         ch = lstm_channels
-        self.dtype = dtype
+        self.dtype, self.phase = dtype, phase
         self.num_lstm_layers = num_lstm_layers
         self.enc1 = ConvSame(1, ch // 2, 3, 2, dtype)
         self.enc2 = ConvSame(ch // 2, ch // 2, 3, 1, dtype)
@@ -265,7 +276,7 @@ class InstMovePredictor(nn.Module):
         self.enc4 = ConvSame(ch, ch, 3, 1, dtype)
         for i in range(num_lstm_layers):
             self.add_module(f"convlstm_{i}", ConvLSTMCell(ch, ch, dtype))
-        self.memory = MotionMemory(memory_size, ch, dtype)
+        self.memory = MotionMemory(memory_size, ch, dtype, phase)
         self.encoder_img = ResNet(50, dtype, out_features=("res2", "res3"))
         self.attn_fc1 = Dense(2 * ch, 16, dtype)
         self.attn_fc2 = Dense(16, ch, dtype)
@@ -277,13 +288,21 @@ class InstMovePredictor(nn.Module):
             m = F.elu(conv(m))
         return m
 
-    def forward(self, short_x: torch.Tensor, image: torch.Tensor, out_len: int = 1) -> torch.Tensor:
+    def forward(self, short_x: torch.Tensor, image: torch.Tensor, out_len: int = 1,
+                long_x: Optional[torch.Tensor] = None) -> torch.Tensor:
         """short_x [B, T, H, W, 1] past masks (probabilities); image [B, H', W', 3]
-        normalized. Returns mask logits [B, out_len, H, W, 1]."""
+        normalized; in phase 1, long_x [B, T', H, W, 1], the sequence the memory
+        reads. Returns mask logits [B, out_len, H, W, 1]."""
         b, t, h, w, _ = short_x.shape
         lstm_hw = check_mask_size(h, w)
         masks = short_x[..., 0]
-        memory_feature = self.memory(masks)
+        if self.phase == 1:
+            if long_x is None or long_x.shape[2:4] != short_x.shape[2:4]:
+                raise ValueError("InstMove phase 1 reads its memory from long_x [B, T', H, W, 1] at the past "
+                                 f"masks' sides {h}x{w}; got {None if long_x is None else tuple(long_x.shape)}")
+            memory_feature = self.memory(long_x[..., 0])
+        else:
+            memory_feature = self.memory(masks)
         img_feats = self.encoder_img(image)
 
         state = torch.zeros(b, self.enc4.weight.shape[0], *lstm_hw, dtype=self.dtype, device=short_x.device)
@@ -311,6 +330,21 @@ def motion_match_cost(pred_masks: torch.Tensor, cand_masks: torch.Tensor, eps: f
     inter = p @ c.T
     union = p.sum(1)[:, None] + c.sum(1)[None] - inter
     return 1.0 - (inter + eps) / (union + eps)
+
+
+def instmove_loss(pred_logits: torch.Tensor, gt_masks: torch.Tensor, eps: float = 1.0) -> Dict[str, torch.Tensor]:
+    """InstMove's training loss on predicted next masks: the mean BCE over every
+    element and the mean soft dice over the batch, in f32. pred_logits and
+    gt_masks [B, T_out, H, W, 1], gt in {0, 1}."""
+    gt = gt_masks.float()
+    x = pred_logits.float()
+    bce = x.clamp_min(0) - x * gt + torch.log1p(torch.exp(-x.abs()))
+    p = torch.sigmoid(x)
+    flat_p, flat_g = p.reshape(p.shape[0], -1), gt.reshape(gt.shape[0], -1)
+    inter = (flat_p * flat_g).sum(-1)
+    denom = flat_p.sum(-1) + flat_g.sum(-1)
+    dice = 1.0 - (2 * inter + eps) / (denom + eps)
+    return {"loss_mask": bce.mean(), "loss_dice": dice.mean()}
 
 
 def instmove_kwargs_from_cfg(cfg) -> dict:

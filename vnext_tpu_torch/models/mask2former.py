@@ -35,7 +35,7 @@ from ..ops.hungarian import assign_batched
 from ..ops.interpolate import resize_bilinear
 from ..ops.losses import dice_loss, sigmoid_bce_with_logits
 from ..ops.point_sample import sampled_mask_losses
-from .backbones import SWIN_PRESETS, backbone_kwargs_from_cfg, make_backbone
+from .backbones import SWIN_PRESETS, backbone_features, backbone_kwargs_from_cfg, make_backbone
 from .deformable_transformer import EncoderLayer, encoder_reference_points
 from .layers import MLP, Conv, Dense, GroupNorm, LayerNorm, MultiHeadAttention, init_weights
 from .position_encoding import sine_position_embedding
@@ -252,14 +252,15 @@ class MaskFormer(nn.Module):
             dec_layers=dec_layers, mask_dim=hidden_dim, dtype=dtype)
 
     def forward_frames(self, images: torch.Tensor, feats: Optional[Dict[str, torch.Tensor]] = None,
-                       srcs: Optional[List[torch.Tensor]] = None) -> Dict:
+                       srcs: Optional[List[torch.Tensor]] = None,
+                       generator: Optional[torch.Generator] = None) -> Dict:
         """images [T, H, W, 3] normalized f32 -> every stage's outputs: ``feats``
         (the backbone's), ``mask_features``, ``multi_scale``, per-prediction
         ``logits`` and ``masks``, per-layer ``attn_masks`` and ``embeds``.
         ``feats`` / ``srcs`` replace the backbone's / the input projections'
-        outputs."""
+        outputs; Swin's drop-path draws from ``generator`` in train mode."""
         if feats is None:
-            feats = self.backbone(images)
+            feats = backbone_features(self.backbone, images, generator)
         mask_features, multi_scale = self.pixel_decoder(feats, srcs)
         logits, masks, attn_masks, embeds = self.transformer_decoder(multi_scale, mask_features)
         return {"feats": feats, "mask_features": mask_features, "multi_scale": multi_scale,
@@ -271,8 +272,8 @@ class MaskFormer(nn.Module):
         sizes [B, 2] (unused, as in the JAX package) and targets -> the loss
         dict, ``loss_ce`` / ``loss_mask`` / ``loss_dice`` of the decoder's output
         and ``_{i}`` for prediction i before it (with deep supervision). The
-        point draws come from ``generator``."""
-        out = self.forward_frames(images)
+        point draws (and Swin's drop-path masks, first) come from ``generator``."""
+        out = self.forward_frames(images, generator=generator)
         logits_l, masks_l = out["logits"], out["masks"]
         last = len(logits_l) - 1
         layers = list(range(len(logits_l))) if self.deep_supervision else [last]

@@ -37,7 +37,7 @@ from ..ops.hungarian import assign_batched
 from ..ops.losses import dice_loss, sigmoid_focal_loss, sigmoid_focal_loss_elementwise
 from ..ops.ms_deform_attn import check_impl, ms_deform_attn_standard
 from ..structures.boxes import box_cxcywh_to_xyxy, elementwise_giou_loss, generalized_box_iou
-from .backbones import SWIN_PRESETS, backbone_kwargs_from_cfg, make_backbone
+from .backbones import SWIN_PRESETS, backbone_features, backbone_kwargs_from_cfg, make_backbone
 from .condinst import MaskHeadSmallConv, num_dynamic_params, run_dynamic_mask_head
 from .criterion import default_weight_dict
 from .deformable_transformer import (DeformableEncoder, bbox_embed, offset_bias_grid,
@@ -286,12 +286,14 @@ class SeqFormer(DeformableVIS):
         nn.init.normal_(self.query_embed, 0.0, 1.0, generator=gen)
 
     # ------------------------------------------------------------ features
-    def extract_features(self, images: torch.Tensor, image_sizes: torch.Tensor):
+    def extract_features(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                         generator: Optional[torch.Generator] = None):
         """images [B, nf, H, W, 3] (normalized f32); image_sizes [B, 2], shared by
         the clip. Returns per-level srcs and positions [B*nf, H_l, W_l, C] and the
-        valid (h, w) [B*nf, 2], frames folded into the batch."""
+        valid (h, w) [B*nf, 2], frames folded into the batch (Swin's drop-path
+        draws one mask per frame from ``generator``)."""
         b, nf = images.shape[:2]
-        feats = self.backbone(images.flatten(0, 1))
+        feats = backbone_features(self.backbone, images.flatten(0, 1), generator)
         base = [feats["res3"], feats["res4"], feats["res5"]]
         return self.project_features(base, image_sizes.repeat_interleave(nf, 0))
 
@@ -300,7 +302,7 @@ class SeqFormer(DeformableVIS):
         """Backbone, transformer and every decoder layer's boxes for clips
         [B, nf, H, W, 3] (normalized f32); no class heads."""
         nf = images.shape[1]
-        srcs, valid_hw, poses = self.extract_features(images, image_sizes)
+        srcs, valid_hw, poses = self.extract_features(images, image_sizes, generator)
         spatial_shapes = tuple((int(s.shape[1]), int(s.shape[2])) for s in srcs)
         hs, hs_box, memory, init_ref, inter_refs, out_coords = self.transformer(
             srcs, valid_hw, poses, self.query_embed, nf, generator)
