@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only swin_train        # phases 1, 20 and 21 alone
     python3 chip_smoke.py --only instmove_train    # phase 1, K2 at InstMove's call and phase 22 alone
     python3 chip_smoke.py --only fused_tracker     # phases 1 and 23 alone
+    python3 chip_smoke.py --only coco_pretrain     # phases 1 and 24 alone
 
 Phases, each printed as it ends; any failure raises and exits non-zero. Each
 path zeroes every kernel's launch counter just before it runs and reads them
@@ -190,6 +191,20 @@ port's own reader (``vnext_tpu_torch.config``).
     capacities no frame fills, and at the defaults' 32 / 64 up to the first
     frame where they bind), the device kernels it launches a frame, and the
     time per video beside the host tracker's runner.
+24. IDOL's COCO-pretrain stage through ``train_net.main`` with
+    ``INPUT.COCO_PRETRAIN True`` at ``configs/idol/coco_pretrain/r50_coco_sequence.yaml``'s
+    width (80 classes, 48 instances, 512x640, the yaml's resize, crop and
+    flip) on a synthetic COCO set of 32 images at 480x640, 4 pseudo-clips a
+    step, from a torchvision-form ``R-50.pkl`` written from a seeded
+    ResNet-50: the backbone on the card equal to the file's after the load,
+    K4 / K5 / K2 = 24 / 24 / 2 a step, 32 loss keys finite every step, the
+    step period, the time ``next(loader)`` blocked and peak memory; a 2-step
+    run resumed to 4 (the restored state equal to the file bit for bit, the
+    resumed steps on the loader's first batches again, as in JAX) against the
+    straight 4-step run (the difference printed); then
+    ``swin_coco_sequence.yaml`` for 2 steps with seeded weights (K4 / K5 = 24
+    / 24 a step) and its peak memory. The evaluation after training runs on a
+    synthetic YTVIS set whose json lists 80 categories.
 
 Then a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -3677,15 +3692,266 @@ def phase_fused_tracker(dev, kernels, smi):
     return {"idol_fused_serving": launches}, result
 
 
+# ---------------------------------------------------------------- phase 24
+COCO_DATASET, COCO_EVAL_DATASET = "coco_synthetic_pretrain", "ytvis_synthetic_pretrain_eval"
+COCO_IMAGES, COCO_HW = 32, (480, 640)          # COCO-like 4:3 stills: resize, crop and flip all do work
+COCO_CLIPS, COCO_STEPS, COCO_SPLIT, COCO_SWIN_STEPS = 4, 4, 2, 2
+COCO_EVAL_FRAMES = 3
+# the yaml's 80 classes as the evaluation json's categories: every label the model predicts has one
+COCO_CLASSES = tuple(f"coco_class_{i}" for i in range(80))
+D2_PREFIX = "detr.detr.backbone.0.backbone."
+
+
+def write_r50_pkl(path, seed):
+    """A torchvision-form detectron2 ImageNet init (``R-50.pkl``'s layout: a plain
+    pickle of ``{"model": {d2 name: array}, "__author__": "torchvision"}``) of a
+    ResNet-50 seeded with ``seed``; returns its {d2 name: tensor}."""
+    import pickle
+
+    import torch
+
+    from vnext_tpu_torch.checkpoint.torch_import import to_reference_names
+    from vnext_tpu_torch.models.backbones.resnet import ResNet
+    from vnext_tpu_torch.models.layers import init_weights
+
+    wrapper = torch.nn.Module()
+    wrapper.backbone = ResNet(depth=50)
+    init_weights(wrapper, seed)
+    d2 = {k[len(D2_PREFIX):]: v for k, v in to_reference_names(wrapper.state_dict(), "idol").items()}
+    with open(path, "wb") as f:
+        pickle.dump({"model": {k: v.numpy() for k, v in d2.items()}, "__author__": "torchvision",
+                     "matching_heuristics": True}, f)
+    return d2
+
+
+def backbone_differs_from(model, d2):
+    """The d2 names of ``model``'s backbone tensors that differ from ``d2``'s (the .pkl's)."""
+    from vnext_tpu_torch.checkpoint.torch_import import to_reference_names
+
+    import torch
+
+    own = to_reference_names({k: v for k, v in model.state_dict().items() if k.startswith("backbone.")}, "idol")
+    return [k for k, v in own.items() if not torch.equal(v.cpu(), d2[k[len(D2_PREFIX):]].to(v.dtype))]
+
+
+def batch_digest(batch):
+    """One sha1 over a collated batch's arrays (names sorted)."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for k in sorted(batch):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()
+
+
+def coco_pretrain_run(label, argv, kernels, pkl=None, stem=True, n_loss_keys=32):
+    """``train_net.main(argv)`` on the COCO-pretrain stage, instrumented: each
+    step's start, the host time ``next(loader)`` blocked, each batch's digest,
+    the launches in the train steps and in the evaluation after training, the
+    checkpoint saves, what the load or resume restored, and peak memory.
+    Requires K4 / K5 (/ K2 with ``stem``) = 24 / 24 (/ 2) a step, the step's
+    ``n_loss_keys`` loss keys finite at every step, and, with ``pkl``, the
+    backbone equal to the file's tensors right after the load. Returns the
+    trainer and the record."""
+    import torch
+
+    from vnext_tpu_torch.checkpoint.checkpointer import Checkpointer
+    from vnext_tpu_torch.tools import train_net
+
+    step_starts, waits, digests, eval_deltas, saves, loaded = [], [], [], [], [], {}
+    build_loader, do_eval = train_net.build_vis_train_loader, train_net.do_eval
+    save, resume_or_load = Checkpointer.save, Checkpointer.resume_or_load
+
+    class TimedTrainer(train_net.VISTrainer):
+        def run_step(self):
+            step_starts.append(time.perf_counter())
+            super().run_step()
+
+    def timed_loader(*args, **kwargs):
+        loader = build_loader(*args, **kwargs)
+
+        def batches():
+            while True:
+                t1 = time.perf_counter()
+                batch = next(loader)
+                waits.append((time.perf_counter() - t1) * 1e3)
+                digests.append(batch_digest(batch))
+                yield batch
+
+        return batches()
+
+    def counted_eval(cfg, model=None):
+        before = counts(kernels)
+        out = do_eval(cfg, model)
+        torch.cuda.synchronize()
+        eval_deltas.append(minus(counts(kernels), before))
+        return out
+
+    def timed_save(self, name, state):
+        t1 = time.perf_counter()
+        path = save(self, name, state)
+        saves.append((t1, time.perf_counter()))
+        return path
+
+    def checked_load(self, weights_path, state, resume=True):
+        path = self.get_checkpoint_file() if resume and self.has_checkpoint() else None
+        state, start = resume_or_load(self, weights_path, state, resume)
+        torch.cuda.synchronize()
+        loaded["start"] = start
+        if path is not None:
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+            loaded.update(path=path, model=all(torch.equal(v.cpu(), saved["model"][k])
+                                               for k, v in state.model.state_dict().items()),
+                          optimizer=same_optimizer_state(state.optimizer.state_dict(), saved["optimizer"]),
+                          scheduler=state.scheduler.state_dict() == saved["scheduler"])
+        elif pkl is not None:
+            loaded["backbone_differs"] = backbone_differs_from(state.model, pkl)
+        return state, start
+
+    zero(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(train_net, "VISTrainer", TimedTrainer), patched(train_net, "build_vis_train_loader", timed_loader), \
+            patched(train_net, "do_eval", counted_eval), patched(Checkpointer, "save", timed_save), \
+            patched(Checkpointer, "resume_or_load", checked_load):
+        trainer = train_net.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = counts(kernels)
+    require(len(eval_deltas) == 1, f"{label}: {len(eval_deltas)} evaluations, expected the one after training")
+    in_train = minus(total, eval_deltas[0])
+    n = trainer.iter - trainer.start_iter
+    want = {"ms_deform_attn_v9_fwd": 24 * n, "ms_deform_attn_v9_bwd": 24 * n, **({"stem_conv": 2 * n} if stem else {})}
+    require(in_train == want, f"{label}: train launch counts {in_train} != {want}")
+    hist = trainer.storage.histories()
+    losses = sorted(k for k in hist if k.startswith("loss_"))
+    require(len(losses) == n_loss_keys, f"{label}: {len(losses)} loss keys, expected {n_loss_keys}: {losses}")
+    for k in losses + ["total_loss"]:
+        require(hist[k].count() == n and np.isfinite(hist[k].values()).all(), f"{label} {k}: {hist[k].values()}")
+    if pkl is not None and "backbone_differs" in loaded:
+        require(not loaded["backbone_differs"], f"{label}: backbone tensors differ from the .pkl after the load: "
+                                                f"{loaded['backbone_differs'][:5]}")
+    periods = [(b - a - sum(e - s for s, e in saves if a <= s < b)) * 1e3 for a, b in zip(step_starts, step_starts[1:])]
+    record = {"iterations": [trainer.start_iter, trainer.iter], "launches": in_train, "eval_launches": eval_deltas[0],
+              "step_period_ms": periods, "loader_wait_ms": list(waits), "peak_gib": peak_gib,
+              "total_loss": hist["total_loss"].values(), "wall_s": wall, "batch_digests": digests[:n],
+              "loaded": {k: v for k, v in loaded.items() if k != "backbone_differs"}}
+    print(f"  {label}: iterations {trainer.start_iter}..{trainer.iter - 1}; launches in the train steps {in_train} "
+          f"(expected {want}), in the evaluation after training {eval_deltas[0]}; {len(losses)} loss keys finite; "
+          f"total_loss {', '.join(f'{v:.3f}' for v in hist['total_loss'].values())}")
+    print(f"  {label}: step period (host clock between step starts, less a checkpoint save between them) "
+          f"{', '.join(f'{v:.1f}' for v in periods)} ms; next(loader) blocked "
+          f"{', '.join(f'{v:.1f}' for v in waits[:n])} ms; peak memory {peak_gib:.2f} GiB (the evaluation "
+          f"after training included); {wall:.1f} s with the model's build, the load and the evaluation")
+    return trainer, record
+
+
+def phase_coco_pretrain(dev, kernels, smi):
+    """IDOL's COCO-pretrain stage through ``train_net.main`` (``INPUT.COCO_PRETRAIN
+    True``) at ``configs/idol/coco_pretrain/r50_coco_sequence.yaml``'s width on a
+    synthetic COCO set at 480x640, from a torchvision-form ``R-50.pkl`` written
+    from a seeded ResNet-50: the backbone on the card equals the file's after the
+    load, K4 / K5 / K2 = 24 / 24 / 2 a step, 32 finite loss keys a step; a
+    2-step run resumed to 4 against the straight 4-step run; then
+    ``swin_coco_sequence.yaml`` for 2 steps with no weights."""
+    import torch
+
+    from vnext_tpu_torch.data import DatasetCatalog
+    from vnext_tpu_torch.data.datasets.synthetic import register_synthetic_coco
+
+    t_phase = time.perf_counter()
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        register_synthetic_coco(COCO_DATASET, root=f"{tmp}/coco", num_images=COCO_IMAGES, h=COCO_HW[0], w=COCO_HW[1])
+        register_synthetic(f"{tmp}/eval", COCO_EVAL_DATASET, COCO_CLASSES, num_frames=COCO_EVAL_FRAMES)
+        pkl = write_r50_pkl(f"{tmp}/R-50.pkl", seed=5)
+        records = DatasetCatalog.get(COCO_DATASET)
+        print(f"  synthetic COCO set: {len(records)} images at {COCO_HW[0]}x{COCO_HW[1]} (PNG), "
+              f"{sum(len(r['annotations']) for r in records)} objects; R-50.pkl ({len(pkl)} tensors, torchvision "
+              f"form) and the evaluation set written in {time.perf_counter() - t0:.1f} s")
+        configs = Path(__file__).resolve().parent / "configs" / "idol" / "coco_pretrain"
+        common = ["INPUT.COCO_PRETRAIN", "True", "DATASETS.TRAIN", f"('{COCO_DATASET}',)",
+                  "DATASETS.TEST", f"('{COCO_EVAL_DATASET}',)", "SOLVER.IMS_PER_BATCH", str(COCO_CLIPS),
+                  "SOLVER.CHECKPOINT_PERIOD", str(COCO_SPLIT)]
+        r50 = ["--config-file", str(configs / "r50_coco_sequence.yaml"), "MODEL.WEIGHTS", f"{tmp}/R-50.pkl", *common]
+        runs, finals = {}, {}
+        for name, argv in (("straight", [*r50, "OUTPUT_DIR", f"{tmp}/a", "SOLVER.MAX_ITER", str(COCO_STEPS)]),
+                           ("split", [*r50, "OUTPUT_DIR", f"{tmp}/b", "SOLVER.MAX_ITER", str(COCO_SPLIT)]),
+                           ("resume", ["--resume", *r50, "OUTPUT_DIR", f"{tmp}/b", "SOLVER.MAX_ITER", str(COCO_STEPS)])):
+            trainer, runs[name] = coco_pretrain_run(f"IDOL-R50 {name}", argv, kernels, pkl=pkl)
+            finals[name] = {k: v.detach().cpu().clone() for k, v in trainer.state.model.state_dict().items()}
+            del trainer
+            gc.collect()              # the trainer and its hooks refer to each other
+            torch.cuda.empty_cache()
+        straight, resumed = runs["straight"], runs["resume"]
+        require(runs["straight"]["loaded"] == {"start": 0} and runs["split"]["loaded"] == {"start": 0},
+                f"the straight and the 2-step runs loaded {runs['straight']['loaded']}, {runs['split']['loaded']}")
+        got = resumed["loaded"]
+        require(got.get("start") == COCO_SPLIT and got["model"] and got["optimizer"] and got["scheduler"],
+                f"--resume: started at {got.get('start')}, restored state equal to {got.get('path')}: {got}")
+        # both packages start the loader again from its seed on --resume: the resumed steps take the straight
+        # run's first batches, so the two runs' last steps train on other batches
+        require(resumed["batch_digests"] == straight["batch_digests"][:COCO_STEPS - COCO_SPLIT],
+                "--resume: the resumed steps' batches are not the loader's first ones")
+        require(runs["split"]["batch_digests"] == straight["batch_digests"][:COCO_SPLIT],
+                "the 2-step run's batches differ from the straight run's first two")
+        ckpt = {r: torch.load(f"{tmp}/{d}/model_{COCO_SPLIT - 1:07d}.pth", map_location="cpu", weights_only=True)["model"]
+                for r, d in (("straight", "a"), ("split", "b"))}
+
+        def max_rel(a, b):
+            return max(float((a[k].float() - b[k].float()).abs().max() / b[k].float().abs().max().clamp_min(1e-30))
+                       for k in b if b[k].is_floating_point())
+
+        same_at_split = all(torch.equal(ckpt["straight"][k], ckpt["split"][k]) for k in ckpt["split"])
+        result["resume"] = {
+            "restored_bit_for_bit": True, "start": got["start"],
+            "state_at_step_2_equal": same_at_split,
+            "state_at_step_2_max_rel_diff": max_rel(ckpt["straight"], ckpt["split"]),
+            "final_equal": all(torch.equal(finals["straight"][k], finals["resume"][k]) for k in finals["resume"]),
+            "final_max_rel_diff": max_rel(finals["resume"], finals["straight"])}
+        print(f"  --resume from model_{COCO_SPLIT - 1:07d}.pth: started at iteration {got['start']}, model, "
+              f"optimizer and scheduler equal to the file bit for bit; its steps took the loader's first "
+              f"{COCO_STEPS - COCO_SPLIT} batches again (as JAX's loader does). The straight run's step-{COCO_SPLIT} "
+              f"checkpoint against the 2-step run's: equal bit for bit {same_at_split}, largest relative "
+              f"difference {result['resume']['state_at_step_2_max_rel_diff']:.3e} (the same batches and draws: the "
+              f"backward's f32 atomic sums, K5's value gradient among them, differ in their last bits from run to "
+              f"run, and AdamW's first steps move an element by about the learning rate whatever its gradient's "
+              f"size); the final states: equal {result['resume']['final_equal']}, "
+              f"largest relative difference {result['resume']['final_max_rel_diff']:.3e} (other batches after "
+              f"the resume)")
+        del finals, ckpt
+        result.update(straight=straight, split=runs["split"], resumed=resumed)
+
+        # ---- IDOL-Swin-L's pretrain steps (no cocopretrain_SwinL.pth in the repository: seeded weights)
+        swin = ["--config-file", str(configs / "swin_coco_sequence.yaml"), "MODEL.WEIGHTS", "", *common,
+                "OUTPUT_DIR", f"{tmp}/swin", "SOLVER.MAX_ITER", str(COCO_SWIN_STEPS)]
+        trainer, result["swin"] = coco_pretrain_run("IDOL-Swin-L", swin, kernels, stem=False)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    per_step = {k: straight["launches"].get(k, 0) // COCO_STEPS
+                for k in ("ms_deform_attn_v9_fwd", "ms_deform_attn_v9_bwd", "stem_conv")}
+    print(f"  {smi}")
+    print(f"[phase 24] IDOL's COCO-pretrain stage through train_net: the .pkl backbone landed, K4 / K5 / K2 = "
+          f"{per_step['ms_deform_attn_v9_fwd']} / {per_step['ms_deform_attn_v9_bwd']} / {per_step['stem_conv']} a "
+          f"step, 32 loss keys finite, --resume restored bit for bit; IDOL-Swin-L {COCO_SWIN_STEPS} steps at peak "
+          f"{result['swin']['peak_gib']:.2f} GiB; {result['phase_s']:.1f} s")
+    return {"coco_pretrain_train": straight["launches"], "coco_pretrain_swinl_train": result["swin"]["launches"]}, result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
                                                  "with no argument, every phase.")
     parser.add_argument("--only", choices=("train_numerics", "entry_point", "minvis_entry", "seqformer_train",
-                                           "swin_train", "instmove_train", "fused_tracker"),
+                                           "swin_train", "instmove_train", "fused_tracker", "coco_pretrain"),
                         help="phase 1 and this phase alone (train_numerics: phase 6; entry_point: phase 17; "
                              "minvis_entry: phase 2b's MinVIS and SeqFormer shapes and phase 18; seqformer_train: "
                              "phase 19; swin_train: phases 20 and 21; instmove_train: K2 at InstMove's shape and "
-                             "phase 22; fused_tracker: phase 23)")
+                             "phase 22; fused_tracker: phase 23; coco_pretrain: phase 24)")
     parser.add_argument("--tree", help="with --only: import vnext_tpu_torch from this checkout (an "
                                        "earlier commit's `git archive`) in place of the one beside this script")
     parser.add_argument("--swap-plain", action="append", default=[], choices=("K2", "K4"),
@@ -3734,9 +4000,12 @@ def main(argv=None) -> int:
         elif args.only == "instmove_train":
             k2 = stem_serving_case(dev, np.random.RandomState(13), (INSTMOVE_BATCH, *INSTMOVE_HW, 3))
             print(json.dumps({"k2_instmove": k2, "instmove_train": phase_instmove_train(dev, kernels, smi)}))
-        else:
+        elif args.only == "fused_tracker":
             launches, fused = phase_fused_tracker(dev, kernels, smi)
             print(json.dumps({"fused_tracker": fused, "launches": launches}))
+        else:
+            launches, coco = phase_coco_pretrain(dev, kernels, smi)
+            print(json.dumps({"coco_pretrain": coco, "launches": launches}))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -3816,6 +4085,8 @@ def main(argv=None) -> int:
     phase_seconds["22"] = instmove_train_result["phase_s"]
     fused_launches, fused_result = phase_fused_tracker(dev, kernels, smi)
     phase_seconds["23"] = fused_result["phase_s"]
+    coco_launches, coco_result = phase_coco_pretrain(dev, kernels, smi)
+    phase_seconds["24"] = coco_result["phase_s"]
     print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
 
     print(json.dumps({
@@ -3824,7 +4095,8 @@ def main(argv=None) -> int:
         "idol_r101": r101_timing, "reference_import": import_result, "entry_point": entry_result,
         "minvis_entry": minvis_entry_result, "seqformer_train": seq_train_result,
         "idol_swinl_train": swin_train_result, "seqformer_swinl_train": seq_swin_train_result,
-        "instmove_train": instmove_train_result, "fused_tracker": fused_result, "phase_seconds": phase_seconds,
+        "instmove_train": instmove_train_result, "fused_tracker": fused_result, "coco_pretrain": coco_result,
+        "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
         "k5_decoder_form": measured["bwd_decoder"], "k6_backward_decoder_form": measured["bwd6_decoder"],
@@ -3837,13 +4109,15 @@ def main(argv=None) -> int:
              "minvis": minvis_launches, "instmove": instmove_launches, "idol_swinL": swin_launches,
              "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches, **entry_point_launches,
              **minvis_entry_launches, **seq_train_launches, **swin_train_launches, **seq_swin_train_launches,
-             **fused_launches}
+             **fused_launches, **coco_launches}
     for path, names in (("minvis_entry_eval", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
                         ("minvis_entry_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
                         ("seqformer_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
                         ("idol_swinl_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD)),
                         ("seqformer_swinl_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD)),
-                        ("idol_fused_serving", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL))):
+                        ("idol_fused_serving", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
+                        ("coco_pretrain_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
+                        ("coco_pretrain_swinl_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD))):
         for kern in names:
             require(paths[path].get(kern.name, 0) > 0, f"{kern.name}: no launch on the {path} path")
     # K4, K5 and K2 at the new train steps' shapes, beside their rows' train-step shape

@@ -236,6 +236,76 @@ def test_train_net_video_runs_on_the_card_by_default(cuda_device, tmp_path):
     assert (tmp_path / "out" / "last_checkpoint").read_text() == "model_0000000.pth"
 
 
+def _write_r50_pkl(path, seed):
+    """A torchvision-form detectron2 ``.pkl`` (``{"model", "__author__"}``, d2
+    names) of a seeded ResNet-50; returns its state under those names."""
+    import pickle
+
+    from vnext_tpu_torch.checkpoint.torch_import import to_reference_names
+    from vnext_tpu_torch.models.backbones.resnet import ResNet
+
+    wrapper = torch.nn.Module()
+    wrapper.backbone = ResNet(depth=50)
+    init_weights(wrapper, seed)
+    prefix = "detr.detr.backbone.0.backbone."
+    d2 = {k[len(prefix):]: v.numpy() for k, v in to_reference_names(wrapper.state_dict(), "idol").items()}
+    with open(path, "wb") as f:
+        pickle.dump({"model": d2, "__author__": "torchvision", "matching_heuristics": True}, f)
+    return d2
+
+
+@pytest.mark.cuda
+def test_pkl_backbone_loads_onto_the_card(cuda_device, tmp_path):
+    """IDOL-R50 built on the card from the COCO-pretrain yaml takes a
+    torchvision-form ``R-50.pkl`` through ``load_weights``: every backbone
+    tensor on the card equals the file's."""
+    from vnext_tpu_torch.checkpoint.checkpointer import load_weights
+    from vnext_tpu_torch.checkpoint.torch_import import to_reference_names
+    from vnext_tpu_torch.config import add_idol_config, get_cfg
+    from vnext_tpu_torch.models.idol import build_idol_model
+
+    d2 = _write_r50_pkl(tmp_path / "R-50.pkl", seed=7)
+    cfg = get_cfg()
+    add_idol_config(cfg)
+    cfg.merge_from_file(os.path.join(REPO, "configs", "idol", "coco_pretrain", "r50_coco_sequence.yaml"))
+    model = build_idol_model(cfg, device=cuda_device, seed=0)
+    load_weights(str(tmp_path / "R-50.pkl"), model)
+    backbone = {k: v for k, v in model.state_dict().items() if k.startswith("backbone.")}
+    ref = to_reference_names(backbone, "idol")
+    assert len(ref) == len(d2)
+    for k, v in ref.items():
+        want = torch.from_numpy(d2[k[len("detr.detr.backbone.0.backbone."):]])
+        assert v.is_cuda and torch.equal(v.cpu(), want.to(v.dtype)), k
+
+
+@pytest.mark.cuda
+def test_coco_pretrain_step_runs_on_the_card(cuda_device, tmp_path):
+    """IDOL's COCO-pretrain stage through the entry point on the card at the
+    yaml's width (``INPUT.COCO_PRETRAIN True``, a synthetic COCO set at 480x640,
+    the ``.pkl`` ImageNet init): one step of one pseudo-clip runs K4 / K5 / K2 =
+    24 / 24 / 2 with finite losses."""
+    from vnext_tpu_torch.data.datasets.synthetic import register_synthetic_coco, register_synthetic_ytvis
+    from vnext_tpu_torch.tools import train_net
+
+    _write_r50_pkl(tmp_path / "R-50.pkl", seed=7)
+    register_synthetic_coco("card_coco_pretrain", root=str(tmp_path / "coco"), num_images=2, h=480, w=640)
+    register_synthetic_ytvis("card_coco_pretrain_eval", root=str(tmp_path / "ytvis"), num_videos=1, num_frames=2)
+    args = ["--config-file", os.path.join(REPO, "configs", "idol", "coco_pretrain", "r50_coco_sequence.yaml"),
+            "INPUT.COCO_PRETRAIN", "True", "MODEL.WEIGHTS", str(tmp_path / "R-50.pkl"), "MODEL.IDOL.NUM_CLASSES", "3",
+            "DATASETS.TRAIN", "('card_coco_pretrain',)", "DATASETS.TEST", "('card_coco_pretrain_eval',)",
+            "SOLVER.IMS_PER_BATCH", "1", "SOLVER.MAX_ITER", "1", "OUTPUT_DIR", str(tmp_path / "out")]
+    counters = (ms_deform_attn.KERNEL_V9_FWD, ms_deform_attn.KERNEL_V9_BWD, stem_conv.KERNEL)
+    before = [k.launches for k in counters]
+    trainer = train_net.main(args)
+    hist = trainer.storage.histories()
+    assert all(np.isfinite(hist[k].values()).all() for k in hist if k.startswith("loss_"))
+    assert next(trainer.state.model.parameters()).is_cuda
+    # K2 twice in the step (key and reference), once in the evaluation after training (one clip of 2 frames),
+    # which runs K1 / K3 and no K4 / K5
+    moved = [k.launches - b for k, b in zip(counters, before)]
+    assert moved == [24, 24, 3], moved
+
+
 BF16_ULP = 2.0 ** -7
 LEVELS = ((12, 16), (6, 8), (3, 4), (2, 2))
 

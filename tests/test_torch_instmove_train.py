@@ -167,15 +167,19 @@ def adamw_runs(step_case):
     _, params, _, grads = step_case
     cfg = _motion_cfg()
     rng = np.random.RandomState(5)
-    grad_seq = [grads, jax.tree.map(lambda g: -0.5 * g + 1e-3 * rng.randn(*g.shape).astype(np.float32), grads)]
+    # the second gradients in numpy: JAX would compile its eager ops once per leaf shape
+    grad_seq = [grads, jax.tree.map(lambda g: -0.5 * np.asarray(g) + 1e-3 * rng.randn(*g.shape).astype(np.float32),
+                                    grads)]
     tx = optax.adamw(cfg.SOLVER.BASE_LR, weight_decay=cfg.SOLVER.WEIGHT_DECAY)
     # optax.adamw is elementwise (no mask, no clip), so it runs on the tree raveled into one vector
     flat, unravel = ravel_pytree(params)
     opt_state, p = tx.init(flat), flat
 
+    @jax.jit
     def update(g, opt_state, p):
         updates, opt_state = tx.update(ravel_pytree(g)[0], opt_state, p)
-        return optax.apply_updates(p, updates), opt_state
+        p = optax.apply_updates(p, updates)
+        return p, opt_state, unravel(p)
 
     port = im.InstMovePredictor(**TINY)
     load_from_jax(port, params)
@@ -184,11 +188,11 @@ def adamw_runs(step_case):
     assert len(optimizer.param_groups) == 1 and len(optimizer.param_groups[0]["params"]) == len(named)
     runs = {}
     for n_updates, g in enumerate(grad_seq, 1):
-        p, opt_state = update(g, opt_state, p)
+        p, opt_state, tree = update(g, opt_state, p)
         for n, v in _by_name(g).items():
             named[n].grad = torch.from_numpy(v.copy())
         optimizer.step()
-        runs[n_updates] = (_by_name(unravel(p)), {n: v.detach().numpy().copy() for n, v in named.items()})
+        runs[n_updates] = (_by_name(tree), {n: v.detach().numpy().copy() for n, v in named.items()})
     return runs, _by_name(params), cfg.SOLVER.BASE_LR
 
 

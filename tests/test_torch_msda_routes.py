@@ -13,6 +13,7 @@ tests/test_msda_v7.py) put samples uniformly, on integer pixels and outside
 every level.
 """
 
+import functools
 import importlib.util
 import os
 
@@ -55,14 +56,24 @@ def _inputs(seed, mode):
     return [a.astype(np.float32) for a in (value, loc, attn, cot)]
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_route(impl):
+    """JAX's route and its VJP under one jit, compiled once per impl: the three
+    input modes share the shapes, so the second and third reuse it."""
+
+    def run(value, loc, attn, cot):
+        out, vjp = jax.vjp(lambda v, lo, a: jax_msda(v, SHAPES, lo, a, impl=impl), value, loc, attn)
+        return out, vjp(cot)
+
+    return jax.jit(run)
+
+
 @pytest.mark.parametrize("mode", ["uniform", "integer", "oob"])
 @pytest.mark.parametrize("impl", IMPLS)
 def test_route_and_its_gradients_match_jax(impl, mode):
     value, loc, attn, cot = _inputs(IMPLS.index(impl), mode)
 
-    want, vjp = jax.vjp(lambda v, lo, a: jax_msda(v, SHAPES, lo, a, impl=impl),
-                        *(jnp.asarray(a) for a in (value, loc, attn)))
-    want_grads = vjp(jnp.asarray(cot))
+    want, want_grads = _jax_route(impl)(*(jnp.asarray(a) for a in (value, loc, attn, cot)))
 
     leaves = [t(a).requires_grad_() for a in (value, loc, attn)]
     out = msda.ms_deform_attn_standard(leaves[0], SHAPES, leaves[1], leaves[2], impl)

@@ -196,6 +196,8 @@ def test_backbone_only_checkpoint_matches_jax():
 def test_unknown_port_key_and_pkl_raise(tmp_path):
     with pytest.raises(KeyError, match="stray"):
         torch_import.to_reference_names({"stray.weight": torch.zeros(1)}, "idol")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        torch_import.load_torch_state_dict(str(tmp_path / "model.pkl"))
+    # .pkl files load (tests/test_torch_coco_pretrain.py); a missing one raises in both packages
+    for load in (torch_import.load_torch_state_dict, jax_import.load_torch_state_dict):
+        with pytest.raises(FileNotFoundError):
+            load(str(tmp_path / "model.pkl"))
     assert torch_import.detect_checkpoint_family({"module.stem.conv1.weight": None}) == "d2_backbone"

@@ -19,10 +19,17 @@ package's ``tools/train_net.py``, on the CPU with the quick-schedule config
 - Two runs of ``main`` in one process each write ``log.txt`` into their own
   output directory; the synthetic dataset is generated only for a config that
   names it.
-- ``main`` refuses an image meta-architecture, ``INPUT.COCO_PRETRAIN``, more
-  than one GPU or process, and a run on the card when no CUDA device is
-  visible; ``--eval-only`` with ``TPU.FUSED_TRACKER True`` runs the on-device
-  tracker.
+- IDOL's COCO-pretrain stage (``INPUT.COCO_PRETRAIN True``) on the synthetic
+  COCO set: 3 steps, then ``--resume``; every batch the trainer takes is equal
+  to the JAX package's loader with its ``CocoClipDatasetMapper`` for the same
+  seed, bit for bit.
+- Training refuses, before it builds the model, a ``DATASETS.TEST`` set that
+  the evaluation after the last step could not score: a COCO-type set (no
+  COCO evaluator in the port) or one with fewer categories than the model
+  predicts.
+- ``main`` refuses an image meta-architecture, more than one GPU or process,
+  and a run on the card when no CUDA device is visible; ``--eval-only`` with
+  ``TPU.FUSED_TRACKER True`` runs the on-device tracker.
 """
 
 import importlib.util
@@ -35,12 +42,17 @@ import numpy as np
 import pytest
 import torch
 
+from vnext_tpu.config import add_idol_config as jax_add_idol_config
+from vnext_tpu.config import get_cfg as jax_get_cfg
+from vnext_tpu.data.build import build_vis_train_loader as jax_build_vis_train_loader
 from vnext_tpu.data.catalog import MetadataCatalog as JaxMetadataCatalog
+from vnext_tpu.data.coco_clip_mapper import CocoClipDatasetMapper as JaxCocoMapper
+from vnext_tpu.data.datasets.synthetic import register_synthetic_coco as jax_register_synthetic_coco
 from vnext_tpu.data.datasets.synthetic import register_synthetic_ytvis as jax_register_synthetic_ytvis
 from vnext_tpu.models.idol import IDOL as JaxIDOL
 from vnext_tpu.models.idol import build_idol_model as jax_build_idol_model
 from vnext_tpu_torch.checkpoint.from_jax import load_from_jax
-from vnext_tpu_torch.data.datasets.synthetic import register_synthetic_ytvis
+from vnext_tpu_torch.data.datasets.synthetic import register_synthetic_coco, register_synthetic_ytvis
 from vnext_tpu_torch.models.idol import build_idol_model
 from vnext_tpu_torch.tools import train_net
 
@@ -138,6 +150,77 @@ def test_train_checkpoints_and_resumes(synthetic, tmp_path):
     assert resumed.state.optimizer.param_groups[1]["lr"] == pytest.approx(lr, rel=1e-12)
 
 
+@pytest.fixture(scope="module")
+def synthetic_coco(tmp_path_factory):
+    """Both packages' "coco_synthetic_tiny" (8 images at 160x224) on the same
+    files, as ``synthetic`` does for the YTVIS set."""
+    jax_register_synthetic_coco(root=str(tmp_path_factory.mktemp("synth") / "coco_synthetic_tiny"))
+    root = os.path.dirname(JaxMetadataCatalog.get("coco_synthetic_tiny").json_file)
+    register_synthetic_coco(root=root)
+    return root
+
+
+def test_coco_pretrain_trains_and_resumes(synthetic, synthetic_coco, tmp_path, monkeypatch):
+    taken = []
+    build_loader = train_net.build_vis_train_loader
+
+    def recording_loader(*args, **kwargs):
+        loader = build_loader(*args, **kwargs)
+        return (taken.append(b) or b for b in loader)
+
+    monkeypatch.setattr(train_net, "build_vis_train_loader", recording_loader)
+    opts = ["INPUT.COCO_PRETRAIN", "True", "DATASETS.TRAIN", "('coco_synthetic_tiny',)"]
+    base = ["--config-file", INSTANT, "MODEL.DEVICE", "cpu", "OUTPUT_DIR", str(tmp_path), "TEST.FINAL_LOSS_BOUND",
+            "1e4", "SOLVER.CHECKPOINT_PERIOD", "2", *opts]
+    trainer = train_net.main(base)
+    assert trainer.iter == 3 and trainer.state.step == 3
+    assert np.isfinite(trainer.storage.history("total_loss").values()).all()
+    assert (tmp_path / "last_checkpoint").read_text() == "model_0000002.pth"
+    straight = list(taken)
+    assert len(straight) >= 3
+
+    jcfg = jax_get_cfg()
+    jax_add_idol_config(jcfg)
+    jcfg.merge_from_file(INSTANT)
+    jcfg.merge_from_list(opts)
+    want = jax_build_vis_train_loader(jcfg, mapper=JaxCocoMapper.from_config(jcfg), seed=max(jcfg.SEED, 0))
+    for step, batch in enumerate(straight):
+        jbatch = next(want)
+        assert set(batch) == set(jbatch), step
+        for k, v in jbatch.items():
+            assert batch[k].dtype == v.dtype and np.array_equal(batch[k], v), (step, k)
+    assert straight[0]["key_valid"].any()
+
+    taken.clear()
+    resumed = train_net.main(["--resume", *base, "SOLVER.MAX_ITER", "5"])
+    assert resumed.start_iter == 3 and resumed.iter == 5 and resumed.state.step == 5
+    assert (tmp_path / "last_checkpoint").read_text() == "model_0000004.pth"
+    # a resumed run starts the loader again from its seed, as the JAX package's does
+    for a, b in zip(taken, straight):
+        assert all(np.array_equal(a[k], b[k]) for k in b)
+
+
+@pytest.mark.parametrize("opts, error, match", [
+    (["INPUT.COCO_PRETRAIN", "True", "DATASETS.TRAIN", "('coco_synthetic_tiny',)", "DATASETS.TEST",
+      "('coco_synthetic_tiny',)"], NotImplementedError, "no evaluator for type 'coco'"),
+    (["MODEL.IDOL.NUM_CLASSES", "80"], ValueError, "'ytvis_synthetic_tiny' has 3 categories"),
+], ids=["coco_evaluator", "fewer_categories"])
+def test_train_refuses_a_test_set_it_cannot_score_before_the_first_step(synthetic, synthetic_coco, tmp_path,
+                                                                         monkeypatch, opts, error, match):
+    def no_model(*args, **kwargs):
+        raise AssertionError("a model was built before the test sets were checked")
+
+    monkeypatch.setattr(train_net, "build_idol_model", no_model)
+    with pytest.raises(error, match=match):
+        train_net.main(["--config-file", INSTANT, "MODEL.DEVICE", "cpu", "OUTPUT_DIR", str(tmp_path), *opts])
+    assert not (tmp_path / "metrics.json").exists() and not (tmp_path / "last_checkpoint").exists()
+    # with no test set there is nothing to score
+    cfg = train_net.setup(_args(train_net.default_argument_parser, *opts, "DATASETS.TEST", "()",
+                                "OUTPUT_DIR", str(tmp_path)))
+    assert cfg.DATASETS.TEST == ()
+    train_net._check_test_sets(cfg)
+
+
 def test_each_run_logs_into_its_own_output_dir(synthetic, tmp_path):
     for run in ("first", "second"):
         train_net.main(["--config-file", INSTANT, "--eval-only", "MODEL.DEVICE", "cpu",
@@ -165,8 +248,6 @@ def test_main_refuses_what_the_port_lacks(synthetic, tmp_path, monkeypatch):
     rcnn = os.path.join(REPO, "configs", "quick_schedules", "mask_rcnn_R_18_instant_test.yaml")
     with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
         train_net.main(["--config-file", rcnn, "--eval-only", *out])
-    with pytest.raises(NotImplementedError, match="COCO_PRETRAIN"):
-        train_net.main(["--config-file", INSTANT, "MODEL.DEVICE", "cpu", "INPUT.COCO_PRETRAIN", "True", *out])
     for flag in (["--num-gpus", "2"], ["--machine-rank", "1"], ["--dist-url", "tcp://127.0.0.1:29500"]):
         with pytest.raises(NotImplementedError, match="item 12"):
             train_net.main(["--config-file", INSTANT, *flag, "MODEL.DEVICE", "cpu", *out])

@@ -7,7 +7,7 @@ the JAX package uses orbax: ``save`` writes ``<name>.pth`` with the state
 and a ``last_checkpoint`` marker naming it; ``resume_or_load`` restores that
 whole state when asked to resume and a marker is there, else loads model
 weights only (``load_weights``: the port's own files, or a reference ``.pth``
-through ``checkpoint/torch_import.py``).
+or detectron2 ``.pkl`` through ``checkpoint/torch_import.py``).
 """
 
 from __future__ import annotations
@@ -98,8 +98,9 @@ def restore_train_state(state: TrainState, ckpt: dict) -> None:
 
 def load_weights(path: str, model: nn.Module) -> None:
     """Model weights from ``path``: a checkpoint of the port (its ``model``
-    entry holds exactly the model's keys), else a reference ``.pth`` converted
-    by ``torch_import``. A missing file raises ``FileNotFoundError``."""
+    entry holds exactly the model's keys), else a reference ``.pth`` or a
+    detectron2 ``.pkl`` converted by ``torch_import``. A missing file raises
+    ``FileNotFoundError``."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"MODEL.WEIGHTS {path!r} does not exist")
     sd = load_torch_state_dict(path)

@@ -1,4 +1,5 @@
-"""Reference PyTorch checkpoints (``.pth`` / ``.pt``) into the port.
+"""Reference PyTorch checkpoints (``.pth`` / ``.pt``) and detectron2 ``.pkl``
+files into the port.
 
 Counterpart of ``vnext_tpu.checkpoint.torch_import`` for the families the port
 serves: IDOL and SeqFormer (ResNet or Swin backbone) and MinVIS/Mask2Former.
@@ -9,6 +10,14 @@ projections. Each converter walks the reference names as the JAX package's
 does and returns {port key: tensor}; :func:`apply_to_model` writes them into a
 model and returns the JAX importer's report (matched / missing / unused /
 shape mismatches). A shape mismatch raises; missing keys are logged.
+
+A ``.pkl`` is detectron2's model-zoo format: a plain pickle holding either
+``{"model": ..., "__author__": ...}`` with detectron2 names (the
+torchvision-converted ImageNet inits, such as ``R-50.pkl``), or a Caffe2 blob
+dict (flat, or under ``"blobs"``) whose names :func:`convert_c2_names`
+renames; either way an ImageNet backbone lands through
+``convert_d2_backbone_checkpoint``. A ``detectron2://`` URL is not resolved:
+the path is opened as given, as in the JAX package.
 
 :func:`to_reference_names` goes the other way: a port state dict under the
 reference's names, as the reference code would save it.
@@ -22,9 +31,11 @@ from __future__ import annotations
 
 import inspect
 import logging
+import pickle
 import re
 from typing import Dict
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -34,16 +45,95 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def load_torch_state_dict(path: str) -> StateDict:
-    """A ``.pth`` / ``.pt`` checkpoint's state dict, CPU tensors. A ``model`` or
-    ``state_dict`` entry is unwrapped, as the JAX package's loader does."""
+    """A checkpoint's state dict, CPU tensors. ``.pth`` / ``.pt``: a ``model``
+    or ``state_dict`` entry is unwrapped, as the JAX package's loader does.
+    ``.pkl``: :func:`load_pkl_state_dict`."""
     if path.endswith(".pkl"):
-        raise NotImplementedError("detectron2 .pkl checkpoints are not ported yet: ROADMAP Queue 1, item 11")
+        return {k: torch.as_tensor(v) for k, v in load_pkl_state_dict(path).items()}
     blob = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(blob, dict) and "model" in blob:
         blob = blob["model"]
     if isinstance(blob, dict) and "state_dict" in blob:
         blob = blob["state_dict"]
     return {k: torch.as_tensor(v) for k, v in blob.items()}
+
+
+def load_pkl_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A detectron2 ``.pkl`` (a plain pickle, read with ``encoding="latin1"``) as
+    numpy arrays under detectron2 names: the ``model`` entry of the
+    ``{"model", "__author__"}`` form (renamed by :func:`convert_c2_names` when
+    the author is Caffe2), or a Caffe2 blob dict, flat or under ``"blobs"``,
+    its ``_momentum`` blobs dropped and its names converted. Entries that are
+    not arrays or numbers are left out. Unpickling runs code the file names,
+    so open only files of a source you trust."""
+    with open(path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+    if isinstance(data, dict) and "model" in data and "__author__" in data:
+        logger.info("Reading a .pkl file from '%s'", data["__author__"])
+        sd = data["model"]
+        caffe2 = data["__author__"] == "Caffe2"
+    else:
+        # the Caffe2 / Detectron1 zoo: detection models nest under "blobs",
+        # ImageNet classification models are a flat blob dict
+        if isinstance(data, dict) and "blobs" in data:
+            data = data["blobs"]
+        sd = {k: v for k, v in data.items() if not k.endswith("_momentum")}
+        caffe2 = True
+    sd = {k: np.asarray(v) for k, v in sd.items()
+          if isinstance(v, np.ndarray) or np.isscalar(v) or hasattr(v, "__array__")}
+    return convert_c2_names(sd) if caffe2 else sd
+
+
+def convert_c2_names(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Rename Caffe2/Detectron1 blob names to detectron2 state-dict names.
+
+    Covers the backbone families the caffe2 zoo ships (ResNet stems/blocks,
+    GN/BN affine params, FPN laterals) — behaviorally matching the reference's
+    convert_basic_c2_names + the FPN branch of convert_c2_detectron_names
+    (c2_model_loading.py:10,130). Caffe2 BNs are inference-folded (scale/bias
+    only, no running stats); FrozenBatchNorm's running_mean/var default to
+    0/1, matching FrozenBatchNorm2d._load_from_state_dict (batch_norm.py:67).
+    """
+    out = {}
+    for orig in sorted(sd):
+        k = orig.replace("_", ".")
+        # parameter-kind suffixes
+        for pat, rep in (
+            (r"\.b$", ".bias"), (r"\.w$", ".weight"),
+            (r"\.bn\.s$", ".norm.weight"), (r"\.bn\.bias$", ".norm.bias"),
+            (r"\.bn\.rm$", ".norm.running_mean"),
+            (r"\.bn\.running\.mean$", ".norm.running_mean"),
+            (r"\.bn\.riv$", ".norm.running_var"),
+            (r"\.bn\.running\.var$", ".norm.running_var"),
+            (r"\.bn\.gamma$", ".norm.weight"), (r"\.bn\.beta$", ".norm.bias"),
+            (r"\.gn\.s$", ".norm.weight"), (r"\.gn\.bias$", ".norm.bias"),
+        ):
+            k = re.sub(pat, rep, k)
+        # the stem: "res.conv1.norm.*" / bare "conv1.*" -> "stem.conv1.*"
+        k = re.sub(r"^res\.conv1\.norm\.", "conv1.norm.", k)
+        k = re.sub(r"^conv1\.", "stem.conv1.", k)
+        # residual branches -> d2 block conv names
+        k = (k.replace(".branch1.", ".shortcut.")
+              .replace(".branch2a.", ".conv1.")
+              .replace(".branch2b.", ".conv2.")
+              .replace(".branch2c.", ".conv3."))
+        # FPN: fpn.inner.resN.*.sum.lateral -> fpn_lateralN; fpn.resN.*.sum -> fpn_outputN
+        if k.startswith("fpn.inner.res") or k.startswith("fpn.res"):
+            parts = k.split(".")
+            norm = ".norm" if "norm" in parts else ""
+            stage = parts[2][3:] if parts[1] == "inner" else parts[1][3:]
+            kind = "lateral" if parts[1] == "inner" else "output"
+            k = f"fpn_{kind}{stage}{norm}.{parts[-1]}"
+        out[k] = sd[orig]
+    # caffe2 BNs are folded: synthesize identity running stats so FrozenBN
+    # imports cleanly (same values _load_from_state_dict would default to)
+    for k in list(out):
+        if k.endswith(".norm.weight"):
+            stem = k[: -len("weight")]
+            if stem + "running_mean" not in out:
+                out[stem + "running_mean"] = np.zeros_like(out[k])
+                out[stem + "running_var"] = np.ones_like(out[k])
+    return out
 
 
 def _strip_module(sd: StateDict) -> StateDict:

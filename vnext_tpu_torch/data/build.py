@@ -1,10 +1,14 @@
-"""Data loaders: the infinite clip train loader and the one-pass test loader.
+"""Data loaders: the infinite clip train loader, the one-pass test loader and
+the samplers and grouping under them.
 
-Counterpart of the parts of ``vnext_tpu.data.build`` IDOL's entry point runs:
-a shuffled infinite sampler feeds the mapper, mapped clips are stacked into
-fixed-shape numpy batches, and a background thread keeps a small queue of
-batches full while the previous step runs on the card. The batches stay numpy:
-the thread never touches CUDA.
+Counterpart of ``vnext_tpu.data.build``: a shuffled infinite sampler feeds the
+mapper, mapped clips are stacked into fixed-shape numpy batches, and a
+background thread keeps a small queue of batches full while the previous step
+runs on the card. The batches stay numpy: the thread never touches CUDA.
+``RepeatFactorTrainingSampler`` (category-frequency rebalancing) and
+``AspectRatioGroupedDataset`` (orientation buckets) are here for callers that
+build their own loader; the clip loader, as the JAX package's, uses neither
+(it reads no ``DATALOADER.SAMPLER_TRAIN``).
 
 One divergence from the JAX package, kept on purpose: an exception raised in
 the prefetch thread (a mapper fault, an unreadable image) is raised again at
@@ -17,7 +21,8 @@ from __future__ import annotations
 import queue
 import random
 import threading
-from typing import Any, Dict, Iterator, List, Optional
+from collections import Counter
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
@@ -28,7 +33,9 @@ from .dataset_mapper import YTVISDatasetMapper
 class TrainingSampler:
     """Infinite stream of dataset indices, shuffled per epoch with a seed. One
     process reads every index: the JAX package's sharding across processes
-    comes with the port's distribution (ROADMAP Queue 1, item 12)."""
+    comes with the port's distribution (ROADMAP Queue 1, item 12). The JAX
+    package's ``shuffle=False`` (in order, epoch after epoch) is left out: no
+    caller of either package sets it."""
 
     def __init__(self, size: int, seed: int = 0):
         if size <= 0:
@@ -42,6 +49,39 @@ class TrainingSampler:
             yield from g.permutation(self._size).tolist()
 
 
+def _categories(record: dict) -> set:
+    """The category ids of an image record, or of every frame of a video record."""
+    annos = record.get("annotations") or []
+    if annos and isinstance(annos[0], list):
+        return {o["category_id"] for frame in annos for o in frame}
+    return {o["category_id"] for o in annos}
+
+
+class RepeatFactorTrainingSampler:
+    """Category-frequency rebalancing (detectron2's sampler for LVIS): record I
+    repeats r(I) = max over its categories c of max(1, sqrt(t / f(c))) times an
+    epoch, f(c) the share of records holding c, the fractional part drawn
+    anew each epoch; each epoch's indices are shuffled. Image and video records
+    (a list of annotations per frame) both count."""
+
+    def __init__(self, dataset_dicts: List[dict], repeat_thresh: float, seed: int = 0):
+        cats = [_categories(rec) for rec in dataset_dicts]
+        counts = Counter(c for rec_cats in cats for c in rec_cats)
+        freqs = {c: counts[c] / len(dataset_dicts) for c in counts}
+        self._repeat_factors = np.asarray(
+            [max([1.0] + [max(1.0, np.sqrt(repeat_thresh / freqs[c])) for c in rec_cats]) for rec_cats in cats])
+        self._seed = seed
+
+    def __iter__(self) -> Iterator[int]:
+        g = np.random.RandomState(self._seed)
+        int_part = np.floor(self._repeat_factors).astype(np.int64)
+        frac = self._repeat_factors - int_part
+        while True:
+            rounds = int_part + (g.rand(len(frac)) < frac)
+            indices = np.repeat(np.arange(len(rounds)), rounds)
+            yield from indices[g.permutation(len(indices))].tolist()
+
+
 class InferenceSampler:
     """One pass over the dataset, in order."""
 
@@ -53,6 +93,28 @@ class InferenceSampler:
 
     def __len__(self):
         return len(self._indices)
+
+
+class AspectRatioGroupedDataset:
+    """Batches of ``batch_size`` samples of one orientation (detectron2's
+    two-bucket grouping: landscape and portrait), so that a batch pads little.
+    Wraps an iterable of samples carrying ``height`` / ``width`` (or a
+    ``key_fn`` giving the bucket, 0 or 1); a sample waits in its bucket until
+    the bucket is full."""
+
+    def __init__(self, it: Iterable, batch_size: int, key_fn: Optional[Callable[[Any], int]] = None):
+        self._it = it
+        self._batch_size = batch_size
+        self._key_fn = key_fn or (lambda s: int(s["width"] > s["height"]))
+
+    def __iter__(self) -> Iterator[List]:
+        buckets: List[List] = [[], []]
+        for sample in self._it:
+            bucket = buckets[self._key_fn(sample)]
+            bucket.append(sample)
+            if len(bucket) == self._batch_size:
+                yield bucket[:]
+                bucket.clear()
 
 
 def _stack_clip_batch(samples: List[Dict[str, Any]]) -> Dict[str, np.ndarray]:
@@ -106,13 +168,16 @@ class PrefetchIterator:
 
 def build_vis_train_loader(
     cfg=None,
-    mapper: Optional[YTVISDatasetMapper] = None,
+    mapper: Optional[Callable[[dict, random.Random], Dict[str, Any]]] = None,
     dataset_dicts: Optional[List[dict]] = None,
     batch_size: Optional[int] = None,
     seed: int = 0,
 ) -> Iterator[Dict[str, np.ndarray]]:
-    """Infinite batched train loader of clip samples. Every loader of one seed
-    gives the same batches from its start (a resumed run starts it again)."""
+    """Infinite batched train loader of clip samples: ``mapper`` (default: the
+    YTVIS mapper from ``cfg``; the COCO-pretrain stage passes a
+    ``CocoClipDatasetMapper``) maps ``(record, rng)`` to a clip. Every loader of
+    one seed gives the same batches from its start (a resumed run starts it
+    again)."""
     if dataset_dicts is None:
         dataset_dicts = [d for n in cfg.DATASETS.TRAIN for d in DatasetCatalog.get(n)]
     if mapper is None:

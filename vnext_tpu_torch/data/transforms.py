@@ -1,18 +1,19 @@
-"""Host-side (numpy / PIL) clip augmentation with box and mask propagation.
+"""Host-side (numpy / PIL) transforms with box, mask and keypoint propagation.
 
-Counterpart of the part of ``vnext_tpu.data.transforms`` the YTVIS mapper runs:
-the transforms (resize, horizontal flip, crop, no-op and their list) and the
-per-clip policy ``ClipAugmentation``, whose draws from one ``random.Random``
-come in the JAX package's order (short side, crop height, crop width, crop
-origin, flip), so that a seed gives both packages the same clip. Images resize
-through PIL's bilinear filter, as the JAX package's do. Rotation, extent, blend
-and keypoint transforms are not ported yet.
+Counterpart of ``vnext_tpu.data.transforms``: the deterministic transforms
+(resize, horizontal and vertical flip, crop, pad, extent, rotation, the
+photometric blend, no-op and their list), the keypoint annotation transform,
+and the per-clip policy ``ClipAugmentation`` the YTVIS and COCO mappers run,
+whose draws from one ``random.Random`` come in the JAX package's order (short
+side, crop height, crop width, crop origin, flip), so that a seed gives both
+packages the same clip. Images resample through PIL, as the JAX package's do.
+The random policies that build these transforms are in ``augmentation.py``.
 """
 
 from __future__ import annotations
 
 import random
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 from PIL import Image
@@ -87,6 +88,22 @@ class HFlipTransform(Transform):
         return self
 
 
+class VFlipTransform(Transform):
+    def __init__(self, height: int):
+        self.height = height
+
+    def apply_image(self, img: np.ndarray) -> np.ndarray:
+        return np.ascontiguousarray(img[::-1])
+
+    def apply_coords(self, coords: np.ndarray) -> np.ndarray:
+        coords = coords.copy()
+        coords[:, 1] = self.height - coords[:, 1]
+        return coords
+
+    def inverse(self) -> "VFlipTransform":
+        return self
+
+
 class CropTransform(Transform):
     def __init__(self, x0: int, y0: int, w: int, h: int):
         self.x0, self.y0, self.w, self.h = x0, y0, w, h
@@ -99,6 +116,168 @@ class CropTransform(Transform):
         coords[:, 0] -= self.x0
         coords[:, 1] -= self.y0
         return coords
+
+
+class PadTransform(Transform):
+    """Pad by (x0, y0) on the top-left and (x1, y1) on the bottom-right
+    (reference fvcore PadTransform, used by FixedSizeCrop)."""
+
+    def __init__(self, x0: int, y0: int, x1: int, y1: int,
+                 pad_value: float = 0.0, seg_pad_value: int = 0):
+        self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
+        self.pad_value = pad_value
+        self.seg_pad_value = seg_pad_value
+
+    def _pad(self, img, value):
+        pads = [(self.y0, self.y1), (self.x0, self.x1)] + [(0, 0)] * (img.ndim - 2)
+        return np.pad(img, pads, constant_values=value).astype(img.dtype)
+
+    def apply_image(self, img):
+        return self._pad(img, self.pad_value)
+
+    def apply_segmentation(self, segmentation):
+        return self._pad(segmentation, self.seg_pad_value)
+
+    def apply_coords(self, coords):
+        coords = coords.copy()
+        coords[:, 0] += self.x0
+        coords[:, 1] += self.y0
+        return coords
+
+
+class ExtentTransform(Transform):
+    """Resample a (possibly out-of-bounds, zero-padded) source rectangle to a
+    fixed output size (reference fvcore ExtentTransform via PIL EXTENT; used
+    by RandomExtent)."""
+
+    def __init__(self, src_rect, output_size, interp=Image.BILINEAR, fill=0):
+        self.src_rect = tuple(float(v) for v in src_rect)  # x0, y0, x1, y1
+        self.output_size = tuple(int(v) for v in output_size)  # h, w
+        self.interp = interp
+        self.fill = fill
+
+    def _apply(self, img, interp):
+        h, w = self.output_size
+        if len(img.shape) > 2 and img.shape[2] == 1:
+            pil = Image.fromarray(img[:, :, 0])
+        else:
+            pil = Image.fromarray(img)
+        pil = pil.transform(
+            size=(w, h), method=Image.EXTENT, data=self.src_rect,
+            resample=interp, fill=self.fill,
+        )
+        out = np.asarray(pil)
+        if len(img.shape) > 2 and img.shape[2] == 1:
+            out = out[:, :, None]
+        return out
+
+    def apply_image(self, img):
+        return self._apply(img, self.interp)
+
+    def apply_segmentation(self, segmentation):
+        return self._apply(segmentation, Image.NEAREST)
+
+    def apply_coords(self, coords):
+        x0, y0, x1, y1 = self.src_rect
+        h, w = self.output_size
+        coords = coords.astype(np.float64).copy()
+        coords[:, 0] = (coords[:, 0] - x0) * (w / max(x1 - x0, 1e-9))
+        coords[:, 1] = (coords[:, 1] - y0) * (h / max(y1 - y0, 1e-9))
+        return coords
+
+
+class BlendTransform(Transform):
+    """Photometric blend: img * src_weight + src_image * dst_weight — the
+    reference's brightness/contrast/saturation primitive
+    (fvcore BlendTransform used by augmentation_impl.py RandomBrightness:552,
+    RandomContrast:528, RandomSaturation:576). Geometry is identity."""
+
+    def __init__(self, src_image, src_weight: float, dst_weight: float):
+        self.src_image = src_image
+        self.src_weight = src_weight
+        self.dst_weight = dst_weight
+
+    def apply_image(self, img):
+        out = self.src_weight * self.src_image + self.dst_weight * img.astype(np.float64)
+        return np.clip(out, 0, 255).astype(img.dtype)
+
+    def apply_coords(self, coords):
+        return coords
+
+    def apply_segmentation(self, segmentation):
+        return segmentation
+
+
+def random_brightness(rng, lo: float = 0.9, hi: float = 1.1) -> BlendTransform:
+    return BlendTransform(0.0, 0.0, rng.uniform(lo, hi))
+
+
+def random_contrast(img, rng, lo: float = 0.9, hi: float = 1.1) -> BlendTransform:
+    w = rng.uniform(lo, hi)
+    return BlendTransform(float(img.mean()), 1 - w, w)
+
+
+def random_saturation(img, rng, lo: float = 0.9, hi: float = 1.1) -> BlendTransform:
+    w = rng.uniform(lo, hi)
+    grey = img.astype(np.float64) @ np.asarray([0.299, 0.587, 0.114])
+    return BlendTransform(grey[:, :, None], 1 - w, w)
+
+
+class RotationTransform(Transform):
+    """Rotate by ``angle`` degrees around ``center`` (default: image center).
+
+    expand=True grows the canvas to hold the whole rotated image (reference
+    augmentation_impl.py:392 RandomRotation); expand=False keeps the original
+    size, cropping corners — the IDOL rotation recipe
+    (idol/data/augmentation.py:153 uses expand=False with a random center).
+    """
+
+    def __init__(self, h: int, w: int, angle: float, expand: bool = True,
+                 center: Optional[Tuple[float, float]] = None):
+        self.h, self.w, self.angle = h, w, float(angle)
+        self.expand = expand
+        rad = np.deg2rad(self.angle)
+        # PIL rounds the matrix coefficients to 15 decimals (Image.rotate), so
+        # exact angles like 90 deg produce exact bounds — match it
+        c, s = round(float(np.cos(rad)), 15), round(float(np.sin(rad)), 15)
+        # rotation in array (y-down) coords: PIL rotates counterclockwise in
+        # display coords, which is the matrix [[c, s], [-s, c]] here
+        self._m = np.asarray([[c, s], [-s, c]])
+        self._center = np.asarray(center if center is not None else (w / 2.0, h / 2.0))
+        if expand:
+            # expanded bounds, computed exactly like PIL.Image.rotate(expand=True)
+            corners = np.asarray([[0, 0], [w, 0], [w, h], [0, h]], np.float64)
+            rel = corners - np.asarray([w / 2.0, h / 2.0])
+            rot = rel @ self._m.T
+            self.new_w = int(np.ceil(rot[:, 0].max()) - np.floor(rot[:, 0].min()))
+            self.new_h = int(np.ceil(rot[:, 1].max()) - np.floor(rot[:, 1].min()))
+            self._new_center = np.asarray([self.new_w / 2.0, self.new_h / 2.0])
+        else:
+            self.new_w, self.new_h = w, h
+            self._new_center = self._center
+
+    def _rotate(self, img, resample):
+        pil = Image.fromarray(img)
+        out = pil.rotate(
+            self.angle, resample=resample, expand=self.expand,
+            center=None if self.expand else tuple(self._center),
+        )
+        arr = np.asarray(out)
+        # PIL's expand uses the same bounds formula; pad/crop for rounding skew
+        if arr.shape[0] != self.new_h or arr.shape[1] != self.new_w:
+            fixed = np.zeros((self.new_h, self.new_w) + arr.shape[2:], arr.dtype)
+            fixed[: arr.shape[0], : arr.shape[1]] = arr[: self.new_h, : self.new_w]
+            arr = fixed
+        return arr
+
+    def apply_image(self, img):
+        return self._rotate(img, Image.BILINEAR)
+
+    def apply_segmentation(self, segmentation):
+        return self._rotate(segmentation, Image.NEAREST)
+
+    def apply_coords(self, coords):
+        return (coords - self._center) @ self._m.T + self._new_center
 
 
 class NoOpTransform(Transform):
@@ -187,3 +366,39 @@ class ClipAugmentation:
         if self.is_train and self.flip and rng.random() < 0.5:
             tfms.append(HFlipTransform(cur_w))
         return TransformList(tfms)
+
+
+def count_hflips(transform) -> int:
+    """Number of HFlipTransforms in a (possibly nested) transform (list)."""
+    if isinstance(transform, TransformList):
+        return sum(count_hflips(t) for t in transform.transforms)
+    return int(isinstance(transform, HFlipTransform))
+
+
+def transform_keypoint_annotations(keypoints, transforms, image_size, keypoint_hflip_indices=None):
+    """Transform COCO keypoint annotations ([x,y,vis]*K flat or [K,3]).
+
+    Semantics mirror the reference detection_utils.py transform_keypoint_annotations:
+    apply_coords on xy, out-of-image points become unlabeled (vis=0), an odd number
+    of horizontal flips permutes the keypoint order by the flip map, and unlabeled
+    keypoints are zeroed (COCO convention). ``image_size`` is (h, w) AFTER transform.
+    """
+    keypoints = np.asarray(keypoints, dtype=np.float64).reshape(-1, 3)
+    keypoints_xy = transforms.apply_coords(keypoints[:, :2].copy())
+    inside = (keypoints_xy >= np.array([0, 0])) & (
+        keypoints_xy <= np.array(image_size[::-1])
+    )
+    inside = inside.all(axis=1)
+    keypoints[:, :2] = keypoints_xy
+    keypoints[:, 2][~inside] = 0
+    if count_hflips(transforms) % 2 == 1:
+        if keypoint_hflip_indices is None:
+            raise ValueError("Cannot flip keypoints without providing flip indices!")
+        if len(keypoints) != len(keypoint_hflip_indices):
+            raise ValueError(
+                f"Keypoint data has {len(keypoints)} points, but metadata "
+                f"contains {len(keypoint_hflip_indices)} points!"
+            )
+        keypoints = keypoints[np.asarray(keypoint_hflip_indices, dtype=np.int32)]
+    keypoints[keypoints[:, 2] == 0] = 0
+    return keypoints

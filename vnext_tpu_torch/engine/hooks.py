@@ -1,18 +1,29 @@
 """Training hooks: step timer, learning-rate tracker, periodic writers,
-checkpoints and evaluation.
+checkpoints, evaluation, the profiler and PreciseBN.
 
-Counterpart of the parts of ``vnext_tpu.engine.hooks`` IDOL's entry point runs
-(``HookBase``, ``IterationTimer``, ``LRTracker``, ``PeriodicWriter``,
-``PeriodicCheckpointer``, ``EvalHook``, ``BestCheckpointer``); checkpoints go
-through ``checkpoint.checkpointer.Checkpointer``. The profiler and PreciseBN
-hooks are not ported yet.
+Counterpart of ``vnext_tpu.engine.hooks``: ``HookBase``, ``IterationTimer``,
+``LRTracker``, ``PeriodicWriter``, ``PeriodicCheckpointer``, ``EvalHook``,
+``BestCheckpointer``, ``ProfilerHook`` (``torch.profiler`` in place of
+``jax.profiler``) and PreciseBN (``update_bn_stats``, ``PreciseBNHook``) on a
+torch model's ``nn.BatchNorm*`` modules; checkpoints go through
+``checkpoint.checkpointer.Checkpointer``.
+
+PreciseBN keeps the JAX package's statistics: flax's BatchNorm keeps the
+biased batch variance, torch's ``running_var`` the unbiased one, so the port
+reads each batch's mean and biased variance off the BatchNorm inputs and
+never through torch's running update.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
+import os
 import time
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, Iterable, Optional, Sequence
+
+import torch
+from torch import nn
 
 from ..utils.events import EventWriter, get_event_storage
 
@@ -171,3 +182,116 @@ def _flatten(d, prefix=""):
                 yield key, float(v)
             except (TypeError, ValueError):
                 pass
+
+
+class ProfilerHook(HookBase):
+    """A ``torch.profiler`` trace (CPU and, where there is one, CUDA activity) of
+    the steps ``[start_iter, start_iter + num_steps)``, written as one Chrome
+    trace ``trace_<start_iter>.json`` into ``output_dir``; stopped after
+    training if the run ends inside the window."""
+
+    def __init__(self, output_dir: str, start_iter: int = 10, num_steps: int = 5):
+        self._dir = output_dir
+        self._start = start_iter
+        self._stop = start_iter + num_steps
+        self._profiler = None
+
+    def before_step(self):
+        if self.trainer.iter == self._start and self._profiler is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.__enter__()
+
+    def after_step(self):
+        if self.trainer.iter + 1 >= self._stop:
+            self._finish()
+
+    def after_train(self):
+        self._finish()
+
+    def _finish(self):
+        if self._profiler is None:
+            return
+        self._profiler.__exit__(None, None, None)
+        os.makedirs(self._dir, exist_ok=True)
+        path = os.path.join(self._dir, f"trace_{self._start}.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        logger.info("Profiler trace written to %s", path)
+
+
+def _batch_norms(model: nn.Module):
+    return [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+
+
+@torch.no_grad()
+def update_bn_stats(model: nn.Module, batches: Iterable[Any],
+                    forward: Optional[Callable[[nn.Module, Any], Any]] = None) -> int:
+    """PreciseBN (detectron2's hook, fvcore's ``update_bn_stats``): run the
+    model in training mode over ``batches`` (``forward(model, batch)``, default
+    ``model(batch)``) and set every BatchNorm's ``running_mean`` /
+    ``running_var`` to the plain average over the batches of each batch's mean
+    and biased variance, as the JAX package recovers them from flax's update.
+    The model's mode and each BatchNorm's ``num_batches_tracked`` are restored.
+    Returns the number of batches (at least one is needed)."""
+    norms = _batch_norms(model)
+    sums = {bn: [torch.zeros_like(bn.running_mean, dtype=torch.float32),
+                 torch.zeros_like(bn.running_var, dtype=torch.float32)] for bn in norms}
+
+    def record(bn, inputs):
+        x = inputs[0].float()
+        dims = [d for d in range(x.dim()) if d != 1]
+        sums[bn][0] += x.mean(dim=dims)
+        sums[bn][1] += x.var(dim=dims, correction=0)
+
+    handles = [bn.register_forward_pre_hook(record) for bn in norms]
+    tracked = {bn: bn.num_batches_tracked.clone() for bn in norms if bn.num_batches_tracked is not None}
+    was_training = model.training
+    model.train()
+    n = 0
+    try:
+        for batch in batches:
+            forward(model, batch) if forward is not None else model(batch)
+            n += 1
+    finally:
+        for h in handles:
+            h.remove()
+        model.train(was_training)
+    if n == 0:
+        raise ValueError("update_bn_stats needs at least one batch")
+    for bn, (mean, var) in sums.items():
+        bn.running_mean.copy_(mean / n)
+        bn.running_var.copy_(var / n)
+        if bn in tracked:
+            bn.num_batches_tracked.copy_(tracked[bn])
+    return n
+
+
+class PreciseBNHook(HookBase):
+    """Every ``period`` steps (0: never) and after training, the trainer's
+    model's BatchNorm statistics re-estimated by :func:`update_bn_stats` over
+    the next ``num_iters`` batches of ``data_loader``; a model with no
+    BatchNorm is left alone."""
+
+    def __init__(self, data_loader: Iterable[Any], num_iters: int = 200, period: int = 0,
+                 forward: Optional[Callable[[nn.Module, Any], Any]] = None):
+        self._loader = data_loader
+        self._num_iters = num_iters
+        self._period = period
+        self._forward = forward
+
+    def _recompute(self):
+        model = self.trainer.state.model
+        if not _batch_norms(model):
+            return
+        n = update_bn_stats(model, itertools.islice(iter(self._loader), self._num_iters), self._forward)
+        logger.info("PreciseBN: refreshed batch statistics over %d batches", n)
+
+    def after_step(self):
+        if self._period and (self.trainer.iter + 1) % self._period == 0:
+            self._recompute()
+
+    def after_train(self):
+        self._recompute()

@@ -14,6 +14,14 @@ detectron2's command line):
 ``VISTrainer`` with its hooks and periodic checkpoints, and ``--resume``
 continues from the output directory's ``last_checkpoint``.
 
+IDOL's COCO-pretrain stage (``configs/idol/coco_pretrain/*.yaml``) trains with
+``INPUT.COCO_PRETRAIN True``: the COCO splits are registered (and the
+synthetic COCO set where the config names it) and ``CocoClipDatasetMapper``
+turns each still image into a key + reference pseudo-clip. The yaml files do
+not set the flag, and it is not inferred from the dataset's name, as in the
+JAX package. Its ``MODEL.WEIGHTS`` may be a detectron2 ``.pkl`` ImageNet init,
+opened as a path (a ``detectron2://`` URL is not resolved).
+
 The run is on the card unless the config says ``MODEL.DEVICE cpu`` (the
 tests' setting, which runs the kernels' plain versions); with no CUDA device
 visible it raises rather than carry on on the CPU. The defaults' ``"tpu"``, the
@@ -30,8 +38,9 @@ import torch
 
 from ..checkpoint.checkpointer import Checkpointer, load_weights
 from ..config import add_idol_config, get_cfg
-from ..data import build_vis_test_loader, build_vis_train_loader, register_all_ytvis
-from ..data.datasets.synthetic import register_synthetic_ytvis
+from ..data import (CocoClipDatasetMapper, MetadataCatalog, build_vis_test_loader, build_vis_train_loader,
+                    register_all_coco, register_all_ytvis)
+from ..data.datasets.synthetic import register_synthetic_coco, register_synthetic_ytvis
 from ..engine.hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, PeriodicWriter
 from ..engine.launch import launch
 from ..engine.train_step import TrainState, make_train_step
@@ -47,6 +56,8 @@ from ..utils.logger import setup_logger
 
 # the quick-schedule configs' dataset (configs/quick_schedules/idol_instant_test.yaml)
 SYNTHETIC_DATASET = "ytvis_synthetic_tiny"
+# the COCO-format synthetic dataset, for the COCO-pretrain stage on the quick-schedule config
+SYNTHETIC_COCO_DATASET = "coco_synthetic_tiny"
 
 
 def default_argument_parser():
@@ -94,12 +105,32 @@ def resolve_device(cfg) -> torch.device:
 
 
 def _register_datasets(cfg):
-    """The builtin YTVIS splits, and the synthetic dataset (generated under the
-    repository's build directory unless registered already) where the config
-    names it."""
+    """The builtin YTVIS splits, the COCO ones with ``INPUT.COCO_PRETRAIN``, and
+    the synthetic datasets (generated under the repository's build directory
+    unless registered already) where the config names them."""
     register_all_ytvis()
-    if SYNTHETIC_DATASET in (*cfg.DATASETS.TRAIN, *cfg.DATASETS.TEST):
+    named = (*cfg.DATASETS.TRAIN, *cfg.DATASETS.TEST)
+    if SYNTHETIC_DATASET in named:
         register_synthetic_ytvis(SYNTHETIC_DATASET)
+    if cfg.INPUT.COCO_PRETRAIN:
+        register_all_coco()
+        if SYNTHETIC_COCO_DATASET in named:
+            register_synthetic_coco(SYNTHETIC_COCO_DATASET)
+
+
+def _check_test_sets(cfg):
+    """Raise before the first step what the evaluation after training would
+    raise after the last: a ``DATASETS.TEST`` dataset of an evaluator type the
+    port lacks (COCO's, ROADMAP Queue 1 item 11), or one with fewer categories
+    than ``MODEL.IDOL.NUM_CLASSES`` (a predicted label past the dataset's has
+    no category id to be written under)."""
+    for name in cfg.DATASETS.TEST:
+        build_evaluator(cfg, name)
+        classes = MetadataCatalog.get(name).get("thing_classes")
+        if classes is not None and len(classes) < cfg.MODEL.IDOL.NUM_CLASSES:
+            raise ValueError(f"DATASETS.TEST {name!r} has {len(classes)} categories and the model predicts "
+                             f"MODEL.IDOL.NUM_CLASSES {cfg.MODEL.IDOL.NUM_CLASSES}: evaluate on a dataset with as "
+                             "many categories, or set DATASETS.TEST \"()\"")
 
 
 def do_eval(cfg, model=None):
@@ -131,11 +162,11 @@ def do_eval(cfg, model=None):
 def do_train(cfg, resume: bool = False) -> VISTrainer:
     """Train IDOL for ``SOLVER.MAX_ITER`` steps with the recipe's optimizer,
     schedule and clip, the hooks (timer, learning rate, periodic checkpoints,
-    evaluation, metric writers), from the last checkpoint with ``resume``."""
+    evaluation, metric writers), from the last checkpoint with ``resume``; on
+    COCO pseudo-clips with ``INPUT.COCO_PRETRAIN``. A ``DATASETS.TEST`` set
+    that the evaluation after training could not score raises first."""
     _register_datasets(cfg)
-    if cfg.INPUT.COCO_PRETRAIN:
-        raise NotImplementedError("INPUT.COCO_PRETRAIN (CocoClipDatasetMapper, IDOL's COCO-pretrain stage) is "
-                                  "not ported yet: ROADMAP Queue 1, item 5")
+    _check_test_sets(cfg)
     device = resolve_device(cfg)
     seed = max(cfg.SEED, 0)
     model = build_idol_model(cfg, device=device, seed=seed)
@@ -151,7 +182,8 @@ def do_train(cfg, resume: bool = False) -> VISTrainer:
     state = TrainState.create(model, optimizer, build_lr_scheduler(cfg, optimizer))
     state, start_iter = checkpointer.resume_or_load(cfg.MODEL.WEIGHTS, state, resume=resume)
 
-    loader = build_vis_train_loader(cfg, seed=seed)
+    mapper = CocoClipDatasetMapper.from_config(cfg, is_train=True) if cfg.INPUT.COCO_PRETRAIN else None
+    loader = build_vis_train_loader(cfg, mapper=mapper, seed=seed)
     trainer = VISTrainer(train_step, state, loader, device,
                          pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN), pixel_std=tuple(cfg.MODEL.PIXEL_STD))
     trainer.register_hooks([
