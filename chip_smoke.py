@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only instmove_train    # phase 1, K2 at InstMove's call and phase 22 alone
     python3 chip_smoke.py --only fused_tracker     # phases 1 and 23 alone
     python3 chip_smoke.py --only coco_pretrain     # phases 1 and 24 alone
+    python3 chip_smoke.py --only tools             # phases 1 and 25 alone
 
 Phases, each printed as it ends; any failure raises and exits non-zero. Each
 path zeroes every kernel's launch counter just before it runs and reads them
@@ -205,6 +206,24 @@ port's own reader (``vnext_tpu_torch.config``).
     ``swin_coco_sequence.yaml`` for 2 steps with seeded weights (K4 / K5 = 24
     / 24 a step) and its peak memory. The evaluation after training runs on a
     synthetic YTVIS set whose json lists 80 categories.
+25. The user-facing tools in-process, seeded weights: the demo
+    (``vnext_tpu_torch.tools.demo.main``) at ``configs/idol/ytvis19_r50.yaml``
+    on a synthetic video of 20 frames at 480x853, from a folder of PNGs and
+    from an MJPEG-AVI written by the port's ``VideoWriter`` (20 frames written
+    each way, the AVI read back, K1 / K2 / K3 = 12 / 1 / 6 a clip of 10, the
+    tracks equal to ``IDOLVideoInference``'s called directly on the same
+    record; the model's class-0 bias raised as in phase 3 and passed as
+    ``MODEL.WEIGHTS``), then ``--model-type seqformer`` and ``minvis`` on 6
+    frames; IDOL-R50 and SeqFormer-R50 exported at 10 x 480x864
+    (``export_program``): the graph holds exactly their ``vnext::`` operators
+    (IDOL K1 12, K2 1, K3 6; SeqFormer K1 6, K4 6, K2 1, K3 6) and no plain
+    version, the ``.pt2`` saved and loaded, its run launches exactly those and
+    equals the eager model within one bf16 ulp at the largest element, its
+    forward timed beside the eager one; ``analyze_model`` on IDOL-R50 at
+    480x864 with and without the operators' FLOP formulas; ``plain_train_net``
+    and ``lazyconfig_train_net`` (``config/examples/idol_lazy.py``) for 2 steps
+    of 4 clips at 512x640 each: K4 / K5 / K2 = 24 / 24 / 2 a step, losses
+    finite, a checkpoint written.
 
 Then a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -3943,15 +3962,317 @@ def phase_coco_pretrain(dev, kernels, smi):
     return {"coco_pretrain_train": straight["launches"], "coco_pretrain_swinl_train": result["swin"]["launches"]}, result
 
 
+# ---------------------------------------------------------------- phase 25
+TOOLS_DATASET = "ytvis_synthetic_tools"
+TOOLS_VIDEO_FRAMES = 20      # the demo's video (phase 17's kind: 480x853)
+TOOLS_SHORT_FRAMES = 6       # SeqFormer's and MinVIS's demo video
+TOOLS_STEPS = 2              # plain_train_net's and lazyconfig_train_net's steps
+# what one clip of 10 launches through IDOL's and SeqFormer's inference (and so
+# what their exported graphs hold): the operator name -> its kernel's counter
+OP_KERNEL = {"msda_fwd": "ms_deform_attn_fwd", "msda_fwd_loc": "ms_deform_attn_v9_fwd", "stem_conv": "stem_conv",
+             "encoder_epilogue": "encoder_epilogue"}
+EXPORT_OPS = {"IDOL": {"msda_fwd": 12, "stem_conv": 1, "encoder_epilogue": 6},
+              "SeqFormer": {"msda_fwd": 6, "msda_fwd_loc": 6, "stem_conv": 1, "encoder_epilogue": 6}}
+
+
+def bf16_ulp_at(x: float) -> float:
+    """The spacing of bf16 values at magnitude ``x``."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def write_frames(frames, folder):
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    for i, fr in enumerate(frames):
+        Image.fromarray(fr).save(f"{folder}/{i:05d}.png")
+    return sorted(f"{folder}/{n}" for n in os.listdir(folder))
+
+
+def tools_demo(dev, kernels, tmp):
+    """Step 1: the demo in-process at ytvis19_r50 width on a 20-frame video, from
+    a folder of PNGs and from an MJPEG-AVI; SeqFormer-R50 and MinVIS-R50 on a
+    6-frame one."""
+    import torch
+    from PIL import Image
+
+    from vnext_tpu_torch.engine.vis_inference import IDOLVideoInference
+    from vnext_tpu_torch.models import build_model
+    from vnext_tpu_torch.tools import demo
+    from vnext_tpu_torch.utils.video_io import VideoWriter, read_mjpeg_avi
+
+    configs = Path(__file__).resolve().parent / "configs"
+    frames = synthetic_video(5, TOOLS_VIDEO_FRAMES)
+    paths = write_frames(frames, f"{tmp}/frames")
+    with VideoWriter(f"{tmp}/in.avi", fps=25.0) as vw:
+        for fr in frames:
+            vw.write(fr)
+
+    # the seeded model build_model makes, its class-0 bias raised (phase 3) so that tracks are born,
+    # saved as the demo's MODEL.WEIGHTS; the same model through IDOLVideoInference directly
+    cfg = read_config("idol/ytvis19_r50.yaml")
+    model = build_model(cfg, device=dev)
+    load = lambda p: np.asarray(Image.open(p).convert("RGB"))                 # noqa: E731
+    runner = IDOLVideoInference(model, batch_infer_len=cfg.MODEL.IDOL.BATCH_INFER_LEN,
+                                test_short_edge=cfg.INPUT.MIN_SIZE_TEST, test_max_size=cfg.INPUT.MAX_SIZE_TEST,
+                                target_size=tuple(cfg.TPU.TEST_IMAGE_SIZE), pixel_mean=cfg.MODEL.PIXEL_MEAN,
+                                pixel_std=cfg.MODEL.PIXEL_STD, image_loader=load)
+    record = {"file_names": paths, "height": VIDEO_HW[0], "width": VIDEO_HW[1], "length": len(paths), "video_id": 0}
+    probe = {**record, "file_names": paths[:CLIP], "length": CLIP}
+    raise_class_bias(model, runner.infer_clip(*runner._prepare_frames(probe))["pred_logits"][..., 0])
+    weights = f"{tmp}/idol_r50_seeded.pth"
+    torch.save(model.state_dict(), weights)
+    direct = runner(record)
+    torch.cuda.synchronize()
+
+    n_clips = -(-TOOLS_VIDEO_FRAMES // CLIP)
+    want = {"ms_deform_attn_fwd": 12 * n_clips, "stem_conv": n_clips, "encoder_epilogue": 6 * n_clips}
+    idol_cfg = str(configs / "idol" / "ytvis19_r50.yaml")
+    result, launches = {}, {}
+    for label, io_args in (("folder", ["--input", f"{tmp}/frames", "--output", f"{tmp}/out_frames"]),
+                           ("avi", ["--video-input", f"{tmp}/in.avi", "--video-output", f"{tmp}/out.avi"])):
+        zero(kernels)
+        res = demo.main(["--config-file", idol_cfg, *io_args, "MODEL.WEIGHTS", weights])
+        torch.cuda.synchronize()
+        got = counts(kernels)
+        print(f"  demo IDOL-R50 from a {label}: {res['frames']} frames written, launches {got} (expected {want}), "
+              f"{len(res['output']['pred_scores'])} tracks; the video {res['inference_s'] * 1e3:.1f} ms "
+              f"(host clock around the runner, decode and masks included), visualization and writing "
+              f"{res['visualize_ms_per_frame']:.2f} ms a frame (host clock)")
+        require(got == want, f"demo from a {label}: launches {got} != {want}")
+        require(res["frames"] == TOOLS_VIDEO_FRAMES, f"demo from a {label} wrote {res['frames']} frames")
+        result[label] = {"frames": res["frames"], "video_ms": res["inference_s"] * 1e3,
+                         "visualize_ms_per_frame": res["visualize_ms_per_frame"],
+                         "tracks": len(res["output"]["pred_scores"])}
+        launches[f"tools_demo_{label}"] = got
+        if label == "folder":
+            out = res["output"]
+            require(len(out["pred_scores"]) > 0, "the demo made no track: the class bias did not take")
+            require(out["pred_labels"] == direct["pred_labels"], "demo and direct runner: labels differ")
+            score_diff = float(np.max(np.abs(np.subtract(out["pred_scores"], direct["pred_scores"]))))
+            mask_same = [float(np.mean(np.asarray(a) == np.asarray(b)))
+                         for ia, ib in zip(out["pred_masks"], direct["pred_masks"])
+                         for a, b in zip(ia, ib) if a is not None or b is not None]
+            require(all(a is not None and b is not None or a is None and b is None
+                        for ia, ib in zip(out["pred_masks"], direct["pred_masks"]) for a, b in zip(ia, ib)),
+                    "demo and direct runner: tracks present on other frames")
+            # the same model, kernels and frames: equal unless the card's sums change order between runs
+            require(score_diff <= 1e-6 and min(mask_same) >= 0.999,
+                    f"demo and direct runner: scores differ by {score_diff}, masks agree on {min(mask_same)}")
+            print(f"  the demo's tracks against IDOLVideoInference called directly on the same record: labels "
+                  f"equal, scores within {score_diff:.2e}, masks equal on {min(mask_same) * 100:.4f}% of pixels "
+                  f"at worst")
+            require(len(os.listdir(f"{tmp}/out_frames")) == TOOLS_VIDEO_FRAMES, "PNGs written")
+            result["direct_score_max_diff"] = score_diff
+            result["direct_mask_min_agreement"] = min(mask_same)
+        else:
+            back, fps = read_mjpeg_avi(f"{tmp}/out.avi")
+            require(len(back) == TOOLS_VIDEO_FRAMES and back[0].shape == (*VIDEO_HW, 3),
+                    f"the written AVI reads back {len(back)} frames of {back[0].shape}")
+            print(f"  {tmp}/out.avi reads back {len(back)} frames at {fps:.1f} fps")
+    del model, runner
+    torch.cuda.empty_cache()
+
+    short = write_frames(frames[:TOOLS_SHORT_FRAMES], f"{tmp}/short")
+    for mtype, config in (("seqformer", "seqformer/ytvis19_r50.yaml"), ("minvis", "minvis/ovis_r50.yaml")):
+        zero(kernels)
+        res = demo.main(["--config-file", str(configs / config), "--model-type", mtype, "--input",
+                         str(Path(short[0]).parent), "--output", f"{tmp}/out_{mtype}", "MODEL.WEIGHTS", ""])
+        torch.cuda.synchronize()
+        got = counts(kernels)
+        print(f"  demo --model-type {mtype} ({config}, seeded weights) on {TOOLS_SHORT_FRAMES} frames: "
+              f"{res['frames']} frames written, launches {got}, the video {res['inference_s'] * 1e3:.1f} ms")
+        need = ("ms_deform_attn_fwd", "stem_conv", "encoder_epilogue") + (
+            ("ms_deform_attn_v9_fwd",) if mtype == "seqformer" else ())
+        require(res["frames"] == TOOLS_SHORT_FRAMES and all(got.get(k, 0) > 0 for k in need),
+                f"demo {mtype}: {res['frames']} frames, launches {got}")
+        result[mtype] = {"frames": res["frames"], "video_ms": res["inference_s"] * 1e3, "launches": got}
+        launches[f"tools_demo_{mtype}"] = got
+        torch.cuda.empty_cache()
+    return launches, result
+
+
+def tools_export(dev, kernels, tmp):
+    """Step 2: IDOL-R50 and SeqFormer-R50 exported at 10 x 480x864, saved,
+    loaded and run; the graph's operators, the launches, the outputs against
+    the eager model's and the times."""
+    import torch
+
+    from vnext_tpu_torch.export import (export_program, load_exported, plain_versions_refused, save_exported,
+                                        vnext_op_counts)
+    from vnext_tpu_torch.models import build_model
+    from vnext_tpu_torch.tools.export_model import example_inputs, inference_fn
+
+    frames = synthetic_video(6, CLIP)
+    padded = np.zeros((CLIP, HEIGHT, WIDTH, 3), np.uint8)
+    padded[:, :VIDEO_HW[0], :VIDEO_HW[1]] = frames
+    result, launches = {}, {}
+    for arch, config in (("IDOL", "idol/ytvis19_r50.yaml"), ("SeqFormer", "seqformer/ytvis19_r50.yaml")):
+        cfg = read_config(config)
+        model = build_model(cfg, device=dev)
+        fn = inference_fn(model)
+        example = example_inputs(model, CLIP, HEIGHT, WIDTH, dev)
+        mean = torch.tensor(cfg.MODEL.PIXEL_MEAN, device=dev)
+        std = torch.tensor(cfg.MODEL.PIXEL_STD, device=dev)
+        images = (torch.from_numpy(padded).to(dev).float() - mean) / std
+        sizes = torch.tensor([list(VIDEO_HW)] * CLIP, dtype=torch.int32, device=dev)
+        args = (images[None], sizes[:1]) if arch == "SeqFormer" else (images, sizes)
+
+        zero(kernels)
+        t0 = time.perf_counter()
+        with plain_versions_refused():       # the trace reaching a plain version raises
+            exported = export_program(fn, example)
+        export_s = time.perf_counter() - t0
+        require(counts(kernels) == {}, f"{arch}: tracing launched kernels {counts(kernels)}")
+        ops = vnext_op_counts(exported)
+        nodes = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
+        extra = {k: sum(t.startswith(k) for t in nodes) for k in ("aten._assert_tensor_metadata", "aten.to.")}
+        print(f"  export {arch}-R50 ({config}, {CLIP} x {HEIGHT}x{WIDTH}) in {export_s:.1f} s: the graph holds "
+              f"{ops} (expected {EXPORT_OPS[arch]}); the trace reached no plain version; {len(nodes)} operator "
+              f"nodes, {extra} of them")
+        require(ops == EXPORT_OPS[arch], f"{arch}: graph ops {ops}")
+        path = f"{tmp}/{arch.lower()}.pt2"
+        save_exported(exported, path)
+        size_mb = os.path.getsize(path) / 2 ** 20
+        del exported
+        t0 = time.perf_counter()
+        program = load_exported(path).module()
+        load_s = time.perf_counter() - t0
+
+        with torch.no_grad():
+            zero(kernels)
+            got = program(*args)
+            torch.cuda.synchronize()
+            ran = counts(kernels)
+            want = {OP_KERNEL[k]: n for k, n in EXPORT_OPS[arch].items()}
+            require(ran == want, f"{arch}: the loaded program launched {ran}, not {want}")
+            eager = fn(*args)
+            diffs = {}
+            for k in eager:
+                a, b = got[k].float(), eager[k].float()
+                diff = float((a - b).abs().max())
+                limit = bf16_ulp_at(float(b.abs().max()))
+                diffs[k] = {"max_abs_diff": diff, "bit_equal": bool(torch.equal(got[k], eager[k])),
+                            "one_bf16_ulp_at_largest": limit}
+                require(got[k].shape == eager[k].shape and diff <= limit,
+                        f"{arch} {k}: loaded program vs eager differ by {diff} (> {limit})")
+            loaded_ms = time_ms(lambda: program(*args))
+            eager_ms = time_ms(lambda: fn(*args))
+            # where the loaded program's extra time goes: the device's busy time against the wall
+            loaded_busy, loaded_wall = profile_busy(lambda: program(*args), f"{arch} loaded program", top=4)
+            eager_busy, eager_wall = profile_busy(lambda: fn(*args), f"{arch} eager", top=4)
+        print(f"  {path} {size_mb:.1f} MiB, loaded in {load_s:.1f} s; its run launched {ran}; against the eager "
+              f"model: " + ", ".join(f"{k} {'bit-equal' if v['bit_equal'] else 'max |diff| %.3g' % v['max_abs_diff']}"
+                                     for k, v in diffs.items()))
+        print(f"  {arch}-R50 forward of {CLIP} x {HEIGHT}x{WIDTH} (CUDA events, median of 10): loaded program "
+              f"{loaded_ms:.2f} ms, eager {eager_ms:.2f} ms; under the profiler the device is busy "
+              f"{loaded_busy:.2f} of {loaded_wall:.2f} ms for the loaded program, {eager_busy:.2f} of "
+              f"{eager_wall:.2f} ms eager")
+        result[arch] = {"export_s": export_s, "pt2_mib": size_mb, "load_s": load_s, "graph_ops": ops,
+                        "graph_nodes": len(nodes), "graph_nodes_of": extra,
+                        "launches": ran, "outputs": diffs, "loaded_forward_ms": loaded_ms,
+                        "eager_forward_ms": eager_ms, "loaded_busy_ms": loaded_busy, "loaded_wall_ms": loaded_wall,
+                        "eager_busy_ms": eager_busy, "eager_wall_ms": eager_wall}
+        launches[f"tools_export_{arch.lower()}"] = ran
+        del program, model, got, eager
+        torch.cuda.empty_cache()
+    return launches, result
+
+
+def tools_train(dev, kernels, tmp):
+    """Steps 4 and 5: plain_train_net and lazyconfig_train_net for 2 steps of
+    4 clips at ytvis19_r50 width on a synthetic YTVIS dataset."""
+    import torch
+
+    from vnext_tpu_torch.data.datasets.ytvis import YTVIS_2019_CLASSES
+    from vnext_tpu_torch.tools import lazyconfig_train_net, plain_train_net
+
+    register_synthetic(f"{tmp}/data", TOOLS_DATASET, YTVIS_2019_CLASSES, num_frames=6)
+    config = str(Path(__file__).resolve().parent / "configs" / "idol" / "ytvis19_r50.yaml")
+    recipe = ["MODEL.WEIGHTS", "", "DATASETS.TRAIN", f"('{TOOLS_DATASET}',)", "DATASETS.TEST", "()",
+              "SOLVER.IMS_PER_BATCH", str(TRAIN_CLIPS)]
+    example = Path(__file__).resolve().parent / "vnext_tpu_torch" / "config" / "examples" / "idol_lazy.py"
+    want = {"ms_deform_attn_v9_fwd": 24 * TOOLS_STEPS, "ms_deform_attn_v9_bwd": 24 * TOOLS_STEPS,
+            "stem_conv": 2 * TOOLS_STEPS}
+    result, launches = {}, {}
+    for label, run in (
+            ("plain_train_net", lambda: plain_train_net.main(
+                ["--config-file", config, *recipe, "SOLVER.MAX_ITER", str(TOOLS_STEPS),
+                 "SOLVER.CHECKPOINT_PERIOD", "1", "OUTPUT_DIR", f"{tmp}/plain"])),
+            ("lazyconfig_train_net", lambda: lazyconfig_train_net.main(
+                ["--config-file", str(example), f"train.max_iter={TOOLS_STEPS}", f"train.output_dir={tmp}/lazy",
+                 f"train.entry.config_file={config}", f"train.entry.opts={recipe}"]))):
+        zero(kernels)
+        t0 = time.perf_counter()
+        state, history = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts(kernels)
+        out_dir = f"{tmp}/{'plain' if label == 'plain_train_net' else 'lazy'}"
+        ckpt = f"{out_dir}/model_{TOOLS_STEPS:07d}.pth"
+        losses = [h["total_loss"] for h in history]
+        print(f"  {label}: {len(history)} steps of {TRAIN_CLIPS} clips in {wall:.1f} s (the model's build and the "
+              f"loader's start included), total loss {', '.join(f'{v:.3f}' for v in losses)}, launches {got} "
+              f"(expected {want}), {os.path.basename(ckpt)} written: {os.path.exists(ckpt)}")
+        require(got == want, f"{label}: launches {got} != {want}")
+        require(len(history) == TOOLS_STEPS and all(np.isfinite(v) for h in history for v in h.values()),
+                f"{label}: losses {history}")
+        require(os.path.exists(ckpt) and state.step == TOOLS_STEPS, f"{label}: no checkpoint {ckpt}")
+        result[label] = {"steps": len(history), "wall_s": wall, "total_loss": losses}
+        launches[f"tools_{label}"] = got
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, result
+
+
+def phase_tools(dev, kernels, smi):
+    """Phase 25: the user-facing tools in-process at published widths with
+    seeded weights: the demo, export, analysis, plain_train_net and
+    lazyconfig_train_net."""
+    import torch
+
+    from vnext_tpu_torch.tools.analyze_model import analyze
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        demo_launches, demo = tools_demo(dev, kernels, tmp)
+        export_launches, export = tools_export(dev, kernels, tmp)
+        t0 = time.perf_counter()
+        stats = analyze(read_config("idol/ytvis19_r50.yaml"), ("parameter", "flop"), (HEIGHT, WIDTH))
+        kernel_share = stats["kernel_flops"] / stats["flops"]
+        print(f"  analyze_model IDOL-R50 at {HEIGHT}x{WIDTH} (one frame): {stats['parameters'] / 1e6:.2f} M "
+              f"parameters; {stats['flops'] / 1e9:.2f} GFLOPs with the operators' formulas, "
+              f"{(stats['flops'] - stats['kernel_flops']) / 1e9:.2f} without them (the kernels' share "
+              f"{kernel_share * 100:.1f}%: " + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in stats["by_operator"].items()
+                                                           if k.startswith("vnext.")) +
+              f" GFLOPs); {time.perf_counter() - t0:.1f} s")
+        require(stats["kernel_flops"] > 0 and all(
+            f"vnext.{op}" in stats["by_operator"] for op in ("msda_fwd", "stem_conv", "encoder_epilogue")),
+            f"the FLOP count misses a kernel's operator: {stats['by_operator']}")
+        analysis = {k: stats[k] for k in ("parameters", "flops", "kernel_flops", "by_operator")}
+        torch.cuda.empty_cache()
+        train_launches, train = tools_train(dev, kernels, tmp)
+    result = {"demo": demo, "export": export, "analysis": analysis, "train": train,
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"  {smi}")
+    print(f"[phase 25] the tools: demo from a folder and an AVI (20 frames each way, K1 / K2 / K3 = 24 / 2 / 12), "
+          f"SeqFormer and MinVIS demos, IDOL / SeqFormer exported and run from .pt2 with exactly their operators' "
+          f"launches, analysis, plain_train_net and lazyconfig_train_net (K4 / K5 / K2 = 24 / 24 / 2 a step); "
+          f"{result['phase_s']:.1f} s")
+    return {**demo_launches, **export_launches, **train_launches}, result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
                                                  "with no argument, every phase.")
     parser.add_argument("--only", choices=("train_numerics", "entry_point", "minvis_entry", "seqformer_train",
-                                           "swin_train", "instmove_train", "fused_tracker", "coco_pretrain"),
+                                           "swin_train", "instmove_train", "fused_tracker", "coco_pretrain",
+                                           "tools"),
                         help="phase 1 and this phase alone (train_numerics: phase 6; entry_point: phase 17; "
                              "minvis_entry: phase 2b's MinVIS and SeqFormer shapes and phase 18; seqformer_train: "
                              "phase 19; swin_train: phases 20 and 21; instmove_train: K2 at InstMove's shape and "
-                             "phase 22; fused_tracker: phase 23; coco_pretrain: phase 24)")
+                             "phase 22; fused_tracker: phase 23; coco_pretrain: phase 24; tools: phase 25)")
     parser.add_argument("--tree", help="with --only: import vnext_tpu_torch from this checkout (an "
                                        "earlier commit's `git archive`) in place of the one beside this script")
     parser.add_argument("--swap-plain", action="append", default=[], choices=("K2", "K4"),
@@ -4003,9 +4324,12 @@ def main(argv=None) -> int:
         elif args.only == "fused_tracker":
             launches, fused = phase_fused_tracker(dev, kernels, smi)
             print(json.dumps({"fused_tracker": fused, "launches": launches}))
-        else:
+        elif args.only == "coco_pretrain":
             launches, coco = phase_coco_pretrain(dev, kernels, smi)
             print(json.dumps({"coco_pretrain": coco, "launches": launches}))
+        else:
+            launches, tools = phase_tools(dev, kernels, smi)
+            print(json.dumps({"tools": tools, "launches": launches}))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -4087,6 +4411,9 @@ def main(argv=None) -> int:
     phase_seconds["23"] = fused_result["phase_s"]
     coco_launches, coco_result = phase_coco_pretrain(dev, kernels, smi)
     phase_seconds["24"] = coco_result["phase_s"]
+    torch.cuda.empty_cache()
+    tools_launches, tools_result = phase_tools(dev, kernels, smi)
+    phase_seconds["25"] = tools_result["phase_s"]
     print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
 
     print(json.dumps({
@@ -4096,7 +4423,7 @@ def main(argv=None) -> int:
         "minvis_entry": minvis_entry_result, "seqformer_train": seq_train_result,
         "idol_swinl_train": swin_train_result, "seqformer_swinl_train": seq_swin_train_result,
         "instmove_train": instmove_train_result, "fused_tracker": fused_result, "coco_pretrain": coco_result,
-        "phase_seconds": phase_seconds,
+        "tools": tools_result, "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
         "k5_decoder_form": measured["bwd_decoder"], "k6_backward_decoder_form": measured["bwd6_decoder"],
@@ -4109,7 +4436,7 @@ def main(argv=None) -> int:
              "minvis": minvis_launches, "instmove": instmove_launches, "idol_swinL": swin_launches,
              "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches, **entry_point_launches,
              **minvis_entry_launches, **seq_train_launches, **swin_train_launches, **seq_swin_train_launches,
-             **fused_launches, **coco_launches}
+             **fused_launches, **coco_launches, **tools_launches}
     for path, names in (("minvis_entry_eval", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
                         ("minvis_entry_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
                         ("seqformer_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
@@ -4117,7 +4444,14 @@ def main(argv=None) -> int:
                         ("seqformer_swinl_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD)),
                         ("idol_fused_serving", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
                         ("coco_pretrain_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
-                        ("coco_pretrain_swinl_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD))):
+                        ("coco_pretrain_swinl_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD)),
+                        ("tools_demo_folder", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
+                        ("tools_demo_avi", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
+                        ("tools_export_idol", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
+                        ("tools_export_seqformer", (msda.KERNEL, msda.KERNEL_V9_FWD, stem_conv.KERNEL,
+                                                    encoder_epilogue.KERNEL)),
+                        ("tools_plain_train_net", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
+                        ("tools_lazyconfig_train_net", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL))):
         for kern in names:
             require(paths[path].get(kern.name, 0) > 0, f"{kern.name}: no launch on the {path} path")
     # K4, K5 and K2 at the new train steps' shapes, beside their rows' train-step shape

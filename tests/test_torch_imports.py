@@ -66,7 +66,12 @@ def test_package_never_imports_jax():
                  "data.dataset_mapper", "data.build", "structures.masks", "evaluation.rle", "evaluation.native",
                  "evaluation.ytvos_eval", "evaluation.ytvis_eval", "evaluation.evaluator", "evaluation.testing",
                  "checkpoint.checkpointer", "engine.launch", "utils.logger", "tools.train_net",
-                 "tools.train_net_video", "ops.hungarian", "ops.point_sample"):
+                 "tools.train_net_video", "ops.hungarian", "ops.point_sample", "utils.registry", "utils.env",
+                 "utils.video_io", "utils.visualizer", "utils.analysis", "utils.memory", "engine.predictor",
+                 "model_zoo", "model_zoo.model_zoo", "export", "export.api", "config.configurable",
+                 "config.compat", "config.lazy", "tools.demo", "tools.export_model", "tools.analyze_model",
+                 "tools.visualize_data", "tools.visualize_json_results", "tools.lazyconfig_train_net",
+                 "tools.plain_train_net"):
         assert f"vnext_tpu_torch.{name}" in names.split(","), name
     assert bad.strip() == "[]"
 
@@ -538,3 +543,42 @@ def test_selector_routes_count_beside_k4_k5(cuda_device, impl, route):
     want = ms_deform_attn.ms_deform_attn_core_plain(value, LEVELS, loc, attn)
     err, scale = _max_err(out.detach(), want)
     assert err <= BF16_ULP * scale, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["IDOL", "SeqFormer"])
+def test_export_on_the_card_runs_the_kernels(cuda_device, tmp_path, arch):
+    """A one-layer model at the kernels' widths (hidden 256 in 8 heads, d_ffn
+    1024, ResNet-18, bf16) exported on the card: the graph holds the vnext::
+    operators, and the program loaded from its .pt2 launches exactly those
+    kernels and gives the eager model's outputs bit for bit (the same kernels
+    and library calls in the same order)."""
+    from vnext_tpu_torch.export import export_program, load_exported, save_exported, vnext_op_counts
+    from vnext_tpu_torch.tools.export_model import example_inputs, inference_fn
+
+    cls = IDOL if arch == "IDOL" else SeqFormer
+    model = cls(num_classes=5, num_queries=20, enc_layers=1, dec_layers=1, backbone_depth=18,
+                dtype=torch.bfloat16)
+    init_weights(model, 0)
+    model = model.to(cuda_device).eval()
+    images, sizes = example_inputs(model, 2, 64, 96, cuda_device)
+    images = torch.randn(images.shape, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    ops = vnext_op_counts(export_program(inference_fn(model), (images, sizes)))
+    want = {"msda_fwd": 2, "stem_conv": 1, "encoder_epilogue": 1}
+    if arch == "SeqFormer":
+        want = {"msda_fwd": 1, "msda_fwd_loc": 1, "stem_conv": 1, "encoder_epilogue": 1}
+    assert ops == want
+    path = str(tmp_path / "m.pt2")
+    save_exported(export_program(inference_fn(model), (images, sizes)), path)
+    program = load_exported(path).module()
+    before = {k.name: k.launches for k in COUNTERS}
+    with torch.no_grad():
+        got = program(images, sizes)
+        torch.cuda.synchronize()
+        moved = {k.name: k.launches - before[k.name] for k in COUNTERS if k.launches != before[k.name]}
+        eager = inference_fn(model)(images, sizes)
+    kernel = {"msda_fwd": "ms_deform_attn_fwd", "msda_fwd_loc": "ms_deform_attn_v9_fwd", "stem_conv": "stem_conv",
+              "encoder_epilogue": "encoder_epilogue"}
+    assert moved == {kernel[k]: n for k, n in want.items()}
+    for k in eager:
+        assert torch.equal(got[k], eager[k]), k

@@ -804,3 +804,52 @@ def test_device_tracker_on_the_card_equals_the_cpu_without_a_sync(cuda_device):
             else:
                 assert torch.equal(got, want), (fid, name)
     assert int(cpu.num_tracklets) >= 4
+
+
+def _operator_cases(dev):
+    """Each kernel's operator (torch.ops.vnext.*) at one shape: (name, the
+    operator's arguments, its plain version's output, the kernel's counter, the
+    tolerance as a multiple of one bf16 ulp at the largest output)."""
+    rng = np.random.RandomState(21)
+    levels = ((16, 32), (8, 16), (4, 8), (1, 1))
+    flat = ms_deform_attn.flat_shapes(levels)
+    off, ref = _edge_samples(levels, 301, 8, 4, False, rng)
+    s, bf16 = sum(h * w for h, w in levels), torch.bfloat16
+    value = torch.tensor(rng.randn(1, s, 8, 32), dtype=bf16, device=dev)
+    off, ref = torch.tensor(off, dtype=bf16, device=dev), torch.tensor(ref, dtype=torch.float32, device=dev)
+    logits = torch.tensor(rng.randn(1, 301, 8, 16) * 2.0, dtype=bf16, device=dev)
+    k4_value, loc, attn = _k4_inputs(dev, levels, 2, 301, 8, 4, seed=5)
+    a, src, params = _epilogue_args(dev, 129, 1024)
+    stem = _stem_args(dev, (2, 38, 70, 3))
+    return [
+        ("msda_fwd", (value, off, ref, logits, flat),
+         ms_deform_attn.ms_deform_attn_plain(value, levels, off, ref, logits), ms_deform_attn.KERNEL, 1),
+        ("msda_fwd_loc", (k4_value, loc, attn, flat, "pallas_v9"),
+         ms_deform_attn.ms_deform_attn_core_plain(k4_value, levels, loc, attn), ms_deform_attn.KERNEL_V9_FWD, 1),
+        ("encoder_epilogue", (a, src, *params), encoder_epilogue.encoder_epilogue_plain(a, src, *params),
+         encoder_epilogue.KERNEL, 2),
+        ("stem_conv", tuple(stem), stem_conv.stem_conv_plain(*stem), stem_conv.KERNEL, 1),
+    ]
+
+
+@pytest.mark.cuda
+def test_operators_run_their_kernels(cuda_device):
+    """torch.ops.vnext.* on CUDA tensors: one launch of the hand-written kernel
+    per call (counted inside the operator's CUDA implementation), the output
+    within the kernel tests' limits of the plain version; a misaligned view
+    raises inside the operator before any launch."""
+    for name, args, want, kernel, ulps in _operator_cases(cuda_device):
+        op = getattr(torch.ops.vnext, name)
+        before = kernel.launches
+        got = op(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, name
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        err, scale = _max_err(got, want)
+        assert err <= ulps * BF16_ULP * scale, (name, err)
+        first = args[0]
+        flat = torch.zeros(first.numel() + 8, dtype=first.dtype, device=cuda_device)
+        shifted = flat[1:first.numel() + 1].view_as(first).copy_(first)
+        with pytest.raises(ValueError, match="16-byte"):
+            op(shifted, *args[1:])
+        assert kernel.launches == before + 1, name

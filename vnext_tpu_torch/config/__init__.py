@@ -8,7 +8,10 @@
 """
 
 from .cfgnode import CN, CfgNode
+from .configurable import auto_scale_workers, configurable
 from .defaults import get_cfg
 from .extensions import add_idol_config, add_maskformer_config, add_seqformer_config
+from .lazy import LazyCall, LazyConfig, instantiate
 
-__all__ = ["CfgNode", "CN", "get_cfg", "add_idol_config", "add_maskformer_config", "add_seqformer_config"]
+__all__ = ["CfgNode", "CN", "configurable", "auto_scale_workers", "get_cfg", "add_idol_config",
+           "add_maskformer_config", "add_seqformer_config", "LazyCall", "LazyConfig", "instantiate"]

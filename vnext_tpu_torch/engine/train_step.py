@@ -31,6 +31,18 @@ class TrainState:
         return cls(step=0, model=model, optimizer=optimizer, scheduler=scheduler)
 
 
+def checkpoint_state(state: TrainState) -> dict:
+    """What a checkpoint holds of ``state`` (``Checkpointer.save`` writes it and
+    ``restore_train_state`` reads it back): the step and the model's,
+    optimizer's and scheduler's state dicts."""
+    return {
+        "step": state.step,
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "scheduler": None if state.scheduler is None else state.scheduler.state_dict(),
+    }
+
+
 def dropout_generator(seed: int, step: int, device) -> torch.Generator:
     """The step's dropout draws, a function of (seed, step) only, as the JAX
     step folds the step into its key."""

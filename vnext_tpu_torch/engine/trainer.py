@@ -20,7 +20,7 @@ import torch
 from ..models.criterion import Targets
 from ..utils.events import EventStorage, get_event_storage
 from .hooks import HookBase
-from .train_step import TrainState
+from .train_step import TrainState, checkpoint_state
 
 logger = logging.getLogger("vnext_tpu_torch")
 
@@ -157,10 +157,4 @@ class VISTrainer(TrainerBase):
         super().after_train()
 
     def checkpoint_state(self) -> dict:
-        s = self.state
-        return {
-            "step": s.step,
-            "model": s.model.state_dict(),
-            "optimizer": s.optimizer.state_dict(),
-            "scheduler": None if s.scheduler is None else s.scheduler.state_dict(),
-        }
+        return checkpoint_state(self.state)

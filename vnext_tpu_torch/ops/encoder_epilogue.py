@@ -9,11 +9,14 @@ fast variance E[x^2] - E[x]^2, as flax computes them; h1 stays f32 for the
 residual; the two products take operands in the input dtype. The weights come
 in torch layout: ``w1`` [F, C] (linear1.weight), ``w2`` [C, F] (linear2.weight).
 
-A CPU tensor runs :func:`encoder_epilogue_plain`; a CUDA tensor runs the
-hand-written kernel ``csrc/encoder_epilogue.cu`` or raises. The kernel is
-inference-only, as the TPU one is (the JAX encoder layer fuses only when not
-training): on the card it raises when autograd would need a backward, and an
-encoder layer in train mode runs the unfused tail instead.
+Without autograd the call is the operator ``torch.ops.vnext.encoder_epilogue``
+(so that ``torch.export`` keeps it in a graph): on a CPU tensor it runs
+:func:`encoder_epilogue_plain`; on a CUDA tensor the hand-written kernel
+``csrc/encoder_epilogue.cu``, which packs the weights itself, or it raises.
+The kernel is inference-only, as the TPU one is (the JAX encoder layer fuses
+only when not training): on the card it raises when autograd would need a
+backward, and an encoder layer in train mode runs the unfused tail instead.
+On the CPU, under autograd, the plain version runs with its autograd.
 
 The kernel reads the weights as :func:`pack_epilogue_weights` lays them out:
 F/64 chunks, each two pieces (W1's 64 rows of the chunk, W2's 64 columns) in
@@ -28,6 +31,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from torch.utils.flop_counter import register_flop_formula
 
 from .._build import Kernel, check, load_library, refuse_grad, stream_handle
 
@@ -51,14 +56,56 @@ def layer_norm_f32(x: torch.Tensor, weight, bias, eps: float = EPS) -> torch.Ten
 
 def encoder_epilogue(attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b):
     """attn_out, src [B, S, C]; returns [B, S, C] in src.dtype."""
+    args = (attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
     if attn_out.shape != src.shape:
         raise ValueError(f"attn_out {tuple(attn_out.shape)} and src {tuple(src.shape)} differ")
-    if src.device.type == "cpu":
-        return encoder_epilogue_plain(attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
-    if src.device.type != "cuda":
+    if src.device.type not in ("cpu", "cuda"):
         raise ValueError(f"encoder_epilogue: no implementation for device {src.device}")
-    refuse_grad("encoder_epilogue", attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
+    if src.device.type == "cuda":
+        refuse_grad("encoder_epilogue", *args)
+    elif torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return encoder_epilogue_plain(*args)
+    return encoder_epilogue_op(*args)
+
+
+def _check_args(attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b):
+    """The fake function's shape checks (the kernel's launch checks its own)."""
+    if attn_out.shape != src.shape:
+        raise ValueError(f"attn_out {tuple(attn_out.shape)} and src {tuple(src.shape)} differ")
+    c, f = src.shape[-1], w1.shape[0]
+    if w1.shape != (f, c) or w2.shape != (c, f):
+        raise ValueError(f"w1 must be [F, C] and w2 [C, F] for C = {c}, got {tuple(w1.shape)}, {tuple(w2.shape)}")
+
+
+@torch.library.custom_op("vnext::encoder_epilogue", mutates_args=(), device_types="cpu")
+def encoder_epilogue_op(attn_out: torch.Tensor, src: torch.Tensor, ln1_w: torch.Tensor, ln1_b: torch.Tensor,
+                        w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                        ln2_w: torch.Tensor, ln2_b: torch.Tensor) -> torch.Tensor:
+    """The epilogue as an operator: the plain version on the CPU, K3 on the
+    card (registered below); [B, S, C] in src.dtype."""
+    return encoder_epilogue_plain(attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
+
+
+@encoder_epilogue_op.register_kernel("cuda")
+def _encoder_epilogue_cuda(attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b):
     return _launch(attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
+
+
+@encoder_epilogue_op.register_fake
+def _encoder_epilogue_fake(attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b):
+    _check_args(attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
+    return torch.empty_like(src)
+
+
+@register_flop_formula(torch.ops.vnext.encoder_epilogue)
+def encoder_epilogue_flops(attn_shape, src_shape, ln1_w_shape, ln1_b_shape, w1_shape, *args, **kwargs) -> int:
+    """The two products, 2 operations per multiply-add: [N, C] x [C, F] and
+    [N, F] x [F, C]; the LayerNorms, the bias adds and the ReLU are not counted."""
+    f, c = w1_shape
+    n = 1
+    for d in src_shape[:-1]:
+        n *= d
+    return 2 * 2 * n * c * f
 
 
 def encoder_epilogue_plain(attn_out, src, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b):

@@ -16,10 +16,13 @@ with pixel coordinates (align_corners=False, zero padding outside the level)
 (likewise for y with h_l). Offsets are in level pixels, as the projection emits
 them. Sums and the softmax are f32; the output has the value's dtype.
 
-A CPU tensor runs :func:`ms_deform_attn_plain`; a CUDA tensor runs the
-hand-written kernel ``csrc/ms_deform_attn_fwd.cu`` (K1) or raises. The fused
-entry is inference-only, as the TPU one is: it has no backward, and on the card
-it raises when autograd would need one.
+Without autograd the call is the operator ``torch.ops.vnext.msda_fwd`` (so
+that ``torch.export`` keeps it in a graph): on a CPU tensor it runs
+:func:`ms_deform_attn_plain`; on a CUDA tensor the hand-written kernel
+``csrc/ms_deform_attn_fwd.cu`` (K1) or it raises. The fused entry is
+inference-only, as the TPU one is: it has no backward, and on the card it
+raises when autograd would need one (on the CPU the plain version runs with
+its autograd).
 
 The standard entry (training), :func:`ms_deform_attn_standard` with
 ``impl="pallas_v9"``, is the counterpart of
@@ -30,10 +33,16 @@ custom VJP: normalized f32 locations [B, Q, M, L, P, 2] and softmaxed weights
     out[b, q, m] = sum_{l,p} attn[b, q, m, l, p] * bilinear(V_l[b, :, :, m], x, y),
     x = loc_x * w_l - 0.5,  y = loc_y * h_l - 0.5.
 
-On the card its forward is K4 (``vnext_msda_fwd_loc`` in the same source) and
-its backward K5 (``csrc/ms_deform_attn_bwd.cu``); on the CPU both directions run
-:func:`ms_deform_attn_core_plain`, ``ms_deform_attn_core_jnp`` in torch, with the
-backward by autograd through its gathers.
+Its forward is the operator ``torch.ops.vnext.msda_fwd_loc``: K4
+(``vnext_msda_fwd_loc`` in the same source) on the card and
+:func:`ms_deform_attn_core_plain`, ``ms_deform_attn_core_jnp`` in torch, on the
+CPU. Under autograd a ``torch.autograd.Function`` wraps the operator; its
+backward is K5 (``csrc/ms_deform_attn_bwd.cu``) on the card and autograd
+through the plain core's gathers on the CPU.
+
+Each operator's CUDA implementation checks what its kernel takes (dtypes,
+contiguity, 16-byte alignment of the pointers) and counts the launch, so a
+traced graph counts nothing and a loaded program counts every launch it makes.
 
 The implementation selector :func:`ms_deform_attn_standard` is the counterpart
 of ``vnext_tpu.ops.ms_deform_attn.ms_deform_attn(..., impl)``, the function
@@ -57,11 +66,12 @@ route is K4b (``vnext_msda_fwd_loc_cm``), inference-only as the TPU entry.
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from .._build import Kernel, check, load_library, refuse_grad, stream_handle
 
@@ -158,12 +168,57 @@ def ms_deform_attn(
 ) -> torch.Tensor:
     """Returns [B, Q, M*D] in value.dtype."""
     _check_args(value, spatial_shapes, offsets, reference_points, logits)
-    if value.device.type == "cpu":
-        return ms_deform_attn_plain(value, spatial_shapes, offsets, reference_points, logits)
-    if value.device.type != "cuda":
+    if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ms_deform_attn: no implementation for device {value.device}")
-    refuse_grad("ms_deform_attn (the fused entry)", value, offsets, reference_points, logits)
-    return _launch(value, spatial_shapes, offsets, reference_points, logits)
+    tensors = (value, offsets, reference_points, logits)
+    if value.device.type == "cuda":
+        refuse_grad("ms_deform_attn (the fused entry)", *tensors)
+    elif torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return ms_deform_attn_plain(value, spatial_shapes, offsets, reference_points, logits)
+    return msda_fwd_op(value, offsets, reference_points, logits, flat_shapes(spatial_shapes))
+
+
+def flat_shapes(spatial_shapes: Shapes) -> List[int]:
+    """((H_0, W_0), ...) -> [H_0, W_0, ...], the operators' form of the levels."""
+    return [int(v) for hw in spatial_shapes for v in hw]
+
+
+def _pairs(flat: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    return tuple((int(h), int(w)) for h, w in zip(flat[::2], flat[1::2]))
+
+
+@torch.library.custom_op("vnext::msda_fwd", mutates_args=(), device_types="cpu")
+def msda_fwd_op(value: torch.Tensor, offsets: torch.Tensor, reference_points: torch.Tensor,
+                logits: torch.Tensor, spatial_shapes: List[int]) -> torch.Tensor:
+    """The fused entry as an operator (levels flattened, :func:`flat_shapes`):
+    the plain version on the CPU, K1 on the card (registered below)."""
+    return ms_deform_attn_plain(value, _pairs(spatial_shapes), offsets, reference_points, logits)
+
+
+@msda_fwd_op.register_kernel("cuda")
+def _msda_fwd_cuda(value, offsets, reference_points, logits, spatial_shapes):
+    return _launch(value, _pairs(spatial_shapes), offsets, reference_points, logits)
+
+
+@msda_fwd_op.register_fake
+def _msda_fwd_fake(value, offsets, reference_points, logits, spatial_shapes):
+    b, _, m, d, q, _, _ = _check_args(value, _pairs(spatial_shapes), offsets, reference_points, logits)
+    return value.new_empty(b, q, m * d)
+
+
+def msda_flops(value_shape, loc_shape) -> int:
+    """An MSDA forward's arithmetic, 2 operations per multiply-add: each query
+    and head takes 4 bilinear corners of each of its L * P samples, each corner
+    weighted into D channels (B * Q * M * L * P * 4 * D multiply-adds); the
+    locations, the softmax and the corner weights are not counted."""
+    b, _, m, d = value_shape
+    q, l, p = loc_shape[1], loc_shape[3], loc_shape[4]
+    return 2 * b * q * m * l * p * 4 * d
+
+
+@register_flop_formula(torch.ops.vnext.msda_fwd)
+def _msda_fwd_flops(value_shape, offsets_shape, *args, **kwargs) -> int:
+    return msda_flops(value_shape, offsets_shape)
 
 
 def pixel_locations(spatial_shapes: Shapes, offsets, reference_points):
@@ -250,22 +305,60 @@ def ms_deform_attn_standard(
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     if _ROUTES[impl] is None:
         return ms_deform_attn_core_plain(value, shapes, sampling_locations, attention_weights)
-    return _MSDeformAttnV9.apply(value, shapes, sampling_locations, attention_weights, impl)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (value, sampling_locations, attention_weights)):
+        return _MSDeformAttnV9.apply(value, shapes, sampling_locations, attention_weights, impl)
+    return msda_fwd_loc_op(value, sampling_locations, attention_weights, flat_shapes(shapes), impl)
+
+
+def _kernel_route(impl: str):
+    """The forward and backward counters of a kernel route; ValueError for an
+    unknown impl or one that runs the plain version (``jnp``, ``xla``)."""
+    routes = _ROUTES[check_impl(impl)]
+    if routes is None:
+        raise ValueError(f"MSDA impl {impl!r} runs the plain version, not the operator")
+    return routes
+
+
+@torch.library.custom_op("vnext::msda_fwd_loc", mutates_args=(), device_types="cpu")
+def msda_fwd_loc_op(value: torch.Tensor, sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                    spatial_shapes: List[int], impl: str) -> torch.Tensor:
+    """The standard entry's forward as an operator (levels flattened,
+    :func:`flat_shapes`; ``impl`` one of the kernel routes): the plain core on
+    the CPU, K4 on the card (registered below), counted on the route of
+    ``impl``."""
+    _kernel_route(impl)
+    return ms_deform_attn_core_plain(value, _pairs(spatial_shapes), sampling_locations, attention_weights)
+
+
+@msda_fwd_loc_op.register_kernel("cuda")
+def _msda_fwd_loc_cuda(value, sampling_locations, attention_weights, spatial_shapes, impl):
+    return _launch_v9_fwd(value, _pairs(spatial_shapes), sampling_locations, attention_weights,
+                          _kernel_route(impl)[0])
+
+
+@msda_fwd_loc_op.register_fake
+def _msda_fwd_loc_fake(value, sampling_locations, attention_weights, spatial_shapes, impl):
+    _kernel_route(impl)
+    b, _, m, d, q, _, _ = _check_v9_args(value, _pairs(spatial_shapes), sampling_locations, attention_weights)
+    return value.new_empty(b, q, m * d)
+
+
+@register_flop_formula(torch.ops.vnext.msda_fwd_loc)
+def _msda_fwd_loc_flops(value_shape, loc_shape, *args, **kwargs) -> int:
+    return msda_flops(value_shape, loc_shape)
 
 
 class _MSDeformAttnV9(torch.autograd.Function):
-    """Forward K4 and backward K5 on the card, counted on the route of ``impl``;
-    the plain core and its autograd on the CPU. The backward returns (dvalue in
-    value's dtype, dloc in the locations' dtype, dattn in the weights' dtype), as
-    ``_backward_v9`` does."""
+    """Forward K4 (the operator) and backward K5 on the card, counted on the
+    route of ``impl``; the plain core and its autograd on the CPU. The backward
+    returns (dvalue in value's dtype, dloc in the locations' dtype, dattn in the
+    weights' dtype), as ``_backward_v9`` does."""
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, loc, attn, impl):
         ctx.spatial_shapes, ctx.impl = spatial_shapes, impl
         ctx.save_for_backward(value, loc, attn)
-        if value.is_cuda:
-            return _launch_v9_fwd(value, spatial_shapes, loc, attn, _ROUTES[impl][0])
-        return ms_deform_attn_core_plain(value, spatial_shapes, loc, attn)
+        return msda_fwd_loc_op(value, loc, attn, flat_shapes(spatial_shapes), impl)
 
     @staticmethod
     @once_differentiable

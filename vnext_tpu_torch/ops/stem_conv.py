@@ -4,8 +4,10 @@ Counterpart of ``vnext_tpu.ops.stem_conv.stem_conv7x7s2_bn_relu``: the input and
 the kernel are rounded to bf16, products are summed in f32, and the output is
 bf16 ``relu(conv(x, k) * scale + bias)`` of shape [B, H/2, W/2, 64] for even H, W.
 
-A CPU tensor runs :func:`stem_conv_plain`; a CUDA tensor runs the hand-written
-kernel ``csrc/stem_conv.cu`` or raises. The kernel is an implicit GEMM on the
+The forward is the operator ``torch.ops.vnext.stem_conv`` (so that
+``torch.export`` keeps it in a graph): on a CPU tensor it runs
+:func:`stem_conv_plain`; on a CUDA tensor the hand-written kernel
+``csrc/stem_conv.cu`` or it raises. The kernel is an implicit GEMM on the
 tensor cores whose reduction axis K runs over (ky, kx, ci) as 7 runs of 21
 values, each run padded to 22 and K to 160: :func:`pack_stem_weights` lays the
 weights out in that order. Either way the op is a ``torch.autograd.Function``
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from .._build import Kernel, check, load_library, stream_handle
 
@@ -59,7 +62,35 @@ def stem_conv7x7s2_bn_relu(x, k_hwio, scale, bias) -> torch.Tensor:
 
 
 def _forward(x, k_hwio, scale, bias):
-    return _launch(x, k_hwio, scale, bias) if x.is_cuda else stem_conv_plain(x, k_hwio, scale, bias)
+    return stem_conv_op(x, k_hwio, scale, bias)
+
+
+@torch.library.custom_op("vnext::stem_conv", mutates_args=(), device_types="cpu")
+def stem_conv_op(x: torch.Tensor, k_hwio: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    """The stem as an operator: the plain version on the CPU, K2 on the card
+    (registered below); bf16 [B, H/2, W/2, 64]."""
+    return stem_conv_plain(x, k_hwio, scale, bias)
+
+
+@stem_conv_op.register_kernel("cuda")
+def _stem_conv_cuda(x, k_hwio, scale, bias):
+    return _launch(x, k_hwio, scale, bias)
+
+
+@stem_conv_op.register_fake
+def _stem_conv_fake(x, k_hwio, scale, bias):
+    _check_args(x, k_hwio, scale, bias)
+    b, h, w, _ = x.shape
+    return x.new_empty(b, h // 2, w // 2, 64, dtype=torch.bfloat16)
+
+
+@register_flop_formula(torch.ops.vnext.stem_conv)
+def stem_conv_flops(x_shape, *args, **kwargs) -> int:
+    """2 operations per multiply-add of the 7x7 convolution (3 -> 64 channels)
+    at each output pixel; the affine and the ReLU are not counted."""
+    b, h, w, _ = x_shape
+    return 2 * b * (h // 2) * (w // 2) * 64 * 7 * 7 * 3
 
 
 class _StemConv(torch.autograd.Function):

@@ -3,14 +3,59 @@
 Counterpart of the functions of ``vnext_tpu.structures.boxes`` that simOTA and
 the set criterion use. Boxes are [..., 4]; the pairwise functions take sets
 [..., N, 4] and [..., M, 4] with any leading batch dimensions and return
-[..., N, M].
+[..., N, M]. ``BoxMode`` converts the host's numpy annotation boxes (the
+visualizer draws them).
 """
 
 from __future__ import annotations
 
+import enum
+import math
+
+import numpy as np
 import torch
 
 _TINY = torch.finfo(torch.float32).tiny
+
+
+class BoxMode(enum.IntEnum):
+    """Coordinate interpretation of a (..., 4) or (..., 5) box array (reference:
+    structures/boxes.py:13), on numpy in f32 as ``vnext_tpu``'s on jnp."""
+
+    XYXY_ABS = 0
+    XYWH_ABS = 1
+    XYXY_REL = 2
+    XYWH_REL = 3
+    XYWHA_ABS = 4
+
+    @staticmethod
+    def convert(box, from_mode: "BoxMode", to_mode: "BoxMode"):
+        if from_mode == to_mode:
+            return box
+        original_type = type(box)
+        arr = np.asarray(box, dtype=np.float32)
+        if from_mode == BoxMode.XYWHA_ABS and to_mode == BoxMode.XYXY_ABS:
+            if arr.shape[-1] != 5:
+                raise ValueError("XYWHA_ABS boxes must have shape (..., 5)")
+            xc, yc, w, h, a = np.split(arr, 5, axis=-1)
+            theta = a * np.float32(math.pi / 180.0)
+            c, s = np.abs(np.cos(theta)), np.abs(np.sin(theta))
+            new_w, new_h = c * w + s * h, c * h + s * w
+            out = np.concatenate([xc - new_w / 2, yc - new_h / 2, xc + new_w / 2, yc + new_h / 2], axis=-1)
+        elif from_mode == BoxMode.XYWH_ABS and to_mode == BoxMode.XYWHA_ABS:
+            x, y, w, h = np.split(arr, 4, axis=-1)
+            out = np.concatenate([x + w / 2, y + h / 2, w, h, np.zeros_like(w)], axis=-1)
+        elif to_mode == BoxMode.XYXY_ABS and from_mode == BoxMode.XYWH_ABS:
+            x, y, w, h = np.split(arr, 4, axis=-1)
+            out = np.concatenate([x, y, x + w, y + h], axis=-1)
+        elif from_mode == BoxMode.XYXY_ABS and to_mode == BoxMode.XYWH_ABS:
+            x1, y1, x2, y2 = np.split(arr, 4, axis=-1)
+            out = np.concatenate([x1, y1, x2 - x1, y2 - y1], axis=-1)
+        else:
+            raise NotImplementedError(f"Conversion {from_mode} -> {to_mode} not supported")
+        if original_type in (list, tuple):
+            return original_type(out.tolist())
+        return out
 
 
 def box_cxcywh_to_xyxy(x: torch.Tensor) -> torch.Tensor:
