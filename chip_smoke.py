@@ -6,11 +6,13 @@
     python3 chip_smoke.py --only entry_point       # phases 1 and 17 alone
     python3 chip_smoke.py --only minvis_entry      # phases 1, 2b's new shapes and 18 alone
     python3 chip_smoke.py --only seqformer_train   # phases 1 and 19 alone
+    python3 chip_smoke.py --only seqformer_train --seq-cpu-hw 256x320   # phase 19's card-vs-CPU clip smaller
     python3 chip_smoke.py --only swin_train        # phases 1, 20 and 21 alone
     python3 chip_smoke.py --only instmove_train    # phase 1, K2 at InstMove's call and phase 22 alone
     python3 chip_smoke.py --only fused_tracker     # phases 1 and 23 alone
     python3 chip_smoke.py --only coco_pretrain     # phases 1 and 24 alone
     python3 chip_smoke.py --only tools             # phases 1 and 25 alone
+    python3 chip_smoke.py --only rcnn              # phase 1, K2 at Mask R-CNN's image and phase 26 alone
 
 Phases, each printed as it ends; any failure raises and exits non-zero. Each
 path zeroes every kernel's launch counter just before it runs and reads them
@@ -148,7 +150,8 @@ port's own reader (``vnext_tpu_torch.config``).
     step period beside the time ``next(loader)`` blocked, the host time of
     the assignment, peak memory), ``--resume`` to 6 (state bit-equal to the
     file), and ``ovis_r50_motion.yaml``'s ``ValueError`` at 120x216 masks. Then
-    one clip's train forward and backward card (bf16) vs CPU (f32) on point
+    one clip's train forward and backward (key + reference at 256x384: the
+    widths, smaller frames) card (bf16) vs CPU (f32) on point
     coordinates drawn once on the CPU: losses within 5%, gradients by group
     within 10%, at the card's own assignment and at the CPU's (how many
     assignments differ is printed).
@@ -163,7 +166,9 @@ port's own reader (``vnext_tpu_torch.config``).
     on larger elements); the step's
     forward / backward / update split beside the
     device's busy time, the assignment's host time and peak memory; one clip
-    card vs CPU at dropout 0, as phase 18's.
+    card vs CPU at dropout 0, as phase 18's, with its last layer's loss_mask
+    traced stage by stage (mask features, references, dynamic parameters,
+    mask logits, the focal loss on target and background pixels).
 20. IDOL-Swin-L training (``configs/idol/ytvis19_swinL.yaml``: Swin-L at its
     published drop-path 0.3, bf16, seeded weights): 3 steps of 4 clips (key +
     reference at 512x640) through ``make_train_step``, K4 / K5 = 24 / 24 a step,
@@ -181,11 +186,11 @@ port's own reader (``vnext_tpu_torch.config``).
     384x480 (the CPU's f32 reference near a minute).
 22. InstMove training through ``vnext_tpu_torch.tools.train_instmove.main``
     (``configs/minvis/ovis_r50_motion.yaml``, full width, f32, TF32 off) on a
-    synthetic dataset of 2 videos x 20 frames: 20 steps of 16 sequences at
+    synthetic dataset of 2 videos x 20 frames: 8 steps of 16 sequences at
     192x192, no hand-written kernel (K2 runs in bf16 only), the step time,
     peak memory and loss curve, checkpoints and ``instmove_final``; the first
     step card vs CPU on the tool's own first batch.
-23. IDOL-R50 with ``TPU.FUSED_TRACKER`` on the two videos: K1 / K2 / K3 = 12 /
+23. IDOL-R50 with ``TPU.FUSED_TRACKER`` on the 13-frame video: K1 / K2 / K3 = 12 /
     1 / 6 a clip, the on-device tracker's steps under the sync debug mode set
     to raise (no copy to the host inside a clip), its per-frame (query, track
     id) associations against the host tracker's on the same outputs (at
@@ -224,8 +229,20 @@ port's own reader (``vnext_tpu_torch.config``).
     and ``lazyconfig_train_net`` (``config/examples/idol_lazy.py``) for 2 steps
     of 4 clips at 512x640 each: K4 / K5 / K2 = 24 / 24 / 2 a step, losses
     finite, a checkpoint written.
+26. Mask R-CNN R50-FPN (``configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml``:
+    80 classes, bf16, ``TPU.TEST_IMAGE_SIZE`` 800x1344) through
+    ``train_net.main --eval-only`` on a synthetic COCO set of 4 images at
+    480x640 (resized to 800x1067, padded to 800x1344) whose json lists 80
+    categories, seeded weights with class 0's bias raised, as
+    ``MODEL.WEIGHTS``: K2 once per image and no other hand-written kernel,
+    every output finite, the COCO evaluator's bbox and segm dicts; ms per
+    image through the runner, the forward alone, the RPN's and the two NMS
+    loops' synchronized spans, device time by kernel, peak memory; then one
+    image card vs CPU (FPN p2-p6, RPN logits and deltas, the ROI heads on the
+    card's first 100 proposals fed to both sides). 2a holds K2 at its
+    [1, 800, 1344, 3].
 
-Then a JSON line with the slices' times, one with every kernel's launches,
+Then the seconds by phase and of the whole run, a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when no CUDA device is visible. Imports neither
 jax nor the JAX package.
@@ -611,6 +628,7 @@ def phase_kernels(dev):
     # K2 stem, at IDOL's clip and at InstMove's call (bench.py's bench_instmove: B = 32 at 128x128)
     results["stem"] = stem_serving_case(dev, rng, (CLIP, HEIGHT, WIDTH, 3))
     results["stem_instmove"] = stem_serving_case(dev, np.random.RandomState(13), (INSTMOVE_BATCH, *INSTMOVE_HW, 3))
+    results["stem_rcnn"] = stem_serving_case(dev, np.random.RandomState(26), RCNN_SHAPE)     # Mask R-CNN's image
 
     # K3 encoder epilogue
     results["epilogue"], (attn, src, params) = epilogue_case(t, rng, CLIP, s, f"[{CLIP},{s},256]")
@@ -2508,6 +2526,11 @@ MINVIS_TRAIN_LEVELS = ((16, 24), (32, 48), (64, 96))
 # SeqFormer-R50's train step (configs/seqformer/ytvis19_r50.yaml: 512x640, MAX_INSTANCES 24, clips
 # of INPUT.SAMPLING_FRAME_NUM 5 frames), 4 clips as bench.py's single-chip share of its batch
 SEQ_TRAIN_CLIPS, SEQ_TRAIN_FRAMES, SEQ_MAX_INSTS, SEQ_TRAIN_STEPS = 4, 5, 24, 3
+# the frames of phase 18's card-vs-CPU train forward (MinVIS: one clip of key + reference): the model's
+# widths, smaller frames, so that the CPU's f32 forward and backward stay short inside the run's time limit.
+# Phase 19's SeqFormer-R50 clip stays at the step's 512x640 (``--seq-cpu-hw`` runs it at another size; its
+# loss_mask trace says how the check fares at smaller frames)
+MINVIS_CPU_HW = (256, 384)
 
 
 def msda_train_case(dev, rng, label, levels, b, q, box, backward):
@@ -2647,7 +2670,86 @@ class AssignmentTap:
         setattr(self.module, self.name, self.solve)
 
 
-def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights, taps=("assign_batched",)):
+class MaskLossTrace:
+    """SeqFormer's mask loss taken apart: inside the block, the inputs of
+    ``SeqFormer._clip_masks`` (stride-8 mask features, the matched queries'
+    references and dynamic parameters) and of ``sigmoid_focal_loss`` (the
+    flat mask logits, targets, box count and valid rows) are kept on the host
+    in f32, each call overwriting the one before, so that the last decoder
+    layer's (``loss_mask``'s) stay."""
+
+    def __init__(self):
+        from vnext_tpu_torch.models import seqformer
+
+        self.seqformer = seqformer
+        self.clip_masks, self.focal = seqformer.SeqFormer._clip_masks, seqformer.sigmoid_focal_loss
+        self.head_in = self.focal_in = None
+
+    def __enter__(self):
+        import torch
+
+        def host(t):
+            return t.detach().cpu() if t.dtype in (torch.int32, torch.int64, torch.bool) else t.detach().float().cpu()
+
+        def clip_masks(model, mask_feats, pre_ref, params, image_sizes, nf):
+            self.head_in = (*(host(t) for t in (mask_feats, pre_ref, params, image_sizes)), nf)
+            return self.clip_masks(model, mask_feats, pre_ref, params, image_sizes, nf)
+
+        def focal(logits, targets, num_boxes, valid=None):
+            self.focal_in = tuple(host(t) for t in (logits, targets, num_boxes, valid))
+            return self.focal(logits, targets, num_boxes, valid=valid)
+
+        self.seqformer.SeqFormer._clip_masks, self.seqformer.sigmoid_focal_loss = clip_masks, focal
+        return self
+
+    def __exit__(self, *exc):
+        self.seqformer.SeqFormer._clip_masks, self.seqformer.sigmoid_focal_loss = self.clip_masks, self.focal
+
+    @staticmethod
+    def report(label, cpu_model, card, cpu):
+        """Card (``card``'s record) against CPU (``cpu``'s) on the same
+        assignment, stage by stage: relative L2 of the mask features, the
+        references, the dynamic parameters and the mask logits; the CPU's f32
+        dynamic head run on the card's inputs (the head's own share of the
+        error against what reaches it); and the focal loss split into target
+        and background pixels, each side's in f64 from its own logits."""
+        import torch
+
+        from vnext_tpu_torch.ops.losses import sigmoid_focal_loss_elementwise
+
+        def rel(a, b):
+            return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+        (feats, refs, params, sizes, nf), (cpu_feats, cpu_refs, cpu_params, _, _) = card.head_in, cpu.head_in
+        logits, gt, num_boxes, valid = card.focal_in
+        cpu_logits = cpu.focal_in[0]
+        with torch.no_grad():
+            head = cpu_model._clip_masks(feats, refs, params, sizes, nf).reshape(logits.shape).float()
+        out = {"mask_features": rel(feats, cpu_feats), "references": rel(refs, cpu_refs),
+               "dynamic_params": rel(params, cpu_params), "mask_logits": rel(logits, cpu_logits),
+               "cpu_head_on_card_inputs_vs_card": rel(head, logits),
+               "cpu_head_on_card_inputs_vs_cpu": rel(head, cpu_logits),
+               "logit_abs_max": float(cpu_logits.abs().max()), "logit_abs_mean": float(cpu_logits.abs().mean())}
+        rows = valid.double()[:, None] / float(num_boxes) / gt.shape[1]
+        for side, lg in (("card", logits), ("cpu", cpu_logits), ("cpu_head_on_card_inputs", head)):
+            el = sigmoid_focal_loss_elementwise(lg.double(), gt.double()) * rows
+            out[f"focal_target_{side}"] = float((el * gt).sum())
+            out[f"focal_background_{side}"] = float((el * (1 - gt)).sum())
+        print(f"  {label}, loss_mask traced (last layer, the CPU's assignment): relative L2 card vs CPU of the "
+              f"mask features {out['mask_features']:.4g}, references {out['references']:.4g}, dynamic parameters "
+              f"{out['dynamic_params']:.4g}, mask logits {out['mask_logits']:.4g} (CPU |logit| max "
+              f"{out['logit_abs_max']:.4g}, mean {out['logit_abs_mean']:.4g}); the CPU's f32 head on the card's "
+              f"inputs is {out['cpu_head_on_card_inputs_vs_card']:.4g} from the card's logits and "
+              f"{out['cpu_head_on_card_inputs_vs_cpu']:.4g} from the CPU's; focal over target pixels card "
+              f"{out['focal_target_card']:.6g} / CPU {out['focal_target_cpu']:.6g} / CPU head on card inputs "
+              f"{out['focal_target_cpu_head_on_card_inputs']:.6g}, over background card "
+              f"{out['focal_background_card']:.6g} / CPU {out['focal_background_cpu']:.6g} / CPU head on card "
+              f"inputs {out['focal_background_cpu_head_on_card_inputs']:.6g}")
+        return out
+
+
+def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights, taps=("assign_batched",),
+                      trace=None):
     """One train forward and backward of ``card`` (bf16, kernels) and ``cpu``
     (f32, plain versions; the card's weights) on the same inputs: each loss
     within 5% relative, each parameter group's gradient within 10% relative L2,
@@ -2655,7 +2757,10 @@ def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights, taps
     ``module`` is the model's module (``mask2former``, ``seqformer`` or
     ``idol``) and ``taps`` its matching functions (IDOL: simOTA's ``match`` and
     the ReID ``pos_neg_masks``); a MaskFormer's sampled-loss coordinates are
-    drawn once, on the CPU's run, and the card's runs take the same."""
+    drawn once, on the CPU's run, and the card's runs take the same. With
+    ``trace`` (``MaskLossTrace``), the CPU's run and the card's at the CPU's
+    assignment are recorded and compared stage by stage before the limits
+    are held."""
     import torch
 
     from vnext_tpu_torch.models import mask2former
@@ -2679,6 +2784,7 @@ def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights, taps
         with contextlib.ExitStack() as stack:
             stack.enter_context(patched(mask2former, "sampled_mask_losses", sampled))
             tapped = [stack.enter_context(AssignmentTap(module, name)) for name in taps]
+            traced = stack.enter_context(trace()) if trace is not None else None
             for i, tap in enumerate(tapped):
                 tap.replay = None if replay is None else list(replay[i])
             losses = model(*inputs_on(device))
@@ -2689,12 +2795,12 @@ def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights, taps
             gs = [p.grad.detach().float().cpu().reshape(-1) for n, p in model.named_parameters()
                   if n.startswith(prefixes) and p.grad is not None]
             grads[group] = torch.cat(gs)
-        return {k: float(v.detach()) for k, v in losses.items()}, grads, [tap.recorded for tap in tapped]
+        return {k: float(v.detach()) for k, v in losses.items()}, grads, [tap.recorded for tap in tapped], traced
 
     t0 = time.perf_counter()
-    want_losses, want_grads, cpu_assign = run(cpu, "cpu")
+    want_losses, want_grads, cpu_assign, cpu_trace = run(cpu, "cpu")
     cpu_s = time.perf_counter() - t0
-    got_losses, got_grads, card_assign = run(card, "card")
+    got_losses, got_grads, card_assign, _ = run(card, "card")
     # the first tap's first field: an assignment's gt slot per query, simOTA's selected queries
     first = [(a[0] if isinstance(a, tuple) else a, b[0] if isinstance(b, tuple) else b)
              for a, b in zip(card_assign[0], cpu_assign[0])]
@@ -2702,10 +2808,12 @@ def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights, taps
     total = sum(int((b >= 0).sum()) if b.dtype != torch.bool else int(b.sum()) for _, b in first)
     print(f"  {label}: CPU f32 forward + backward {cpu_s:.1f} s; the card's matching differs from the CPU's in "
           f"{differ} of {total} assigned entries (bf16 outputs beside f32 ones)")
-    forced_losses, forced_grads, _ = run(card, "card", replay=cpu_assign)
+    forced_losses, forced_grads, _, card_trace = run(card, "card", replay=cpu_assign)
     reason = ("bf16 keeps 8 significant bits, and the forward and backward round ~100 times in sequence, so "
               "errors that add like a random walk reach a few percent")
     result = {"assignments_differing": differ, "assigned": total, "cpu_s": cpu_s}
+    if trace is not None:
+        result["loss_mask_trace"] = trace.report(label, cpu, card_trace, cpu_trace)
     for tag, losses, grads in (("own", got_losses, got_grads), ("cpu_assignment", forced_losses, forced_grads)):
         loss_err = {k: abs(losses[k] - v) / max(abs(v), 1e-6) for k, v in want_losses.items()}
         grad_err = {g: float((grads[g] - want_grads[g]).norm() / want_grads[g].norm().clamp_min(1e-30))
@@ -2948,11 +3056,12 @@ def phase_minvis_entry(dev, kernels, smi):
     card = mask2former.build_maskformer_model(cfg, device=dev, seed=3).train()
     cpu = mask2former.build_maskformer_model(cfg, device="cpu", dtype=torch.float32, seed=4).train()
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
-    batch = synthetic_batch(np.random.RandomState(18), n_clips=1, hw=MINVIS_TRAIN_HW, n_classes=MINVIS_CLASSES)
+    batch = synthetic_batch(np.random.RandomState(18), n_clips=1, hw=MINVIS_CPU_HW, n_classes=MINVIS_CLASSES)
     adapters = {"card": tv.minvis_batch_adapter(cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, dev),
                 "cpu": tv.minvis_batch_adapter(cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, "cpu")}
     result["card_vs_cpu"] = train_card_vs_cpu(
-        "MinVIS train forward (one clip, key + reference at 512x768)", mask2former, card, cpu,
+        f"MinVIS train forward (one clip, key + reference at {MINVIS_CPU_HW[0]}x{MINVIS_CPU_HW[1]})", mask2former,
+        card, cpu,
         lambda d: adapters[d](batch), MINVIS_GROUPS, mask2former.maskformer_weight_dict(cfg))
     del card, cpu
     torch.cuda.empty_cache()
@@ -3279,7 +3388,7 @@ def phase_seqformer_train(dev, kernels, smi, config="seqformer/ytvis19_r50.yaml"
 
     result["card_vs_cpu"] = train_card_vs_cpu(
         f"{label} train forward (one clip of {SEQ_TRAIN_FRAMES} frames at {cpu_hw[0]}x{cpu_hw[1]})", seqformer, card,
-        cpu, on, SEQ_GROUPS, weights)
+        cpu, on, SEQ_GROUPS, weights, trace=MaskLossTrace)
     del card, cpu
     torch.cuda.empty_cache()
     result["phase_s"] = time.perf_counter() - t_phase
@@ -3430,7 +3539,7 @@ def phase_idol_swin_train(dev, kernels, smi):
 
 
 # ---------------------------------------------------------------- phase 22
-INSTMOVE_DATASET, INSTMOVE_TRAIN_STEPS, INSTMOVE_TRAIN_BATCH = "ytvis_synthetic_instmove", 20, 16
+INSTMOVE_DATASET, INSTMOVE_TRAIN_STEPS, INSTMOVE_TRAIN_BATCH = "ytvis_synthetic_instmove", 8, 16
 INSTMOVE_GROUPS = (
     ("mask encoder", ("enc1.", "enc2.", "enc3.", "enc4.")),
     ("ConvLSTM", ("convlstm_",)),
@@ -3443,7 +3552,7 @@ INSTMOVE_GROUPS = (
 
 def phase_instmove_train(dev, kernels, smi):
     """InstMove training through ``train_instmove.main`` (full width, f32, TF32
-    off) on a synthetic YTVIS dataset of 2 videos x 20 frames: 20 steps of 16
+    off) on a synthetic YTVIS dataset of 2 videos x 20 frames: 8 steps of 16
     sequences at 192x192, the step time, peak memory and loss curve,
     ``instmove_final``; then the first step's losses and gradients on the card
     against the CPU's on the tool's own first batch."""
@@ -3460,7 +3569,7 @@ def phase_instmove_train(dev, kernels, smi):
         config = str(Path(__file__).resolve().parent / "configs" / "minvis" / "ovis_r50_motion.yaml")
         argv = ["--config-file", config, "DATASETS.TRAIN", f"('{INSTMOVE_DATASET}',)", "OUTPUT_DIR", f"{tmp}/out",
                 "SOLVER.MAX_ITER", str(INSTMOVE_TRAIN_STEPS), "SOLVER.IMS_PER_BATCH", str(INSTMOVE_TRAIN_BATCH),
-                "SOLVER.CHECKPOINT_PERIOD", "10"]
+                "SOLVER.CHECKPOINT_PERIOD", str(INSTMOVE_TRAIN_STEPS // 2)]
         step_ms, make_step = [], ti.make_instmove_step
 
         def timed_make_step(model, optimizer):
@@ -3489,7 +3598,8 @@ def phase_instmove_train(dev, kernels, smi):
         require(len(curve) == INSTMOVE_TRAIN_STEPS and np.isfinite(curve).all(), f"InstMove losses {curve}")
         require(next(model.parameters()).is_cuda and model.dtype == torch.float32, "InstMove trained off the card")
         files = sorted(p.name for p in Path(f"{tmp}/out").glob("*.pth"))
-        require(files == ["instmove_0000010.pth", "instmove_0000020.pth", "instmove_final.pth"], f"checkpoints {files}")
+        want_files = [f"instmove_{i:07d}.pth" for i in (INSTMOVE_TRAIN_STEPS // 2, INSTMOVE_TRAIN_STEPS)]
+        require(files == [*want_files, "instmove_final.pth"], f"checkpoints {files}")
         cfg = ti.setup(ti.default_argument_parser().parse_args(argv), ti.add_maskformer_config)
         samples = ti.build_mask_sequences(INSTMOVE_DATASET, cfg.MODEL.INSTMOVE.SEQ_LEN,
                                           tuple(cfg.MODEL.INSTMOVE.MASK_SIZE))
@@ -3548,7 +3658,7 @@ ROOMY = (1024, 300)
 
 
 def phase_fused_tracker(dev, kernels, smi):
-    """IDOL-R50 with ``TPU.FUSED_TRACKER``: the two synthetic videos through the
+    """IDOL-R50 with ``TPU.FUSED_TRACKER``: the 13-frame synthetic video through the
     fused runner (K1 / K2 / K3 = 12 / 1 / 6 a clip), and its per-frame (query,
     track id) pairs from the serving loop (``_run_clips_fused``) against the
     host tracker's on the same outputs: on every frame at capacities that
@@ -3578,6 +3688,7 @@ def phase_fused_tracker(dev, kernels, smi):
             f"the fused runner from the config: {fused.fused_tracker}, {fused.fused_capacity}, {fused.fused_dets}")
     first_clip = {**records[0], "file_names": records[0]["file_names"][:CLIP]}
     raise_class_bias(model, host.infer_clip(*host._prepare_frames(first_clip))["pred_logits"][..., 0])
+    records = records[1:]       # one video (13 frames, the last clip padded), to keep the run inside its limit
 
     track_frames = fused._track_frames
 
@@ -3592,7 +3703,7 @@ def phase_fused_tracker(dev, kernels, smi):
     roomy = vi.IDOLVideoInference.from_config(cfg, model, image_loader=store.__getitem__, fused_capacity=ROOMY[0],
                                               fused_dets=ROOMY[1])
     for runner in (fused, host, roomy):         # warm-up, not counted
-        runner(records[1])
+        runner(records[0])
     zero(kernels)
     fused_ms, outs = [], []
     for rec in records:
@@ -4263,24 +4374,241 @@ def phase_tools(dev, kernels, smi):
     return {**demo_launches, **export_launches, **train_launches}, result
 
 
+# ---------------------------------------------------------------- phase 26
+RCNN_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml"
+RCNN_DATASET, RCNN_IMAGES, RCNN_HW = "coco_synthetic_rcnn", 4, (480, 640)   # resized to 800x1067, padded to 800x1344
+RCNN_SHAPE = (1, 800, 1344, 3)      # the config's TPU.TEST_IMAGE_SIZE: K2's input, one image a forward
+RCNN_CLASS_BIAS = 4.0               # softmax(4 against 80 logits near 0) ~ 0.4 on class 0
+RCNN_CPU_PROPOSALS = 100            # the card's first proposals fed to both sides' ROI heads
+RCNN_FORWARDS = 5
+
+
+def register_rcnn_dataset(root):
+    """A synthetic COCO set (``RCNN_IMAGES`` PNGs at ``RCNN_HW``, 1-3 objects
+    each with polygon masks) whose json lists COCO's 80 categories, registered
+    as ``RCNN_DATASET``: the evaluator maps each of the model's 80 labels to a
+    category id of the dataset (the synthetic objects take ids 1-3)."""
+    from vnext_tpu_torch.data.datasets.coco import register_coco_instances
+    from vnext_tpu_torch.data.datasets.synthetic import generate_synthetic_coco
+
+    json_file = generate_synthetic_coco(root, num_images=RCNN_IMAGES, h=RCNN_HW[0], w=RCNN_HW[1], seed=26)
+    with open(json_file) as f:
+        gt = json.load(f)
+    gt["categories"] = [{"id": i + 1, "name": n} for i, n in enumerate(COCO_CLASSES)]
+    with open(json_file, "w") as f:
+        json.dump(gt, f)
+    register_coco_instances(RCNN_DATASET, {"thing_classes": list(COCO_CLASSES), "thing_dataset_id_to_contiguous_id":
+                                           {i + 1: i for i in range(len(COCO_CLASSES))}}, json_file, f"{root}/images")
+    return gt
+
+
+def rcnn_card_vs_cpu(model, cfg, images, sizes):
+    """One image's stages on the card (kernels, bf16) against the CPU (plain,
+    f32) with the same weights and input: the FPN maps, the RPN's logits and
+    deltas, and the ROI heads on the card's first ``RCNN_CPU_PROPOSALS``
+    proposals fed to both sides (the proposals themselves pass top-k and NMS,
+    whose discrete choices bf16 may flip, so they are not compared)."""
+    import torch
+
+    from vnext_tpu_torch.models import rcnn_kwargs_from_cfg
+    from vnext_tpu_torch.models.rcnn import GeneralizedRCNN
+
+    cpu = GeneralizedRCNN(**{**rcnn_kwargs_from_cfg(cfg), "dtype": torch.float32}).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    levels = [f"p{i}" for i in range(2, 7)]
+    with torch.no_grad():
+        f_card = model._features(images)
+        rpn_card = model.rpn([f_card[k] for k in levels], sizes)
+        proposals = rpn_card[0][:, :RCNN_CPU_PROPOSALS]
+        heads_card = model.roi_heads(f_card, proposals)
+        t0 = time.perf_counter()
+        f_cpu = cpu._features(images.cpu())
+        rpn_cpu = cpu.rpn([f_cpu[k] for k in levels], sizes.cpu())
+        heads_cpu = cpu.roi_heads(f_cpu, proposals.cpu())
+        cpu_s = time.perf_counter() - t0
+    print(f"  CPU f32 reference (ResNet-50 + FPN + RPN at {images.shape[1]}x{images.shape[2]}, ROI heads on "
+          f"{RCNN_CPU_PROPOSALS} proposals): "
+          f"{cpu_s:.1f} s")
+    reason = ("bf16 keeps 8 significant bits (2^-9 relative per rounding) and the path rounds ~60 times in "
+              "sequence (53 ResNet-50 convolutions, the FPN's, the heads'), so errors that add like a random walk "
+              "reach a few %; 5% leaves headroom")
+    errs = {}
+
+    def rel(name, a, b, tol=0.05):
+        err = float((a.float().cpu() - b).norm() / b.norm().clamp_min(1e-30))
+        print(f"  {name}: relative L2 error {err:.4g} tolerance {tol}: {reason}")
+        require(err <= tol, f"{name}: relative error {err} above {tol}")
+        errs[name] = err
+
+    for k in levels:
+        rel(f"FPN {k} {tuple(f_cpu[k].shape)}", f_card[k], f_cpu[k])
+    rel("RPN objectness logits", rpn_card[3], rpn_cpu[3])
+    rel("RPN anchor deltas", rpn_card[4], rpn_cpu[4])
+    for k in ("cls_logits", "box_deltas", "mask_logits"):
+        rel(f"ROI heads {k}", heads_card[k], heads_cpu[k])
+    del cpu
+    return errs
+
+
+def phase_rcnn(dev, kernels, smi):
+    """Phase 26: Mask R-CNN R50-FPN (``mask_rcnn_R_50_FPN_1x.yaml``: 80 classes,
+    bf16, 800x1344) served through ``train_net.main --eval-only`` on a synthetic
+    COCO set, with seeded weights given as ``MODEL.WEIGHTS`` (class 0's bias
+    raised so that detections survive the 0.05 threshold): K2 once per image
+    and no other hand-written kernel, every output finite, the COCO evaluator's
+    bbox and segm dicts. Then the forward alone, its device time by kernel, the
+    RPN's and the class NMS's share, peak memory, and one image card vs CPU."""
+    import torch
+
+    from vnext_tpu_torch.engine import detection
+    from vnext_tpu_torch.models import build_rcnn_model
+    from vnext_tpu_torch.models import rcnn
+    from vnext_tpu_torch.ops import stem_conv
+    from vnext_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        gt = register_rcnn_dataset(f"{tmp}/coco")
+        print(f"  synthetic COCO set: {len(gt['images'])} images at {RCNN_HW[0]}x{RCNN_HW[1]}, "
+              f"{len(gt['annotations'])} objects, 80 categories in its json")
+        cfg = read_config(RCNN_CONFIG)
+        t0 = time.perf_counter()
+        model = build_rcnn_model(cfg, device=dev, seed=0)
+        with torch.no_grad():
+            model.roi_heads.cls_score.bias[0] += RCNN_CLASS_BIAS
+        describe(model, "Mask R-CNN R50-FPN", RCNN_CONFIG, t0)
+        weights = f"{tmp}/mask_rcnn_R_50_FPN_seeded.pth"
+        torch.save({"model": model.state_dict()}, weights)
+        print(f"  class-0 bias raised by {RCNN_CLASS_BIAS} so that random weights make detections; weights written "
+              f"as a port checkpoint for MODEL.WEIGHTS")
+
+        outputs, image_ms = [], []
+        call = detection.DetectionInference.__call__
+
+        def timed(self, record):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(self, record)                     # its outputs come back to the host
+            image_ms.append((time.perf_counter() - t0) * 1e3)
+            outputs.append((record, out))
+            return out
+
+        argv = ["--config-file", str(Path(__file__).resolve().parent / "configs" / RCNN_CONFIG), "--eval-only",
+                "DATASETS.TEST", f"('{RCNN_DATASET}',)", "MODEL.WEIGHTS", weights, "OUTPUT_DIR", f"{tmp}/out"]
+        zero(kernels)
+        t0 = time.perf_counter()
+        with patched(detection.DetectionInference, "__call__", timed):
+            results = train_net.main(argv)
+        eval_s = time.perf_counter() - t0
+        launches = counts(kernels)
+        print(f"  train_net --eval-only: {eval_s:.1f} s with the model's build, the weights' load and the evaluator; "
+              f"per image through the runner (resize, pad, forward, rescale, paste, copy to the host) "
+              f"{', '.join(f'{v:.1f}' for v in image_ms)} ms; launches {launches}")
+        require(launches == {stem_conv.KERNEL.name: RCNN_IMAGES},
+                f"K2 once per image and no other hand-written kernel: {launches}")
+        require(len(outputs) == RCNN_IMAGES, f"{len(outputs)} images served")
+        kept = []
+        for record, out in outputs:
+            require(all(np.isfinite(out[k]).all() for k in ("boxes", "scores")), "non-finite boxes or scores")
+            require(out["masks"].shape == (cfg.TEST.DETECTIONS_PER_IMAGE, record["height"], record["width"])
+                    and out["masks"].dtype == bool, f"masks {out['masks'].shape} {out['masks'].dtype}")
+            kept.append(int(out["valid"].sum()))
+        require(sum(kept) > 0, "no detection survived")
+        stats = results[RCNN_DATASET]
+        require(sorted(stats) == ["bbox", "segm"], f"COCOEvaluator tasks {sorted(stats)}")
+        for task in ("bbox", "segm"):
+            check_stats(stats[task], f"COCO {task}")
+        print(f"  detections kept per image {kept}; COCOEvaluator bbox AP {stats['bbox']['AP']:.4f}, "
+              f"segm AP {stats['segm']['AP']:.4f}")
+
+        # ---- the forward alone, on the first image as the runner prepares it
+        runner = detection.DetectionInference(cfg, model)
+        images, sizes, _, _ = runner.preprocess(outputs[0][0])
+        require(tuple(images.shape) == RCNN_SHAPE, f"padded input {tuple(images.shape)}")
+
+        def forward():
+            with torch.no_grad():
+                return model.inference(images, sizes)
+
+        out = forward()
+        require(all(bool(torch.isfinite(out[k].float()).all()) for k in ("boxes", "scores", "mask_probs")),
+                "non-finite forward outputs")
+        torch.cuda.reset_peak_memory_stats()
+        forward_ms = time_ms(forward, reps=RCNN_FORWARDS, warmup=1)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the RPN (its greedy NMS inside) and the class NMS, each synchronized on both sides
+        spans = {"forward": [], "rpn": [], "rpn_nms": [], "class_nms": []}
+        acc = {}
+
+        def span(key, fn):
+            def wrapped(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                acc[key] = acc.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+                return res
+            return wrapped
+
+        with patched(rcnn, "nms_mask", span("rpn_nms", rcnn.nms_mask)), \
+                patched(rcnn, "batched_nms_mask", span("class_nms", rcnn.batched_nms_mask)), \
+                patched(model.rpn, "forward", span("rpn", model.rpn.forward)):
+            for _ in range(RCNN_FORWARDS):
+                acc.clear()
+                span("forward", forward)()
+                for k in spans:
+                    spans[k].append(acc[k])
+        split = {k: statistics.median(v) for k, v in spans.items()}
+        nms_share = (split["rpn_nms"] + split["class_nms"]) / split["forward"]
+        print(f"  forward at {RCNN_SHAPE[1]}x{RCNN_SHAPE[2]}: {forward_ms:.2f} ms by CUDA events (median of "
+              f"{RCNN_FORWARDS}), peak memory {peak_gib:.2f} GiB; synchronized spans (median of {RCNN_FORWARDS}): "
+              f"forward {split['forward']:.2f} ms, RPN {split['rpn']:.2f} (its greedy NMS over "
+              f"{model.rpn.pre_nms_topk} candidates {split['rpn_nms']:.2f}), class NMS over "
+              f"{4 * model.max_detections} candidates {split['class_nms']:.2f}: the two NMS loops "
+              f"{nms_share:.1%} of the forward, the RPN with the class NMS "
+              f"{(split['rpn'] + split['class_nms']) / split['forward']:.1%}")
+        busy, wall = profile_busy(forward, f"Mask R-CNN R50-FPN forward at {RCNN_SHAPE[1]}x{RCNN_SHAPE[2]}", calls=2,
+                                  top=12)
+        result.update(eval_s=eval_s, image_ms=image_ms, detections_kept=kept, stats=stats, forward_ms=forward_ms,
+                      spans_ms=split, nms_share=nms_share, busy_ms=busy, profiled_wall_ms=wall, peak_gib=peak_gib)
+        torch.cuda.empty_cache()
+        result["card_vs_cpu"] = rcnn_card_vs_cpu(model, cfg, images, sizes)
+        del model, runner
+        torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {smi}")
+    print(f"[phase 26] Mask R-CNN R50-FPN served through train_net --eval-only at 800x1344: K2 = 1 per image, no "
+          f"other kernel, outputs finite, COCOEvaluator bbox and segm; card agrees with CPU; "
+          f"{result['phase_s']:.1f} s")
+    return {"rcnn_eval": launches}, result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
                                                  "with no argument, every phase.")
     parser.add_argument("--only", choices=("train_numerics", "entry_point", "minvis_entry", "seqformer_train",
                                            "swin_train", "instmove_train", "fused_tracker", "coco_pretrain",
-                                           "tools"),
+                                           "tools", "rcnn"),
                         help="phase 1 and this phase alone (train_numerics: phase 6; entry_point: phase 17; "
                              "minvis_entry: phase 2b's MinVIS and SeqFormer shapes and phase 18; seqformer_train: "
                              "phase 19; swin_train: phases 20 and 21; instmove_train: K2 at InstMove's shape and "
-                             "phase 22; fused_tracker: phase 23; coco_pretrain: phase 24; tools: phase 25)")
+                             "phase 22; fused_tracker: phase 23; coco_pretrain: phase 24; tools: phase 25; rcnn: K2 "
+                             "at Mask R-CNN's [1, 800, 1344, 3] and phase 26)")
     parser.add_argument("--tree", help="with --only: import vnext_tpu_torch from this checkout (an "
                                        "earlier commit's `git archive`) in place of the one beside this script")
+    parser.add_argument("--seq-cpu-hw", type=lambda v: tuple(int(x) for x in v.split("x")), metavar="HxW",
+                        help="with --only seqformer_train: run phase 19's card-vs-CPU clip at these frames "
+                             "(default the step's 512x640)")
     parser.add_argument("--swap-plain", action="append", default=[], choices=("K2", "K4"),
                         help="with --only train_numerics: also run the card's forward with this "
                              "kernel's plain version on the card (repeatable)")
     args = parser.parse_args(argv)
+    t_run = time.perf_counter()
     if (args.tree or args.swap_plain) and args.only != "train_numerics":
         parser.error("--tree and --swap-plain go with --only train_numerics")
+    if args.seq_cpu_hw and args.only != "seqformer_train":
+        parser.error("--seq-cpu-hw goes with --only seqformer_train")
     try:
         import torch
     except ImportError:
@@ -4311,7 +4639,7 @@ def main(argv=None) -> int:
             launches, entry = phase_minvis_entry(dev, kernels, smi)
             print(json.dumps({"kernels_at_new_shapes": shapes, "minvis_entry": entry, "launches": launches}))
         elif args.only == "seqformer_train":
-            launches, train = phase_seqformer_train(dev, kernels, smi)
+            launches, train = phase_seqformer_train(dev, kernels, smi, cpu_hw=args.seq_cpu_hw or TRAIN_HW)
             print(json.dumps({"seqformer_train": train, "launches": launches}))
         elif args.only == "swin_train":
             idol_launches, idol_train = phase_idol_swin_train(dev, kernels, smi)
@@ -4327,6 +4655,10 @@ def main(argv=None) -> int:
         elif args.only == "coco_pretrain":
             launches, coco = phase_coco_pretrain(dev, kernels, smi)
             print(json.dumps({"coco_pretrain": coco, "launches": launches}))
+        elif args.only == "rcnn":
+            k2 = stem_serving_case(dev, np.random.RandomState(26), RCNN_SHAPE)
+            launches, served = phase_rcnn(dev, kernels, smi)
+            print(json.dumps({"k2_rcnn": k2, "rcnn": served, "launches": launches}))
         else:
             launches, tools = phase_tools(dev, kernels, smi)
             print(json.dumps({"tools": tools, "launches": launches}))
@@ -4414,7 +4746,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tools_launches, tools_result = phase_tools(dev, kernels, smi)
     phase_seconds["25"] = tools_result["phase_s"]
+    torch.cuda.empty_cache()
+    rcnn_launches, rcnn_result = phase_rcnn(dev, kernels, smi)
+    phase_seconds["26"] = rcnn_result["phase_s"]
     print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
+    print(f"  the whole run: {time.perf_counter() - t_run:.1f} s")
 
     print(json.dumps({
         "slice": timing, "seqformer": seq_timing, "train": train_timing, "minvis": minvis_timing,
@@ -4423,7 +4759,7 @@ def main(argv=None) -> int:
         "minvis_entry": minvis_entry_result, "seqformer_train": seq_train_result,
         "idol_swinl_train": swin_train_result, "seqformer_swinl_train": seq_swin_train_result,
         "instmove_train": instmove_train_result, "fused_tracker": fused_result, "coco_pretrain": coco_result,
-        "tools": tools_result, "phase_seconds": phase_seconds,
+        "tools": tools_result, "rcnn": rcnn_result, "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
         "k5_decoder_form": measured["bwd_decoder"], "k6_backward_decoder_form": measured["bwd6_decoder"],
@@ -4436,7 +4772,7 @@ def main(argv=None) -> int:
              "minvis": minvis_launches, "instmove": instmove_launches, "idol_swinL": swin_launches,
              "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches, **entry_point_launches,
              **minvis_entry_launches, **seq_train_launches, **swin_train_launches, **seq_swin_train_launches,
-             **fused_launches, **coco_launches, **tools_launches}
+             **fused_launches, **coco_launches, **tools_launches, **rcnn_launches}
     for path, names in (("minvis_entry_eval", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
                         ("minvis_entry_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
                         ("seqformer_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
@@ -4451,7 +4787,8 @@ def main(argv=None) -> int:
                         ("tools_export_seqformer", (msda.KERNEL, msda.KERNEL_V9_FWD, stem_conv.KERNEL,
                                                     encoder_epilogue.KERNEL)),
                         ("tools_plain_train_net", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
-                        ("tools_lazyconfig_train_net", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL))):
+                        ("tools_lazyconfig_train_net", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
+                        ("rcnn_eval", (stem_conv.KERNEL,))):
         for kern in names:
             require(paths[path].get(kern.name, 0) > 0, f"{kern.name}: no launch on the {path} path")
     # K4, K5 and K2 at the new train steps' shapes, beside their rows' train-step shape
@@ -4461,7 +4798,8 @@ def main(argv=None) -> int:
                  for kern, d in ((msda.KERNEL_V9_FWD, "fwd"), (msda.KERNEL_V9_BWD, "bwd"))}
     at_shapes[stem_conv.KERNEL.name] = {"minvis_train": measured["stem_minvis_train"],
                                         "seqformer_train": measured["stem_seqformer_train"],
-                                        "instmove_serving": measured["stem_instmove"]}
+                                        "instmove_serving": measured["stem_instmove"],
+                                        "rcnn_serving": measured["stem_rcnn"]}
     rows = [  # (kernel, the path its launches are reported from, the measurement it is reported by)
         (msda.KERNEL, "serve", "enc"),
         (stem_conv.KERNEL, "train", "stem_train"),

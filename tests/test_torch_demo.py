@@ -3,7 +3,7 @@
 - The demo: JAX's ``demo/demo.py`` (loaded by path, as ``tests/test_demo.py``
   loads it) and ``vnext_tpu_torch.tools.demo`` on the same 3 frames of
   ``idol_instant_test.yaml`` (f32, frames and test size 64x96). The port gets
-  the JAX demo's own ``PRNGKey(0)`` parameters, through
+  the JAX demo's own parameters, through
   ``checkpoint/from_jax.py`` and a ``MODEL.WEIGHTS`` file; the last class
   head's class-0 bias is raised in both (as chip_smoke's phase 3 does) so that
   random weights make tracks. The runners' labels are equal, their scores
@@ -11,8 +11,9 @@
   ``tests/test_torch_video_inference.py``: f32 on both sides, a pixel flips
   only where a probability sits at 0.5 to f32 rounding), and the written frames
   agree on >= 99.5% of pixels (the rest at the mask borders those flips move).
-  The JAX demo's parameter init runs under ``jax.jit`` here (its eager init
-  compiles op by op, ~45 s): the port takes whatever parameters it made.
+  The JAX demo's parameter init is replaced by ``random_params`` (its eager
+  init compiles op by op, ~45 s; under ``jax.jit`` it still compiles once):
+  the port takes whatever parameters the JAX demo made.
 - ``visualize_data`` / ``visualize_json_results``: the same images as JAX's
   tools on one synthetic YTVIS set.
 - ``plain_train_net``: the same losses, step by step, as ``train_net``'s
@@ -27,6 +28,7 @@ import os
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -41,6 +43,8 @@ from vnext_tpu_torch.data.datasets.synthetic import THING_CLASSES, register_synt
 from vnext_tpu_torch.tools import (analyze_model, demo, export_model, lazyconfig_train_net, plain_train_net,
                                    train_net, visualize_data, visualize_json_results)
 from vnext_tpu_torch.utils.video_io import VideoWriter, read_mjpeg_avi
+
+from _torch_helpers import random_params
 
 torch.set_num_threads(2)
 
@@ -91,17 +95,18 @@ def both_demos(tmp_path_factory):
 
     init = JaxIDOL.init
 
-    def jit_init(self, rngs, *args, method=None, **kwargs):
-        return jax.jit(lambda r, *a: init(self, r, *a, method=method, **kwargs))(rngs, *args)
+    def shaped_init(self, rngs, *args, method=None, **kwargs):
+        return {"params": jax.tree.map(jnp.asarray, random_params(
+            lambda: init(self, rngs, *args, method=method, **kwargs)))}
 
     jax_demo = _load_by_path("jax_demo_for_port", "demo/demo.py")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_vis_inference, "IDOLVideoInference", Recording)
-        mp.setattr(JaxIDOL, "init", jit_init)
+        mp.setattr(JaxIDOL, "init", shaped_init)
         mp.setattr(sys, "argv", ["demo.py", "--config-file", QUICK, "--input", str(root / "frames"),
                                  "--output", str(root / "jax"), *SMALL])
         jax_demo.main()
-    weights = str(root / "jax_prngkey0.pth")
+    weights = str(root / "jax_params.pth")
     torch.save(params_from_jax(jax.tree.map(np.asarray, captured["params"])), weights)
     port = demo.main(["--config-file", QUICK, "--input", str(root / "frames"), "--output", str(root / "port"),
                       *SMALL, "MODEL.DEVICE", "cpu", "MODEL.WEIGHTS", weights])

@@ -50,9 +50,11 @@ def test_idol_r101_matches_jax(stride_in_1x1):
     assert (block.conv1.stride, block.conv2.stride) == ((2, 1) if stride_in_1x1 else (1, 2))
     assert len(port.backbone.stage_blocks[2]) == 23
 
-    feats, want = jax.jit(lambda p, x, s: (
-        jmodel.apply({"params": p}, x, method=lambda m, x: m.backbone(x)),
-        jmodel.apply({"params": p}, x, s, method=JaxIDOL.inference)))(params, *args)
+    # one trace: the backbone's outputs captured inside the inference
+    want, state = jax.jit(lambda p, x, s: jmodel.apply(
+        {"params": p}, x, s, method=JaxIDOL.inference, mutable=["intermediates"],
+        capture_intermediates=lambda mdl, name: mdl.name == "backbone" and name == "__call__"))(params, *args)
+    feats = state["intermediates"]["backbone"]["__call__"][0]
     with torch.no_grad():
         got_feats = port.backbone(t(images))
         got = port.inference(t(images), torch.from_numpy(SIZES))

@@ -98,12 +98,12 @@ def test_build_model_refuses_detectron2_and_unknown_architectures():
     from vnext_tpu_torch.models import META_ARCH_REGISTRY, build_model
 
     cfg = _port_cfg("configs/quick_schedules/idol_instant_test.yaml")
-    for name, err, match in (("GeneralizedRCNN", NotImplementedError, "item 11"), ("FCOS", NotImplementedError,
-                             "item 11"), ("NoSuchArch", KeyError, "No object named")):
+    for name, err, match in (("PanopticFPN", NotImplementedError, "item 11d"), ("FCOS", NotImplementedError,
+                             "item 11c"), ("NoSuchArch", KeyError, "No object named")):
         cfg.MODEL.META_ARCHITECTURE = name
         with pytest.raises(err, match=match):
             build_model(cfg, device="meta")
-    assert sorted(META_ARCH_REGISTRY.keys()) == ["IDOL", "MaskFormer", "SeqFormer"]
+    assert sorted(META_ARCH_REGISTRY.keys()) == ["GeneralizedRCNN", "IDOL", "MaskFormer", "SeqFormer"]
     cfg.MODEL.META_ARCHITECTURE = "VideoMaskFormer_frame"
     assert type(build_model(_port_cfg("configs/quick_schedules/minvis_instant_test.yaml"), device="meta")
                 ).__name__ == "MaskFormer"

@@ -24,10 +24,11 @@ package's ``tools/train_net.py``, on the CPU with the quick-schedule config
   to the JAX package's loader with its ``CocoClipDatasetMapper`` for the same
   seed, bit for bit.
 - Training refuses, before it builds the model, a ``DATASETS.TEST`` set that
-  the evaluation after the last step could not score: a COCO-type set (no
-  COCO evaluator in the port) or one with fewer categories than the model
+  the evaluation after the last step could not score: a COCO-type set (IDOL's
+  video path cannot score it) or one with fewer categories than the model
   predicts.
-- ``main`` refuses an image meta-architecture, more than one GPU or process,
+- ``main`` refuses to train an image meta-architecture (Mask R-CNN serves
+  through it: tests/test_torch_detection.py), more than one GPU or process,
   and a run on the card when no CUDA device is visible; ``--eval-only`` with
   ``TPU.FUSED_TRACKER True`` runs the on-device tracker.
 """
@@ -91,11 +92,12 @@ def test_eval_only_equals_jax(synthetic, tmp_path):
     cfg = train_net.setup(_args(train_net.default_argument_parser, *opts, "MODEL.DEVICE", "cpu",
                                 "OUTPUT_DIR", str(tmp_path / "port")))
 
-    # JAX's do_eval's own initialization, then class 0 raised so that tracks are born
+    # JAX's do_eval's own initialization (under jit: eager, flax compiles it op by op), then class 0
+    # raised so that tracks are born
     h, w = jcfg.TPU.TEST_IMAGE_SIZE
     jmodel = jax_build_idol_model(jcfg)
-    params = jmodel.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, h, w, 3)),
-                         jnp.asarray([[h, w]], jnp.int32), method=JaxIDOL.inference)["params"]
+    params = jax.jit(lambda: jmodel.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, h, w, 3)),
+                                         jnp.asarray([[h, w]], jnp.int32), method=JaxIDOL.inference)["params"])()
     params = jax.tree.map(np.asarray, params)
     last = f"class_embed_{jcfg.MODEL.IDOL.DEC_LAYERS - 1}"
     bias = params[last]["bias"].copy()
@@ -246,8 +248,8 @@ def test_synthetic_dataset_only_where_the_config_names_it(monkeypatch, tmp_path)
 def test_main_refuses_what_the_port_lacks(synthetic, tmp_path, monkeypatch):
     out = ["OUTPUT_DIR", str(tmp_path)]
     rcnn = os.path.join(REPO, "configs", "quick_schedules", "mask_rcnn_R_18_instant_test.yaml")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        train_net.main(["--config-file", rcnn, "--eval-only", *out])
+    with pytest.raises(NotImplementedError, match="Queue 1, item 11b"):     # Mask R-CNN serves, but does not train
+        train_net.main(["--config-file", rcnn, *out])
     for flag in (["--num-gpus", "2"], ["--machine-rank", "1"], ["--dist-url", "tcp://127.0.0.1:29500"]):
         with pytest.raises(NotImplementedError, match="item 12"):
             train_net.main(["--config-file", INSTANT, *flag, "MODEL.DEVICE", "cpu", *out])

@@ -5,7 +5,8 @@ MaskFormer on ResNet-18, hidden 64, 16 queries, 1 + 2 layers, 256 sampled
 points, the synthetic YTVIS dataset) and ``MODEL.DEVICE cpu``.
 
 - ``--eval-only``: the JAX ``do_eval`` (the script loaded by path) and the
-  port's, on JAX's ``PRNGKey(0)`` parameters carried across with
+  port's, on one random tree of JAX do_eval's model (``random_params``: no
+  init is compiled) carried across with
   ``checkpoint/from_jax.py``, in f32, give the same ``results.json`` entries
   (labels, video ids and RLE masks equal, scores to rtol 1e-5) and the same
   AP dict.
@@ -49,6 +50,8 @@ from vnext_tpu_torch.solver.build import build_grad_clip, build_lr_scheduler, bu
 from vnext_tpu_torch.tools import train_net_video as tv
 from vnext_tpu_torch.tools.train_net import default_argument_parser
 
+from _torch_helpers import random_params
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INSTANT = os.path.join(REPO, "configs", "quick_schedules", "minvis_instant_test.yaml")
 
@@ -82,12 +85,11 @@ def test_eval_only_equals_jax(synthetic, tmp_path):
     jcfg = _cfg(jax_tv, "--eval-only", *opts, "OUTPUT_DIR", str(tmp_path / "jax"))
     cfg = _cfg(tv, "--eval-only", *opts, "MODEL.DEVICE", "cpu", "OUTPUT_DIR", str(tmp_path / "port"))
 
-    # JAX do_eval's own initialization
+    # a random tree of the model JAX do_eval builds (its init, even under jit, compiles for ~13 s)
     h, w = jcfg.TPU.TRAIN_IMAGE_SIZE
     jmodel = jax_build_maskformer_model(jcfg)
-    params = jax.jit(lambda: jmodel.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, h, w, 3)),
-                                         jnp.asarray([[h, w]], jnp.int32), method=JaxMaskFormer.inference))()
-    params = jax.tree.map(np.asarray, params["params"])
+    params = random_params(lambda: jmodel.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, h, w, 3)),
+                                               jnp.asarray([[h, w]], jnp.int32), method=JaxMaskFormer.inference))
     want = jax_tv.do_eval(jcfg, jax.tree.map(jnp.asarray, params))
 
     model = build_maskformer_model(cfg, device="cpu")

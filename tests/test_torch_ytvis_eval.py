@@ -225,9 +225,12 @@ def test_build_evaluator_has_the_ytvis_type_only(tmp_path):
     cfg.OUTPUT_DIR = str(tmp_path)
     MetadataCatalog.get("eval_ytvis_kind").set(evaluator_type="ytvis")
     assert isinstance(build_evaluator(cfg, "eval_ytvis_kind"), YTVISEvaluator)
+    # the COCO type is the COCO evaluator since Mask R-CNN serves (tests/test_torch_detection.py)
     MetadataCatalog.get("eval_coco_kind").set(evaluator_type="coco")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        build_evaluator(cfg, "eval_coco_kind")
+    assert type(build_evaluator(cfg, "eval_coco_kind")).__name__ == "COCOEvaluator"
+    MetadataCatalog.get("eval_lvis_kind").set(evaluator_type="lvis")
+    with pytest.raises(NotImplementedError, match="Queue 1, items 11d and 11e"):
+        build_evaluator(cfg, "eval_lvis_kind")
 
 
 def test_inference_loop_and_combiner_equal_jax():

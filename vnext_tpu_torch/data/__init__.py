@@ -1,5 +1,6 @@
 """The data layer: catalogs, datasets, transforms and augmentation policies,
-the YTVIS and COCO pseudo-clip mappers, the samplers and the loaders
+the YTVIS and COCO pseudo-clip mappers, the plain-image detection mapper,
+the samplers and the loaders
 (counterpart of ``vnext_tpu.data``)."""
 
 from . import augmentation as augmentations  # the policy API (detectron2's T.* namespace)
@@ -17,6 +18,7 @@ from .build import (
 from .catalog import DatasetCatalog, Metadata, MetadataCatalog
 from .coco_clip_mapper import CocoClipDatasetMapper
 from .dataset_mapper import YTVISDatasetMapper
+from .detection_mapper import DetectionDatasetMapper
 from .datasets.coco import load_coco_json, register_all_coco, register_coco_instances
 from .datasets.synthetic import register_synthetic_coco, register_synthetic_ytvis
 from .datasets.ytvis import (
@@ -48,6 +50,7 @@ __all__ = [
     "build_vis_train_loader",
     "YTVISDatasetMapper",
     "CocoClipDatasetMapper",
+    "DetectionDatasetMapper",
     "load_coco_json",
     "register_all_coco",
     "register_coco_instances",

@@ -4,7 +4,8 @@ json has ground truth.
 
 Counterpart of ``vnext_tpu.evaluation.ytvis_eval`` (``DatasetEvaluator``,
 ``YTVISEvaluator``, ``_normalize_gt``, ``build_evaluator``) for the ``ytvis``
-evaluator type. One process evaluates everything: the gather across processes
+evaluator type; ``build_evaluator`` also makes ``coco_eval.COCOEvaluator``
+for the ``coco`` type. One process evaluates everything: the gather across processes
 waits for the port's distribution (ROADMAP Queue 1, item 12).
 """
 
@@ -107,12 +108,23 @@ def _normalize_gt(gt: dict) -> dict:
     return gt
 
 
-def build_evaluator(cfg, dataset_name: str, output_dir: Optional[str] = None) -> YTVISEvaluator:
-    """The evaluator of the dataset's ``evaluator_type`` metadata; the port has
-    the ``ytvis`` type only."""
+def build_evaluator(cfg, dataset_name: str, output_dir: Optional[str] = None) -> DatasetEvaluator:
+    """The evaluator of the dataset's ``evaluator_type`` metadata: "ytvis" (the
+    video AP) or "coco" (``COCOEvaluator``, "bbox" and with ``MODEL.MASK_ON``
+    "segm"); the other types come with the rest of the Detectron2 families
+    (ROADMAP Queue 1, items 11d and 11e)."""
     evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "ytvis")
-    if evaluator_type != "ytvis":
-        raise NotImplementedError(
-            f"no evaluator for type {evaluator_type!r} (dataset {dataset_name}): the port has the "
-            "'ytvis' evaluator only; the others come with the Detectron2 families (ROADMAP Queue 1, item 11)")
-    return YTVISEvaluator(dataset_name, output_dir or cfg.OUTPUT_DIR)
+    output_dir = output_dir or cfg.OUTPUT_DIR
+    if evaluator_type == "ytvis":
+        return YTVISEvaluator(dataset_name, output_dir)
+    if evaluator_type == "coco":
+        from .coco_eval import COCOEvaluator
+
+        tasks = ("bbox", "segm") if cfg.MODEL.MASK_ON else ("bbox",)
+        if cfg.MODEL.KEYPOINT_ON:
+            tasks += ("keypoints",)
+        return COCOEvaluator(dataset_name, tasks=tasks, output_dir=output_dir)
+    raise NotImplementedError(
+        f"no evaluator for type {evaluator_type!r} (dataset {dataset_name}): the port has the 'ytvis' and "
+        "'coco' evaluators; the others come with the rest of the Detectron2 families (ROADMAP Queue 1, "
+        "items 11d and 11e)")

@@ -40,60 +40,7 @@ from torch import nn
 
 from ..ops.interpolate import resize_bilinear
 from .backbones.resnet import ResNet
-from .layers import Conv, Dense, _empty, _kernel_init, init_weights
-
-
-def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
-    """flax / XLA "SAME" padding of one axis: (before, after), output ceil(size / s)."""
-    total = max((-(-size // s) - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
-
-
-class ConvSame(Conv):
-    """``Conv`` with flax's "SAME" padding, which is asymmetric for an even
-    size at stride 2 (0 before, 1 after for a 3-tap kernel)."""
-
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1, dtype=torch.float32):
-        super().__init__(in_ch, out_ch, kernel_size, stride, 0, dtype=dtype)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k, s = self.weight.shape[-1], self.stride
-        (t, b), (l, r) = same_pads(x.shape[-2], k, s), same_pads(x.shape[-1], k, s)
-        return super().forward(F.pad(x, (l, r, t, b)))
-
-
-class ConvTranspose(Conv):
-    """flax ``nn.ConvTranspose(padding="SAME")`` with its default
-    ``transpose_kernel=False``: the input dilated by the stride and padded as
-    ``lax.conv_transpose`` pads "SAME" (k - 1 before for stride 2, k // 2 for
-    stride 1), then correlated with the kernel as it is, with no spatial flip
-    and no in/out swap. The output side is input * stride. ``weight`` is the
-    bridge's layout of the flax kernel (kh, kw, in, out): [out, in, kh, kw].
-
-    It runs as ``conv_transpose2d`` with padding 0, which pads k - 1 on both
-    sides, on the kernel flipped and swapped to torch's convention, and keeps
-    the window that ``lax.conv_transpose``'s own padding selects."""
-
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1, dtype=torch.float32):
-        super().__init__(in_ch, out_ch, kernel_size, stride, 0, dtype=dtype)
-
-    @staticmethod
-    def lax_pads(k: int, s: int) -> Tuple[int, int]:
-        """``lax.conv_transpose``'s "SAME" padding of the dilated input."""
-        pad_len = k + s - 2
-        before = k - 1 if s > k - 1 else math.ceil(pad_len / 2)
-        return before, pad_len - before
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt, k, s = self.dtype, self.weight.shape[-1], self.stride
-        before, after = self.lax_pads(k, s)
-        if before > k - 1 or after > k - 1:
-            raise ValueError(f"ConvTranspose: kernel {k} at stride {s} pads beyond k - 1")
-        w = self.weight.to(dt).flip(-2, -1).transpose(0, 1)           # [in, out, kh, kw]
-        y = F.conv_transpose2d(x.to(dt), w, None if self.bias is None else self.bias.to(dt), s)
-        lo = k - 1 - before                       # conv_transpose2d pads k - 1 before
-        h, wd = ((n - 1) * s + before + after - k + 2 for n in x.shape[-2:])
-        return y[..., lo:lo + h, lo:lo + wd]
+from .layers import Conv, ConvSame, ConvTranspose, Dense, _empty, _kernel_init, init_weights
 
 
 class Conv3d(nn.Module):

@@ -1,4 +1,5 @@
-"""Shared building blocks: Dense, Conv, norms, MLP, ConvGN, MultiHeadAttention, dropout.
+"""Shared building blocks: Dense, Conv (also flax's "SAME" and transposed forms), norms, MLP, ConvGN,
+MultiHeadAttention, dropout.
 
 Counterpart of ``vnext_tpu.models.layers``. Every module holds f32 parameters and
 computes in its ``dtype`` (bf16 on the card, f32 in the CPU tests), casting the
@@ -15,7 +16,7 @@ initializers the modules name).
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,6 +134,59 @@ class Conv(nn.Module):
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding)
+
+
+def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    """flax / XLA "SAME" padding of one axis: (before, after), output ceil(size / s)."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class ConvSame(Conv):
+    """``Conv`` with flax's "SAME" padding, which is asymmetric for an even
+    size at stride 2 (0 before, 1 after for a 3-tap kernel)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1, dtype=torch.float32):
+        super().__init__(in_ch, out_ch, kernel_size, stride, 0, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s = self.weight.shape[-1], self.stride
+        (t, b), (l, r) = same_pads(x.shape[-2], k, s), same_pads(x.shape[-1], k, s)
+        return super().forward(F.pad(x, (l, r, t, b)))
+
+
+class ConvTranspose(Conv):
+    """flax ``nn.ConvTranspose(padding="SAME")`` with its default
+    ``transpose_kernel=False``: the input dilated by the stride and padded as
+    ``lax.conv_transpose`` pads "SAME" (k - 1 before for stride 2, k // 2 for
+    stride 1), then correlated with the kernel as it is, with no spatial flip
+    and no in/out swap. The output side is input * stride. ``weight`` is the
+    bridge's layout of the flax kernel (kh, kw, in, out): [out, in, kh, kw].
+
+    It runs as ``conv_transpose2d`` with padding 0, which pads k - 1 on both
+    sides, on the kernel flipped and swapped to torch's convention, and keeps
+    the window that ``lax.conv_transpose``'s own padding selects."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1, dtype=torch.float32):
+        super().__init__(in_ch, out_ch, kernel_size, stride, 0, dtype=dtype)
+
+    @staticmethod
+    def lax_pads(k: int, s: int) -> Tuple[int, int]:
+        """``lax.conv_transpose``'s "SAME" padding of the dilated input."""
+        pad_len = k + s - 2
+        before = k - 1 if s > k - 1 else math.ceil(pad_len / 2)
+        return before, pad_len - before
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, k, s = self.dtype, self.weight.shape[-1], self.stride
+        before, after = self.lax_pads(k, s)
+        if before > k - 1 or after > k - 1:
+            raise ValueError(f"ConvTranspose: kernel {k} at stride {s} pads beyond k - 1")
+        w = self.weight.to(dt).flip(-2, -1).transpose(0, 1)           # [in, out, kh, kw]
+        y = F.conv_transpose2d(x.to(dt), w, None if self.bias is None else self.bias.to(dt), s)
+        lo = k - 1 - before                       # conv_transpose2d pads k - 1 before
+        h, wd = ((n - 1) * s + before + after - k + 2 for n in x.shape[-2:])
+        return y[..., lo:lo + h, lo:lo + wd]
 
 
 class LayerNorm(nn.Module):

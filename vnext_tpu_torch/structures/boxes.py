@@ -1,10 +1,10 @@
-"""Box operations used by the matcher and the criterion.
+"""Box operations: the matcher's, the criterion's and the R-CNN's.
 
-Counterpart of the functions of ``vnext_tpu.structures.boxes`` that simOTA and
-the set criterion use. Boxes are [..., 4]; the pairwise functions take sets
+Counterpart of ``vnext_tpu.structures.boxes`` but for ``RotatedBoxes`` (ROADMAP
+Queue 1, item 11e). Boxes are [..., 4]; the pairwise functions take sets
 [..., N, 4] and [..., M, 4] with any leading batch dimensions and return
 [..., N, M]. ``BoxMode`` converts the host's numpy annotation boxes (the
-visualizer draws them).
+visualizer draws them); ``Boxes`` wraps an [N, 4] xyxy tensor.
 """
 
 from __future__ import annotations
@@ -63,6 +63,11 @@ def box_cxcywh_to_xyxy(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([xc - 0.5 * w, yc - 0.5 * h, xc + 0.5 * w, yc + 0.5 * h], -1)
 
 
+def box_xyxy_to_cxcywh(x: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+
+
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
     """Area of (..., 4) xyxy boxes."""
     return (boxes[..., 2] - boxes[..., 0]).clamp_min(0) * (boxes[..., 3] - boxes[..., 1]).clamp_min(0)
@@ -112,3 +117,60 @@ def elementwise_giou_loss(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.T
     ey2 = torch.maximum(boxes1[..., 3], boxes2[..., 3])
     enclosing = (ex2 - ex1).clamp_min(0) * (ey2 - ey1).clamp_min(0)
     return 1.0 - (iou - (enclosing - union) / enclosing.clamp_min(_TINY))
+
+
+def clip_boxes(boxes: torch.Tensor, image_size) -> torch.Tensor:
+    """Clip xyxy boxes to [0, W] x [0, H]; ``image_size`` is (H, W), numbers or
+    tensors broadcasting against ``boxes[..., 0]``."""
+    h, w = image_size
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    h = torch.as_tensor(h, dtype=boxes.dtype, device=boxes.device)
+    w = torch.as_tensor(w, dtype=boxes.dtype, device=boxes.device)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([torch.clamp(x1, zero, w), torch.clamp(y1, zero, h),
+                        torch.clamp(x2, zero, w), torch.clamp(y2, zero, h)], -1)
+
+
+def nonempty_boxes(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
+    """Bool mask of boxes with both sides > threshold."""
+    return ((boxes[..., 2] - boxes[..., 0]) > threshold) & ((boxes[..., 3] - boxes[..., 1]) > threshold)
+
+
+class Boxes:
+    """Thin wrapper over an (N, 4) xyxy f32 tensor (reference: structures/boxes.py Boxes)."""
+
+    def __init__(self, tensor):
+        tensor = torch.as_tensor(tensor, dtype=torch.float32)
+        if tensor.ndim != 2 or tensor.shape[-1] != 4:
+            raise ValueError(f"Boxes tensor must be (N, 4), got {tuple(tensor.shape)}")
+        self.tensor = tensor
+
+    def area(self) -> torch.Tensor:
+        return box_area(self.tensor)
+
+    def clip(self, image_size) -> "Boxes":
+        return Boxes(clip_boxes(self.tensor, image_size))
+
+    def nonempty(self, threshold: float = 0.0) -> torch.Tensor:
+        return nonempty_boxes(self.tensor, threshold)
+
+    def get_centers(self) -> torch.Tensor:
+        return (self.tensor[:, :2] + self.tensor[:, 2:]) / 2
+
+    def scale(self, scale_x: float, scale_y: float) -> "Boxes":
+        s = torch.tensor([scale_x, scale_y, scale_x, scale_y], dtype=torch.float32, device=self.tensor.device)
+        return Boxes(self.tensor * s)
+
+    def __len__(self) -> int:
+        return self.tensor.shape[0]
+
+    def __getitem__(self, item) -> "Boxes":
+        t = self.tensor[item]
+        return Boxes(t[None] if t.ndim == 1 else t)
+
+    def __repr__(self) -> str:
+        return f"Boxes({self.tensor})"
+
+    @classmethod
+    def cat(cls, boxes_list) -> "Boxes":
+        return cls(torch.cat([b.tensor for b in boxes_list], 0))

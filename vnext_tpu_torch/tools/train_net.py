@@ -1,4 +1,4 @@
-"""IDOL's training and evaluation entry point, on one NVIDIA GPU.
+"""IDOL's training and evaluation entry point, and Mask R-CNN's serving one, on one NVIDIA GPU.
 
 Counterpart of ``tools/train_net.py`` (the JAX package's entry point, with
 detectron2's command line):
@@ -22,6 +22,18 @@ not set the flag, and it is not inferred from the dataset's name, as in the
 JAX package. Its ``MODEL.WEIGHTS`` may be a detectron2 ``.pkl`` ImageNet init,
 opened as a path (a ``detectron2://`` URL is not resolved).
 
+A ``GeneralizedRCNN`` config (Mask R-CNN, Faster R-CNN) runs ``--eval-only``
+through ``engine/detection.do_eval_detection``: each image of the COCO-type
+``DATASETS.TEST`` sets (the COCO splits and the synthetic COCO set are
+registered) is served at ``TPU.TEST_IMAGE_SIZE`` and scored by the COCO
+evaluator's box and mask AP:
+
+    python -m vnext_tpu_torch.tools.train_net \\
+        --config-file configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml --eval-only
+
+Training it, and the other image meta-architectures, raise naming their
+ROADMAP item (Queue 1, items 11b-11d).
+
 The run is on the card unless the config says ``MODEL.DEVICE cpu`` (the
 tests' setting, which runs the kernels' plain versions); with no CUDA device
 visible it raises rather than carry on on the CPU. The defaults' ``"tpu"``, the
@@ -42,12 +54,15 @@ from ..data import (CocoClipDatasetMapper, MetadataCatalog, build_vis_test_loade
                     register_all_coco, register_all_ytvis)
 from ..data.datasets.synthetic import register_synthetic_coco, register_synthetic_ytvis
 from ..engine.hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, PeriodicWriter
+from ..engine.detection import _ARCH as IMAGE_ARCHITECTURES
+from ..engine.detection import do_eval_detection
 from ..engine.launch import launch
 from ..engine.train_step import TrainState, make_train_step
 from ..engine.trainer import VISTrainer
 from ..engine.vis_inference import IDOLVideoInference
 from ..evaluation.testing import verify_final_loss, verify_results
 from ..evaluation.ytvis_eval import build_evaluator
+from ..models import DETECTRON2_ARCHITECTURES
 from ..models.criterion import default_weight_dict
 from ..models.idol import build_idol_model
 from ..solver.build import build_grad_clip, build_lr_schedule, build_lr_scheduler, build_optimizer
@@ -120,11 +135,15 @@ def _register_datasets(cfg):
 
 def _check_test_sets(cfg):
     """Raise before the first step what the evaluation after training would
-    raise after the last: a ``DATASETS.TEST`` dataset of an evaluator type the
-    port lacks (COCO's, ROADMAP Queue 1 item 11), or one with fewer categories
-    than ``MODEL.IDOL.NUM_CLASSES`` (a predicted label past the dataset's has
-    no category id to be written under)."""
+    raise after the last: a ``DATASETS.TEST`` dataset that is not of the
+    ``ytvis`` type (IDOL's video path cannot score a COCO set), or one with
+    fewer categories than ``MODEL.IDOL.NUM_CLASSES`` (a predicted label past
+    the dataset's has no category id to be written under)."""
     for name in cfg.DATASETS.TEST:
+        evaluator_type = MetadataCatalog.get(name).get("evaluator_type", "ytvis")
+        if evaluator_type != "ytvis":
+            raise NotImplementedError(f"DATASETS.TEST {name!r}: IDOL has no evaluator for type {evaluator_type!r}; "
+                                      "its video path scores YTVIS-type datasets only")
         build_evaluator(cfg, name)
         classes = MetadataCatalog.get(name).get("thing_classes")
         if classes is not None and len(classes) < cfg.MODEL.IDOL.NUM_CLASSES:
@@ -199,13 +218,13 @@ def do_train(cfg, resume: bool = False) -> VISTrainer:
     return trainer
 
 
-def run(argv, setup, arch: str, elsewhere: str, do_eval, do_train):
+def run(argv, setup, archs, elsewhere: str, do_eval, do_train):
     """An entry point's command line: parse ``argv`` (default ``sys.argv[1:]``),
     make the config with ``setup(args)`` and run ``do_eval(cfg)`` with
     ``--eval-only`` (its first dataset's results held to
     ``TEST.EXPECTED_RESULTS``) or else ``do_train(cfg, resume=)``. Returns the
-    eval results or the trainer. A ``MODEL.META_ARCHITECTURE`` other than
-    ``arch`` raises, saying where it runs (``elsewhere``)."""
+    eval results or the trainer. A ``MODEL.META_ARCHITECTURE`` not in
+    ``archs`` raises, saying where it runs (``elsewhere``)."""
     args = default_argument_parser().parse_args(argv)
     if args.machine_rank is not None or args.dist_url is not None:
         raise NotImplementedError("--machine-rank and --dist-url: the port runs one process on one card until "
@@ -213,9 +232,9 @@ def run(argv, setup, arch: str, elsewhere: str, do_eval, do_train):
 
     def main_func():
         cfg = setup(args)
-        if cfg.MODEL.META_ARCHITECTURE != arch:
+        if cfg.MODEL.META_ARCHITECTURE not in archs:
             raise NotImplementedError(f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE!r}: this entry "
-                                      f"point runs {arch}; {elsewhere}")
+                                      f"point runs {', '.join(archs)}; {elsewhere}")
         if args.eval_only:
             results = do_eval(cfg)
             if cfg.TEST.EXPECTED_RESULTS and results:
@@ -227,13 +246,38 @@ def run(argv, setup, arch: str, elsewhere: str, do_eval, do_train):
     return launch(main_func, args.num_gpus, num_machines=args.num_machines)
 
 
+def _register_image_datasets(cfg):
+    """The builtin COCO splits, and the synthetic COCO set where the config names it."""
+    register_all_coco()
+    if SYNTHETIC_COCO_DATASET in (*cfg.DATASETS.TRAIN, *cfg.DATASETS.TEST):
+        register_synthetic_coco(SYNTHETIC_COCO_DATASET)
+
+
+def _eval(cfg):
+    """IDOL's ``do_eval``, or an image meta-architecture's ``do_eval_detection``."""
+    if cfg.MODEL.META_ARCHITECTURE in IMAGE_ARCHITECTURES:
+        _register_image_datasets(cfg)
+        return do_eval_detection(cfg, device=resolve_device(cfg))
+    return do_eval(cfg)
+
+
+def _train(cfg, resume: bool = False):
+    """IDOL's ``do_train``; an image meta-architecture does not train in the port yet."""
+    name = cfg.MODEL.META_ARCHITECTURE
+    if name in IMAGE_ARCHITECTURES:
+        raise NotImplementedError(f"training MODEL.META_ARCHITECTURE {name!r}: not ported to vnext_tpu_torch yet "
+                                  f"(ROADMAP Queue 1, item {DETECTRON2_ARCHITECTURES.get(name, '11b')}); "
+                                  "GeneralizedRCNN serves with --eval-only")
+    return do_train(cfg, resume=resume)
+
+
 def main(argv=None):
-    """Parse ``argv`` (default ``sys.argv[1:]``) and run IDOL; returns the eval
-    results with ``--eval-only``, else the trainer."""
-    return run(argv, setup, "IDOL",
-               "MinVIS's MaskFormer runs through vnext_tpu_torch.tools.train_net_video, SeqFormer has no entry "
-               "point in either package, and the image meta-architectures come with the Detectron2 families "
-               "(ROADMAP Queue 1, item 11)", do_eval, do_train)
+    """Parse ``argv`` (default ``sys.argv[1:]``) and run IDOL, or serve an image
+    meta-architecture with ``--eval-only``; returns the eval results with
+    ``--eval-only``, else the trainer."""
+    return run(argv, setup, ("IDOL", *IMAGE_ARCHITECTURES),
+               "MinVIS's MaskFormer runs through vnext_tpu_torch.tools.train_net_video, and SeqFormer has no "
+               "entry point in either package", _eval, _train)
 
 
 if __name__ == "__main__":

@@ -151,7 +151,7 @@ def do_train(cfg, resume: bool = False) -> VISTrainer:
 def main(argv=None):
     """Parse ``argv`` (default ``sys.argv[1:]``) and run MinVIS's MaskFormer;
     returns the eval results with ``--eval-only``, else the trainer."""
-    return train_net.run(argv, setup, "MaskFormer",
+    return train_net.run(argv, setup, ("MaskFormer",),
                "IDOL runs through vnext_tpu_torch.tools.train_net, and SeqFormer has no entry point in either "
                "package", do_eval, do_train)
 
