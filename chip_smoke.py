@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only coco_pretrain     # phases 1 and 24 alone
     python3 chip_smoke.py --only tools             # phases 1 and 25 alone
     python3 chip_smoke.py --only rcnn              # phase 1, K2 at Mask R-CNN's image and phase 26 alone
+    python3 chip_smoke.py --only rcnn_train        # phase 1, K2 at Mask R-CNN's train step and phase 27 alone
 
 Phases, each printed as it ends; any failure raises and exits non-zero. Each
 path zeroes every kernel's launch counter just before it runs and reads them
@@ -66,7 +67,7 @@ port's own reader (``vnext_tpu_torch.config``).
 5. The train path: IDOL-R50 at the same widths, bf16, dropout 0.1, through
    ``VISTrainer.train`` with its hooks, on seeded synthetic batches of 4 clips
    (key + reference frame at 512x640, up to 48 instances with boxes and
-   stride-4 masks) under the ytvis19_r50 solver: one warm-up step and 5 timed
+   stride-4 masks) under the ytvis19_r50 solver: one warm-up step and 3 timed
    ones. Every loss must be finite, every trainable parameter must change and
    every frozen one stay bit-equal, and the launch counters must read
    K4 / K5 / K2 = 24 / 24 / 2 per step. Then the step's forward / backward /
@@ -123,11 +124,11 @@ port's own reader (``vnext_tpu_torch.config``).
     K1 / K2 / K3 = 48 / 4 / 24 over the 4 clips, ``results.json`` well-formed,
     the AP dict's values fractions in [0, 1] (NaN where an area bin holds no
     ground truth); the ground truth through ``YTVISEvaluator`` (its native C
-    path) scores AP 1.0; training (4 clips a step, 4 steps, checkpoints every
+    path) scores AP 1.0; training (4 clips a step, 2 steps, checkpoints every
     2) with K4 / K5 / K2 = 24 / 24 / 2 per step, finite losses,
     ``metrics.json`` and ``last_checkpoint``, and the evaluation after
-    training on K1 / K2 / K3 and no K4; then ``--resume`` to 6 steps, which
-    starts at iteration 4 at the schedule's rate with the saved model,
+    training on K1 / K2 / K3 and no K4; then ``--resume`` to 4 steps, which
+    starts at iteration 2 at the schedule's rate with the saved model,
     optimizer and scheduler state bit for bit. It prints per-video ms
     through ``do_eval``, the evaluator's seconds, the step period through
     the entry point beside the time ``next(loader)`` blocked, and the
@@ -141,15 +142,16 @@ port's own reader (``vnext_tpu_torch.config``).
 18. MinVIS-R50 through its entry point (``vnext_tpu_torch.tools.train_net_video.main``,
     in-process) at ``configs/minvis/ovis_r50.yaml``'s width (R50, hidden 256,
     100 queries, 6 + 9 layers, 12544 sampled points, bf16, seeded weights) on
-    a synthetic dataset as phase 17's whose json lists OVIS's 25 categories:
+    a synthetic dataset as phase 17's (videos of 10 frames) whose json lists OVIS's 25 categories:
     ``--eval-only`` in windows of 3 (K2 / K1 / K3 = 1 / 6 / 6 a window, 10
     entries a video, per-video ms, the evaluator's seconds), the ground truth
-    through ``YTVISEvaluator`` at AP 1.0; 4 training steps of 2 clips (key +
+    through ``YTVISEvaluator`` at AP 1.0; 2 training steps of 2 clips (key +
     reference, one card's share of ``IMS_PER_BATCH`` 16 on 8 cards) at
     512x768 with checkpoints every 2 (K4 / K5 / K2 = 6 / 6 / 1 a step; the
     step period beside the time ``next(loader)`` blocked, the host time of
-    the assignment, peak memory), ``--resume`` to 6 (state bit-equal to the
-    file), and ``ovis_r50_motion.yaml``'s ``ValueError`` at 120x216 masks. Then
+    the assignment, peak memory), ``--resume`` to 4 (state bit-equal to the
+    file; the resumed run evaluates nothing), and ``ovis_r50_motion.yaml``'s
+    ``ValueError`` at 120x216 masks. Then
     one clip's train forward and backward (key + reference at 256x384: the
     widths, smaller frames) card (bf16) vs CPU (f32) on point
     coordinates drawn once on the CPU: losses within 5%, gradients by group
@@ -213,8 +215,8 @@ port's own reader (``vnext_tpu_torch.config``).
     synthetic YTVIS set whose json lists 80 categories.
 25. The user-facing tools in-process, seeded weights: the demo
     (``vnext_tpu_torch.tools.demo.main``) at ``configs/idol/ytvis19_r50.yaml``
-    on a synthetic video of 20 frames at 480x853, from a folder of PNGs and
-    from an MJPEG-AVI written by the port's ``VideoWriter`` (20 frames written
+    on a synthetic video of 12 frames at 480x853, from a folder of PNGs and
+    from an MJPEG-AVI written by the port's ``VideoWriter`` (12 frames written
     each way, the AVI read back, K1 / K2 / K3 = 12 / 1 / 6 a clip of 10, the
     tracks equal to ``IDOLVideoInference``'s called directly on the same
     record; the model's class-0 bias raised as in phase 3 and passed as
@@ -241,6 +243,23 @@ port's own reader (``vnext_tpu_torch.config``).
     image card vs CPU (FPN p2-p6, RPN logits and deltas, the ROI heads on the
     card's first 100 proposals fed to both sides). 2a holds K2 at its
     [1, 800, 1344, 3].
+27. Mask R-CNN R50-FPN trained through ``train_net.main`` (the same yaml:
+    SGD, ``TPU.TRAIN_IMAGE_SIZE`` 800x1344) at 2 images a step (detectron2's
+    per-GPU share of the yaml's 16 on 8 GPUs) on phase 26's synthetic set: 4
+    steps with K2 once a step and no other hand-written kernel, an evaluation
+    after step 2 and after the last (K2 once per image, the COCO evaluator's
+    bbox and segm dicts), every loss finite, each update landed (a non-zero
+    momentum buffer for every trainable parameter, each moved where its last
+    update was 4 ulps or more), the frozen parameters bit-equal; the steady
+    step, a fixed batch's step with the RPN's greedy NMS span, the device's
+    busy share, peak memory; one image card vs CPU at the seeded weights
+    with the CPU's choices (top-k, NMS keeps, matches, samples, ROI levels)
+    and proposal boxes replayed on the card (losses within 5%, trainable
+    gradients by group within 10%, the RPN's split into its own losses' part
+    and the ROI losses' part); ``--resume`` from the checkpoint after 2 steps
+    (the step, model, momentum buffers and scheduler equal to the file, the
+    straight run's batches). 2b holds K2's forward and backward at its
+    [2, 800, 1344, 3].
 
 Then the seconds by phase and of the whole run, a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -256,6 +275,7 @@ import gc
 import json
 import logging
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -278,7 +298,7 @@ VIDEO_FRAMES = (20, 13)
 # and bench.py's single-chip share of its 32-clip batch
 TRAIN_CLIPS, TRAIN_HW, MAX_INSTS = 4, (512, 640), 48
 TRAIN_LEVELS = ((64, 80), (32, 40), (16, 20), (8, 10))
-TRAIN_STEPS = 6                      # one warm-up step, then 5 timed
+TRAIN_STEPS = 4                      # one warm-up step, then 3 timed
 
 # published H100 SXM peaks at 700 W (NVIDIA's data sheet): HBM bytes/s and
 # dense operations/s by operand type
@@ -1028,6 +1048,8 @@ def phase_train_kernels(dev):
         results[f"bwd6_{form}"] = kernel_entry(max(err_v, err_a, err_l), ms6, plain_ms, bwd_bound)
 
     results["stem_train"] = stem_train_case(dev, rng, TRAIN_CLIPS, TRAIN_HW, "train shape")
+    # Mask R-CNN's train step (phase 27): 2 images at 800x1344
+    results["stem_rcnn_train"] = stem_train_case(dev, rng, RCNN_TRAIN_BATCH, RCNN_TRAIN_HW, "Mask R-CNN train")
     print("[phase 2b] K4, K5 (and the v6 route's backward) and K2 agree with their plain versions at "
           "train-step shapes; K2 has a backward")
     return results
@@ -2083,7 +2105,7 @@ def phase_r101_and_import(dev, kernels, swin_model, swin_cfg):
 
 # ---------------------------------------------------------------- phase 17
 ENTRY_DATASET = "ytvis_synthetic_entry_point"
-ENTRY_TRAIN_STEPS, ENTRY_RESUME_STEPS = 4, 6
+ENTRY_TRAIN_STEPS, ENTRY_RESUME_STEPS = 2, 4
 ENTRY_CHECKPOINT_PERIOD = 2
 ENTRY_STEADY_STEPS = 20       # step periods taken in each steady run (--only entry_point)
 
@@ -2358,9 +2380,12 @@ def phase_entry_point(dev, kernels, smi, measure=False):
             return state, start
 
         runs = {}
-        for label, argv, steps in (("train", [*train, "SOLVER.MAX_ITER", str(ENTRY_TRAIN_STEPS)], ENTRY_TRAIN_STEPS),
-                                   ("resume", ["--resume", *train, "SOLVER.MAX_ITER", str(ENTRY_RESUME_STEPS)],
-                                    ENTRY_RESUME_STEPS)):
+        # the resumed run evaluates nothing (DATASETS.TEST "()"): the straight run's evaluation after training
+        # covers the path
+        for label, argv, steps, want_eval in (
+                ("train", [*train, "SOLVER.MAX_ITER", str(ENTRY_TRAIN_STEPS)], ENTRY_TRAIN_STEPS, expected),
+                ("resume", ["--resume", *train, "SOLVER.MAX_ITER", str(ENTRY_RESUME_STEPS), "DATASETS.TEST", "()"],
+                 ENTRY_RESUME_STEPS, {})):
             step_starts.clear()
             waits.clear()
             eval_deltas.clear()
@@ -2381,10 +2406,9 @@ def phase_entry_point(dev, kernels, smi, measure=False):
             expected_train = {"ms_deform_attn_v9_fwd": 24 * n, "ms_deform_attn_v9_bwd": 24 * n, "stem_conv": 2 * n}
             print(f"  {label}: iterations {trainer.start_iter}..{trainer.iter - 1}; launches in the train steps "
                   f"{in_train} (expected {expected_train}), in the evaluation after training {in_eval} "
-                  f"(expected K1 / K2 / K3 = {expected['ms_deform_attn_fwd']} / {expected['stem_conv']} / "
-                  f"{expected['encoder_epilogue']}, no K4)")
+                  f"(expected {want_eval or 'none: no test set'}, no K4)")
             require(in_train == expected_train, f"{label}: train launch counts {in_train} != {expected_train}")
-            require(in_eval == expected, f"{label}: evaluation launch counts {in_eval} != {expected}")
+            require(in_eval == want_eval, f"{label}: evaluation launch counts {in_eval} != {want_eval}")
             hist = trainer.storage.histories()
             losses = sorted(k for k in hist if k.startswith("loss_")) + ["total_loss"]
             for k in losses:
@@ -2417,15 +2441,15 @@ def phase_entry_point(dev, kernels, smi, measure=False):
         lr = train_net.build_lr_schedule(read_config("idol/ytvis19_r50.yaml"))(ENTRY_TRAIN_STEPS)
         want_lr = [lr * 0.1, lr]                 # the backbone group at BACKBONE_MULTIPLIER, then the rest
         require(all(abs(a - b) <= 1e-12 * b for a, b in zip(loaded["lr"], want_lr)),
-                f"--resume learning rates {loaded['lr']}, the schedule's for iteration 4 {want_lr}")
+                f"--resume learning rates {loaded['lr']}, the schedule's for iteration {ENTRY_TRAIN_STEPS} {want_lr}")
         require(loaded["model"] and loaded["optimizer"] and loaded["scheduler"],
                 f"--resume restored state differs from {loaded['path']}: model {loaded['model']}, optimizer "
                 f"{loaded['optimizer']}, scheduler {loaded['scheduler']}")
         save_s = [e - s for s, e, _ in saves]
         size_mib = saves[-1][2] / 2 ** 20
         print(f"  --resume from {Path(loaded['path']).name}: started at iteration {loaded['start']} at learning rates "
-              f"{loaded['lr']} (the schedule's for iteration 4); model, optimizer and scheduler state equal to the "
-              f"file bit for bit")
+              f"{loaded['lr']} (the schedule's for iteration {ENTRY_TRAIN_STEPS}); model, optimizer and scheduler "
+              f"state equal to the file bit for bit")
         print(f"  checkpoints: {len(saves)} saved in {', '.join(f'{s:.2f}' for s in save_s)} s, "
               f"{size_mib:.1f} MiB each; resume_or_load (torch.load + restore onto the card) {loads[-1]:.2f} s")
         result.update(train=runs["train"], resume=runs["resume"], checkpoint_save_s=save_s,
@@ -2849,7 +2873,8 @@ SEQ_GROUPS = (
 
 # ---------------------------------------------------------------- phase 18
 MINVIS_DATASET = "ovis_synthetic_entry_point"
-MINVIS_TRAIN_STEPS, MINVIS_RESUME_STEPS = 4, 6
+MINVIS_TRAIN_STEPS, MINVIS_RESUME_STEPS = 2, 4
+MINVIS_VIDEO_FRAMES = 10      # each synthetic video's frames (phase 17's kind at 480x853), 4 windows of 3
 
 
 def phase_minvis_entry(dev, kernels, smi):
@@ -2870,7 +2895,7 @@ def phase_minvis_entry(dev, kernels, smi):
     result = {}
     configs = Path(__file__).resolve().parent / "configs" / "minvis"
     with tempfile.TemporaryDirectory() as tmp:
-        register_synthetic(f"{tmp}/data", MINVIS_DATASET, OVIS_CLASSES)
+        register_synthetic(f"{tmp}/data", MINVIS_DATASET, OVIS_CLASSES, num_frames=MINVIS_VIDEO_FRAMES)
         records = DatasetCatalog.get(MINVIS_DATASET)
         common = ["--config-file", str(configs / "ovis_r50.yaml"), "DATASETS.TEST", f"('{MINVIS_DATASET}',)",
                   "DATASETS.TRAIN", f"('{MINVIS_DATASET}',)"]
@@ -2904,7 +2929,7 @@ def phase_minvis_entry(dev, kernels, smi):
             results = tv.main(["--eval-only", *common, "OUTPUT_DIR", eval_dir])
         torch.cuda.synchronize()
         eval_launches = counts(kernels)
-        n_windows = len(records) * -(-VIDEO_FRAMES[0] // MINVIS_WINDOW)
+        n_windows = len(records) * -(-MINVIS_VIDEO_FRAMES // MINVIS_WINDOW)
         expected = {"stem_conv": n_windows, "ms_deform_attn_fwd": 6 * n_windows, "encoder_epilogue": 6 * n_windows}
         print(f"  --eval-only: launches over {n_windows} windows of {MINVIS_WINDOW} {eval_launches} "
               f"(expected {expected}: per window K2 / K1 / K3 = 1 / 6 / 6)")
@@ -2914,7 +2939,7 @@ def phase_minvis_entry(dev, kernels, smi):
         require(len(entries) == 10 * len(records), f"{len(entries)} entries: MinVIS keeps 10 a video")
         for e in entries:
             require(1 <= e["category_id"] <= MINVIS_CLASSES and 0.0 <= e["score"] <= 1.0, f"bad entry {e['score']}")
-            require(len(e["segmentations"]) == VIDEO_FRAMES[0] and all(
+            require(len(e["segmentations"]) == MINVIS_VIDEO_FRAMES and all(
                 sg["size"] == list(VIDEO_HW) for sg in e["segmentations"]), "one 480x853 RLE per frame")
         stats = results[MINVIS_DATASET]["segm"]
         check_stats(stats, "MinVIS --eval-only")
@@ -2984,9 +3009,12 @@ def phase_minvis_entry(dev, kernels, smi):
             return state, start
 
         runs = {}
-        for label, argv, steps in (("train", [*train, "SOLVER.MAX_ITER", str(MINVIS_TRAIN_STEPS)], MINVIS_TRAIN_STEPS),
-                                   ("resume", ["--resume", *train, "SOLVER.MAX_ITER", str(MINVIS_RESUME_STEPS)],
-                                    MINVIS_RESUME_STEPS)):
+        # the resumed run evaluates nothing (DATASETS.TEST "()"): the straight run's evaluation after training
+        # covers the path, and at random weights the evaluator alone takes 20-35 s a run
+        for label, argv, steps, want_eval in (
+                ("train", [*train, "SOLVER.MAX_ITER", str(MINVIS_TRAIN_STEPS)], MINVIS_TRAIN_STEPS, expected),
+                ("resume", ["--resume", *train, "SOLVER.MAX_ITER", str(MINVIS_RESUME_STEPS), "DATASETS.TEST", "()"],
+                 MINVIS_RESUME_STEPS, {})):
             step_starts.clear()
             waits.clear()
             eval_deltas.clear()
@@ -3009,7 +3037,7 @@ def phase_minvis_entry(dev, kernels, smi):
                   f"{in_train} (expected {want}: per step the pixel decoder's 6 layers through K4 and K5, one stem "
                   f"over the {2 * MINVIS_TRAIN_CLIPS} frames), in the evaluation after training {eval_deltas[0]}")
             require(in_train == want, f"MinVIS {label}: train launch counts {in_train} != {want}")
-            require(eval_deltas[0] == expected, f"MinVIS {label}: evaluation launches {eval_deltas[0]} != {expected}")
+            require(eval_deltas[0] == want_eval, f"MinVIS {label}: evaluation launches {eval_deltas[0]} != {want_eval}")
             hist = trainer.storage.histories()
             keys = sorted(k for k in hist if k.startswith("loss_"))
             require(len(keys) == 3 * 10, f"MinVIS {label}: loss keys {keys}")
@@ -3505,8 +3533,10 @@ def phase_idol_swin_train(dev, kernels, smi):
 
         runs = {}
         with patched(Checkpointer, "resume_or_load", checked_resume):
+            # the resumed run evaluates nothing: the straight run's evaluation after training covers the path
             for run, run_argv, steps in (("train", [*argv, "SOLVER.MAX_ITER", "2"], 2),
-                                         ("resume", ["--resume", *argv, "SOLVER.MAX_ITER", "3"], 3)):
+                                         ("resume", ["--resume", *argv, "SOLVER.MAX_ITER", "3", "DATASETS.TEST", "()"],
+                                          3)):
                 t0 = time.perf_counter()
                 trainer = train_net.main(run_argv)
                 torch.cuda.synchronize()
@@ -4075,7 +4105,7 @@ def phase_coco_pretrain(dev, kernels, smi):
 
 # ---------------------------------------------------------------- phase 25
 TOOLS_DATASET = "ytvis_synthetic_tools"
-TOOLS_VIDEO_FRAMES = 20      # the demo's video (phase 17's kind: 480x853)
+TOOLS_VIDEO_FRAMES = 12      # the demo's video (phase 17's kind: 480x853), two clips of 10 and 2
 TOOLS_SHORT_FRAMES = 6       # SeqFormer's and MinVIS's demo video
 TOOLS_STEPS = 2              # plain_train_net's and lazyconfig_train_net's steps
 # what one clip of 10 launches through IDOL's and SeqFormer's inference (and so
@@ -4101,7 +4131,7 @@ def write_frames(frames, folder):
 
 
 def tools_demo(dev, kernels, tmp):
-    """Step 1: the demo in-process at ytvis19_r50 width on a 20-frame video, from
+    """Step 1: the demo in-process at ytvis19_r50 width on a 12-frame video, from
     a folder of PNGs and from an MJPEG-AVI; SeqFormer-R50 and MinVIS-R50 on a
     6-frame one."""
     import torch
@@ -4367,7 +4397,8 @@ def phase_tools(dev, kernels, smi):
     result = {"demo": demo, "export": export, "analysis": analysis, "train": train,
               "phase_s": time.perf_counter() - t_phase}
     print(f"  {smi}")
-    print(f"[phase 25] the tools: demo from a folder and an AVI (20 frames each way, K1 / K2 / K3 = 24 / 2 / 12), "
+    print(f"[phase 25] the tools: demo from a folder and an AVI ({TOOLS_VIDEO_FRAMES} frames each way, K1 / K2 / K3 "
+          f"= 24 / 2 / 12), "
           f"SeqFormer and MinVIS demos, IDOL / SeqFormer exported and run from .pt2 with exactly their operators' "
           f"launches, analysis, plain_train_net and lazyconfig_train_net (K4 / K5 / K2 = 24 / 24 / 2 a step); "
           f"{result['phase_s']:.1f} s")
@@ -4383,10 +4414,10 @@ RCNN_CPU_PROPOSALS = 100            # the card's first proposals fed to both sid
 RCNN_FORWARDS = 5
 
 
-def register_rcnn_dataset(root):
+def register_rcnn_dataset(root, name=RCNN_DATASET):
     """A synthetic COCO set (``RCNN_IMAGES`` PNGs at ``RCNN_HW``, 1-3 objects
     each with polygon masks) whose json lists COCO's 80 categories, registered
-    as ``RCNN_DATASET``: the evaluator maps each of the model's 80 labels to a
+    as ``name``: the evaluator maps each of the model's 80 labels to a
     category id of the dataset (the synthetic objects take ids 1-3)."""
     from vnext_tpu_torch.data.datasets.coco import register_coco_instances
     from vnext_tpu_torch.data.datasets.synthetic import generate_synthetic_coco
@@ -4397,7 +4428,7 @@ def register_rcnn_dataset(root):
     gt["categories"] = [{"id": i + 1, "name": n} for i, n in enumerate(COCO_CLASSES)]
     with open(json_file, "w") as f:
         json.dump(gt, f)
-    register_coco_instances(RCNN_DATASET, {"thing_classes": list(COCO_CLASSES), "thing_dataset_id_to_contiguous_id":
+    register_coco_instances(name, {"thing_classes": list(COCO_CLASSES), "thing_dataset_id_to_contiguous_id":
                                            {i + 1: i for i in range(len(COCO_CLASSES))}}, json_file, f"{root}/images")
     return gt
 
@@ -4564,7 +4595,7 @@ def phase_rcnn(dev, kernels, smi):
         print(f"  forward at {RCNN_SHAPE[1]}x{RCNN_SHAPE[2]}: {forward_ms:.2f} ms by CUDA events (median of "
               f"{RCNN_FORWARDS}), peak memory {peak_gib:.2f} GiB; synchronized spans (median of {RCNN_FORWARDS}): "
               f"forward {split['forward']:.2f} ms, RPN {split['rpn']:.2f} (its greedy NMS over "
-              f"{model.rpn.pre_nms_topk} candidates {split['rpn_nms']:.2f}), class NMS over "
+              f"{model.rpn.pre_nms_topk_test} candidates {split['rpn_nms']:.2f}), class NMS over "
               f"{4 * model.max_detections} candidates {split['class_nms']:.2f}: the two NMS loops "
               f"{nms_share:.1%} of the forward, the RPN with the class NMS "
               f"{(split['rpn'] + split['class_nms']) / split['forward']:.1%}")
@@ -4584,17 +4615,448 @@ def phase_rcnn(dev, kernels, smi):
     return {"rcnn_eval": launches}, result
 
 
+# ---------------------------------------------------------------- phase 27
+RCNN_TRAIN_DATASET = "coco_synthetic_rcnn_train"     # phase 26's kind of set, under a name of its own
+RCNN_TRAIN_BATCH = 2                # detectron2's per-GPU share of the yaml's IMS_PER_BATCH 16 on 8 GPUs
+RCNN_TRAIN_HW = (800, 1344)         # the yaml's TPU.TRAIN_IMAGE_SIZE: K2's input, once a step
+RCNN_TRAIN_STEPS = 4                # 2 warm, then the steady ones
+RCNN_EVAL_PERIOD = 2                # one evaluation inside the run (after step 2), one after it
+RCNN_GROUPS = (
+    ("backbone", ("backbone.",)),
+    ("FPN", ("fpn.",)),
+    ("RPN", ("rpn.",)),
+    ("box head", ("roi_heads.fc", "roi_heads.cls_score", "roi_heads.bbox_pred")),
+    ("mask head", ("roi_heads.mask_",)),
+)
+
+
+class SamePriorities:
+    """``rcnn.sampling_priorities`` replaced by draws made once per shape on
+    the CPU from a fixed seed: the card and the CPU sample from the same
+    priorities on every run."""
+
+    def __init__(self):
+        self.draws = {}
+
+    def __call__(self, shape, generator, device):
+        import torch
+
+        key = tuple(shape)
+        if key not in self.draws:
+            self.draws[key] = torch.rand(key, generator=torch.Generator().manual_seed(27 + len(self.draws)))
+        return self.draws[key].to(device)
+
+
+def check_sgd_update_landed(model, optimizer, before, last_lrs):
+    """Hold an SGD run's update (momentum, no Nesterov, no weight decay) of
+    ``model`` against the parameters ``before`` it: frozen parameters stayed
+    bit-equal; each trainable one was reached by the steps' gradients (a
+    non-zero momentum buffer), and moved wherever the last step's update (its
+    group's rate in ``last_lrs`` x the buffer) was at least 4 ulps of an
+    element: the warm-up's first updates (lr 2e-5 x 0.1 in the backbone) round
+    away on most elements. Returns the counts of frozen parameters, of
+    trainable ones that moved, and of trainable ones with an element the last
+    update had to move."""
+    import torch
+
+    from vnext_tpu_torch.solver import build as solver
+
+    group_of = {id(p): i for i, g in enumerate(optimizer.param_groups) for p in g["params"]}
+    unreached, stuck, frozen_moved = [], [], []
+    frozen = moved = landable = 0
+    for n, p in model.named_parameters():
+        if solver.is_frozen(n):
+            frozen += 1
+            frozen_moved += [] if torch.equal(p.detach(), before[n]) else [n]
+            continue
+        moved += not torch.equal(p.detach(), before[n])
+        group = optimizer.param_groups[group_of[id(p)]]
+        require(not group["nesterov"] and group["weight_decay"] == 0, f"{n}: the check is SGD's without Nesterov")
+        buf = optimizer.state.get(p, {}).get("momentum_buffer")
+        if buf is None or not bool(buf.abs().max() > 0):
+            unreached.append(n)
+            continue
+        old = before[n].float()
+        lands = (last_lrs[group_of[id(p)]] * buf).abs() >= 4 * torch.finfo(p.dtype).eps * old.abs()
+        if bool(lands.any()):
+            landable += 1
+            stuck += [] if bool(((p.detach().float() - old)[lands] != 0).any()) else [n]
+    require(not unreached, f"trainable parameters no gradient reached: {unreached[:10]}")
+    require(not stuck, f"trainable parameters whose update did not land: {stuck[:10]}")
+    require(not frozen_moved, f"frozen parameters that moved: {frozen_moved[:10]}")
+    return frozen, moved, landable
+
+
+def rcnn_train_run(argv, kernels):
+    """``train_net.main(argv)`` on a GeneralizedRCNN config, instrumented: each
+    step synchronized and timed with its launches, each batch's digest, the
+    launches and results of each evaluation, the initial parameters, and what
+    a resume restored against the file. Returns the trainer and the record."""
+    import torch
+
+    from vnext_tpu_torch.checkpoint.checkpointer import Checkpointer
+    from vnext_tpu_torch.engine import detection
+    from vnext_tpu_torch.engine.trainer import VISTrainer
+    from vnext_tpu_torch.tools import train_net
+
+    rec = {"step_ms": [], "step_launches": [], "digests": [], "evals": [], "loaded": {}}
+    run_step, make_adapter, do_eval = VISTrainer.run_step, detection.make_batch_adapter, detection.do_eval_detection
+    build, resume_or_load = detection.build_model, Checkpointer.resume_or_load
+
+    def timed_step(self):
+        before = counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_step(self)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["step_launches"].append(minus(counts(kernels), before))
+
+    def recording_adapter(cfg, device):
+        adapt = make_adapter(cfg, device)
+
+        def adapter(batch):
+            rec["digests"].append(batch_digest(batch))
+            return adapt(batch)
+
+        return adapter
+
+    def counted_eval(cfg, model=None, device=None):
+        before = counts(kernels)
+        out = do_eval(cfg, model, device)
+        torch.cuda.synchronize()
+        rec["evals"].append((minus(counts(kernels), before), out))
+        return out
+
+    def kept_initial(cfg, device="cuda", seed=0):
+        model = build(cfg, device=device, seed=seed)
+        rec["initial"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        return model
+
+    def checked_load(self, weights_path, state, resume=True):
+        path = self.get_checkpoint_file() if resume and self.has_checkpoint() else None
+        state, start = resume_or_load(self, weights_path, state, resume)
+        torch.cuda.synchronize()
+        rec["loaded"]["start"] = start
+        if path is not None:
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+            rec["loaded"].update(model=all(torch.equal(v.cpu(), saved["model"][k])
+                                           for k, v in state.model.state_dict().items()),
+                                 optimizer=same_optimizer_state(state.optimizer.state_dict(), saved["optimizer"]),
+                                 momentum_buffers=sum("momentum_buffer" in v
+                                                      for v in saved["optimizer"]["state"].values()),
+                                 scheduler=state.scheduler.state_dict() == saved["scheduler"])
+        return state, start
+
+    zero(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(VISTrainer, "run_step", timed_step), patched(detection, "make_batch_adapter", recording_adapter), \
+            patched(detection, "do_eval_detection", counted_eval), patched(detection, "build_model", kept_initial), \
+            patched(Checkpointer, "resume_or_load", checked_load):
+        trainer = train_net.main(argv)
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return trainer, rec
+
+
+class ReplayTap:
+    """A function of ``models/rcnn.py`` (by name), recorded on the CPU's run
+    (detached, on the host) and replayed in order on the card's: a discrete
+    choice returns the CPU's result; ``clip_boxes`` (the RPN's candidate
+    boxes) returns the CPU's values with the card's own gradient, so that both
+    sides pool and regress from the same proposals."""
+
+    def __init__(self, name):
+        from vnext_tpu_torch.models import rcnn
+
+        self.module, self.name, self.fn = rcnn, name, getattr(rcnn, name)
+        self.recorded, self.replay = [], None
+
+    def __call__(self, x, *args, **kwargs):
+        import torch
+
+        if self.replay is None:
+            out = self.fn(x, *args, **kwargs)
+            parts = out if isinstance(out, tuple) else (out,)
+            host = tuple(o.detach().cpu() for o in parts)
+            self.recorded.append(host if isinstance(out, tuple) else host[0])
+            return out
+        want = moved(self.replay.pop(0), x.device)
+        if self.name == "clip_boxes":
+            out = self.fn(x, *args, **kwargs)
+            return out + (want - out).detach()
+        return want
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+# the discrete choices of the train forward, then the proposals' values
+RCNN_REPLAYED = ("_topk_stable", "nms_mask", "iou_matcher", "assign_fpn_levels", "clip_boxes")
+
+
+def rcnn_train_card_vs_cpu(model, cfg, batch, dev):
+    """One train forward and backward of Mask R-CNN on one image at 800x1344:
+    the card (bf16, K2) against the CPU (f32, plain versions) with the card's
+    weights, the same inputs and the same sampling priorities, and the CPU's
+    choices replayed on the card: the RPN's top-k and NMS keeps, both
+    matchers, the foreground / background selections, the ROIs' FPN levels,
+    and the proposal boxes' values (``ReplayTap``). The losses within 5%
+    relative; the trainable parameters' gradients by group within 10%
+    relative L2 (the frozen ones' are unused: the recipe does not clip); the
+    RPN's gradient also split into its own losses' part and the ROI losses'
+    part, which reaches it through the proposals. Prints how many of the
+    sampled ROIs have an area."""
+    import torch
+
+    from vnext_tpu_torch.engine import detection
+    from vnext_tpu_torch.models import rcnn, rcnn_kwargs_from_cfg
+    from vnext_tpu_torch.solver import build as solver
+
+    cpu = rcnn.GeneralizedRCNN(**{**rcnn_kwargs_from_cfg(cfg), "dtype": torch.float32}).train()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    model.train()
+    keys = detection.loss_keys(cfg)
+    rpn_keys, roi_keys = keys[:2], keys[2:]
+    inputs = {"card": detection.make_batch_adapter(cfg, dev)(batch),
+              "cpu": detection.make_batch_adapter(cfg, "cpu")(batch)}
+    taps, draws, pooled = {n: ReplayTap(n) for n in RCNN_REPLAYED}, SamePriorities(), []
+    heads = cpu.roi_heads.forward
+
+    def recording_heads(features, rois):
+        pooled.append(rois.detach().clone())
+        return heads(features, rois)
+
+    def run(m, side):
+        named = [(n, p) for n, p in m.named_parameters() if not solver.is_frozen(n)]
+        params = [p for _, p in named]
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(rcnn, "sampling_priorities", draws))
+            for tap in taps.values():
+                stack.enter_context(tap)
+            if side == "cpu":
+                stack.enter_context(patched(cpu.roi_heads, "forward", recording_heads))
+            losses = m(*inputs[side])
+        parts = [torch.autograd.grad(sum(losses[k] for k in ks), params, retain_graph=i == 0, allow_unused=True)
+                 for i, ks in enumerate((rpn_keys, roi_keys))]
+        grads = [{n: (g.float().cpu() if g is not None else torch.zeros(p.shape)) for (n, p), g in zip(named, gs)}
+                 for gs in parts]
+        return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+    t0 = time.perf_counter()
+    want_losses, want_parts = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    for tap in taps.values():
+        tap.replay = list(tap.recorded)
+    got_losses, got_parts = run(model, "card")
+    require(all(not tap.replay for tap in taps.values()), "the card's run took fewer choices than the CPU's")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def group(parts, prefixes):
+        return torch.cat([sum(p[n] for p in parts).reshape(-1) for n in parts[0] if n.startswith(prefixes)])
+
+    loss_err = {k: abs(got_losses[k] - v) / max(abs(v), 1e-6) for k, v in want_losses.items()}
+    grad_err = {g: rel(group(got_parts, pre), group(want_parts, pre)) for g, pre in RCNN_GROUPS}
+    rpn_split = {part: rel(group([got_parts[i]], ("rpn.",)), group([want_parts[i]], ("rpn.",)))
+                 for i, part in enumerate(("its own losses", "the ROI losses through the proposals"))}
+    rpn_norms = [float(group([want_parts[i]], ("rpn.",)).norm()) for i in range(2)]
+    rois = pooled[0]
+    area = (rois[..., 2] - rois[..., 0]).clamp_min(0) * (rois[..., 3] - rois[..., 1]).clamp_min(0)
+    label = f"Mask R-CNN R50-FPN train forward (one image at {RCNN_TRAIN_HW[0]}x{RCNN_TRAIN_HW[1]})"
+    print(f"  {label}: CPU f32 forward + two backward passes {cpu_s:.1f} s; the card at the CPU's choices: losses "
+          f"relative error max {max(loss_err.values()):.4g} ({max(loss_err, key=loss_err.get)}) tolerance 0.05; "
+          "trainable gradients relative L2 " + ", ".join(f"{g} {e:.4g}" for g, e in grad_err.items()) +
+          " tolerance 0.10: bf16 keeps 8 significant bits, and the forward and backward round ~100 times in "
+          "sequence, so errors that add like a random walk reach a few percent")
+    parts = " and from ".join(f"{p} {e:.4g} (|g| {n:.4g})" for (p, e), n in zip(rpn_split.items(), rpn_norms))
+    print(f"  the RPN's gradient from {parts} (the second goes through the pooler's sample positions, a difference "
+          "of neighbouring bf16 features)")
+    print(f"  the CPU's sampled ROIs: {int((area > 0).sum())} of {area.numel()} have positive area, "
+          f"{int((area >= 1).sum())} a pixel or more (the rest are proposals of zero side, kept as in JAX; the "
+          "empty ground-truth slots are boxes of 1e-4 x 1e-4)")
+    for k, e in loss_err.items():
+        require(e <= 0.05, f"{label}: {k} relative error {e}")
+    for g, e in grad_err.items():
+        require(e <= 0.10, f"{label}: gradient of {g} relative L2 {e}")
+    require(int((area >= 1).sum()) > 0, "no sampled ROI has an area of a pixel")
+    del cpu
+    return {"cpu_s": cpu_s, "loss_rel_err": loss_err, "grad_rel_l2": grad_err, "rpn_grad_rel_l2_by_part": rpn_split,
+            "sampled_rois": int(area.numel()), "sampled_rois_positive_area": int((area > 0).sum()),
+            "sampled_rois_a_pixel_or_more": int((area >= 1).sum())}
+
+
+def phase_rcnn_train(dev, kernels, smi):
+    """Phase 27: Mask R-CNN R50-FPN (``mask_rcnn_R_50_FPN_1x.yaml``: 80 classes,
+    bf16, ``TPU.TRAIN_IMAGE_SIZE`` 800x1344, SGD) trained through
+    ``train_net.main`` at 2 images a step on phase 26's synthetic COCO set:
+    K2 once a step and no other hand-written kernel (once per image in the
+    evaluations), every loss finite, each update landed, the frozen
+    parameters bit-equal, the COCO evaluator's bbox and segm dicts from the
+    evaluation inside the run and after it; the steady step, the device's
+    busy share, the RPN's NMS share and peak memory; ``--resume`` from the
+    checkpoint after 2 steps (the state equal to the file, the batches the
+    straight run took); one image card vs CPU at the seeded weights."""
+    import torch
+
+    from vnext_tpu_torch.data.catalog import DatasetCatalog
+    from vnext_tpu_torch.data.detection_mapper import DetectionDatasetMapper, stack_detection_batch
+    from vnext_tpu_torch.engine import detection
+    from vnext_tpu_torch.models import build_rcnn_model, rcnn
+    from vnext_tpu_torch.ops import stem_conv
+    from vnext_tpu_torch.solver.build import build_lr_schedule
+
+    t_phase = time.perf_counter()
+    result = {}
+    k2 = {stem_conv.KERNEL.name: 1}
+    cfg_file = str(Path(__file__).resolve().parent / "configs" / RCNN_CONFIG)
+    with tempfile.TemporaryDirectory() as tmp:
+        register_rcnn_dataset(f"{tmp}/coco", RCNN_TRAIN_DATASET)
+        common = ["--config-file", cfg_file, "SOLVER.IMS_PER_BATCH", str(RCNN_TRAIN_BATCH),
+                  "SOLVER.CHECKPOINT_PERIOD", "2", "DATASETS.TRAIN", f"('{RCNN_TRAIN_DATASET}',)"]
+        trainer, rec = rcnn_train_run([*common, "SOLVER.MAX_ITER", str(RCNN_TRAIN_STEPS), "TEST.EVAL_PERIOD",
+                                       str(RCNN_EVAL_PERIOD), "DATASETS.TEST", f"('{RCNN_TRAIN_DATASET}',)",
+                                       "OUTPUT_DIR", f"{tmp}/straight"], kernels)
+        cfg, model = read_config(RCNN_CONFIG), trainer.state.model
+        cfg.merge_from_list(["SOLVER.IMS_PER_BATCH", str(RCNN_TRAIN_BATCH),
+                             "DATASETS.TRAIN", f"('{RCNN_TRAIN_DATASET}',)"])
+        require(type(trainer.state.optimizer).__name__ == "SGD" and tuple(cfg.TPU.TRAIN_IMAGE_SIZE) == RCNN_TRAIN_HW,
+                f"{type(trainer.state.optimizer).__name__} at {cfg.TPU.TRAIN_IMAGE_SIZE}")
+        print(f"  train_net: {RCNN_TRAIN_STEPS} steps of {RCNN_TRAIN_BATCH} images at {RCNN_TRAIN_HW[0]}x"
+              f"{RCNN_TRAIN_HW[1]}, {rec['wall_s']:.1f} s with the model's build, the checkpoints and 2 evaluations; "
+              f"launches per step {rec['step_launches']}; step ms (synchronized) "
+              f"{', '.join(f'{v:.1f}' for v in rec['step_ms'])}; peak memory {rec['peak_gib']:.2f} GiB")
+        require(rec["step_launches"] == [k2] * RCNN_TRAIN_STEPS, f"launches per step {rec['step_launches']}")
+        hist = trainer.storage.histories()
+        keys = sorted(k for k in hist if k.startswith("loss_"))
+        require(keys == sorted(detection.loss_keys(cfg)), f"loss keys {keys}")
+        for k in keys + ["total_loss"]:
+            require(hist[k].count() == RCNN_TRAIN_STEPS and np.isfinite(hist[k].values()).all(),
+                    f"{k}: {hist[k].values()}")
+        print("  losses per step: " + "; ".join(f"{k} {', '.join(f'{v:.4g}' for v in hist[k].values())}"
+                                              for k in keys + ["total_loss"]))
+        schedule = build_lr_schedule(cfg)
+        last = schedule(RCNN_TRAIN_STEPS - 1)
+        frozen, moved, landable = check_sgd_update_landed(
+            model, trainer.state.optimizer, rec["initial"], [last * cfg.SOLVER.BACKBONE_MULTIPLIER, last])
+        n_trainable = len(list(model.parameters())) - frozen
+        print(f"  every one of {n_trainable} trainable parameters reached by a gradient (a non-zero momentum buffer); "
+              f"{landable} have elements the last update (lr {last:.3g}, x{cfg.SOLVER.BACKBONE_MULTIPLIER} in the "
+              f"backbone) moves by 4 ulps or more, and each of those moved; {moved} moved in all; {frozen} frozen "
+              "ones bit-equal")
+        require(len(rec["evals"]) == 2, f"{len(rec['evals'])} evaluations, expected one inside the run and one after")
+        for launches, out in rec["evals"]:
+            require(launches == {stem_conv.KERNEL.name: RCNN_IMAGES}, f"evaluation launches {launches}")
+            stats = out[RCNN_TRAIN_DATASET]
+            require(sorted(stats) == ["bbox", "segm"], f"COCOEvaluator tasks {sorted(stats)}")
+            for task in ("bbox", "segm"):
+                check_stats(stats[task], f"COCO {task} after training")
+        final_stats = rec["evals"][-1][1][RCNN_TRAIN_DATASET]
+        print(f"  EvalHook (TEST.EVAL_PERIOD {RCNN_EVAL_PERIOD} and after the last step): K2 = {RCNN_IMAGES} per "
+              f"evaluation, COCOEvaluator bbox AP {final_stats['bbox']['AP']:.4f}, segm AP "
+              f"{final_stats['segm']['AP']:.4f}")
+        steady = statistics.median(rec["step_ms"][2:])
+        result.update(steps_ms=rec["step_ms"], steady_step_ms=steady, peak_gib=rec["peak_gib"],
+                      step_launches=rec["step_launches"], losses={k: hist[k].values() for k in keys + ["total_loss"]},
+                      trainable_moved=moved, landable=landable, frozen=frozen, train_wall_s=rec["wall_s"],
+                      eval_stats=final_stats)
+
+        # ---- the step's RPN NMS share and device busy share, on one batch of the loader
+        loader = detection.build_detection_train_loader(cfg, seed=0)
+        inputs = detection.make_batch_adapter(cfg, dev)(next(loader))
+        step_fn = trainer._train_step
+        nms_ms, step_ms = [], []
+        nms = rcnn.nms_mask
+
+        def timed_nms(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = nms(*args, **kwargs)
+            torch.cuda.synchronize()
+            nms_ms[-1] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        with patched(rcnn, "nms_mask", timed_nms):
+            for _ in range(2):
+                nms_ms.append(0.0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step_fn(trainer.state, inputs)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        share = statistics.median(a / b for a, b in zip(nms_ms, step_ms))
+        busy, wall = profile_busy(lambda: step_fn(trainer.state, inputs), "Mask R-CNN R50-FPN train step, 2 images "
+                                  "at 800x1344", calls=1, top=12)
+        print(f"  steady step {steady:.1f} ms through train_net (median after 2 warm steps); on a fixed batch, "
+              f"synchronized: step {', '.join(f'{v:.1f}' for v in step_ms)} ms, the RPN's greedy NMS (its "
+              f"{model.rpn.pre_nms_topk_train} candidates on each image) {', '.join(f'{v:.1f}' for v in nms_ms)} ms "
+              f"({share:.1%} of the step); device busy {busy:.1f} of {wall:.1f} ms under the profiler "
+              f"({busy / wall:.1%}); peak memory {rec['peak_gib']:.2f} GiB")
+        result.update(fixed_batch_step_ms=step_ms, rpn_nms_ms=nms_ms, rpn_nms_share=share, busy_ms=busy,
+                      profiled_wall_ms=wall)
+
+        del trainer, model, inputs, step_fn
+        torch.cuda.empty_cache()
+
+        # ---- one image card vs CPU, at the seeded weights train_net starts from: there every loss is O(1),
+        # while after a few steps loss_cls is ~0.4 and a logit error of bf16's size moves it by ~5%
+        mapper = DetectionDatasetMapper.from_config(cfg, is_train=True)
+        record = DatasetCatalog.get(RCNN_TRAIN_DATASET)[0]
+        one = stack_detection_batch([mapper(record, random.Random(27))])
+        require(one["image"].shape[1:3] == RCNN_TRAIN_HW and one["valid"].any(), f"{one['image'].shape}")
+        seeded = build_rcnn_model(cfg, dev, seed=max(cfg.SEED, 0))
+        result["card_vs_cpu"] = rcnn_train_card_vs_cpu(seeded, cfg, one, dev)
+        del seeded
+        torch.cuda.empty_cache()
+
+        # ---- --resume from the straight run's checkpoint after 2 steps
+        resumed_dir = Path(tmp) / "resumed"
+        resumed_dir.mkdir()
+        (resumed_dir / "model_0000001.pth").write_bytes((Path(tmp) / "straight" / "model_0000001.pth").read_bytes())
+        (resumed_dir / "last_checkpoint").write_text("model_0000001.pth")
+        zero(kernels)
+        resumed, rrec = rcnn_train_run(["--resume", *common, "SOLVER.MAX_ITER", "4", "DATASETS.TEST", "()",
+                                        "OUTPUT_DIR", str(resumed_dir)], kernels)
+        loaded = rrec["loaded"]
+        print(f"  --resume: restored {loaded} (the step, the model, the optimizer's {loaded.get('momentum_buffers')} "
+              f"momentum buffers and the scheduler against the file); steps {resumed.start_iter}..{resumed.iter - 1}, "
+              f"launches {rrec['step_launches']}, batch digests equal to the straight run's steps 2-3: "
+              f"{rrec['digests'] == rec['digests'][2:4]}")
+        require(loaded.get("start") == 2 and loaded.get("model") and loaded.get("optimizer") and loaded.get("scheduler")
+                and loaded.get("momentum_buffers", 0) > 0, f"resume restored {loaded}")
+        require(resumed.start_iter == 2 and resumed.iter == 4 and rrec["step_launches"] == [k2] * 2,
+                f"resumed steps {resumed.start_iter}..{resumed.iter}, launches {rrec['step_launches']}")
+        require(rrec["digests"] == rec["digests"][2:4], "the resumed run's batches differ from the straight run's")
+        result["resume"] = {"loaded": loaded, "steps_ms": rrec["step_ms"]}
+        del resumed
+        torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {smi}")
+    print(f"[phase 27] Mask R-CNN R50-FPN trained through train_net at 2 x 800x1344: K2 = 1 a step, no other kernel, "
+          f"losses finite, updates landed, frozen parameters kept, resumed; card agrees with CPU; "
+          f"{result['phase_s']:.1f} s")
+    return {"rcnn_train": {stem_conv.KERNEL.name: RCNN_TRAIN_STEPS}}, result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
                                                  "with no argument, every phase.")
     parser.add_argument("--only", choices=("train_numerics", "entry_point", "minvis_entry", "seqformer_train",
                                            "swin_train", "instmove_train", "fused_tracker", "coco_pretrain",
-                                           "tools", "rcnn"),
+                                           "tools", "rcnn", "rcnn_train"),
                         help="phase 1 and this phase alone (train_numerics: phase 6; entry_point: phase 17; "
                              "minvis_entry: phase 2b's MinVIS and SeqFormer shapes and phase 18; seqformer_train: "
                              "phase 19; swin_train: phases 20 and 21; instmove_train: K2 at InstMove's shape and "
                              "phase 22; fused_tracker: phase 23; coco_pretrain: phase 24; tools: phase 25; rcnn: K2 "
-                             "at Mask R-CNN's [1, 800, 1344, 3] and phase 26)")
+                             "at Mask R-CNN's [1, 800, 1344, 3] and phase 26; rcnn_train: K2's forward and backward "
+                             "at Mask R-CNN's train step [2, 800, 1344, 3] and phase 27)")
     parser.add_argument("--tree", help="with --only: import vnext_tpu_torch from this checkout (an "
                                        "earlier commit's `git archive`) in place of the one beside this script")
     parser.add_argument("--seq-cpu-hw", type=lambda v: tuple(int(x) for x in v.split("x")), metavar="HxW",
@@ -4659,6 +5121,10 @@ def main(argv=None) -> int:
             k2 = stem_serving_case(dev, np.random.RandomState(26), RCNN_SHAPE)
             launches, served = phase_rcnn(dev, kernels, smi)
             print(json.dumps({"k2_rcnn": k2, "rcnn": served, "launches": launches}))
+        elif args.only == "rcnn_train":
+            k2 = stem_train_case(dev, np.random.RandomState(27), RCNN_TRAIN_BATCH, RCNN_TRAIN_HW, "Mask R-CNN train")
+            launches, trained = phase_rcnn_train(dev, kernels, smi)
+            print(json.dumps({"k2_rcnn_train": k2, "rcnn_train": trained, "launches": launches}))
         else:
             launches, tools = phase_tools(dev, kernels, smi)
             print(json.dumps({"tools": tools, "launches": launches}))
@@ -4749,6 +5215,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rcnn_launches, rcnn_result = phase_rcnn(dev, kernels, smi)
     phase_seconds["26"] = rcnn_result["phase_s"]
+    torch.cuda.empty_cache()
+    rcnn_train_launches, rcnn_train_result = phase_rcnn_train(dev, kernels, smi)
+    phase_seconds["27"] = rcnn_train_result["phase_s"]
     print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
     print(f"  the whole run: {time.perf_counter() - t_run:.1f} s")
 
@@ -4759,7 +5228,7 @@ def main(argv=None) -> int:
         "minvis_entry": minvis_entry_result, "seqformer_train": seq_train_result,
         "idol_swinl_train": swin_train_result, "seqformer_swinl_train": seq_swin_train_result,
         "instmove_train": instmove_train_result, "fused_tracker": fused_result, "coco_pretrain": coco_result,
-        "tools": tools_result, "rcnn": rcnn_result, "phase_seconds": phase_seconds,
+        "tools": tools_result, "rcnn": rcnn_result, "rcnn_train": rcnn_train_result, "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
         "k5_decoder_form": measured["bwd_decoder"], "k6_backward_decoder_form": measured["bwd6_decoder"],
@@ -4772,7 +5241,7 @@ def main(argv=None) -> int:
              "minvis": minvis_launches, "instmove": instmove_launches, "idol_swinL": swin_launches,
              "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches, **entry_point_launches,
              **minvis_entry_launches, **seq_train_launches, **swin_train_launches, **seq_swin_train_launches,
-             **fused_launches, **coco_launches, **tools_launches, **rcnn_launches}
+             **fused_launches, **coco_launches, **tools_launches, **rcnn_launches, **rcnn_train_launches}
     for path, names in (("minvis_entry_eval", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
                         ("minvis_entry_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
                         ("seqformer_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
@@ -4788,7 +5257,7 @@ def main(argv=None) -> int:
                                                     encoder_epilogue.KERNEL)),
                         ("tools_plain_train_net", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
                         ("tools_lazyconfig_train_net", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
-                        ("rcnn_eval", (stem_conv.KERNEL,))):
+                        ("rcnn_eval", (stem_conv.KERNEL,)), ("rcnn_train", (stem_conv.KERNEL,))):
         for kern in names:
             require(paths[path].get(kern.name, 0) > 0, f"{kern.name}: no launch on the {path} path")
     # K4, K5 and K2 at the new train steps' shapes, beside their rows' train-step shape
@@ -4799,7 +5268,8 @@ def main(argv=None) -> int:
     at_shapes[stem_conv.KERNEL.name] = {"minvis_train": measured["stem_minvis_train"],
                                         "seqformer_train": measured["stem_seqformer_train"],
                                         "instmove_serving": measured["stem_instmove"],
-                                        "rcnn_serving": measured["stem_rcnn"]}
+                                        "rcnn_serving": measured["stem_rcnn"],
+                                        "rcnn_train": measured["stem_rcnn_train"]}
     rows = [  # (kernel, the path its launches are reported from, the measurement it is reported by)
         (msda.KERNEL, "serve", "enc"),
         (stem_conv.KERNEL, "train", "stem_train"),

@@ -91,9 +91,9 @@ def _rel(got, want):
 def test_label_and_box_losses(matched):
     c, got_m, want_m = matched
     _rel(crit.loss_labels(t(c["logits"]), got_m, _targets(c, "torch"), C),
-         jcrit.loss_labels(jnp.asarray(c["logits"]), want_m, _targets(c, "jax"), C))
+         jax.jit(jcrit.loss_labels, static_argnums=3)(jnp.asarray(c["logits"]), want_m, _targets(c, "jax"), C))
     got = crit.loss_boxes(t(c["pred"]), got_m, _targets(c, "torch"))
-    want = jcrit.loss_boxes(jnp.asarray(c["pred"]), want_m, _targets(c, "jax"))
+    want = jax.jit(jcrit.loss_boxes)(jnp.asarray(c["pred"]), want_m, _targets(c, "jax"))
     assert set(got) == set(want) == {"loss_bbox", "loss_giou"}
     for k in got:
         _rel(got[k], want[k])
@@ -108,8 +108,8 @@ def test_mask_losses(matched):
     inst_gt = np.take_along_axis(np.asarray(want_m.gt_index), order, 1)
     got = crit.loss_masks(t(mask_logits), torch.from_numpy(inst_gt).long(), torch.from_numpy(inst_valid),
                           _targets(c, "torch"))
-    want = jcrit.loss_masks(jnp.asarray(mask_logits), jnp.asarray(inst_gt), jnp.asarray(inst_valid),
-                            _targets(c, "jax"))
+    want = jax.jit(jcrit.loss_masks)(jnp.asarray(mask_logits), jnp.asarray(inst_gt), jnp.asarray(inst_valid),
+                                     _targets(c, "jax"))
     assert set(got) == set(want) == {"loss_mask", "loss_dice"}
     for k in got:
         _rel(got[k], want[k])
@@ -120,10 +120,11 @@ def test_reid_losses(matched):
     rng = np.random.RandomState(3)
     key_e, ref_e = (rng.randn(B, Q, 16).astype(np.float32) for _ in range(2))
     prob = 1 / (1 + np.exp(-c["logits"]))
-    pos, neg = jax.vmap(jmatch.pos_neg_masks)(jnp.asarray(prob), jnp.asarray(c["pred"]), jnp.asarray(c["labels"]),
-                                             jnp.asarray(c["gt"]), jnp.asarray(c["valid"]))
-    want = jcrit.loss_reid(jnp.asarray(key_e), jnp.asarray(ref_e), want_m.matched_query_per_gt, pos, neg,
-                           jnp.asarray(c["valid"]))
+    pos, neg = jax.jit(jax.vmap(jmatch.pos_neg_masks))(jnp.asarray(prob), jnp.asarray(c["pred"]),
+                                                       jnp.asarray(c["labels"]), jnp.asarray(c["gt"]),
+                                                       jnp.asarray(c["valid"]))
+    want = jax.jit(jcrit.loss_reid)(jnp.asarray(key_e), jnp.asarray(ref_e), want_m.matched_query_per_gt, pos, neg,
+                                    jnp.asarray(c["valid"]))
     got = crit.loss_reid(t(key_e), t(ref_e), got_m.matched_query_per_gt, torch.from_numpy(np.asarray(pos)),
                          torch.from_numpy(np.asarray(neg)), torch.from_numpy(c["valid"]))
     assert set(got) == set(want) == {"loss_reid", "loss_reid_aux"}

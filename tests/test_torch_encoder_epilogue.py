@@ -78,7 +78,8 @@ def test_encoder_layer_matches_jax():
                             dropout=0.0, msda_impl="jnp")
     args = (jnp.asarray(src), jnp.asarray(pos), jnp.asarray(ref), shapes, jnp.asarray(mask), False)
     params = random_params(lambda: layer.init(jax.random.PRNGKey(0), *args), seed=4)
-    want = np.asarray(layer.apply({"params": params}, *args))
+    want = np.asarray(jax.jit(lambda p, x, po, r, m: layer.apply({"params": p}, x, po, r, shapes, m, False))(
+        params, *args[:3], args[4]))
 
     port = EncoderLayer(32, 64, 2, 4, 4)
     load_from_jax(port, params)

@@ -76,7 +76,8 @@ def _port(value, off, ref, logits):
     return out.numpy()
 
 
-def _oracle(value, off, ref, logits):
+@jax.jit
+def _oracle_jax(value, off, ref, logits):
     q = off.shape[1]
     w = jax.nn.softmax(jnp.asarray(logits), -1).reshape(B, q, M, L, P)
     r = ref[:, :, None, :, None]
@@ -84,11 +85,16 @@ def _oracle(value, off, ref, logits):
         loc = r + off / WH[:, None, :]
     else:
         loc = r[..., :2] + off / P * r[..., 2:] * 0.5
-    return np.asarray(ms_deform_attn_core_jnp(jnp.asarray(value), SHAPES, jnp.asarray(loc), w))
+    return ms_deform_attn_core_jnp(jnp.asarray(value), SHAPES, jnp.asarray(loc), w)
 
 
-def _jax_fused_kernel(value, off, ref, logits):
-    """The TPU kernel's fused entry, fed as the JAX module feeds it."""
+def _oracle(*args):
+    """The jnp oracle under one jit (op by op, each primitive compiles a program of its own)."""
+    return np.asarray(_oracle_jax(*args))
+
+
+@jax.jit
+def _jax_fused_kernel_jax(value, off, ref, logits):
     q = off.shape[1]
     valueT = jnp.swapaxes(jnp.asarray(value).reshape(B, S, M * D), 1, 2)
     if ref.shape[-1] == 4:
@@ -99,7 +105,12 @@ def _jax_fused_kernel(value, off, ref, logits):
         valueT, SHAPES, jnp.moveaxis(jnp.asarray(off), 1, 5), jnp.moveaxis(jnp.asarray(ref), 1, 3),
         jnp.moveaxis(jnp.asarray(logits).reshape(B, q, M, L, P), 1, 4), attn_is_logits=True,
     )
-    return np.asarray(jnp.swapaxes(out, 1, 2))
+    return jnp.swapaxes(out, 1, 2)
+
+
+def _jax_fused_kernel(*args):
+    """The TPU kernel's fused entry, fed as the JAX module feeds it, under one jit."""
+    return np.asarray(_jax_fused_kernel_jax(*args))
 
 
 @pytest.mark.parametrize("box", [False, True], ids=["point", "box"])
@@ -151,7 +162,8 @@ def test_module_matches_jax_module(box):
     jmod = JaxMSDA(d_model=c, n_levels=L, n_heads=M, n_points=P, impl="pallas_v9")
     args = (jnp.asarray(query), jnp.asarray(ref), jnp.asarray(src), SHAPES, jnp.asarray(mask))
     params = random_params(lambda: jmod.init(jax.random.PRNGKey(0), *args), seed=9)
-    want = np.asarray(jmod.apply({"params": params}, *args))
+    want = np.asarray(jax.jit(lambda p, qy, r, sr, m: jmod.apply({"params": p}, qy, r, sr, SHAPES, m))(
+        params, *args[:3], args[4]))
 
     mod = MSDeformAttnModule(c, L, M, P)
     load_from_jax(mod, params)

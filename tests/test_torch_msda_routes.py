@@ -88,8 +88,8 @@ def test_channel_major_entry_matches_jax():
     value_t = np.ascontiguousarray(value.reshape(B, S, M * D).transpose(0, 2, 1))   # [B, M*D, S]
     loc_cm = np.ascontiguousarray(np.moveaxis(loc, 1, 5))                            # [B, M, L, P, 2, Q]
     attn_cm = np.ascontiguousarray(np.moveaxis(attn, 1, 4))                          # [B, M, L, P, Q]
-    want = np.asarray(jax_msda_cm(jnp.asarray(value_t), SHAPES, jnp.asarray(loc_cm), jnp.asarray(attn_cm),
-                                  impl="pallas_v9"))
+    want = np.asarray(jax.jit(lambda v, lo, a: jax_msda_cm(v, SHAPES, lo, a, impl="pallas_v9"))(
+        jnp.asarray(value_t), jnp.asarray(loc_cm), jnp.asarray(attn_cm)))
     before = msda.KERNEL_CM.launches
     for impl in ("auto", "pallas", "jnp"):
         got = msda.ms_deform_attn_cm(t(value_t), SHAPES, t(loc_cm), t(attn_cm), impl)

@@ -17,6 +17,8 @@ and weights (K4 / K5 on the card, the plain core and its autograd here). Held ag
 All f32 unless stated.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -71,12 +73,22 @@ def _inputs(seed, mode, shapes=SHAPES, b=B, q=Q):
     return [a.astype(np.float32) for a in (value, loc, attn, cot)]
 
 
-def _jax_grads(fn, shapes, value, loc, attn, cot):
-    def loss(v, lo, a):
-        return jnp.sum(fn(v, shapes, lo, a) * cot)
+@functools.lru_cache(maxsize=None)
+def _jax_output_and_grads(fn, shapes):
+    """fn's output and the gradients of sum(output * cot), under one jit per
+    (fn, shapes): run op by op, each primitive compiles a program of its own."""
 
-    out = fn(jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(attn))
-    grads = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn))
+    def run(v, lo, a, cot):
+        def loss(v, lo, a):
+            return jnp.sum(fn(v, shapes, lo, a) * cot)
+
+        return fn(v, shapes, lo, a), jax.grad(loss, argnums=(0, 1, 2))(v, lo, a)
+
+    return jax.jit(run)
+
+
+def _jax_grads(fn, shapes, value, loc, attn, cot):
+    out, grads = _jax_output_and_grads(fn, shapes)(value, loc, attn, cot)
     return [np.asarray(out)] + [np.asarray(g) for g in grads]
 
 
@@ -142,7 +154,7 @@ def test_module_train_path_and_gradients_match_jax():
         out = jmod.apply({"params": p}, qy, jnp.asarray(ref), sr, SHAPES, jnp.asarray(mask))
         return jnp.sum(out * cot), out
 
-    (_, want), (g_params, g_query, g_src) = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+    (_, want), (g_params, g_query, g_src) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
         params, jnp.asarray(query), jnp.asarray(src))
 
     mod = MSDeformAttnModule(c, l, M, P).train()

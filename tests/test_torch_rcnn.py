@@ -41,7 +41,7 @@ from vnext_tpu.structures.instances import Instances as JaxInstances
 from vnext_tpu_torch.checkpoint.from_jax import load_from_jax
 from vnext_tpu_torch.models.dense_heads import Box2BoxTransform, anchors_for_level, generate_cell_anchors, iou_matcher
 from vnext_tpu_torch.models.layers import ConvTranspose
-from vnext_tpu_torch.models.rcnn import GeneralizedRCNN, StandardROIHeads, assign_fpn_levels
+from vnext_tpu_torch.models.rcnn import DetTargets, GeneralizedRCNN, StandardROIHeads, assign_fpn_levels
 from vnext_tpu_torch.ops.mask_ops import paste_masks_in_image
 from vnext_tpu_torch.ops.roi_align import roi_align, roi_align_levels
 from vnext_tpu_torch.structures.boxes import Boxes, box_xyxy_to_cxcywh, clip_boxes, nonempty_boxes
@@ -376,9 +376,16 @@ def test_refusals_name_their_item(tiny):
         GeneralizedRCNN(cascade_on=True, **TINY)
     with pytest.raises(NotImplementedError, match="item 11d"):
         StandardROIHeads(32, 4, keypoint_on=True)
+    # training is ported (tests/test_torch_rcnn_train.py holds it against JAX): the train-mode forward
+    # returns the loss dict
+    boxes = np.asarray([[[4, 6, 40, 30], [0, 0, 1e-4, 1e-4]]], np.float32)
+    targets = DetTargets(torch.tensor([[1, 0]], dtype=torch.int32), t(boxes), torch.tensor([[True, False]]))
+    masks = torch.zeros(1, 2, H, W, dtype=torch.bool)
+    masks[0, 0, 6:30, 4:40] = True
     port.train()
     try:
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            port(torch.zeros(1, H, W, 3), torch.from_numpy(SIZES[:1]))
+        losses = port(torch.zeros(1, H, W, 3), torch.from_numpy(SIZES[:1]), targets, masks)
     finally:
         port.eval()
+    assert list(losses) == ["loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg", "loss_mask"]
+    assert all(bool(torch.isfinite(v)) and v.requires_grad for v in losses.values())

@@ -109,7 +109,7 @@ def test_decode_msda_matches_jax(form):
     jmod = JaxDecodeMSDA(d_model=C, n_levels=L, n_heads=M, n_points=P, impl="jnp")
     args = [jnp.asarray(a) for a in (query, ref, src)]
     params = random_params(lambda: jmod.init(jax.random.PRNGKey(0), *args, LEVELS, jnp.asarray(mask)), seed=4)
-    want = jmod.apply({"params": params}, *args, LEVELS, jnp.asarray(mask))
+    want = jax.jit(lambda p, *x: jmod.apply({"params": p}, *x, LEVELS, jnp.asarray(mask)))(params, *args)
     port = SeqFormerDecodeMSDA(C, L, M, P).eval()
     load_from_jax(port, params)
     with torch.no_grad():
@@ -133,7 +133,8 @@ def test_decoder_layer_matches_jax(first_layer):
     args = [jnp.asarray(a) for a in (tgt, tgt_box, qpos, ref, src)]
     params = random_params(lambda: jlayer.init(jax.random.PRNGKey(0), *args, LEVELS, jnp.asarray(mask),
                                                False, first_layer), seed=6)
-    want = jlayer.apply({"params": params}, *args, LEVELS, jnp.asarray(mask), False, first_layer)
+    want = jax.jit(lambda p, *x: jlayer.apply({"params": p}, *x, LEVELS, jnp.asarray(mask), False, first_layer))(
+        params, *args)
     port = SeqFormerDecoderLayer(C, 64, L, M, P).eval()
     load_from_jax(port, params)
     with torch.no_grad():

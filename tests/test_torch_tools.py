@@ -103,7 +103,7 @@ def test_build_model_refuses_detectron2_and_unknown_architectures():
         cfg.MODEL.META_ARCHITECTURE = name
         with pytest.raises(err, match=match):
             build_model(cfg, device="meta")
-    assert sorted(META_ARCH_REGISTRY.keys()) == ["GeneralizedRCNN", "IDOL", "MaskFormer", "SeqFormer"]
+    assert sorted(META_ARCH_REGISTRY.keys()) == ["GeneralizedRCNN", "IDOL", "MaskFormer", "ProposalNetwork", "SeqFormer"]
     cfg.MODEL.META_ARCHITECTURE = "VideoMaskFormer_frame"
     assert type(build_model(_port_cfg("configs/quick_schedules/minvis_instant_test.yaml"), device="meta")
                 ).__name__ == "MaskFormer"

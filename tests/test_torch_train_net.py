@@ -27,9 +27,9 @@ package's ``tools/train_net.py``, on the CPU with the quick-schedule config
   the evaluation after the last step could not score: a COCO-type set (IDOL's
   video path cannot score it) or one with fewer categories than the model
   predicts.
-- ``main`` refuses to train an image meta-architecture (Mask R-CNN serves
-  through it: tests/test_torch_detection.py), more than one GPU or process,
-  and a run on the card when no CUDA device is visible; ``--eval-only`` with
+- ``main`` trains Mask R-CNN (a step here; tests/test_torch_rcnn_train.py
+  holds it), and refuses more than one GPU or process and a run on the card
+  when no CUDA device is visible; ``--eval-only`` with
   ``TPU.FUSED_TRACKER True`` runs the on-device tracker.
 """
 
@@ -245,11 +245,14 @@ def test_synthetic_dataset_only_where_the_config_names_it(monkeypatch, tmp_path)
     assert made == ["ytvis_synthetic_tiny"]
 
 
-def test_main_refuses_what_the_port_lacks(synthetic, tmp_path, monkeypatch):
+def test_main_refuses_what_the_port_lacks(synthetic, synthetic_coco, tmp_path, monkeypatch):
     out = ["OUTPUT_DIR", str(tmp_path)]
     rcnn = os.path.join(REPO, "configs", "quick_schedules", "mask_rcnn_R_18_instant_test.yaml")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11b"):     # Mask R-CNN serves, but does not train
-        train_net.main(["--config-file", rcnn, *out])
+    # Mask R-CNN trains through the entry point (tests/test_torch_rcnn_train.py holds it): one step, on a
+    # narrow FPN (the box head's first layer, the cost of building and saving the model, shrinks with it)
+    trainer = train_net.main(["--config-file", rcnn, "MODEL.DEVICE", "cpu", "SOLVER.MAX_ITER", "1",
+                              "DATASETS.TEST", "()", "MODEL.FPN.OUT_CHANNELS", "32", *out])
+    assert trainer.iter == 1 and np.isfinite(trainer.storage.history("total_loss").values()).all()
     for flag in (["--num-gpus", "2"], ["--machine-rank", "1"], ["--dist-url", "tcp://127.0.0.1:29500"]):
         with pytest.raises(NotImplementedError, match="item 12"):
             train_net.main(["--config-file", INSTANT, *flag, "MODEL.DEVICE", "cpu", *out])

@@ -104,12 +104,14 @@ def _run():
                                          lambda updates, state, params=None: (updates, updates))
     tx = optax.chain(stash, jax_build_optimizer(cfg, params))
     step = jax_make_train_step(jmodel, tx, weights, donate=False)
-    new_state, metrics = step(JaxTrainState.create(params, tx), jin, jax.random.PRNGKey(0))
-    grads = new_state.opt_state[0]
+    # the optimizer's state made under one jit: eagerly, each leaf's zeros would compile a program of its own
+    state = jax.jit(lambda p: JaxTrainState.create(p, tx))(params)
+    new_state, metrics = step(state, jin, jax.random.PRNGKey(0))
+    grads = _tree_by_name(new_state.opt_state[0])
     want = dict(losses={k: float(v) for k, v in metrics.items() if k != "total_loss"},
-                total=float(metrics["total_loss"]), grads=_tree_by_name(grads),
-                grad_norm=float(optax.global_norm(grads)), before=_tree_by_name(params),
-                after=_tree_by_name(new_state.params))
+                total=float(metrics["total_loss"]), grads=grads,
+                grad_norm=float(np.sqrt(sum(np.sum(g.astype(np.float64) ** 2) for g in grads.values()))),
+                before=_tree_by_name(params), after=_tree_by_name(new_state.params))
 
     port = IDOL(**TINY_IDOL, **TINY, dtype=torch.float32)
     load_from_jax(port, params)                      # the __call__ tree bridges whole

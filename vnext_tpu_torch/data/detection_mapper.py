@@ -7,9 +7,8 @@ one ``random.Random``: the image resized by its shortest edge (a random
 ``MIN_SIZE_TRAIN`` and a flip when training, ``MIN_SIZE_TEST`` at test time)
 and padded to ``target_size``, its true size, and up to ``max_insts`` ground
 truth slots of absolute-xyxy boxes, labels and a validity mask, with
-full-resolution bitmasks for Mask R-CNN and keypoints for keypoint R-CNN.
-The collation of a train batch (``stack_detection_batch``) comes with R-CNN
-training (ROADMAP Queue 1, item 11b).
+full-resolution bitmasks for Mask R-CNN and keypoints for keypoint R-CNN;
+``stack_detection_batch`` collates a train batch.
 """
 
 from __future__ import annotations
@@ -66,6 +65,17 @@ class DetectionDatasetMapper:
             keypoint_on=cfg.MODEL.KEYPOINT_ON,
             num_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS,
         )
+
+    def draw(self, record: dict, rng: random.Random) -> None:
+        """The random draws of one ``__call__`` on ``record`` (its resize and
+        flip) and no other work: a resumed loader skips a sample so. The
+        record's ``height`` / ``width`` stand for the image's (COCO records
+        carry both); without them the image is read."""
+        if "height" in record and "width" in record:
+            h, w = record["height"], record["width"]
+        else:
+            h, w = (self.image_loader(record["file_name"]) if "file_name" in record else record["image"]).shape[:2]
+        self.aug.build(h, w, rng)
 
     def __call__(self, record: dict, rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
         rng = rng or random.Random()
@@ -128,3 +138,11 @@ class DetectionDatasetMapper:
         if self.keypoint_on:
             out["keypoints"] = keypoints
         return out
+
+
+def stack_detection_batch(samples) -> Dict[str, np.ndarray]:
+    """Collate mapper outputs into batched arrays (``DetTargets``-ready), with
+    ``image_id`` as a list."""
+    out = {key: np.stack([s[key] for s in samples]) for key in samples[0] if key != "image_id"}
+    out["image_id"] = [s["image_id"] for s in samples]
+    return out

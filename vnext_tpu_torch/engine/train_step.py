@@ -16,8 +16,6 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from ..solver.build import GradClip
-
 
 @dataclass
 class TrainState:
@@ -50,7 +48,7 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                    weight_dict: Mapping[str, float], clip: Optional[GradClip] = None,
+                    weight_dict: Mapping[str, float], clip: Optional[Callable] = None,
                     seed: int = 0) -> Callable:
     """Returns ``train_step(state, inputs) -> (state, metrics)``. ``inputs`` is
     the tuple of the train forward's arguments on the model's device (IDOL's
@@ -58,7 +56,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     ref_targets)``), the step's generator passed beside them as
     ``generator``; ``metrics`` holds every loss and
     ``total_loss``, detached and still on the device (reading one waits for the
-    step). The clip runs over every parameter, frozen ones included."""
+    step). The clip (``solver.build_grad_clip``'s) runs over every parameter,
+    frozen ones included; the global-norm clip's norm is ``grad_norm``."""
     params = list(model.parameters())
 
     def train_step(state: TrainState, inputs: Tuple) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -73,7 +72,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
         if clip is not None:
-            metrics["grad_norm"] = clip(params)
+            norm = clip(params)
+            if norm is not None:
+                metrics["grad_norm"] = norm
         optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()

@@ -1,19 +1,20 @@
-"""GeneralizedRCNN serving: ResNet + FPN, the RPN, and the standard ROI box and
-mask heads (Mask R-CNN, Faster R-CNN).
+"""GeneralizedRCNN (Mask R-CNN, Faster R-CNN) and ProposalNetwork: ResNet +
+FPN, the RPN, and the standard ROI box and mask heads, serving and training.
 
 Counterpart of ``vnext_tpu.models.rcnn`` (reference surface:
-detectron2/modeling/meta_arch/rcnn.py GeneralizedRCNN, proposal_generator/rpn.py,
-roi_heads/roi_heads.py StandardROIHeads), inference only: training (RPN and
-ROI sampling, the losses) is ROADMAP Queue 1 item 11b; Cascade and keypoint
-R-CNN are item 11d. Module and parameter names follow the flax tree, so
-``checkpoint/from_jax.py`` carries the JAX package's parameters across.
+detectron2/modeling/meta_arch/rcnn.py GeneralizedRCNN and ProposalNetwork,
+proposal_generator/rpn.py, roi_heads/roi_heads.py StandardROIHeads); Cascade
+and keypoint R-CNN are ROADMAP Queue 1 item 11d. Module and parameter names
+follow the flax tree, so ``checkpoint/from_jax.py`` carries the JAX package's
+parameters across.
 
 The JAX package's fixed shapes are kept, and with them its choices:
 
 - proposals live in fixed-capacity slots: the RPN takes the top
-  ``pre_nms_topk`` logits over all levels together (not per level, as
-  detectron2), runs greedy NMS as a keep mask, and keeps the top
-  ``post_nms_topk`` of the survivors' scores with the suppressed at -inf;
+  ``pre_nms_topk_train`` (2000) or ``pre_nms_topk_test`` (1000) logits over
+  all levels together (not per level, as detectron2), runs greedy NMS as a
+  keep mask, and keeps the top ``post_nms_topk`` of the survivors' scores with
+  the suppressed at -inf; boxes of zero side are kept (detectron2 drops them);
 - detection takes the top 4 x ``max_detections`` of the flattened R x C class
   scores, class-aware NMS, then the top ``max_detections`` with the
   suppressed at -1 (``valid`` marks the kept);
@@ -26,6 +27,15 @@ The JAX package's fixed shapes are kept, and with them its choices:
   head's input is the pooled [N, 7, 7, C] flattened channels-last, and the
   mask logits come out [B, R, m, m, C], as the JAX package's.
 
+Training samples in fixed shapes too: 256 anchors per image at half
+foreground for the RPN, ``roi_batch_per_image`` ROIs at ``roi_pos_fraction``
+from the proposals and the ground-truth slots for the heads, each the top-k
+of uniform priorities among the members of a class (non-members at -1). The
+priorities come from ``sampling_priorities`` (the step's generator; JAX draws
+from its key, so the bits differ and tests replace this function). As in
+JAX, the proposals are not detached: the ROI losses reach the RPN's deltas
+through the pooler's bilinear weights and the box targets.
+
 Convolutions run on NCHW (``channels_last`` memory on the card); the stem is
 the hand-written kernel K2 when the model computes in bf16. NMS is
 ``ops/nms.py``'s sequential greedy loop, one device step per box.
@@ -33,20 +43,28 @@ the hand-written kernel K2 when the model computes in bf16. NMS is
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..ops.losses import sigmoid_bce_with_logits
 from ..ops.nms import batched_nms_mask, nms_mask
-from ..ops.roi_align import roi_align_levels
+from ..ops.roi_align import roi_align_levels, roi_align_per_item
 from ..structures.boxes import clip_boxes
 from .backbones.fpn import FPN
 from .backbones.resnet import ResNet
-from .dense_heads import Box2BoxTransform, anchors_for_level, generate_cell_anchors
+from .dense_heads import Box2BoxTransform, anchors_for_level, generate_cell_anchors, iou_matcher
 from .layers import Conv, ConvTranspose, Dense
 
-TRAINING_ITEM = "R-CNN training is ROADMAP Queue 1, item 11b"
+
+class DetTargets(NamedTuple):
+    """Padded ground truth of a batch: labels [B, K], boxes [B, K, 4] absolute
+    xyxy, valid [B, K] (the JAX package's ``models.retinanet.DetTargets``)."""
+
+    labels: torch.Tensor
+    boxes: torch.Tensor
+    valid: torch.Tensor
 
 
 def _topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -56,16 +74,42 @@ def _topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return values[..., :k], indices[..., :k]
 
 
+def sampling_priorities(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Uniform [0, 1) priorities of a fixed-shape foreground / background
+    sample (JAX: ``jax.random.uniform`` of the step's key), drawn from the
+    step's generator."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def _sample(fg: torch.Tensor, bg: torch.Tensor, n_pos: int, n_neg: int, generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Indices [B, n_pos] and [B, n_neg] of the top priorities among ``fg``'s
+    and ``bg``'s members ([B, N] bool); where a class has too few members the
+    rest are non-members (priority -1, the lower index first)."""
+    pri = sampling_priorities(fg.shape, generator, fg.device)
+    fg_sel = _topk_stable(torch.where(fg, pri, -1.0), n_pos)[1]
+    bg_sel = _topk_stable(torch.where(bg, pri, -1.0), n_neg)[1]
+    return fg_sel, bg_sel
+
+
+def _match(gt: DetTargets, boxes: torch.Tensor, thresholds, low_quality: bool):
+    """``iou_matcher`` per image: (matched ground-truth slot [B, N], label [B, N])
+    of ``boxes`` [N, 4] (every image's) or [B, N, 4]."""
+    per_image = boxes.expand(gt.boxes.shape[0], *boxes.shape[-2:]) if boxes.dim() == 2 else boxes
+    out = [iou_matcher(g, v, b, thresholds, low_quality) for g, v, b in zip(gt.boxes, gt.valid, per_image)]
+    return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+
 class RPN(nn.Module):
     """Region proposal network over the FPN levels (reference rpn.py:533)."""
 
-    def __init__(self, in_channels: int = 256, num_anchors: int = 3, pre_nms_topk: int = 1000,
-                 post_nms_topk: int = 512, nms_thresh: float = 0.7,
+    def __init__(self, in_channels: int = 256, num_anchors: int = 3, pre_nms_topk_train: int = 2000,
+                 pre_nms_topk_test: int = 1000, post_nms_topk: int = 512, nms_thresh: float = 0.7,
                  strides: Sequence[int] = (4, 8, 16, 32, 64),
                  anchor_sizes: Sequence[Sequence[float]] = ((32,), (64,), (128,), (256,), (512,)),
                  aspect_ratios: Sequence[float] = (0.5, 1.0, 2.0), dtype=torch.float32):
         super().__init__()
-        self.pre_nms_topk, self.post_nms_topk, self.nms_thresh = pre_nms_topk, post_nms_topk, nms_thresh
+        self.pre_nms_topk_train, self.pre_nms_topk_test = pre_nms_topk_train, pre_nms_topk_test
+        self.post_nms_topk, self.nms_thresh = post_nms_topk, nms_thresh
         self.strides = tuple(strides)
         self.cell_anchors = [generate_cell_anchors(s, aspect_ratios) for s in anchor_sizes]
         self.conv = Conv(in_channels, in_channels, 3, 1, 1, dtype=dtype)
@@ -82,10 +126,12 @@ class RPN(nn.Module):
                 for lvl, (h, w) in enumerate(shapes)])
         return self._anchors[key]
 
-    def forward(self, features: List[torch.Tensor], image_sizes: torch.Tensor):
+    def forward(self, features: List[torch.Tensor], image_sizes: torch.Tensor, train: bool = False):
         """features: NCHW maps, finest first; image_sizes [B, 2] (h, w). Returns
         (proposals [B, R, 4], proposal logits [B, R], anchors [N, 4], logits
-        [B, N], deltas [B, N, 4]) with N over every level in (y, x, anchor) order."""
+        [B, N], deltas [B, N, 4]) with N over every level in (y, x, anchor)
+        order. ``train`` takes the training pre-NMS top-k; the proposals stay
+        differentiable in the deltas either way."""
         logits_all, deltas_all = [], []
         for f in features:
             t = torch.relu(self.conv(f))
@@ -96,17 +142,41 @@ class RPN(nn.Module):
         deltas = torch.cat(deltas_all, 1).float()
         anchors = self.anchors([tuple(f.shape[-2:]) for f in features], logits.device)
         boxes = Box2BoxTransform().apply_deltas(deltas, anchors[None])
-        pre_k = min(self.pre_nms_topk, logits.shape[1])
+        pre_k = min(self.pre_nms_topk_train if train else self.pre_nms_topk_test, logits.shape[1])
         proposals, prop_logits = [], []
         for lg, bx, hw in zip(logits, boxes, image_sizes):
             topv, topi = _topk_stable(lg, pre_k)
             cand = clip_boxes(bx[topi], (hw[0], hw[1]))
-            keep = nms_mask(cand, topv, self.nms_thresh)
+            keep = nms_mask(cand.detach(), topv.detach(), self.nms_thresh)
             outv, outi = _topk_stable(torch.where(keep, topv, torch.full_like(topv, -torch.inf)),
                                       self.post_nms_topk)
             proposals.append(cand[outi])
             prop_logits.append(outv)
         return torch.stack(proposals), torch.stack(prop_logits), anchors, logits, deltas
+
+    @staticmethod
+    def losses(logits: torch.Tensor, deltas: torch.Tensor, anchors: torch.Tensor, targets: DetTargets,
+               generator: Optional[torch.Generator] = None, pos_fraction: float = 0.5,
+               batch_per_image: int = 256) -> Dict[str, torch.Tensor]:
+        """Objectness BCE and L1 on the deltas of ``batch_per_image`` anchors per
+        image sampled at ``pos_fraction`` foreground, the anchors matched at
+        (0.3, 0.7) with low-quality matches; both divided by batch_per_image x
+        B (reference rpn.py:421-426)."""
+        with torch.no_grad():
+            matched_idx, labels = _match(targets, anchors, (0.3, 0.7), True)
+            n_pos = int(batch_per_image * pos_fraction)
+            fg, bg = labels == 1, labels == 0
+            fg_sel, bg_sel = _sample(fg, bg, n_pos, batch_per_image - n_pos, generator)
+            fg_mask, bg_mask = fg.gather(1, fg_sel), bg.gather(1, bg_sel)
+            gt_boxes = targets.boxes.gather(1, matched_idx.gather(1, fg_sel)[..., None].expand(-1, -1, 4))
+            gt_deltas = Box2BoxTransform().get_deltas(anchors[fg_sel], gt_boxes.float())
+        lg_fg, lg_bg = logits.gather(1, fg_sel), logits.gather(1, bg_sel)
+        obj_loss = ((sigmoid_bce_with_logits(lg_fg, torch.ones_like(lg_fg)) * fg_mask).sum()
+                    + (sigmoid_bce_with_logits(lg_bg, torch.zeros_like(lg_bg)) * bg_mask).sum())
+        diff = (deltas.gather(1, fg_sel[..., None].expand(-1, -1, 4)) - gt_deltas).abs()
+        loc_loss = (diff.sum(-1) * fg_mask).sum()
+        norm = float(batch_per_image) * fg.shape[0]
+        return {"loss_rpn_cls": obj_loss / norm, "loss_rpn_loc": loc_loss / norm}
 
 
 def assign_fpn_levels(rois: torch.Tensor, k0: int = 4, kmin: int = 2, kmax: int = 5) -> torch.Tensor:
@@ -116,6 +186,15 @@ def assign_fpn_levels(rois: torch.Tensor, k0: int = 4, kmin: int = 2, kmax: int 
     scale = torch.sqrt((w * h).clamp_min(1e-6))
     lvl = torch.floor(k0 + torch.log2(scale / 224.0 + 1e-8))
     return lvl.clamp(kmin, kmax).to(torch.int32)
+
+
+def _trunk(backbone_depth: int, fpn_channels: int, proposals_per_image: int, dtype):
+    """ResNet (res2-res5), FPN (p2-p6, the max-pool top block) and the RPN."""
+    features = ("res2", "res3", "res4", "res5")
+    backbone = ResNet(backbone_depth, dtype, out_features=features)
+    fpn = FPN([backbone.output_channels[f] for f in features], features, fpn_channels, top_block="maxpool",
+              dtype=dtype)
+    return backbone, fpn, RPN(fpn_channels, post_nms_topk=proposals_per_image, dtype=dtype)
 
 
 class StandardROIHeads(nn.Module):
@@ -178,12 +257,14 @@ class GeneralizedRCNN(nn.Module):
     """ResNet + FPN (p2-p6) + RPN + StandardROIHeads. ``inference`` takes
     normalized NHWC images [B, H, W, 3] and their true sizes [B, 2] and returns
     boxes [B, D, 4], scores [B, D], classes [B, D], valid [B, D] (and
-    mask_probs [B, D, m, m] with ``mask_on``) for D = ``max_detections``."""
+    mask_probs [B, D, m, m] with ``mask_on``) for D = ``max_detections``; in
+    train mode ``forward`` returns the loss dict."""
 
     def __init__(self, num_classes: int = 80, backbone_depth: int = 50, fpn_channels: int = 256,
-                 proposals_per_image: int = 512, mask_on: bool = False, keypoint_on: bool = False,
-                 test_score_thresh: float = 0.05, test_nms_thresh: float = 0.5, max_detections: int = 100,
-                 cascade_on: bool = False, dtype=torch.float32):
+                 proposals_per_image: int = 512, roi_batch_per_image: int = 128, roi_pos_fraction: float = 0.25,
+                 mask_on: bool = False, keypoint_on: bool = False, test_score_thresh: float = 0.05,
+                 test_nms_thresh: float = 0.5, max_detections: int = 100, cascade_on: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         if cascade_on:
             raise NotImplementedError("GeneralizedRCNN cascade_on (ROI_HEADS.NAME CascadeROIHeads): Cascade R-CNN "
@@ -192,21 +273,76 @@ class GeneralizedRCNN(nn.Module):
             raise NotImplementedError("GeneralizedRCNN keypoint_on (MODEL.KEYPOINT_ON): keypoint R-CNN is not "
                                       "ported to vnext_tpu_torch yet (ROADMAP Queue 1, item 11d)")
         self.num_classes, self.mask_on, self.dtype = num_classes, mask_on, dtype
+        self.roi_batch_per_image, self.roi_pos_fraction = roi_batch_per_image, roi_pos_fraction
         self.test_score_thresh, self.test_nms_thresh = test_score_thresh, test_nms_thresh
         self.max_detections = max_detections
-        features = ("res2", "res3", "res4", "res5")
-        self.backbone = ResNet(backbone_depth, dtype, out_features=features)
-        self.fpn = FPN([self.backbone.output_channels[f] for f in features], features, fpn_channels,
-                       top_block="maxpool", dtype=dtype)
-        self.rpn = RPN(fpn_channels, post_nms_topk=proposals_per_image, dtype=dtype)
+        self.backbone, self.fpn, self.rpn = _trunk(backbone_depth, fpn_channels, proposals_per_image, dtype)
         self.roi_heads = StandardROIHeads(fpn_channels, num_classes, mask_on=mask_on, dtype=dtype)
         self.box2box = Box2BoxTransform(weights=(10.0, 10.0, 5.0, 5.0))
 
-    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """``inference`` in eval mode; training raises (item 11b)."""
-        if self.training:
-            raise NotImplementedError(f"GeneralizedRCNN in train mode: {TRAINING_ITEM}")
-        return self.inference(images, image_sizes)
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor, targets: Optional[DetTargets] = None,
+                gt_masks: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None):
+        """``inference`` in eval mode; in train mode the losses of ``targets``
+        (and ``gt_masks`` [B, K, H, W], any dtype, with ``mask_on``), the
+        samples drawn from ``generator``."""
+        if not self.training:
+            return self.inference(images, image_sizes)
+        return self.losses_on_features(self._features(images), image_sizes, targets, gt_masks, generator)
+
+    def losses_on_features(self, feats: Dict[str, torch.Tensor], image_sizes: torch.Tensor, targets: DetTargets,
+                           gt_masks: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """loss_rpn_cls, loss_rpn_loc, loss_cls, loss_box_reg (and loss_mask):
+        the RPN's, then the heads' on a fixed ROI batch sampled from the
+        proposals and the ground-truth slots matched at IoU 0.5."""
+        proposals, _, anchors, rpn_logits, rpn_deltas = self.rpn([feats[f"p{i}"] for i in range(2, 7)],
+                                                                 image_sizes, train=True)
+        losses = RPN.losses(rpn_logits, rpn_deltas, anchors, targets, generator)
+        b, c = proposals.shape[0], self.num_classes
+        rois = torch.cat([proposals, targets.boxes.to(proposals.dtype)], 1)
+        with torch.no_grad():
+            matched_idx, labels = _match(targets, rois.detach(), (0.5, 0.5), False)
+            n_pos = int(self.roi_batch_per_image * self.roi_pos_fraction)
+            fg, bg = labels == 1, labels == 0
+            fg_sel, bg_sel = _sample(fg, bg, n_pos, self.roi_batch_per_image - n_pos, generator)
+            sel = torch.cat([fg_sel, bg_sel], 1)                                         # [B, Rb]
+            fg_picked = fg.gather(1, fg_sel)
+            sel_fg = torch.cat([fg_picked, torch.zeros_like(bg_sel, dtype=torch.bool)], 1)
+            sel_valid = torch.cat([fg_picked, bg.gather(1, bg_sel)], 1)
+            sel_gt_idx = matched_idx.gather(1, sel)
+            gt_cls = targets.labels.gather(1, sel_gt_idx).long()
+            target_cls = torch.where(sel_fg, gt_cls, c)                                  # background: the last class
+            gt_boxes = targets.boxes.gather(1, sel_gt_idx[..., None].expand(-1, -1, 4)).float()
+        sel_rois = rois.gather(1, sel[..., None].expand(-1, -1, 4))
+        head_out = self.roi_heads(feats, sel_rois)
+
+        ce = -torch.log_softmax(head_out["cls_logits"], -1)
+        cls_loss = ce.gather(-1, target_cls[..., None])[..., 0]
+        losses["loss_cls"] = (cls_loss * sel_valid).sum() / sel_valid.sum().clamp_min(1.0)
+        n_fg = sel_fg.sum().clamp_min(1.0)
+        gt_deltas = self.box2box.get_deltas(sel_rois, gt_boxes)
+        rb = sel.shape[1]
+        box_deltas = head_out["box_deltas"].reshape(b, rb, c, 4)
+        pred = box_deltas.gather(2, target_cls.clamp(0, c - 1)[..., None, None].expand(b, rb, 1, 4))[:, :, 0]
+        losses["loss_box_reg"] = ((pred - gt_deltas).abs().sum(-1) * sel_fg).sum() / n_fg
+
+        if self.mask_on:
+            if gt_masks is None:
+                raise ValueError("GeneralizedRCNN with mask_on trains on gt_masks [B, K, H, W]")
+            m = head_out["mask_logits"].shape[2]                                        # 2 x pooler_size
+            with torch.no_grad():
+                # each ROI samples its matched instance's bitmask alone (mask_rcnn_loss's crop)
+                k = gt_masks.shape[1]
+                items = (torch.arange(b, device=sel.device)[:, None] * k + sel_gt_idx).reshape(-1)
+                bank = gt_masks.reshape(-1, *gt_masks.shape[2:])
+                gt_crop = roi_align_per_item(bank, sel_rois.detach().reshape(-1, 4), items, (m, m), spatial_scale=1.0,
+                                             sampling_ratio=2)
+                gt_crop = (gt_crop.reshape(b, rb, m, m) > 0.5).float()
+            cls_ch = gt_cls.clamp(0, c - 1)[:, :, None, None, None].expand(b, rb, m, m, 1)
+            m_logits = head_out["mask_logits"].gather(-1, cls_ch)[..., 0]            # the ground truth's class
+            per_roi = sigmoid_bce_with_logits(m_logits, gt_crop).mean((-2, -1))
+            losses["loss_mask"] = (per_roi * sel_fg).sum() / n_fg
+        return losses
 
     def _features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.fpn(self.backbone(images))
@@ -234,7 +370,7 @@ class GeneralizedRCNN(nn.Module):
 
     def inference_on_features(self, feats: Dict[str, torch.Tensor],
                               image_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
-        proposals = self.rpn([feats[f"p{i}"] for i in range(2, 7)], image_sizes)[0]
+        proposals = self.rpn([feats[f"p{i}"] for i in range(2, 7)], image_sizes, train=False)[0]
         head_out = self.roi_heads(feats, proposals)
         b, r = proposals.shape[:2]
         probs = torch.softmax(head_out["cls_logits"], -1)[..., :-1]
@@ -258,3 +394,29 @@ class GeneralizedRCNN(nn.Module):
         ml = self.roi_heads(self._features(images), boxes)["mask_logits"]
         idx = torch.arange(boxes.shape[1], device=boxes.device).expand(boxes.shape[0], -1)
         return torch.sigmoid(self._class_masks(ml, idx, classes))
+
+
+class ProposalNetwork(nn.Module):
+    """ResNet + FPN + RPN alone (reference meta_arch/rcnn.py:247): in eval mode
+    ``inference`` returns proposal_boxes [B, R, 4] and objectness_logits
+    [B, R]; in train mode ``forward`` returns the RPN's losses."""
+
+    def __init__(self, backbone_depth: int = 50, fpn_channels: int = 256, proposals_per_image: int = 512,
+                 dtype=torch.float32):
+        super().__init__()
+        self.backbone, self.fpn, self.rpn = _trunk(backbone_depth, fpn_channels, proposals_per_image, dtype)
+
+    def _rpn(self, images: torch.Tensor, image_sizes: torch.Tensor, train: bool):
+        feats = self.fpn(self.backbone(images))
+        return self.rpn([feats[f"p{i}"] for i in range(2, 7)], image_sizes, train=train)
+
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor, targets: Optional[DetTargets] = None,
+                generator: Optional[torch.Generator] = None):
+        if not self.training:
+            return self.inference(images, image_sizes)
+        _, _, anchors, logits, deltas = self._rpn(images, image_sizes, train=True)
+        return RPN.losses(logits, deltas, anchors, targets, generator)
+
+    def inference(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
+        proposals, logits = self._rpn(images, image_sizes, train=False)[:2]
+        return {"proposal_boxes": proposals, "objectness_logits": logits}

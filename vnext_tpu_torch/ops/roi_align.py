@@ -14,7 +14,10 @@ its four corners from the map, viewed channels-last (on the card the maps are
 ``channels_last`` in memory, so the view is free), with one gather each: the samples
 are 4 * N * (7 * 2)^2 rows of C channels, and nothing [N, H, W] is ever made.
 ``roi_align_levels`` pools every ROI from its own FPN level in one pass by
-gathering from the levels laid end to end. Plain torch: neither function was a
+gathering from the levels laid end to end. ``roi_align_per_item`` (Mask
+R-CNN's mask targets) samples each ROI from its own item of a single-channel
+bank [M, H, W] of any dtype (the ground-truth bitmasks stay bool: only the
+sampled corners are read and made f32). Plain torch: none of these was a
 Pallas kernel in the JAX package.
 """
 
@@ -88,6 +91,21 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, output_size: Tuple[int
     xs = _axis_samples(x1, roi_w / out_w, out_w, s, size_w)
     base = rois[:, 0].long() * (h * w)
     return _pool(fm.reshape(b * h * w, c), base, torch.full_like(base, w), ys, xs, out_h, out_w, s)
+
+
+def roi_align_per_item(bank: torch.Tensor, rois4: torch.Tensor, item_idx: torch.Tensor,
+                       output_size: Tuple[int, int] = (28, 28), spatial_scale: float = 1.0, sampling_ratio: int = 2,
+                       aligned: bool = True) -> torch.Tensor:
+    """ROI i pooled from ``bank[item_idx[i]]`` alone: bank [M, H, W], rois4 [N, 4]
+    xyxy in bank coordinates, item_idx [N]. Returns [N, out_h, out_w] in f32."""
+    m, h, w = bank.shape
+    out_h, out_w = output_size
+    s = max(sampling_ratio, 1)
+    x1, y1, roi_w, roi_h = _roi_box(rois4, spatial_scale, aligned)
+    ys = _axis_samples(y1, roi_h / out_h, out_h, s, torch.full_like(y1, h))
+    xs = _axis_samples(x1, roi_w / out_w, out_w, s, torch.full_like(x1, w))
+    base = item_idx.long() * (h * w)
+    return _pool(bank.reshape(m * h * w, 1), base, torch.full_like(base, w), ys, xs, out_h, out_w, s)[..., 0]
 
 
 def roi_align_levels(features: Sequence[torch.Tensor], rois: torch.Tensor, levels: torch.Tensor,

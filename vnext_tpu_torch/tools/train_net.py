@@ -1,4 +1,4 @@
-"""IDOL's training and evaluation entry point, and Mask R-CNN's serving one, on one NVIDIA GPU.
+"""IDOL's and Mask R-CNN's training and evaluation entry point, on one NVIDIA GPU.
 
 Counterpart of ``tools/train_net.py`` (the JAX package's entry point, with
 detectron2's command line):
@@ -26,13 +26,15 @@ A ``GeneralizedRCNN`` config (Mask R-CNN, Faster R-CNN) runs ``--eval-only``
 through ``engine/detection.do_eval_detection``: each image of the COCO-type
 ``DATASETS.TEST`` sets (the COCO splits and the synthetic COCO set are
 registered) is served at ``TPU.TEST_IMAGE_SIZE`` and scored by the COCO
-evaluator's box and mask AP:
+evaluator's box and mask AP. Without it, ``engine/detection.do_train_detection``
+trains it (and a ``ProposalNetwork``) on ``DATASETS.TRAIN`` at
+``TPU.TRAIN_IMAGE_SIZE``, ``SOLVER.IMS_PER_BATCH`` images a step:
 
     python -m vnext_tpu_torch.tools.train_net \\
-        --config-file configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml --eval-only
+        --config-file configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml [--eval-only | --resume]
 
-Training it, and the other image meta-architectures, raise naming their
-ROADMAP item (Queue 1, items 11b-11d).
+The other image meta-architectures raise naming their ROADMAP item (Queue
+1, items 11c and 11d).
 
 The run is on the card unless the config says ``MODEL.DEVICE cpu`` (the
 tests' setting, which runs the kernels' plain versions); with no CUDA device
@@ -55,14 +57,13 @@ from ..data import (CocoClipDatasetMapper, MetadataCatalog, build_vis_test_loade
 from ..data.datasets.synthetic import register_synthetic_coco, register_synthetic_ytvis
 from ..engine.hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, PeriodicWriter
 from ..engine.detection import _ARCH as IMAGE_ARCHITECTURES
-from ..engine.detection import do_eval_detection
+from ..engine.detection import do_eval_detection, do_train_detection
 from ..engine.launch import launch
 from ..engine.train_step import TrainState, make_train_step
 from ..engine.trainer import VISTrainer
 from ..engine.vis_inference import IDOLVideoInference
 from ..evaluation.testing import verify_final_loss, verify_results
 from ..evaluation.ytvis_eval import build_evaluator
-from ..models import DETECTRON2_ARCHITECTURES
 from ..models.criterion import default_weight_dict
 from ..models.idol import build_idol_model
 from ..solver.build import build_grad_clip, build_lr_schedule, build_lr_scheduler, build_optimizer
@@ -262,19 +263,17 @@ def _eval(cfg):
 
 
 def _train(cfg, resume: bool = False):
-    """IDOL's ``do_train``; an image meta-architecture does not train in the port yet."""
-    name = cfg.MODEL.META_ARCHITECTURE
-    if name in IMAGE_ARCHITECTURES:
-        raise NotImplementedError(f"training MODEL.META_ARCHITECTURE {name!r}: not ported to vnext_tpu_torch yet "
-                                  f"(ROADMAP Queue 1, item {DETECTRON2_ARCHITECTURES.get(name, '11b')}); "
-                                  "GeneralizedRCNN serves with --eval-only")
+    """IDOL's ``do_train``, or an image meta-architecture's ``do_train_detection``."""
+    if cfg.MODEL.META_ARCHITECTURE in IMAGE_ARCHITECTURES:
+        _register_image_datasets(cfg)
+        return do_train_detection(cfg, resume=resume, device=resolve_device(cfg))
     return do_train(cfg, resume=resume)
 
 
 def main(argv=None):
-    """Parse ``argv`` (default ``sys.argv[1:]``) and run IDOL, or serve an image
-    meta-architecture with ``--eval-only``; returns the eval results with
-    ``--eval-only``, else the trainer."""
+    """Parse ``argv`` (default ``sys.argv[1:]``) and run IDOL or an image
+    meta-architecture; returns the eval results with ``--eval-only``, else the
+    trainer."""
     return run(argv, setup, ("IDOL", *IMAGE_ARCHITECTURES),
                "MinVIS's MaskFormer runs through vnext_tpu_torch.tools.train_net_video, and SeqFormer has no "
                "entry point in either package", _eval, _train)
