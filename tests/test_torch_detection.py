@@ -21,9 +21,11 @@ case shares one JAX compile:
 - the entry point, ``vnext_tpu_torch.tools.train_net.main --eval-only
   MODEL.DEVICE cpu`` with the same tree in ``MODEL.WEIGHTS``: its results dict
   equal to JAX's ``do_eval_detection``'s, and ``TEST.EXPECTED_RESULTS`` verified;
-- refusals: the unported image architectures, keypoint AP; and what is
-  ported since: one Mask R-CNN train step through the entry point, and
-  ProposalNetwork built.
+- refusals: the unported image architectures (PanopticFPN, SemanticSegmentor);
+  and what is ported since: one Mask R-CNN train step through the entry point,
+  ProposalNetwork, RetinaNet, FCOS, Cascade and keypoint R-CNN built and taken
+  by the runner, the keypoints task evaluated (tests/test_torch_rcnn_heads.py
+  holds them against JAX).
 """
 
 import copy
@@ -227,14 +229,16 @@ def test_coco_evaluator_matches_jax(served, tmp_path):
 
 
 def test_build_evaluator_coco_and_keypoints_refusal(served, tmp_path):
+    """The COCO evaluator's tasks from the config: bbox, segm with
+    ``MODEL.MASK_ON``, keypoints with ``MODEL.KEYPOINT_ON`` (which the port
+    refused before keypoint R-CNN was ported), as JAX's ``build_evaluator``."""
     cfg = _cfg(get_cfg, add_idol_config, "OUTPUT_DIR", str(tmp_path))
     ev = build_evaluator(cfg, DATASET)
     assert isinstance(ev, COCOEvaluator) and ev._tasks == ("bbox", "segm")
     cfg.MODEL.MASK_ON = False
     assert build_evaluator(cfg, DATASET)._tasks == ("bbox",)
     cfg.MODEL.KEYPOINT_ON = True
-    with pytest.raises(NotImplementedError, match="item 11d"):
-        build_evaluator(cfg, DATASET)
+    assert build_evaluator(cfg, DATASET)._tasks == ("bbox", "keypoints")
 
 
 # ---------------------------------------------------------------- serving
@@ -320,29 +324,36 @@ def test_refusals_name_their_item(served, tmp_path):
     trainer = train_net.main(["--config-file", INSTANT, *out, "SOLVER.MAX_ITER", "1", "DATASETS.TEST", "()",
                               "MODEL.FPN.OUT_CHANNELS", "32"])
     assert trainer.iter == 1 and np.isfinite(trainer.storage.history("loss_mask").values()).all()
+    # FCOS is ported (tests/test_torch_dense_detectors.py and tests/test_torch_rcnn_heads.py hold it): its
+    # quick schedule serves through the entry point, scored by the COCO evaluator's bbox AP
     fcos = os.path.join(REPO, "configs", "quick_schedules", "fcos_R_18_instant_test.yaml")
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        train_net.main(["--config-file", fcos, "--eval-only", *out])
+    served_fcos = train_net.main(["--config-file", fcos, "--eval-only", *out])
+    assert sorted(served_fcos[DATASET]) == ["bbox"]
     cfg = _cfg(get_cfg, add_idol_config)
-    for arch, item in (("RetinaNet", "11c"), ("FCOS", "11c"), ("PanopticFPN", "11d"), ("SemanticSegmentor", "11d")):
+    for arch, item in (("PanopticFPN", "11d"), ("SemanticSegmentor", "11d")):
         cfg.MODEL.META_ARCHITECTURE = arch
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             build_model(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="item 11"):
             detection.DetectionInference(cfg, torch.nn.Linear(1, 1))
-    # ProposalNetwork is ported: it builds, and its runner takes it
-    cfg.MODEL.META_ARCHITECTURE = "ProposalNetwork"
-    assert type(build_model(cfg, device="meta")).__name__ == "ProposalNetwork"
-    assert detection.DetectionInference(cfg, torch.nn.Linear(1, 1)).arch == "ProposalNetwork"
+    # ProposalNetwork, RetinaNet and FCOS are ported: each builds, and the runner takes it
+    for arch in ("ProposalNetwork", "RetinaNet", "FCOS"):
+        cfg.MODEL.META_ARCHITECTURE = arch
+        assert type(build_model(cfg, device="meta")).__name__ == arch
+        assert detection.DetectionInference(cfg, torch.nn.Linear(1, 1)).arch == arch
     cfg.MODEL.META_ARCHITECTURE = "GeneralizedRCNN"
-    for key, item in (("MODEL.KEYPOINT_ON", "11d"), ("MODEL.ROI_HEADS.NAME", "11d")):
-        bad = cfg.clone()
-        bad.merge_from_list([key, "True" if key == "MODEL.KEYPOINT_ON" else "CascadeROIHeads"])
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            build_model(bad, device="meta")
+    # keypoint R-CNN and Cascade R-CNN are ported: their heads are built; the cascade is box-only, as JAX's
+    for key, value, head in (("MODEL.KEYPOINT_ON", "True", "keypoint_head"), ("MODEL.ROI_HEADS.NAME",
+                                                                               "CascadeROIHeads", "stage2")):
+        other = cfg.clone()
+        other.merge_from_list([key, value, "MODEL.MASK_ON", "False"])
+        assert hasattr(build_model(other, device="meta").roi_heads, head)
+        other.merge_from_list(["MODEL.MASK_ON", "True"])
+        if head == "stage2":
+            with pytest.raises(ValueError, match="box-only"):
+                build_model(other, device="meta")
     assert type(build_model(cfg, device="meta")).__name__ == "GeneralizedRCNN"
-    with pytest.raises(NotImplementedError, match="item 11d"):
-        COCOEvaluator(DATASET, ("bbox", "keypoints"))
+    assert COCOEvaluator(DATASET, ("bbox", "keypoints"))._tasks == ("bbox", "keypoints")
     MetadataCatalog.get("detection_lvis_kind").set(evaluator_type="lvis")
     with pytest.raises(NotImplementedError, match="no evaluator for type 'lvis'"):
         build_evaluator(cfg, "detection_lvis_kind")

@@ -40,7 +40,7 @@ from vnext_tpu.structures.image_list import ImageList as JaxImageList
 from vnext_tpu.structures.instances import Instances as JaxInstances
 from vnext_tpu_torch.checkpoint.from_jax import load_from_jax
 from vnext_tpu_torch.models.dense_heads import Box2BoxTransform, anchors_for_level, generate_cell_anchors, iou_matcher
-from vnext_tpu_torch.models.layers import ConvTranspose
+from vnext_tpu_torch.models.layers import ConvTranspose, init_weights
 from vnext_tpu_torch.models.rcnn import DetTargets, GeneralizedRCNN, StandardROIHeads, assign_fpn_levels
 from vnext_tpu_torch.ops.mask_ops import paste_masks_in_image
 from vnext_tpu_torch.ops.roi_align import roi_align, roi_align_levels
@@ -369,13 +369,24 @@ def test_masks_on_boxes_match_jax(tiny):
 
 
 def test_refusals_name_their_item(tiny):
+    """Keypoint R-CNN and Cascade R-CNN are ported (tests/test_torch_rcnn_heads.py
+    holds them against JAX): their heads are built, the keypoint head on the
+    7 x 7 pooled features with 28 x 28 heatmaps; the cascade refuses masks
+    and keypoints, box-only as JAX's."""
     _, _, _, port = tiny
-    with pytest.raises(NotImplementedError, match="item 11d"):
-        GeneralizedRCNN(keypoint_on=True, **TINY)
-    with pytest.raises(NotImplementedError, match="item 11d"):
-        GeneralizedRCNN(cascade_on=True, **TINY)
-    with pytest.raises(NotImplementedError, match="item 11d"):
-        StandardROIHeads(32, 4, keypoint_on=True)
+    kp = GeneralizedRCNN(keypoint_on=True, **TINY)
+    assert kp.roi_heads.keypoint_head.num_convs == 4
+    cascade = GeneralizedRCNN(cascade_on=True, **TINY)
+    assert [n for n, _ in cascade.roi_heads.named_children()] == ["stage0", "stage1", "stage2"]
+    for on in ("mask_on", "keypoint_on"):
+        with pytest.raises(ValueError, match="box-only"):
+            GeneralizedRCNN(cascade_on=True, **{on: True}, **TINY)
+    heads = StandardROIHeads(32, 4, keypoint_on=True)
+    init_weights(heads, 0)
+    with torch.no_grad():
+        out = heads({f"p{i}": torch.randn(1, 32, H // 2 ** i, W // 2 ** i) for i in range(2, 6)},
+                    torch.tensor([[[4.0, 6.0, 40.0, 30.0]]]))
+    assert out["keypoint_logits"].shape == (1, 1, 28, 28, 17)
     # training is ported (tests/test_torch_rcnn_train.py holds it against JAX): the train-mode forward
     # returns the loss dict
     boxes = np.asarray([[[4, 6, 40, 30], [0, 0, 1e-4, 1e-4]]], np.float32)

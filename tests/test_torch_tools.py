@@ -98,12 +98,17 @@ def test_build_model_refuses_detectron2_and_unknown_architectures():
     from vnext_tpu_torch.models import META_ARCH_REGISTRY, build_model
 
     cfg = _port_cfg("configs/quick_schedules/idol_instant_test.yaml")
-    for name, err, match in (("PanopticFPN", NotImplementedError, "item 11d"), ("FCOS", NotImplementedError,
-                             "item 11c"), ("NoSuchArch", KeyError, "No object named")):
+    for name, err, match in (("PanopticFPN", NotImplementedError, "item 11d"), ("SemanticSegmentor",
+                             NotImplementedError, "item 11d"), ("NoSuchArch", KeyError, "No object named")):
         cfg.MODEL.META_ARCHITECTURE = name
         with pytest.raises(err, match=match):
             build_model(cfg, device="meta")
-    assert sorted(META_ARCH_REGISTRY.keys()) == ["GeneralizedRCNN", "IDOL", "MaskFormer", "ProposalNetwork", "SeqFormer"]
+    # FCOS and RetinaNet are ported since, and build
+    for name in ("FCOS", "RetinaNet"):
+        cfg.MODEL.META_ARCHITECTURE = name
+        assert type(build_model(cfg, device="meta")).__name__ == name
+    assert sorted(META_ARCH_REGISTRY.keys()) == ["FCOS", "GeneralizedRCNN", "IDOL", "MaskFormer", "ProposalNetwork",
+                                                 "RetinaNet", "SeqFormer"]
     cfg.MODEL.META_ARCHITECTURE = "VideoMaskFormer_frame"
     assert type(build_model(_port_cfg("configs/quick_schedules/minvis_instant_test.yaml"), device="meta")
                 ).__name__ == "MaskFormer"

@@ -13,8 +13,10 @@ mechanical: the dotted flax path is the state-dict key, with
 The map goes by path and rank alone, so a ``ConvTranspose`` kernel (flax's
 (kh, kw, in, out), ``transpose_kernel=False``) takes the 4-d rule too: the
 port's ``ConvTranspose`` keeps that layout in its parameter and arranges it for
-``conv_transpose2d`` at use (``models/layers.py``; InstMove's decoder and the
-Mask R-CNN mask head use it).
+``conv_transpose2d`` at use (``models/layers.py``; InstMove's decoder, the
+Mask R-CNN mask head and the keypoint head's 4x4 ``score_lowres`` use it).
+A rank-1 leaf that is not a kernel, such as FCOS's per-level ``scales``,
+carries across as it is, and the cascade's ``stage{k}`` heads by their paths.
 
 The input is a nested dict of numpy arrays (``jax.tree.map(np.asarray, params)``),
 so this module needs neither jax nor flax.

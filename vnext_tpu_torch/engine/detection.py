@@ -15,8 +15,11 @@ the same padded input. Training: the mapper's fixed-shape samples (padded to
 collated, normalized on the card and fed to ``make_train_step`` with every
 loss at weight 1 (the JAX step's plain sum of the loss dict).
 
-``GeneralizedRCNN`` and ``ProposalNetwork`` are ported; the other image
-meta-architectures raise in ``models.build_model`` naming their ROADMAP item.
+``GeneralizedRCNN`` (with keypoint R-CNN and Cascade R-CNN), ``ProposalNetwork``,
+``RetinaNet`` and ``FCOS`` are ported, each with its row of the JAX package's
+per-architecture table (``SPEC``: whether the forward takes the images' true
+sizes, and whether it trains on masks); PanopticFPN and SemanticSegmentor
+raise in ``models.build_model`` naming their ROADMAP item.
 Two choices differ from the JAX package's ``do_train_detection`` (ROADMAP
 Queue 3): it initializes on the loader's first batch and trains from its
 second, where the port trains from the first; and a resumed run here takes up
@@ -42,6 +45,7 @@ from ..data.transforms import ClipAugmentation
 from ..evaluation.testing import verify_final_loss, verify_results
 from ..evaluation.ytvis_eval import build_evaluator
 from ..models import DETECTRON2_ARCHITECTURES, build_model
+from ..models.cascade_rcnn import STAGE_IOUS
 from ..models.rcnn import DetTargets
 from ..ops.mask_ops import paste_masks_in_image
 from ..solver.build import build_grad_clip, build_lr_schedule, build_lr_scheduler, build_optimizer
@@ -50,8 +54,17 @@ from .hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, Pe
 from .train_step import TrainState, make_train_step
 from .trainer import VISTrainer
 
-# the ported image meta-architectures, then the JAX package's others (the entry point sends all of them here)
-PORTED = ("GeneralizedRCNN", "ProposalNetwork")
+# the ported image meta-architectures: does the forward take the true sizes, and does it train on masks
+# (the JAX package's table, engine/detection.py _ARCH, less its sem_seg and rng columns: the sem_seg
+# architectures are not ported, and every train forward here takes the step's generator)
+SPEC = {
+    "GeneralizedRCNN": dict(sizes=True, masks=True),
+    "ProposalNetwork": dict(sizes=True, masks=False),
+    "RetinaNet": dict(sizes=False, masks=False),
+    "FCOS": dict(sizes=False, masks=False),
+}
+PORTED = tuple(SPEC)
+# then the JAX package's others (the entry point sends all of them here)
 _ARCH = (*PORTED, *DETECTRON2_ARCHITECTURES)
 
 
@@ -84,36 +97,56 @@ def build_detection_train_loader(cfg, seed: int = 0, start_iter: int = 0) -> Ite
     return PrefetchIterator(gen())
 
 
-def make_batch_adapter(cfg, device):
-    """Collated batch -> the train forward's inputs on ``device``: (images
-    normalized [B, H, W, 3], sizes [B, 2], ``DetTargets``) and, for Mask
-    R-CNN, the bitmasks [B, K, H, W] as they come (bool)."""
-    arch = cfg.MODEL.META_ARCHITECTURE
+def _spec(arch: str, what: str) -> dict:
     if arch not in PORTED:
-        raise NotImplementedError(f"training MODEL.META_ARCHITECTURE {arch!r}: not ported to vnext_tpu_torch yet "
+        raise NotImplementedError(f"{what} MODEL.META_ARCHITECTURE {arch!r}: not ported to vnext_tpu_torch yet "
                                   f"(ROADMAP Queue 1, item {DETECTRON2_ARCHITECTURES.get(arch, '11')})")
+    return SPEC[arch]
+
+
+def make_batch_adapter(cfg, device):
+    """Collated batch -> the train forward's inputs on ``device``: images
+    normalized [B, H, W, 3], the true sizes [B, 2] where the architecture
+    takes them (not RetinaNet's nor FCOS's), ``DetTargets``; then for Mask
+    R-CNN the bitmasks [B, K, H, W] as they come (bool), and for keypoint
+    R-CNN the keypoints [B, K, num_keypoints, 3] (after a None in the masks'
+    place without ``MODEL.MASK_ON``)."""
+    arch = cfg.MODEL.META_ARCHITECTURE
+    spec = _spec(arch, "training")
     mean = torch.tensor(cfg.MODEL.PIXEL_MEAN, dtype=torch.float32, device=device)
     std = torch.tensor(cfg.MODEL.PIXEL_STD, dtype=torch.float32, device=device)
-    mask_on = arch == "GeneralizedRCNN" and cfg.MODEL.MASK_ON
+    mask_on = spec["masks"] and cfg.MODEL.MASK_ON
+    keypoint_on = arch == "GeneralizedRCNN" and cfg.MODEL.KEYPOINT_ON
 
     def tensor(a):
         return torch.as_tensor(np.asarray(a)).to(device, non_blocking=True)
 
     def adapter(batch):
         images = (tensor(batch["image"]).float() - mean) / std
-        inputs = (images, tensor(batch["size"]),
-                  DetTargets(tensor(batch["labels"]), tensor(batch["boxes"]), tensor(batch["valid"])))
-        return inputs + (tensor(batch["masks"]),) if mask_on else inputs
+        targets = DetTargets(tensor(batch["labels"]), tensor(batch["boxes"]), tensor(batch["valid"]))
+        inputs = (images, tensor(batch["size"]), targets) if spec["sizes"] else (images, targets)
+        if mask_on or keypoint_on:
+            inputs += (tensor(batch["masks"]) if mask_on else None,)
+        return inputs + (tensor(batch["keypoints"]),) if keypoint_on else inputs
 
     return adapter
 
 
 def loss_keys(cfg) -> tuple:
-    """The train forward's loss keys, each summed at weight 1."""
+    """The train forward's loss keys, each summed at weight 1, in its order."""
+    arch = cfg.MODEL.META_ARCHITECTURE
+    if arch == "RetinaNet":
+        return ("loss_cls", "loss_box_reg")
+    if arch == "FCOS":
+        return ("loss_fcos_cls", "loss_fcos_loc", "loss_fcos_ctr")
     keys = ("loss_rpn_cls", "loss_rpn_loc")
-    if cfg.MODEL.META_ARCHITECTURE == "GeneralizedRCNN":
-        keys += ("loss_cls", "loss_box_reg") + (("loss_mask",) if cfg.MODEL.MASK_ON else ())
-    return keys
+    if arch != "GeneralizedRCNN":
+        return keys
+    if cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads":
+        return keys + tuple(k for i in range(len(STAGE_IOUS))
+                            for k in (f"loss_cls_stage{i}", f"loss_box_reg_stage{i}"))
+    return (keys + ("loss_cls", "loss_box_reg") + (("loss_mask",) if cfg.MODEL.MASK_ON else ())
+            + (("loss_keypoint",) if cfg.MODEL.KEYPOINT_ON else ()))
 
 
 def make_detection_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimizer, seed: int = 0):
@@ -129,17 +162,16 @@ def build_detection_test_loader(dataset_name: str) -> List[dict]:
 
 class DetectionInference:
     """Per-image runner: resize -> normalize and pad -> forward -> rescale to
-    the original coordinates (numpy outputs: boxes, scores, classes, valid, and
-    masks [D, H, W] bool with ``MODEL.MASK_ON``; a ProposalNetwork's
-    proposal_boxes and objectness_logits). ``model`` is in eval mode on its
-    device; the image's normalization, the forward and the mask pasting run
-    there."""
+    the original coordinates (numpy outputs: boxes, scores, classes, valid,
+    masks [D, H, W] bool with ``MODEL.MASK_ON`` and keypoints [D, K, 3] (x, y,
+    score) with ``MODEL.KEYPOINT_ON``; a ProposalNetwork's proposal_boxes and
+    objectness_logits). ``model`` is in eval mode on its device; the image's
+    normalization, the forward and the mask pasting run there. RetinaNet's and
+    FCOS's ``inference`` take the images alone."""
 
     def __init__(self, cfg, model: torch.nn.Module):
         self.arch = cfg.MODEL.META_ARCHITECTURE
-        if self.arch not in PORTED:
-            raise NotImplementedError(f"DetectionInference for {self.arch!r}: not ported to vnext_tpu_torch yet "
-                                      f"(ROADMAP Queue 1, item {DETECTRON2_ARCHITECTURES.get(self.arch, '11')})")
+        self.spec = _spec(self.arch, "DetectionInference for")
         self.model = model
         self.device = next(model.parameters()).device
         # DetectionDatasetMapper's test-time resize (its targets are not needed to serve)
@@ -166,7 +198,7 @@ class DetectionInference:
     @torch.no_grad()
     def __call__(self, record: dict) -> dict:
         images, sizes, (h, w), (oh, ow) = self.preprocess(record)
-        out = self.model.inference(images, sizes)
+        out = self.model.inference(images, sizes) if self.spec["sizes"] else self.model.inference(images)
         sx, sy = ow / max(w, 1), oh / max(h, 1)
         scale = torch.tensor([sx, sy, sx, sy], dtype=torch.float32, device=self.device)
         if "proposal_boxes" in out:
@@ -177,6 +209,8 @@ class DetectionInference:
                   "valid": out["valid"][0]}
         if "mask_probs" in out:
             result["masks"] = paste_masks_in_image(out["mask_probs"][0], boxes, (oh, ow))
+        if "keypoints" in out:
+            result["keypoints"] = out["keypoints"][0] * torch.tensor([sx, sy, 1.0], device=self.device)
         return {k: v.cpu().numpy() for k, v in result.items()}
 
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import logging
 from collections import defaultdict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -152,7 +152,9 @@ def _match_greedy(
 
 
 class YTVOSeval:
-    """Greedy COCO-style evaluation over video tubes."""
+    """Greedy COCO-style evaluation over video tubes. ``iou_fn(dts, gts)`` ->
+    [D, G] and ``area_fn(ann)`` replace the tube IoU and the mean mask area
+    (the keypoints task: OKS and the annotation's area)."""
 
     def __init__(
         self,
@@ -161,9 +163,13 @@ class YTVOSeval:
         iou_thrs: Optional[np.ndarray] = None,
         max_dets: Sequence[int] = (1, 10, 100),
         area_ranges: Optional[Dict[str, List[float]]] = None,
+        iou_fn: Optional[Callable[[List[dict], List[dict]], np.ndarray]] = None,
+        area_fn: Optional[Callable[[dict], float]] = None,
     ):
         self.gt = gt
         self.results = results
+        self.iou_fn = iou_fn or _tube_iou_matrix
+        self.area_fn = area_fn or (lambda ann: _avg_area(ann["segmentations"]))
         self.iou_thrs = iou_thrs if iou_thrs is not None else np.linspace(0.5, 0.95, 10)
         self.rec_thrs = np.linspace(0.0, 1.0, 101)
         self.max_dets = list(max_dets)
@@ -210,7 +216,7 @@ class YTVOSeval:
                             [
                                 bool(g.get("iscrowd", 0))
                                 or bool(g.get("ignore", 0))
-                                or not (arange[0] <= _avg_area(g["segmentations"]) <= arange[1])
+                                or not (arange[0] <= self.area_fn(g) <= arange[1])
                                 for g in gt_anns
                             ],
                             bool,
@@ -224,14 +230,14 @@ class YTVOSeval:
                         n_gt_total += int((~gt_ignore).sum())
                         if not dt_anns:
                             continue
-                        iou = _tube_iou_matrix(dt_anns, gt_anns)
+                        iou = self.iou_fn(dt_anns, gt_anns)
                         matched_td, ignored_td = _match_greedy(
                             iou, gt_ignore, self.iou_thrs, iscrowd
                         )
                         # unmatched detections outside the area range are ignored, not false positives
                         dt_out = np.array(
                             [
-                                not (arange[0] <= _avg_area(d["segmentations"]) <= arange[1])
+                                not (arange[0] <= self.area_fn(d) <= arange[1])
                                 for d in dt_anns
                             ],
                             bool,

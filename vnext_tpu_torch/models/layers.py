@@ -116,19 +116,24 @@ class Conv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, bias: bool = True, dtype=torch.float32,
-                 kernel_init: str = "lecun"):
+                 kernel_init: str = "lecun", bias_init: Optional[Callable[[torch.Tensor], None]] = None):
         super().__init__()
         self.dtype = dtype
         self.stride, self.padding = stride, padding
         self.kernel_init = kernel_init
+        self.bias_init = bias_init
         self.weight = _empty(out_ch, in_ch, kernel_size, kernel_size)
         self.bias = _empty(out_ch) if bias else None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         o, i, kh, kw = self.weight.shape
         _kernel_init(self.weight, self.kernel_init, i * kh * kw, o * kh * kw, gen)
-        if self.bias is not None:
+        if self.bias is None:
+            return
+        if self.bias_init is None:
             nn.init.zeros_(self.bias)
+        else:
+            self.bias_init(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype

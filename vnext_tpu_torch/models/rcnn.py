@@ -1,12 +1,14 @@
-"""GeneralizedRCNN (Mask R-CNN, Faster R-CNN) and ProposalNetwork: ResNet +
-FPN, the RPN, and the standard ROI box and mask heads, serving and training.
+"""GeneralizedRCNN (Mask R-CNN, Faster R-CNN, keypoint R-CNN, Cascade R-CNN)
+and ProposalNetwork: ResNet + FPN, the RPN, and the standard ROI box, mask and
+keypoint heads or the cascade's (``models/cascade_rcnn.py``), serving and
+training.
 
 Counterpart of ``vnext_tpu.models.rcnn`` (reference surface:
 detectron2/modeling/meta_arch/rcnn.py GeneralizedRCNN and ProposalNetwork,
-proposal_generator/rpn.py, roi_heads/roi_heads.py StandardROIHeads); Cascade
-and keypoint R-CNN are ROADMAP Queue 1 item 11d. Module and parameter names
-follow the flax tree, so ``checkpoint/from_jax.py`` carries the JAX package's
-parameters across.
+proposal_generator/rpn.py, roi_heads/roi_heads.py StandardROIHeads,
+keypoint_head.py, cascade_rcnn.py); PanopticFPN is ROADMAP Queue 1 item 11d.
+Module and parameter names follow the flax tree, so ``checkpoint/from_jax.py``
+carries the JAX package's parameters across.
 
 The JAX package's fixed shapes are kept, and with them its choices:
 
@@ -22,7 +24,12 @@ The JAX package's fixed shapes are kept, and with them its choices:
   ``jax.lax.top_k``'s do;
 - the ROI pooler is 7 x 7 for the box head and the mask head alike, and the
   mask head's transposed convolution doubles it to 14 x 14 (detectron2 pools
-  masks at 14 for 28 x 28): a kept divergence, ROADMAP Queue 3;
+  masks at 14 for 28 x 28); the keypoint head (4 convolutions of 256, where
+  detectron2 has 8 of 512) takes the same 7 x 7 features to 28 x 28 heatmaps
+  (detectron2: 14 x 14 to 56 x 56): kept divergences, ROADMAP Queue 3;
+- the cascade is box-only (with ``mask_on`` or ``keypoint_on`` it raises, as
+  JAX's asserts); its detections are its last stage's boxes, clipped, under
+  the stages' averaged scores;
 - layouts: the RPN's outputs are flattened in (y, x, anchor) order, the box
   head's input is the pooled [N, 7, 7, C] flattened channels-last, and the
   mask logits come out [B, R, m, m, C], as the JAX package's.
@@ -56,6 +63,7 @@ from .backbones.fpn import FPN
 from .backbones.resnet import ResNet
 from .dense_heads import Box2BoxTransform, anchors_for_level, generate_cell_anchors, iou_matcher
 from .layers import Conv, ConvTranspose, Dense
+from .roi_heads_extra import KRCNNConvDeconvUpsampleHead, keypoint_rcnn_inference, keypoint_rcnn_loss
 
 
 class DetTargets(NamedTuple):
@@ -188,6 +196,19 @@ def assign_fpn_levels(rois: torch.Tensor, k0: int = 4, kmin: int = 2, kmax: int 
     return lvl.clamp(kmin, kmax).to(torch.int32)
 
 
+def pool_rois(features: Dict[str, torch.Tensor], rois: torch.Tensor, pooler_size: int,
+              pooler_levels: Tuple[int, int]) -> torch.Tensor:
+    """[B * R, s, s, C] f32 of rois [B, R, 4]: each ROI pooled from its
+    assigned FPN level only."""
+    b, r, _ = rois.shape
+    lo, hi = pooler_levels
+    lvl = assign_fpn_levels(rois, kmin=lo, kmax=hi).reshape(-1)
+    batch = torch.arange(b, device=rois.device, dtype=torch.float32).repeat_interleave(r)[:, None]
+    flat = torch.cat([batch, rois.reshape(-1, 4).float()], 1)
+    return roi_align_levels([features[f"p{lv}"] for lv in range(lo, hi + 1)], flat, lvl - lo,
+                            [2 ** lv for lv in range(lo, hi + 1)], (pooler_size, pooler_size), sampling_ratio=2)
+
+
 def _trunk(backbone_depth: int, fpn_channels: int, proposals_per_image: int, dtype):
     """ResNet (res2-res5), FPN (p2-p6, the max-pool top block) and the RPN."""
     features = ("res2", "res3", "res4", "res5")
@@ -198,19 +219,17 @@ def _trunk(backbone_depth: int, fpn_channels: int, proposals_per_image: int, dty
 
 
 class StandardROIHeads(nn.Module):
-    """Box (+ optional mask) ROI heads (reference roi_heads.py:877) on FPN
-    features of ``in_channels``: fc1 / fc2 / cls_score / bbox_pred, and
-    mask_fcn1-4, mask_deconv, mask_pred on the same 7 x 7 pooled features."""
+    """Box (+ optional mask and keypoint) ROI heads (reference
+    roi_heads.py:877) on FPN features of ``in_channels``: fc1 / fc2 /
+    cls_score / bbox_pred, mask_fcn1-4, mask_deconv, mask_pred and
+    keypoint_head, all on the same 7 x 7 pooled features."""
 
     def __init__(self, in_channels: int = 256, num_classes: int = 80, pooler_size: int = 7, fc_dim: int = 1024,
                  pooler_levels: Tuple[int, int] = (2, 5), mask_on: bool = False, keypoint_on: bool = False,
-                 dtype=torch.float32):
+                 num_keypoints: int = 17, dtype=torch.float32):
         super().__init__()
-        if keypoint_on:
-            raise NotImplementedError("StandardROIHeads keypoint_on: keypoint R-CNN is not ported to "
-                                      "vnext_tpu_torch yet (ROADMAP Queue 1, item 11d)")
         self.num_classes, self.pooler_size = num_classes, pooler_size
-        self.pooler_levels, self.mask_on = tuple(pooler_levels), mask_on
+        self.pooler_levels, self.mask_on, self.keypoint_on = tuple(pooler_levels), mask_on, keypoint_on
         self.fc1 = Dense(pooler_size * pooler_size * in_channels, fc_dim, dtype)
         self.fc2 = Dense(fc_dim, fc_dim, dtype)
         self.cls_score = Dense(fc_dim, num_classes + 1, dtype)
@@ -220,22 +239,16 @@ class StandardROIHeads(nn.Module):
                 self.add_module(f"mask_fcn{i + 1}", Conv(in_channels if i == 0 else 256, 256, 3, 1, 1, dtype=dtype))
             self.mask_deconv = ConvTranspose(256, 256, 2, 2, dtype=dtype)
             self.mask_pred = Conv(256, num_classes, 1, dtype=dtype)
+        if keypoint_on:
+            self.keypoint_head = KRCNNConvDeconvUpsampleHead(in_channels, num_keypoints, dtype)
 
     def pool(self, features: Dict[str, torch.Tensor], rois: torch.Tensor) -> torch.Tensor:
-        """[B * R, s, s, C] f32: each ROI pooled from its assigned level only."""
-        b, r, _ = rois.shape
-        lo, hi = self.pooler_levels
-        lvl = assign_fpn_levels(rois, kmin=lo, kmax=hi).reshape(-1)
-        batch = torch.arange(b, device=rois.device, dtype=torch.float32).repeat_interleave(r)[:, None]
-        flat = torch.cat([batch, rois.reshape(-1, 4).float()], 1)
-        return roi_align_levels([features[f"p{lv}"] for lv in range(lo, hi + 1)], flat, lvl - lo,
-                                [2 ** lv for lv in range(lo, hi + 1)],
-                                (self.pooler_size, self.pooler_size), sampling_ratio=2)
+        return pool_rois(features, rois, self.pooler_size, self.pooler_levels)
 
     def forward(self, features: Dict[str, torch.Tensor], rois: torch.Tensor) -> Dict[str, torch.Tensor]:
         """features {'p2'..'p5': NCHW}; rois [B, R, 4] absolute xyxy. Returns
         cls_logits [B, R, C + 1], box_deltas [B, R, 4C] (and mask_logits [B, R,
-        m, m, C]), f32."""
+        m, m, C], keypoint_logits [B, R, 4s, 4s, K]), f32."""
         b, r, _ = rois.shape
         pooled = self.pool(features, rois)
         x = torch.relu(self.fc1(pooled.reshape(b * r, -1)))          # channels-last flatten, as flax
@@ -250,54 +263,72 @@ class StandardROIHeads(nn.Module):
                 m = torch.relu(getattr(self, f"mask_fcn{i + 1}")(m))
             m = self.mask_pred(torch.relu(self.mask_deconv(m)))         # [B * R, C, m, m]
             out["mask_logits"] = m.permute(0, 2, 3, 1).reshape(b, r, *m.shape[2:], m.shape[1]).float()
+        if self.keypoint_on:
+            kp = self.keypoint_head(pooled)
+            out["keypoint_logits"] = kp.reshape(b, r, *kp.shape[1:])
         return out
 
 
 class GeneralizedRCNN(nn.Module):
-    """ResNet + FPN (p2-p6) + RPN + StandardROIHeads. ``inference`` takes
-    normalized NHWC images [B, H, W, 3] and their true sizes [B, 2] and returns
-    boxes [B, D, 4], scores [B, D], classes [B, D], valid [B, D] (and
-    mask_probs [B, D, m, m] with ``mask_on``) for D = ``max_detections``; in
-    train mode ``forward`` returns the loss dict."""
+    """ResNet + FPN (p2-p6) + RPN + StandardROIHeads (or, with ``cascade_on``,
+    CascadeROIHeads). ``inference`` takes normalized NHWC images [B, H, W, 3]
+    and their true sizes [B, 2] and returns boxes [B, D, 4], scores [B, D],
+    classes [B, D], valid [B, D] (and mask_probs [B, D, m, m] with
+    ``mask_on``, keypoints [B, D, K, 3] (x, y, score) with ``keypoint_on``)
+    for D = ``max_detections``; in train mode ``forward`` returns the loss
+    dict."""
 
     def __init__(self, num_classes: int = 80, backbone_depth: int = 50, fpn_channels: int = 256,
                  proposals_per_image: int = 512, roi_batch_per_image: int = 128, roi_pos_fraction: float = 0.25,
-                 mask_on: bool = False, keypoint_on: bool = False, test_score_thresh: float = 0.05,
-                 test_nms_thresh: float = 0.5, max_detections: int = 100, cascade_on: bool = False,
-                 dtype=torch.float32):
+                 mask_on: bool = False, keypoint_on: bool = False, num_keypoints: int = 17,
+                 test_score_thresh: float = 0.05, test_nms_thresh: float = 0.5, max_detections: int = 100,
+                 cascade_on: bool = False, dtype=torch.float32):
         super().__init__()
-        if cascade_on:
-            raise NotImplementedError("GeneralizedRCNN cascade_on (ROI_HEADS.NAME CascadeROIHeads): Cascade R-CNN "
-                                      "is not ported to vnext_tpu_torch yet (ROADMAP Queue 1, item 11d)")
-        if keypoint_on:
-            raise NotImplementedError("GeneralizedRCNN keypoint_on (MODEL.KEYPOINT_ON): keypoint R-CNN is not "
-                                      "ported to vnext_tpu_torch yet (ROADMAP Queue 1, item 11d)")
-        self.num_classes, self.mask_on, self.dtype = num_classes, mask_on, dtype
+        self.num_classes, self.mask_on, self.keypoint_on, self.dtype = num_classes, mask_on, keypoint_on, dtype
+        self.cascade_on = cascade_on
         self.roi_batch_per_image, self.roi_pos_fraction = roi_batch_per_image, roi_pos_fraction
         self.test_score_thresh, self.test_nms_thresh = test_score_thresh, test_nms_thresh
         self.max_detections = max_detections
         self.backbone, self.fpn, self.rpn = _trunk(backbone_depth, fpn_channels, proposals_per_image, dtype)
-        self.roi_heads = StandardROIHeads(fpn_channels, num_classes, mask_on=mask_on, dtype=dtype)
+        if cascade_on:
+            if mask_on or keypoint_on:
+                raise ValueError("GeneralizedRCNN cascade_on: the cascade is box-only, as the JAX package's "
+                                 "(MODEL.MASK_ON and MODEL.KEYPOINT_ON must be False); use "
+                                 "inference_masks_on_boxes of a Mask R-CNN for masks on its final boxes")
+            from .cascade_rcnn import CascadeROIHeads
+
+            self.roi_heads = CascadeROIHeads(fpn_channels, num_classes, batch_per_image=roi_batch_per_image,
+                                             pos_fraction=roi_pos_fraction, dtype=dtype)
+        else:
+            self.roi_heads = StandardROIHeads(fpn_channels, num_classes, mask_on=mask_on, keypoint_on=keypoint_on,
+                                              num_keypoints=num_keypoints, dtype=dtype)
         self.box2box = Box2BoxTransform(weights=(10.0, 10.0, 5.0, 5.0))
 
     def forward(self, images: torch.Tensor, image_sizes: torch.Tensor, targets: Optional[DetTargets] = None,
-                gt_masks: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None):
+                gt_masks: Optional[torch.Tensor] = None, gt_keypoints: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """``inference`` in eval mode; in train mode the losses of ``targets``
-        (and ``gt_masks`` [B, K, H, W], any dtype, with ``mask_on``), the
-        samples drawn from ``generator``."""
+        (and ``gt_masks`` [B, K, H, W], any dtype, with ``mask_on``;
+        ``gt_keypoints`` [B, K, num_keypoints, 3] absolute (x, y, visibility)
+        with ``keypoint_on``), the samples drawn from ``generator``."""
         if not self.training:
             return self.inference(images, image_sizes)
-        return self.losses_on_features(self._features(images), image_sizes, targets, gt_masks, generator)
+        return self.losses_on_features(self._features(images), image_sizes, targets, gt_masks, generator,
+                                       gt_keypoints)
 
     def losses_on_features(self, feats: Dict[str, torch.Tensor], image_sizes: torch.Tensor, targets: DetTargets,
-                           gt_masks: Optional[torch.Tensor] = None,
-                           generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """loss_rpn_cls, loss_rpn_loc, loss_cls, loss_box_reg (and loss_mask):
-        the RPN's, then the heads' on a fixed ROI batch sampled from the
-        proposals and the ground-truth slots matched at IoU 0.5."""
+                           gt_masks: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+                           gt_keypoints: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """loss_rpn_cls, loss_rpn_loc, loss_cls, loss_box_reg (and loss_mask,
+        loss_keypoint): the RPN's, then the heads' on a fixed ROI batch sampled
+        from the proposals and the ground-truth slots matched at IoU 0.5; with
+        ``cascade_on`` the RPN's, then each stage's."""
         proposals, _, anchors, rpn_logits, rpn_deltas = self.rpn([feats[f"p{i}"] for i in range(2, 7)],
                                                                  image_sizes, train=True)
         losses = RPN.losses(rpn_logits, rpn_deltas, anchors, targets, generator)
+        if self.cascade_on:
+            losses.update(self.roi_heads.losses(feats, proposals, image_sizes, targets, generator))
+            return losses
         b, c = proposals.shape[0], self.num_classes
         rois = torch.cat([proposals, targets.boxes.to(proposals.dtype)], 1)
         with torch.no_grad():
@@ -342,6 +373,16 @@ class GeneralizedRCNN(nn.Module):
             m_logits = head_out["mask_logits"].gather(-1, cls_ch)[..., 0]            # the ground truth's class
             per_roi = sigmoid_bce_with_logits(m_logits, gt_crop).mean((-2, -1))
             losses["loss_mask"] = (per_roi * sel_fg).sum() / n_fg
+
+        if self.keypoint_on:
+            if gt_keypoints is None:
+                raise ValueError("GeneralizedRCNN with keypoint_on trains on gt_keypoints [B, K, num_keypoints, 3]")
+            sel_kps = gt_keypoints.float().gather(1, sel_gt_idx[..., None, None].expand(
+                -1, -1, *gt_keypoints.shape[2:]))                                     # [B, Rb, Kp, 3]
+            kl = head_out["keypoint_logits"]
+            losses["loss_keypoint"] = keypoint_rcnn_loss(kl.reshape(b * rb, *kl.shape[2:]),
+                                                         sel_kps.reshape(b * rb, *sel_kps.shape[2:]),
+                                                         sel_rois.reshape(b * rb, 4), sel_fg.reshape(b * rb))
         return losses
 
     def _features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -368,9 +409,28 @@ class GeneralizedRCNN(nn.Module):
             outs.append((boxes[outi], outv, cls[outi], outv > 0, pi[outi]))
         return [torch.stack(t) for t in zip(*outs)]
 
+    def cascade_detections(self, boxes: torch.Tensor, scores: torch.Tensor):
+        """The cascade's detections from its last stage's boxes [B, R, 4] and
+        averaged scores [B, R, C]: per image the top 4D of the flattened
+        scores, class-aware NMS, the top D. Returns boxes, scores, classes,
+        valid, each [B, D(, 4)]."""
+        outs = []
+        for bx, sc in zip(boxes, scores):
+            r, c = sc.shape
+            top_sc, top_idx = _topk_stable(sc.reshape(-1), min(4 * self.max_detections, r * c))
+            cand, cls = bx[top_idx // c], top_idx % c
+            keep = batched_nms_mask(cand, top_sc, cls, self.test_nms_thresh, valid=top_sc > self.test_score_thresh)
+            outv, outi = _topk_stable(torch.where(keep, top_sc, torch.full_like(top_sc, -1.0)), self.max_detections)
+            outs.append((cand[outi], outv, cls[outi], outv > 0))
+        return [torch.stack(t) for t in zip(*outs)]
+
     def inference_on_features(self, feats: Dict[str, torch.Tensor],
                               image_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
         proposals = self.rpn([feats[f"p{i}"] for i in range(2, 7)], image_sizes, train=False)[0]
+        if self.cascade_on:
+            casc = self.roi_heads.inference(feats, proposals, image_sizes)
+            boxes, scores, classes, valid = self.cascade_detections(casc["boxes"], casc["scores"])
+            return {"boxes": boxes, "scores": scores, "classes": classes, "valid": valid}
         head_out = self.roi_heads(feats, proposals)
         b, r = proposals.shape[:2]
         probs = torch.softmax(head_out["cls_logits"], -1)[..., :-1]
@@ -379,6 +439,9 @@ class GeneralizedRCNN(nn.Module):
         out = {"boxes": boxes, "scores": scores, "classes": classes, "valid": valid}
         if self.mask_on:
             out["mask_probs"] = torch.sigmoid(self._class_masks(head_out["mask_logits"], det_idx, classes))
+        if self.keypoint_on:
+            out["keypoints"] = torch.stack([keypoint_rcnn_inference(kl[i], bx) for kl, i, bx in
+                                            zip(head_out["keypoint_logits"], det_idx, boxes)])    # [B, D, K, 3]
         return out
 
     def _class_masks(self, mask_logits: torch.Tensor, det_idx: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""IDOL's and Mask R-CNN's training and evaluation entry point, on one NVIDIA GPU.
+"""IDOL's and the Detectron2 families' training and evaluation entry point, on one NVIDIA GPU.
 
 Counterpart of ``tools/train_net.py`` (the JAX package's entry point, with
 detectron2's command line):
@@ -22,19 +22,26 @@ not set the flag, and it is not inferred from the dataset's name, as in the
 JAX package. Its ``MODEL.WEIGHTS`` may be a detectron2 ``.pkl`` ImageNet init,
 opened as a path (a ``detectron2://`` URL is not resolved).
 
-A ``GeneralizedRCNN`` config (Mask R-CNN, Faster R-CNN) runs ``--eval-only``
-through ``engine/detection.do_eval_detection``: each image of the COCO-type
+A ``GeneralizedRCNN`` config (Mask R-CNN, Faster R-CNN, keypoint R-CNN with
+``MODEL.KEYPOINT_ON``, Cascade R-CNN with ``ROI_HEADS.NAME CascadeROIHeads``),
+a ``RetinaNet`` or an ``FCOS`` one runs ``--eval-only`` through
+``engine/detection.do_eval_detection``: each image of the COCO-type
 ``DATASETS.TEST`` sets (the COCO splits and the synthetic COCO set are
 registered) is served at ``TPU.TEST_IMAGE_SIZE`` and scored by the COCO
-evaluator's box and mask AP. Without it, ``engine/detection.do_train_detection``
-trains it (and a ``ProposalNetwork``) on ``DATASETS.TRAIN`` at
-``TPU.TRAIN_IMAGE_SIZE``, ``SOLVER.IMS_PER_BATCH`` images a step:
+evaluator's box, mask and keypoint AP. Without it,
+``engine/detection.do_train_detection`` trains it (and a ``ProposalNetwork``)
+on ``DATASETS.TRAIN`` at ``TPU.TRAIN_IMAGE_SIZE``, ``SOLVER.IMS_PER_BATCH``
+images a step:
 
     python -m vnext_tpu_torch.tools.train_net \\
         --config-file configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml [--eval-only | --resume]
+    python -m vnext_tpu_torch.tools.train_net --config-file configs/COCO-Detection/retinanet_R_50_FPN_1x.yaml
+    python -m vnext_tpu_torch.tools.train_net --config-file configs/Misc/cascade_rcnn_R_50_FPN_1x.yaml
+    python -m vnext_tpu_torch.tools.train_net --config-file configs/COCO-Detection/Base-RCNN-FPN.yaml \\
+        MODEL.KEYPOINT_ON True
 
-The other image meta-architectures raise naming their ROADMAP item (Queue
-1, items 11c and 11d).
+PanopticFPN and SemanticSegmentor raise naming their ROADMAP item (Queue 1,
+item 11d).
 
 The run is on the card unless the config says ``MODEL.DEVICE cpu`` (the
 tests' setting, which runs the kernels' plain versions); with no CUDA device
