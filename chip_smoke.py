@@ -16,6 +16,7 @@
     python3 chip_smoke.py --only rcnn_train        # phase 1, K2 at Mask R-CNN's train step and phase 27 alone
     python3 chip_smoke.py --only dense_det         # phases 1 and 28 alone (RetinaNet, FCOS)
     python3 chip_smoke.py --only rcnn_heads        # phases 1 and 29 alone (Cascade R-CNN, keypoint R-CNN)
+    python3 chip_smoke.py --only panoptic          # phase 1, K2 at PanopticFPN's image and step, phase 30 alone
 
 Phases, each printed as it ends; any failure raises and exits non-zero. Each
 path zeroes every kernel's launch counter just before it runs and reads them
@@ -50,7 +51,7 @@ port's own reader (``vnext_tpu_torch.config``).
 3. The serving path: IDOL-R50 (``configs/idol/ytvis19_r50.yaml``: 40 classes,
    300 queries, 6 + 6 layers, hidden 256, bf16, seeded random weights) through
    ``IDOLVideoInference`` on two
-   synthetic videos of 20 and 13 frames at 480x853 (clips of 10 padded to
+   synthetic videos of 11 and 13 frames at 480x853 (clips of 10 padded to
    480x864). The launch counters must read K1 / K2 / K3 = 12 / 1 / 6 per clip,
    all outputs must be finite and the ``results.json`` entries well-formed.
    Then the forward alone on a clip already on the card: its time (CUDA
@@ -120,7 +121,7 @@ port's own reader (``vnext_tpu_torch.config``).
     The seconds of phases 11-16 are printed.
 17. IDOL's entry point (``vnext_tpu_torch.tools.train_net.main``, in-process)
     on a synthetic YTVIS dataset written to a temporary directory (2 videos x
-    20 frames at 480x853, PNG): ``--eval-only`` with
+    11 frames at 480x853, PNG): ``--eval-only`` with
     ``configs/idol/ytvis19_r50.yaml`` at full width (its seeded model's
     class-0 bias raised as in phase 3, the counters zeroed after that probe):
     K1 / K2 / K3 = 48 / 4 / 24 over the 4 clips, ``results.json`` well-formed,
@@ -190,7 +191,7 @@ port's own reader (``vnext_tpu_torch.config``).
     384x480 (the CPU's f32 reference near a minute).
 22. InstMove training through ``vnext_tpu_torch.tools.train_instmove.main``
     (``configs/minvis/ovis_r50_motion.yaml``, full width, f32, TF32 off) on a
-    synthetic dataset of 2 videos x 20 frames: 8 steps of 16 sequences at
+    synthetic dataset of 2 videos x 20 frames (``INSTMOVE_VIDEO_FRAMES``): 8 steps of 16 sequences at
     192x192, no hand-written kernel (K2 runs in bf16 only), the step time,
     peak memory and loss curve, checkpoints and ``instmove_final``; the first
     step card vs CPU on the first 4 samples of the tool's own first batch.
@@ -223,9 +224,10 @@ port's own reader (``vnext_tpu_torch.config``).
     tracks equal to ``IDOLVideoInference``'s called directly on the same
     record; the model's class-0 bias raised as in phase 3 and passed as
     ``MODEL.WEIGHTS``), then ``--model-type seqformer`` and ``minvis`` on 6
-    frames; IDOL-R50 and SeqFormer-R50 exported at 10 x 480x864
+    frames; IDOL-R50 and SeqFormer-R50 at full width with 2 encoder and 2
+    decoder layers (the yamls' 6 cut: the trace's and the load's time go with the graph) exported at 10 x 480x864
     (``export_program``): the graph holds exactly their ``vnext::`` operators
-    (IDOL K1 12, K2 1, K3 6; SeqFormer K1 6, K4 6, K2 1, K3 6) and no plain
+    (IDOL K1 4, K2 1, K3 2; SeqFormer K1 2, K4 2, K2 1, K3 2) and no plain
     version, the ``.pt2`` saved and loaded, its run launches exactly those and
     equals the eager model within one bf16 ulp at the largest element, its
     forward timed beside the eager one; ``analyze_model`` on IDOL-R50 at
@@ -282,6 +284,21 @@ port's own reader (``vnext_tpu_torch.config``).
     vs CPU as phase 27 at the CPU's replayed choices (each cascade stage's
     matches and refined boxes too), with each cascade stage's outputs and the
     keypoint heatmaps compared at the replayed ROIs (5%).
+30. PanopticFPN R50-FPN (``configs/COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml``:
+    80 thing classes, 54 semantic classes, bf16) and SemanticSegmentor (the
+    same yaml with ``MODEL.META_ARCHITECTURE SemanticSegmentor``: f32 as in
+    JAX, so no hand-written kernel runs), each as phase 28 on a synthetic
+    panoptic set of 4 images at 480x640 (detectron2's "separated" files:
+    instances, stuff labels, panoptic PNGs; the ``sem_seg`` twin for
+    SemanticSegmentor): PanopticFPN served with the COCO evaluator's bbox and
+    segm dicts and the panoptic one's PQ / SQ / RQ (thing and stuff splits),
+    K2 once an image, the semantic head's time and the panoptic fusion's host
+    time beside the forward; trained with ``loss_sem_seg`` finite and the
+    semantic head moved, K2 once a step, then ``--resume`` for one step
+    (state equal to the file); card vs CPU as phase 27 at the CPU's replayed
+    choices, the FPN maps and the semantic logits compared too (5%).
+    SemanticSegmentor served with the semantic evaluator's mIoU / fwIoU /
+    pACC / mACC, trained, and card vs CPU with TF32 off and on as phase 28.
 
 Then the seconds by phase and of the whole run, a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -314,7 +331,7 @@ F32_SUM_NOISE = 2.0 ** -16
 LEVELS = ((60, 108), (30, 54), (15, 27), (8, 14))   # IDOL-R50 at 480x864, strides 8..64
 CLIP, HEIGHT, WIDTH = 10, 480, 864
 VIDEO_HW = (480, 853)
-VIDEO_FRAMES = (20, 13)
+VIDEO_FRAMES = (11, 13)    # two clips each (10 + 1, 10 + 3), each with a partial last clip
 
 # the train step: TPU.TRAIN_IMAGE_SIZE and MAX_INSTANCES of configs/idol/ytvis19_r50.yaml,
 # and bench.py's single-chip share of its 32-clip batch
@@ -2206,7 +2223,7 @@ def check_stats(stats, what):
 
 def phase_entry_point(dev, kernels, smi, measure=False):
     """IDOL through the port's own entry point (``vnext_tpu_torch.tools.train_net.main``,
-    in-process) on a synthetic YTVIS dataset of 2 videos x 20 frames at 480x853:
+    in-process) on a synthetic YTVIS dataset of 2 videos x 11 frames at 480x853:
     ``--eval-only`` at ytvis19_r50 width, the ground truth through the
     evaluator, training with periodic checkpoints, and ``--resume``. With
     ``measure``, also the steady step (``entry_point_steady``) and a host
@@ -3462,7 +3479,7 @@ SWIN_TRAIN_CLIPS, SWIN_TRAIN_STEPS = 4, 3
 # forward, with 78.19 GiB allocated: NVIDIA H100 80GB HBM3, 700 W); its card-vs-CPU clip at 384x480 keeps
 # the CPU's f32 forward and backward of 5 Swin-L frames near a minute
 SEQ_SWIN_TRAIN_CLIPS, SEQ_SWIN_CPU_HW = 2, (384, 480)
-SWIN_ENTRY_DATASET, SWIN_ENTRY_FRAMES = "ytvis_synthetic_swin_entry", 6
+SWIN_ENTRY_DATASET, SWIN_ENTRY_FRAMES = "ytvis_synthetic_swin_entry", 3
 IDOL_GROUPS = SEQ_GROUPS[:4] + (("heads", ("class_embed_", "controller.", "mask_head.", "reid_embed.")),)
 
 
@@ -3592,6 +3609,7 @@ def phase_idol_swin_train(dev, kernels, smi):
 
 # ---------------------------------------------------------------- phase 22
 INSTMOVE_DATASET, INSTMOVE_TRAIN_STEPS, INSTMOVE_TRAIN_BATCH = "ytvis_synthetic_instmove", 8, 16
+INSTMOVE_VIDEO_FRAMES = 20        # the synthetic videos its sequences are cut from
 INSTMOVE_CPU_SAMPLES = 4          # the first step's samples held card vs CPU
 INSTMOVE_GROUPS = (
     ("mask encoder", ("enc1.", "enc2.", "enc3.", "enc4.")),
@@ -3618,7 +3636,7 @@ def phase_instmove_train(dev, kernels, smi):
     t_phase = time.perf_counter()
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
-        register_synthetic(f"{tmp}/data", INSTMOVE_DATASET, THING_CLASSES)
+        register_synthetic(f"{tmp}/data", INSTMOVE_DATASET, THING_CLASSES, num_frames=INSTMOVE_VIDEO_FRAMES)
         config = str(Path(__file__).resolve().parent / "configs" / "minvis" / "ovis_r50_motion.yaml")
         argv = ["--config-file", config, "DATASETS.TRAIN", f"('{INSTMOVE_DATASET}',)", "OUTPUT_DIR", f"{tmp}/out",
                 "SOLVER.MAX_ITER", str(INSTMOVE_TRAIN_STEPS), "SOLVER.IMS_PER_BATCH", str(INSTMOVE_TRAIN_BATCH),
@@ -4141,8 +4159,10 @@ TOOLS_STEPS = 2              # plain_train_net's and lazyconfig_train_net's step
 # what their exported graphs hold): the operator name -> its kernel's counter
 OP_KERNEL = {"msda_fwd": "ms_deform_attn_fwd", "msda_fwd_loc": "ms_deform_attn_v9_fwd", "stem_conv": "stem_conv",
              "encoder_epilogue": "encoder_epilogue"}
-EXPORT_OPS = {"IDOL": {"msda_fwd": 12, "stem_conv": 1, "encoder_epilogue": 6},
-              "SeqFormer": {"msda_fwd": 6, "msda_fwd_loc": 6, "stem_conv": 1, "encoder_epilogue": 6}}
+EXPORT_LAYERS = 2           # encoder and decoder layers of the exported models (the yamls have 6)
+EXPORT_OPS = {"IDOL": {"msda_fwd": 2 * EXPORT_LAYERS, "stem_conv": 1, "encoder_epilogue": EXPORT_LAYERS},
+              "SeqFormer": {"msda_fwd": EXPORT_LAYERS, "msda_fwd_loc": EXPORT_LAYERS, "stem_conv": 1,
+                            "encoder_epilogue": EXPORT_LAYERS}}
 
 
 def bf16_ulp_at(x: float) -> float:
@@ -4263,9 +4283,11 @@ def tools_demo(dev, kernels, tmp):
 
 
 def tools_export(dev, kernels, tmp):
-    """Step 2: IDOL-R50 and SeqFormer-R50 exported at 10 x 480x864, saved,
-    loaded and run; the graph's operators, the launches, the outputs against
-    the eager model's and the times."""
+    """Step 2: IDOL-R50 and SeqFormer-R50 at full width with ``EXPORT_LAYERS``
+    encoder and decoder layers (the trace's and the load's time go with the
+    graph's size) exported at 10 x 480x864, saved, loaded and run; the graph's
+    operators, the launches, the outputs against the eager model's and the
+    times."""
     import torch
 
     from vnext_tpu_torch.export import (export_program, load_exported, plain_versions_refused, save_exported,
@@ -4279,6 +4301,7 @@ def tools_export(dev, kernels, tmp):
     result, launches = {}, {}
     for arch, config in (("IDOL", "idol/ytvis19_r50.yaml"), ("SeqFormer", "seqformer/ytvis19_r50.yaml")):
         cfg = read_config(config)
+        cfg.merge_from_list([f"MODEL.{arch}.ENC_LAYERS", EXPORT_LAYERS, f"MODEL.{arch}.DEC_LAYERS", EXPORT_LAYERS])
         model = build_model(cfg, device=dev)
         fn = inference_fn(model)
         example = example_inputs(model, CLIP, HEIGHT, WIDTH, dev)
@@ -4297,7 +4320,8 @@ def tools_export(dev, kernels, tmp):
         ops = vnext_op_counts(exported)
         nodes = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
         extra = {k: sum(t.startswith(k) for t in nodes) for k in ("aten._assert_tensor_metadata", "aten.to.")}
-        print(f"  export {arch}-R50 ({config}, {CLIP} x {HEIGHT}x{WIDTH}) in {export_s:.1f} s: the graph holds "
+        print(f"  export {arch}-R50 ({config}, {EXPORT_LAYERS} + {EXPORT_LAYERS} layers, {CLIP} x {HEIGHT}x{WIDTH}) in "
+              f"{export_s:.1f} s: the graph holds "
               f"{ops} (expected {EXPORT_OPS[arch]}); the trace reached no plain version; {len(nodes)} operator "
               f"nodes, {extra} of them")
         require(ops == EXPORT_OPS[arch], f"{arch}: graph ops {ops}")
@@ -4831,32 +4855,56 @@ class ReplayTap:
 RCNN_REPLAYED = ("_topk_stable", "nms_mask", "iou_matcher", "assign_fpn_levels", "clip_boxes")
 
 
-def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Mask R-CNN R50-FPN", probes=()):
+def rcnn_constructor(cfg):
+    """The R-CNN class of ``cfg`` (GeneralizedRCNN or PanopticFPN) and its
+    constructor arguments, to build it again at another precision."""
+    from vnext_tpu_torch.models import panoptic_kwargs_from_cfg, rcnn, rcnn_kwargs_from_cfg
+
+    if cfg.MODEL.META_ARCHITECTURE == "PanopticFPN":
+        return rcnn.PanopticFPN, panoptic_kwargs_from_cfg(cfg)
+    return rcnn.GeneralizedRCNN, rcnn_kwargs_from_cfg(cfg)
+
+
+def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Mask R-CNN R50-FPN", probes=(),
+                           check=True, cpu_dtype=None):
     """One train forward and backward of a GeneralizedRCNN (Mask R-CNN; with
-    ``groups`` and ``probes``, Cascade or keypoint R-CNN) on one image at
-    800x1344: the card (bf16, K2) against the CPU (f32, plain versions) with
+    ``groups`` and ``probes``, Cascade or keypoint R-CNN, or PanopticFPN) on
+    ``batch`` (one image) at 800x1344: the card (bf16, K2) against the CPU (f32, plain versions) with
     the card's weights, the same inputs and the same sampling priorities, and
     the CPU's choices replayed on the card: the RPN's top-k and NMS keeps,
     the matchers (each cascade stage's too), the foreground / background
     selections, the ROIs' FPN levels, and the proposal boxes' values (each
     cascade stage's refined boxes too; ``ReplayTap``). The losses within 5%
     relative; the trainable parameters' gradients by group within 10%
-    relative L2 (the frozen ones' are unused: the recipe does not clip); the
+    relative L2 (the frozen ones' are unused: the recipe does not clip) or,
+    for a group over 10%, within 1.1x of bf16's own spread there: the CPU
+    runs the same replayed forward and backward in bf16 and that group's
+    distance to its f32 gradient is measured (a fault of the card lands far
+    beyond it; PERF.md's phase 30 trace for why one image's R-CNN backbone
+    gradient sits at that spread); the
     RPN's gradient also split into its own losses' part and the ROI losses'
     part, which reaches it through the proposals; each probe (a submodule's
     method, by its path) compared on its outputs at the replayed ROIs within
-    5%. Prints how many of the sampled ROIs have an area."""
+    5% (a dict's outputs, as the FPN's, each). Each group's gradient is also
+    reported by the losses it comes from (the RPN's, the ROI heads', and
+    PanopticFPN's semantic loss). Prints how many of the sampled ROIs have an
+    area. With ``check`` False (a trace: ``model`` may be any precision on
+    any device) nothing is required, and ``cpu_dtype`` may set the CPU's
+    precision (f32 otherwise)."""
     import torch
 
     from vnext_tpu_torch.engine import detection
-    from vnext_tpu_torch.models import rcnn, rcnn_kwargs_from_cfg
+    from vnext_tpu_torch.models import rcnn
     from vnext_tpu_torch.solver import build as solver
 
-    cpu = rcnn.GeneralizedRCNN(**{**rcnn_kwargs_from_cfg(cfg), "dtype": torch.float32}).train()
+    cls, kwargs = rcnn_constructor(cfg)
+    cpu = cls(**{**kwargs, "dtype": cpu_dtype or torch.float32}).train()
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     model.train()
     keys = detection.loss_keys(cfg)
-    rpn_keys, roi_keys = keys[:2], keys[2:]
+    part_keys = {"the RPN's losses": keys[:2], "the ROI losses": tuple(k for k in keys[2:] if k != "loss_sem_seg")}
+    if "loss_sem_seg" in keys:
+        part_keys["loss_sem_seg"] = ("loss_sem_seg",)
     inputs = {"card": detection.make_batch_adapter(cfg, dev)(batch),
               "cpu": detection.make_batch_adapter(cfg, "cpu")(batch)}
     taps, draws, pooled = {n: ReplayTap(n) for n in RCNN_REPLAYED}, SamePriorities(), []
@@ -4874,13 +4922,13 @@ def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Ma
 
         def recording(*args, **kwargs):
             out = fn(*args, **kwargs)
-            probed[side][path].append(tuple(o.detach().float().cpu() for o in (out if isinstance(out, tuple)
-                                                                                else (out,))))
+            outs = tuple(out.values()) if isinstance(out, dict) else out if isinstance(out, tuple) else (out,)
+            probed[side][path].append(tuple(o.detach().float().cpu() for o in outs))
             return out
 
         return patched(module, name, recording)
 
-    def run(m, side):
+    def run(m, side, probing=True):
         named = [(n, p) for n, p in m.named_parameters() if not solver.is_frozen(n)]
         params = [p for _, p in named]
         with contextlib.ExitStack() as stack:
@@ -4889,11 +4937,12 @@ def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Ma
                 stack.enter_context(tap)
             if side == "cpu":
                 stack.enter_context(patched(rcnn, "pool_rois", recording_pool))
-            for path in probes:
+            for path in probes if probing else ():
                 stack.enter_context(probe(side, path, m))
             losses = m(*inputs[side])
-        parts = [torch.autograd.grad(sum(losses[k] for k in ks), params, retain_graph=i == 0, allow_unused=True)
-                 for i, ks in enumerate((rpn_keys, roi_keys))]
+        parts = [torch.autograd.grad(sum(losses[k] for k in ks), params, retain_graph=i < len(part_keys) - 1,
+                                     allow_unused=True)
+                 for i, ks in enumerate(part_keys.values())]
         grads = [{n: (g.float().cpu() if g is not None else torch.zeros(p.shape)) for (n, p), g in zip(named, gs)}
                  for gs in parts]
         return {k: float(v.detach()) for k, v in losses.items()}, grads
@@ -4904,7 +4953,8 @@ def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Ma
     for tap in taps.values():
         tap.replay = list(tap.recorded)
     got_losses, got_parts = run(model, "card")
-    require(all(not tap.replay for tap in taps.values()), "the card's run took fewer choices than the CPU's")
+    require(not check or all(not tap.replay for tap in taps.values()),
+            "the card's run took fewer choices than the CPU's")
 
     def rel(a, b):
         return float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -4914,6 +4964,24 @@ def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Ma
 
     loss_err = {k: abs(got_losses[k] - v) / max(abs(v), 1e-6) for k, v in want_losses.items()}
     grad_err = {g: rel(group(got_parts, pre), group(want_parts, pre)) for g, pre in groups}
+    grad_tol = {g: 0.10 for g, _ in groups}
+    if check and max(grad_err.values()) > 0.10:
+        # bf16's own spread of the groups over 10%: the CPU in bf16 at the same choices, against its f32
+        cpu_bf16 = cls(**kwargs).train()
+        cpu_bf16.load_state_dict(cpu.state_dict())
+        for tap in taps.values():
+            tap.replay = list(tap.recorded)
+        t0 = time.perf_counter()
+        bf16_parts = run(cpu_bf16, "cpu", probing=False)[1]
+        bf16_s = time.perf_counter() - t0
+        del cpu_bf16
+        for g, pre in groups:
+            if grad_err[g] > 0.10:
+                spread = rel(group(bf16_parts, pre), group(want_parts, pre))
+                grad_tol[g] = 1.1 * spread
+                print(f"  {g} gradient {grad_err[g]:.4g} over 0.10: the CPU's own bf16 forward and backward at the same "
+                      f"choices ({bf16_s:.1f} s) reads {spread:.4g} from its f32; the card is held to 1.1x that, "
+                      f"{grad_tol[g]:.4g}")
     probe_err = {f"{path}[{i}].{j}": rel(a, b) for path in probes
                  for i, (outs_card, outs_cpu) in enumerate(zip(probed["card"][path], probed["cpu"][path]))
                  for j, (a, b) in enumerate(zip(outs_card, outs_cpu))}
@@ -4921,9 +4989,13 @@ def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Ma
     rpn_split = {part: rel(group([got_parts[i]], ("rpn.",)), group([want_parts[i]], ("rpn.",)))
                  for i, part in enumerate(("its own losses", "the ROI losses through the proposals"))}
     rpn_norms = [float(group([want_parts[i]], ("rpn.",)).norm()) for i in range(2)]
+    by_part = {part: {g: (rel(group([got_parts[i]], pre), group([want_parts[i]], pre)),
+                          float(group([want_parts[i]], pre).norm())) for g, pre in groups}
+               for i, part in enumerate(part_keys)}
     rois = pooled[0]
     area = (rois[..., 2] - rois[..., 0]).clamp_min(0) * (rois[..., 3] - rois[..., 1]).clamp_min(0)
-    label = f"{label} train forward (one image at {RCNN_TRAIN_HW[0]}x{RCNN_TRAIN_HW[1]})"
+    n = batch["image"].shape[0]
+    label = f"{label} train forward ({n} image{'s' * (n > 1)} at {RCNN_TRAIN_HW[0]}x{RCNN_TRAIN_HW[1]})"
     print(f"  {label}: CPU f32 forward + two backward passes {cpu_s:.1f} s; the card at the CPU's choices: losses "
           f"relative error max {max(loss_err.values()):.4g} ({max(loss_err, key=loss_err.get)}) tolerance 0.05; "
           "trainable gradients relative L2 " + ", ".join(f"{g} {e:.4g}" for g, e in grad_err.items()) +
@@ -4932,6 +5004,9 @@ def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Ma
     parts = " and from ".join(f"{p} {e:.4g} (|g| {n:.4g})" for (p, e), n in zip(rpn_split.items(), rpn_norms))
     print(f"  the RPN's gradient from {parts} (the second goes through the pooler's sample positions, a difference "
           "of neighbouring bf16 features)")
+    print("  each group's gradient by the losses it comes from, relative L2 (|g|): " + "; ".join(
+        f"{part}: " + ", ".join(f"{g} {e:.4g} ({n:.4g})" for g, (e, n) in errs.items() if n > 0)
+        for part, errs in by_part.items()))
     print(f"  the CPU's sampled ROIs: {int((area > 0).sum())} of {area.numel()} have positive area, "
           f"{int((area >= 1).sum())} a pixel or more (the rest are proposals of zero side, kept as in JAX; the "
           "empty ground-truth slots are boxes of 1e-4 x 1e-4)")
@@ -4939,15 +5014,15 @@ def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Ma
         print("  outputs at the replayed ROIs, relative L2 (tolerance 0.05): " +
               ", ".join(f"{k} {e:.4g}" for k, e in probe_err.items()))
     for k, e in loss_err.items():
-        require(e <= 0.05, f"{label}: {k} relative error {e}")
+        require(not check or e <= 0.05, f"{label}: {k} relative error {e}")
     for g, e in grad_err.items():
-        require(e <= 0.10, f"{label}: gradient of {g} relative L2 {e}")
+        require(not check or e <= grad_tol[g], f"{label}: gradient of {g} relative L2 {e} (limit {grad_tol[g]})")
     for k, e in probe_err.items():
-        require(e <= 0.05, f"{label}: {k} relative L2 {e}")
-    require(int((area >= 1).sum()) > 0, "no sampled ROI has an area of a pixel")
+        require(not check or e <= 0.05, f"{label}: {k} relative L2 {e}")
+    require(not check or int((area >= 1).sum()) > 0, "no sampled ROI has an area of a pixel")
     del cpu
     return {"cpu_s": cpu_s, "loss_rel_err": loss_err, "grad_rel_l2": grad_err, "rpn_grad_rel_l2_by_part": rpn_split,
-            "probe_rel_l2": probe_err,
+            "probe_rel_l2": probe_err, "grad_rel_l2_by_loss": by_part, "grad_limit": grad_tol,
             "sampled_rois": int(area.numel()), "sampled_rois_positive_area": int((area > 0).sum()),
             "sampled_rois_a_pixel_or_more": int((area >= 1).sum())}
 
@@ -5104,7 +5179,8 @@ def phase_rcnn_train(dev, kernels, smi):
     return {"rcnn_train": {stem_conv.KERNEL.name: RCNN_TRAIN_STEPS}}, result
 
 
-# ---------------------------------------------------------------- phases 28 and 29
+# ---------------------------------------------------------------- phases 28, 29 and 30
+PANOPTIC_CONFIG = "COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml"
 DET_STEPS = 3                       # train steps of each detector; the first is warm-up
 DET_FORWARDS = 3                    # timed forwards of each detector's serving path
 KEYPOINT_CLASSES = ("person",)      # COCO's keypoint category, the only class of keypoint R-CNN
@@ -5129,7 +5205,14 @@ DETECTORS = {
                  (("backbone", ("backbone.",)), ("FPN", ("fpn.",)), ("RPN", ("rpn.",)),
                   ("box head", ("roi_heads.fc", "roi_heads.cls_score", "roi_heads.bbox_pred")),
                   ("keypoint head", ("roi_heads.keypoint_head.",))), ("roi_heads.keypoint_head.forward",)),
+    # phase 30: the FPN's maps and the semantic logits compared at the replayed choices beside the losses
+    "panoptic": ("PanopticFPN R50-FPN", PANOPTIC_CONFIG, [], COCO_CLASSES,
+                 RCNN_GROUPS + (("semantic head", ("sem_seg_head.",)),), ("fpn.forward", "sem_seg_head.forward")),
+    "semseg": ("SemanticSegmentor R50-FPN", PANOPTIC_CONFIG, ["MODEL.META_ARCHITECTURE", "SemanticSegmentor"],
+               COCO_CLASSES, (("backbone", ("backbone.",)), ("FPN", ("fpn.",)), ("semantic head", ("sem_seg_head.",))),
+               ()),
 }
+SEGMENTERS = ("panoptic", "semseg")     # trained and scored on the synthetic panoptic set
 
 
 def prepare_seeded(model, name):
@@ -5148,10 +5231,13 @@ def prepare_seeded(model, name):
     each stage refines its boxes a little and the last stage, at IoU 0.7, has
     a foreground (at the seeded scale the refinements move every box away, and
     stage 2's box regressor gets no gradient). tests/test_torch_rcnn_heads.py
-    scales the same kernels."""
+    scales the same kernels. PanopticFPN's are an R-CNN's; SemanticSegmentor's
+    stay as seeded (it detects nothing)."""
     import torch
 
     with torch.no_grad():
+        if name == "semseg":
+            return
         if name in ("retinanet", "fcos"):
             model.head.cls_score.bias[::model.num_classes] += RCNN_CLASS_BIAS
         elif name == "cascade":
@@ -5174,10 +5260,26 @@ def check_oks_stats(stats, what):
     require(all(np.isfinite(stats[k]) for k in ("AP", "AP50", "AP75", "AR@20")), f"{what}: {stats}")
 
 
+SEGMENTATION_KEYS = {"panoptic_seg": ("PQ", "SQ", "RQ", "PQ_th", "SQ_th", "RQ_th", "PQ_st", "SQ_st", "RQ_st"),
+                     "sem_seg": ("mIoU", "fwIoU", "pACC", "mACC")}
+
+
 def check_detector_stats(stats, tasks, what):
-    require(sorted(stats) == sorted(tasks), f"{what}: COCOEvaluator tasks {sorted(stats)}")
+    """Each task's dict: COCO's AP keys (OKS's for keypoints), or the panoptic
+    or semantic evaluator's keys, each a finite percentage in [0, 100]."""
+    require(sorted(stats) == sorted(tasks), f"{what}: evaluator tasks {sorted(stats)}")
     for task in tasks:
-        (check_oks_stats if task == "keypoints" else check_stats)(stats[task], f"{what} COCO {task}")
+        if task in SEGMENTATION_KEYS:
+            require(all(np.isfinite(stats[task][k]) and 0 <= stats[task][k] <= 100 for k in SEGMENTATION_KEYS[task]),
+                    f"{what} {task}: {stats[task]}")
+        else:
+            (check_oks_stats if task == "keypoints" else check_stats)(stats[task], f"{what} COCO {task}")
+
+
+def headline(stats):
+    """The first number of each task's dict: AP, PQ or mIoU."""
+    return ", ".join(f"{t} {k} {v[k]:.4f}" for t, v in stats.items()
+                     for k in [{"panoptic_seg": "PQ", "sem_seg": "mIoU"}.get(t, "AP")])
 
 
 def dense_train_card_vs_cpu(model, cfg, batch, dev, groups, label):
@@ -5238,18 +5340,22 @@ def dense_train_card_vs_cpu(model, cfg, batch, dev, groups, label):
 
 
 def phase_detector(name, dev, kernels, smi, tag):
-    """One detector of phases 28 / 29 at 800x1344 on phase 26's kind of set:
-    served through ``train_net.main --eval-only`` (seeded weights, class 0's
-    bias raised, as ``MODEL.WEIGHTS``), the COCO evaluator's dicts, the
-    forward alone (CUDA events), its NMS walks' synchronized share, device
-    busy share and peak memory; trained through ``train_net.main`` from the
-    same weights, ``DET_STEPS`` steps of 2 images and the evaluation after the
-    last (each update landed, the frozen parameters bit-equal), a fixed
-    batch's step under the profiler; then one image card vs CPU at the
-    weights it started from. Returns its launches by path and its record."""
+    """One detector of phases 28-30 at 800x1344 on phase 26's kind of set (the
+    synthetic panoptic set for PanopticFPN and SemanticSegmentor): served
+    through ``train_net.main --eval-only`` (seeded weights, class 0's bias
+    raised, as ``MODEL.WEIGHTS``), the evaluators' dicts, the forward alone
+    (CUDA events), its NMS walks' synchronized share, device busy share and
+    peak memory (PanopticFPN: the semantic head's time and the panoptic
+    fusion's host time too); trained through ``train_net.main`` from the same
+    weights, ``DET_STEPS`` steps of 2 images and the evaluation after the last
+    (each update landed, the frozen parameters bit-equal), a fixed batch's
+    step under the profiler (PanopticFPN: then ``--resume`` for one step);
+    then one image card vs CPU at the weights it started from. Returns its
+    launches by path and its record."""
     import torch
 
     from vnext_tpu_torch.data.catalog import DatasetCatalog
+    from vnext_tpu_torch.data.datasets.synthetic import register_synthetic_panoptic
     from vnext_tpu_torch.data.detection_mapper import DetectionDatasetMapper, stack_detection_batch
     from vnext_tpu_torch.engine import detection
     from vnext_tpu_torch.models import build_model, rcnn, retinanet
@@ -5258,19 +5364,30 @@ def phase_detector(name, dev, kernels, smi, tag):
     from vnext_tpu_torch.tools import train_net
 
     label, rel, opts, classes, groups, probes = DETECTORS[name]
-    dataset = f"coco_synthetic_{name}"
     t_phase = time.perf_counter()
     cfg = read_config(rel)
-    cfg.merge_from_list([*opts, "SOLVER.IMS_PER_BATCH", str(RCNN_TRAIN_BATCH), "DATASETS.TRAIN", f"('{dataset}',)",
+    cfg.merge_from_list(opts)
+    arch = cfg.MODEL.META_ARCHITECTURE
+    dataset = {"panoptic": "panoptic_synthetic_30", "semseg": "panoptic_synthetic_30s_sem_seg"}.get(
+        name, f"coco_synthetic_{name}")
+    cfg.merge_from_list(["SOLVER.IMS_PER_BATCH", str(RCNN_TRAIN_BATCH), "DATASETS.TRAIN", f"('{dataset}',)",
                          "DATASETS.TEST", f"('{dataset}',)"])
-    bf16 = cfg.TPU.COMPUTE_DTYPE == "bfloat16" and name in ("cascade", "keypoint")
+    bf16 = cfg.TPU.COMPUTE_DTYPE == "bfloat16" and name in ("cascade", "keypoint", "panoptic")
     k2 = {stem_conv.KERNEL.name: 1} if bf16 else {}
-    tasks = ["bbox", "keypoints"] if cfg.MODEL.KEYPOINT_ON else ["bbox"]
+    tasks = {"panoptic": ["bbox", "segm", "panoptic_seg"], "semseg": ["sem_seg"]}.get(
+        name, ["bbox", "keypoints"] if cfg.MODEL.KEYPOINT_ON else ["bbox"])
     nms_owner = retinanet if name in ("retinanet", "fcos") else rcnn
-    nms_names = ("batched_nms_mask",) if nms_owner is retinanet else ("nms_mask", "batched_nms_mask")
+    nms_names = {"retinanet": ("batched_nms_mask",), "fcos": ("batched_nms_mask",), "semseg": ()}.get(
+        name, ("nms_mask", "batched_nms_mask"))
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
-        register_rcnn_dataset(f"{tmp}/coco", dataset, classes)
+        if name in SEGMENTERS:
+            # phases 26-29's images (register_rcnn_dataset's seed), labelled with stuff bands and panoptic segments
+            register_synthetic_panoptic(dataset.removesuffix("_sem_seg"), root=f"{tmp}/panoptic", num_images=RCNN_IMAGES,
+                                        h=RCNN_HW[0], w=RCNN_HW[1], sem_seg_classes=cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                        thing_classes=classes, seed=26)
+        else:
+            register_rcnn_dataset(f"{tmp}/coco", dataset, classes)
         t0 = time.perf_counter()
         model = build_model(cfg, device=dev, seed=0)
         prepare_seeded(model, name)
@@ -5281,8 +5398,9 @@ def phase_detector(name, dev, kernels, smi, tag):
         cfg_file = ["--config-file", str(Path(__file__).resolve().parent / "configs" / rel)]
         common = [*opts, "MODEL.WEIGHTS", weights, "DATASETS.TEST", f"('{dataset}',)"]
 
-        # ---- serving through the entry point
-        outputs, image_ms, call = [], [], detection.DetectionInference.__call__
+        # ---- serving through the entry point (the panoptic fusion's host time apart)
+        outputs, image_ms, fusion_ms = [], [], []
+        call, fuse = detection.DetectionInference.__call__, detection.combine_semantic_and_instance_outputs
 
         def timed(self, record):
             torch.cuda.synchronize()
@@ -5292,9 +5410,16 @@ def phase_detector(name, dev, kernels, smi, tag):
             outputs.append((record, out))
             return out
 
+        def timed_fusion(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fuse(*args, **kwargs)
+            fusion_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
         zero(kernels)
         t0 = time.perf_counter()
-        with patched(detection.DetectionInference, "__call__", timed):
+        with patched(detection.DetectionInference, "__call__", timed), \
+                patched(detection, "combine_semantic_and_instance_outputs", timed_fusion):
             results = train_net.main([*cfg_file, "--eval-only", *common, "OUTPUT_DIR", f"{tmp}/eval"])
         eval_s = time.perf_counter() - t0
         launches = counts(kernels)
@@ -5302,22 +5427,35 @@ def phase_detector(name, dev, kernels, smi, tag):
                 f"{label} serving launches {launches}, expected {k2} per image")
         kept = []
         for record, out in outputs:
-            require(all(np.isfinite(out[k]).all() for k in out if k != "valid"), f"{label}: non-finite outputs")
+            require(all(np.isfinite(out[k]).all() for k in out if k not in ("valid", "panoptic_seg")),
+                    f"{label}: non-finite outputs")
             if "keypoints" in tasks:
                 require(out["keypoints"].shape == (cfg.TEST.DETECTIONS_PER_IMAGE, 17, 3), f"{out['keypoints'].shape}")
-            kept.append(int(out["valid"].sum()))
-        require(len(outputs) == RCNN_IMAGES and sum(kept) > 0, f"{label}: {len(outputs)} images, kept {kept}")
+            if name in SEGMENTERS:
+                require(out["sem_seg"].shape == (record["height"], record["width"])
+                        and 0 <= out["sem_seg"].min() and out["sem_seg"].max() < cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                        f"{label}: sem_seg {out['sem_seg'].shape}")
+            if name == "panoptic":
+                pan, segments = out["panoptic_seg"]
+                require(pan.shape == out["sem_seg"].shape and sorted(np.unique(pan[pan > 0]).tolist())
+                        == [s["id"] for s in segments], f"{label}: panoptic ids {np.unique(pan)} of {segments}")
+            kept.append(int(out["valid"].sum()) if "valid" in out else 0)
+        require(len(outputs) == RCNN_IMAGES and (sum(kept) > 0 or name == "semseg"),
+                f"{label}: {len(outputs)} images, kept {kept}")
+        require(len(fusion_ms) == (RCNN_IMAGES if name == "panoptic" else 0), f"{len(fusion_ms)} fusions")
         stats = results[dataset]
         check_detector_stats(stats, tasks, label)
         print(f"  {label} train_net --eval-only: {eval_s:.1f} s with the build, the load and the evaluator; per image "
               f"through the runner {', '.join(f'{v:.1f}' for v in image_ms)} ms; launches {launches}; detections "
-              f"kept {kept}; " + ", ".join(f"{t} AP {stats[t]['AP']:.4f}" for t in tasks))
+              f"kept {kept}; " + headline(stats)
+              + (f"; the panoptic fusion on the host {', '.join(f'{v:.1f}' for v in fusion_ms)} ms an image, "
+                 f"{sum(len(o['panoptic_seg'][1]) for _, o in outputs)} segments" if fusion_ms else ""))
 
         # ---- the forward alone: events, the NMS walks' synchronized share, busy share, peak memory
         runner = detection.DetectionInference(cfg, model)
         images, sizes, _, _ = runner.preprocess(outputs[0][0])
         require(tuple(images.shape) == RCNN_SHAPE, f"padded input {tuple(images.shape)}")
-        args = (images, sizes) if detection.SPEC[cfg.MODEL.META_ARCHITECTURE]["sizes"] else (images,)
+        args = (images, sizes) if detection.SPEC[arch]["sizes"] else (images,)
 
         def forward():
             with torch.no_grad():
@@ -5348,20 +5486,29 @@ def phase_detector(name, dev, kernels, smi, tag):
                 spans.append(dict(acc))
         split = {k: statistics.median(s[k] for s in spans) for k in spans[0]}
         nms_share = sum(split[n] for n in nms_names) / split["forward"]
+        head_ms = None
+        if name in SEGMENTERS:
+            with torch.no_grad():
+                feats = model.fpn(model.backbone(images))
+                head_ms = time_ms(lambda: model.sem_seg_head(feats), reps=DET_FORWARDS, warmup=1)
+            del feats
         busy, wall = profile_busy(forward, f"{label} forward at {RCNN_SHAPE[1]}x{RCNN_SHAPE[2]}", calls=1, top=8)
         print(f"  {label} forward: {forward_ms:.2f} ms by CUDA events (median of {DET_FORWARDS}), peak memory "
               f"{peak_gib:.2f} GiB; synchronized spans (median): " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
-              + f"; the greedy NMS walks {nms_share:.1%} of the forward; device busy {busy:.2f} of {wall:.2f} ms "
-              f"under the profiler ({busy / wall:.1%})")
+              + f"; the greedy NMS walks {nms_share:.1%} of the forward"
+              + (f"; the semantic head {head_ms:.3f} ms by CUDA events" if head_ms is not None else "")
+              + f"; device busy {busy:.2f} of {wall:.2f} ms under the profiler ({busy / wall:.1%})")
         result["serve"] = dict(eval_s=eval_s, image_ms=image_ms, kept=kept, stats=stats, forward_ms=forward_ms,
                                spans_ms=split, nms_share=nms_share, busy_ms=busy, profiled_wall_ms=wall,
-                               peak_gib=peak_gib, launches=launches)
+                               peak_gib=peak_gib, launches=launches, sem_seg_head_ms=head_ms,
+                               fusion_host_ms=fusion_ms)
         del runner
         torch.cuda.empty_cache()
 
         # ---- training through the entry point, from the same weights
-        trainer, rec = rcnn_train_run([*cfg_file, *common, "SOLVER.IMS_PER_BATCH", str(RCNN_TRAIN_BATCH), "SOLVER.MAX_ITER",
-                                       str(DET_STEPS), "TEST.EVAL_PERIOD", "0", "DATASETS.TRAIN", f"('{dataset}',)",
+        train_argv = [*cfg_file, *common, "SOLVER.IMS_PER_BATCH", str(RCNN_TRAIN_BATCH), "DATASETS.TRAIN",
+                      f"('{dataset}',)"]
+        trainer, rec = rcnn_train_run([*train_argv, "SOLVER.MAX_ITER", str(DET_STEPS), "TEST.EVAL_PERIOD", "0",
                                        "OUTPUT_DIR", f"{tmp}/train"], kernels)
         trained = trainer.state.model
         require(rec["step_launches"] == [k2] * DET_STEPS, f"{label} launches per step {rec['step_launches']}")
@@ -5373,6 +5520,11 @@ def phase_detector(name, dev, kernels, smi, tag):
         last = build_lr_schedule(cfg)(DET_STEPS - 1)
         frozen, moved, landable = check_sgd_update_landed(
             trained, trainer.state.optimizer, rec["initial"], [last * cfg.SOLVER.BACKBONE_MULTIPLIER, last])
+        if name in SEGMENTERS:
+            head = [n for n, p in trained.named_parameters() if n.startswith("sem_seg_head.")]
+            require(head and all(not torch.equal(p.detach(), rec["initial"][n])
+                                 for n, p in trained.named_parameters() if n in head),
+                    f"{label}: a semantic head parameter did not move")
         require(len(rec["evals"]) == 1, f"{len(rec['evals'])} evaluations, expected the one after the last step")
         eval_launches, eval_out = rec["evals"][0]
         require(eval_launches == {k: v * RCNN_IMAGES for k, v in k2.items()}, f"evaluation launches {eval_launches}")
@@ -5385,7 +5537,7 @@ def phase_detector(name, dev, kernels, smi, tag):
               + "; ".join(f"{k} {', '.join(f'{v:.4g}' for v in hist[k].values())}" for k in keys + ["total_loss"]))
         print(f"  every trainable parameter reached by a gradient; {landable} with elements the last update moves by "
               f"4 ulps or more, each of which moved; {moved} moved in all; {frozen} frozen ones bit-equal; after "
-              "training " + ", ".join(f"{t} AP {eval_out[dataset][t]['AP']:.4f}" for t in tasks))
+              "training " + headline(eval_out[dataset]))
         loader = detection.build_detection_train_loader(cfg, seed=0)
         inputs = detection.make_batch_adapter(cfg, dev)(next(loader))
         step_fn = trainer._train_step
@@ -5399,15 +5551,41 @@ def phase_detector(name, dev, kernels, smi, tag):
         del trainer, trained, inputs, step_fn, model
         torch.cuda.empty_cache()
 
+        if name == "panoptic":
+            # ---- --resume from the checkpoint after the last step, one more step (the profiled step above ran on
+            # the straight run's model only, after its checkpoint was written)
+            resumed, rrec = rcnn_train_run(["--resume", *train_argv, "SOLVER.MAX_ITER", str(DET_STEPS + 1),
+                                            "DATASETS.TEST", "()", "OUTPUT_DIR", f"{tmp}/train"], kernels)
+            loaded = rrec["loaded"]
+            require(loaded.get("start") == DET_STEPS and loaded.get("model") and loaded.get("optimizer")
+                    and loaded.get("scheduler") and loaded.get("momentum_buffers", 0) > 0, f"resume restored {loaded}")
+            require(resumed.start_iter == DET_STEPS and resumed.iter == DET_STEPS + 1
+                    and rrec["step_launches"] == [k2] and np.isfinite(resumed.storage.history("loss_sem_seg").values()).all(),
+                    f"resumed steps {resumed.start_iter}..{resumed.iter}, launches {rrec['step_launches']}")
+            print(f"  --resume: restored {loaded} (the step, the model, the optimizer's momentum buffers and the "
+                  f"scheduler against the file); step {resumed.start_iter} in {rrec['step_ms'][0]:.1f} ms, launches "
+                  f"{rrec['step_launches']}, loss_sem_seg {resumed.storage.history('loss_sem_seg').values()[0]:.4g}")
+            result["resume"] = {"loaded": loaded, "steps_ms": rrec["step_ms"]}
+            del resumed
+            torch.cuda.empty_cache()
+
         # ---- one image card vs CPU at the weights the phase started from
         mapper = DetectionDatasetMapper.from_config(cfg, is_train=True)
         one = stack_detection_batch([mapper(DatasetCatalog.get(dataset)[0], random.Random(int(tag)))])
-        require(one["image"].shape[1:3] == RCNN_TRAIN_HW and one["valid"].any(), f"{one['image'].shape}")
+        require(one["image"].shape[1:3] == RCNN_TRAIN_HW and one["valid"].any()
+                and ("sem_seg" in one) == (name in SEGMENTERS), f"{one['image'].shape}, {sorted(one)}")
         seeded = build_model(cfg, device="meta").to_empty(device=dev)
         seeded.load_state_dict(torch.load(weights, map_location=dev, weights_only=True)["model"])
-        if name in ("retinanet", "fcos"):
+        if name in ("retinanet", "fcos", "semseg"):
             result["card_vs_cpu"] = dense_train_card_vs_cpu(seeded, cfg, one, dev, groups, label)
         else:
+            if TRACE:
+                records = DatasetCatalog.get(dataset)
+                singles = {f"image {i}": stack_detection_batch([mapper(r, random.Random(int(tag)))])
+                           for i, r in enumerate(records)}
+                step = stack_detection_batch([mapper(r, random.Random(int(tag))) for r in records[:RCNN_TRAIN_BATCH]])
+                result["trace"] = trace_card_vs_cpu(seeded, cfg, {**singles, "images 0-1 as one batch": step}, dev,
+                                                    groups, label, probes)
             result["card_vs_cpu"] = rcnn_train_card_vs_cpu(seeded, cfg, one, dev, groups, label, probes)
         del seeded
         torch.cuda.empty_cache()
@@ -5428,6 +5606,62 @@ def phase_dense_det(dev, kernels, smi):
     print(f"  {smi}")
     print(f"[phase 28] RetinaNet and FCOS R50-FPN served and trained through train_net at 800x1344 (f32, no "
           f"kernel launched), COCOEvaluator bbox, updates landed, card agrees with CPU; {result['phase_s']:.1f} s")
+    return launches, result
+
+
+TRACE = False    # --trace: phases 29-30's R-CNN card-vs-CPU checks also run trace_card_vs_cpu first
+
+
+def trace_card_vs_cpu(model, cfg, batches, dev, groups, label, probes):
+    """Where an R-CNN's card-vs-CPU gap comes from, nothing required: on the
+    first of ``batches`` the same replayed check with the card's model
+    computing in f32 (TF32 off: the card's arithmetic against the CPU's, no
+    bf16) and with the CPU itself computing in bf16 (bf16's rounding on the
+    CPU, nothing of the card); then the card in bf16 against the CPU on each
+    of ``batches`` (how far the gap moves with the image)."""
+    import torch
+
+    from vnext_tpu_torch.models.layers import init_weights
+
+    cls, kwargs = rcnn_constructor(cfg)
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    first = next(iter(batches.values()))
+    out = {"card bf16 against the CPU's bf16": rcnn_train_card_vs_cpu(
+        model, cfg, first, dev, groups, f"{label} [trace: card bf16 against the CPU's bf16]", probes, check=False,
+        cpu_dtype=torch.bfloat16)}
+    plain = cls(**kwargs)
+    init_weights(plain, 0)
+    plain = plain.to(dev)
+    out["seeded weights as phase 27's"] = rcnn_train_card_vs_cpu(
+        plain, cfg, first, dev, groups, f"{label} [trace: seeded weights as phase 27's]", probes, check=False)
+    del plain
+    for what, dtype, device in (("card f32", torch.float32, dev), ("CPU bf16", torch.bfloat16, "cpu")):
+        other = cls(**{**kwargs, "dtype": dtype}).to(device)
+        other.load_state_dict({k: v.to(device) for k, v in state.items()})
+        out[what] = rcnn_train_card_vs_cpu(other, cfg, first, device, groups, f"{label} [trace: {what}]", probes,
+                                           check=False)
+        del other
+        torch.cuda.empty_cache()
+    for what, batch in batches.items():
+        out[what] = rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups, f"{label} [trace: {what}]", probes,
+                                           check=False)
+    return out
+
+
+def phase_panoptic(dev, kernels, smi):
+    """Phase 30: PanopticFPN R50-FPN (bf16: K2 once an image and once a train
+    step) and SemanticSegmentor (f32 as in JAX: no hand-written kernel)."""
+    t0 = time.perf_counter()
+    launches, result = {}, {}
+    for name in SEGMENTERS:
+        got, result[name] = phase_detector(name, dev, kernels, smi, "30")
+        launches.update(got)
+    result["phase_s"] = time.perf_counter() - t0
+    print(f"  {smi}")
+    print(f"[phase 30] PanopticFPN R50-FPN served (COCOEvaluator bbox / segm, PQ / SQ / RQ) and trained with "
+          f"loss_sem_seg through train_net at 800x1344, K2 = 1 an image and a step, resumed, card agrees with CPU at "
+          f"the CPU's choices; SemanticSegmentor (f32, no kernel) served (mIoU) and trained, card agrees with CPU; "
+          f"{result['phase_s']:.1f} s")
     return launches, result
 
 
@@ -5452,14 +5686,18 @@ def main(argv=None) -> int:
                                                  "with no argument, every phase.")
     parser.add_argument("--only", choices=("train_numerics", "entry_point", "minvis_entry", "seqformer_train",
                                            "swin_train", "instmove_train", "fused_tracker", "coco_pretrain",
-                                           "tools", "rcnn", "rcnn_train", "dense_det", "rcnn_heads"),
+                                           "tools", "rcnn", "rcnn_train", "dense_det", "rcnn_heads", "panoptic"),
                         help="phase 1 and this phase alone (train_numerics: phase 6; entry_point: phase 17; "
                              "minvis_entry: phase 2b's MinVIS and SeqFormer shapes and phase 18; seqformer_train: "
                              "phase 19; swin_train: phases 20 and 21; instmove_train: K2 at InstMove's shape and "
                              "phase 22; fused_tracker: phase 23; coco_pretrain: phase 24; tools: phase 25; rcnn: K2 "
                              "at Mask R-CNN's [1, 800, 1344, 3] and phase 26; rcnn_train: K2's forward and backward "
                              "at Mask R-CNN's train step [2, 800, 1344, 3] and phase 27; dense_det: phase 28; "
-                             "rcnn_heads: phase 29)")
+                             "rcnn_heads: phase 29; panoptic: K2 at PanopticFPN's [1, 800, 1344, 3] and "
+                             "[2, 800, 1344, 3] and phase 30)")
+    parser.add_argument("--trace", action="store_true",
+                        help="with --only rcnn_heads or panoptic: first trace each R-CNN's card-vs-CPU check with "
+                             "the card in f32 and with the CPU in bf16 (nothing required of the traces)")
     parser.add_argument("--tree", help="with --only: import vnext_tpu_torch from this checkout (an "
                                        "earlier commit's `git archive`) in place of the one beside this script")
     parser.add_argument("--seq-cpu-hw", type=lambda v: tuple(int(x) for x in v.split("x")), metavar="HxW",
@@ -5474,6 +5712,10 @@ def main(argv=None) -> int:
         parser.error("--tree and --swap-plain go with --only train_numerics")
     if args.seq_cpu_hw and args.only != "seqformer_train":
         parser.error("--seq-cpu-hw goes with --only seqformer_train")
+    if args.trace and args.only not in ("rcnn_heads", "panoptic"):
+        parser.error("--trace goes with --only rcnn_heads or panoptic")
+    global TRACE
+    TRACE = args.trace
     try:
         import torch
     except ImportError:
@@ -5534,6 +5776,12 @@ def main(argv=None) -> int:
         elif args.only == "rcnn_heads":
             launches, heads = phase_rcnn_heads(dev, kernels, smi)
             print(json.dumps({"rcnn_heads": heads, "launches": launches}))
+        elif args.only == "panoptic":
+            k2 = {"serving": stem_serving_case(dev, np.random.RandomState(30), RCNN_SHAPE),
+                  "train": stem_train_case(dev, np.random.RandomState(31), RCNN_TRAIN_BATCH, RCNN_TRAIN_HW,
+                                           "PanopticFPN train")}
+            launches, panoptic = phase_panoptic(dev, kernels, smi)
+            print(json.dumps({"k2_panoptic": k2, "panoptic": panoptic, "launches": launches}))
         else:
             launches, tools = phase_tools(dev, kernels, smi)
             print(json.dumps({"tools": tools, "launches": launches}))
@@ -5632,6 +5880,8 @@ def main(argv=None) -> int:
     phase_seconds["28"] = dense_result["phase_s"]
     heads_launches, heads_result = phase_rcnn_heads(dev, kernels, smi)
     phase_seconds["29"] = heads_result["phase_s"]
+    panoptic_launches, panoptic_result = phase_panoptic(dev, kernels, smi)
+    phase_seconds["30"] = panoptic_result["phase_s"]
     print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
     print(f"  the whole run: {time.perf_counter() - t_run:.1f} s")
 
@@ -5643,7 +5893,7 @@ def main(argv=None) -> int:
         "idol_swinl_train": swin_train_result, "seqformer_swinl_train": seq_swin_train_result,
         "instmove_train": instmove_train_result, "fused_tracker": fused_result, "coco_pretrain": coco_result,
         "tools": tools_result, "rcnn": rcnn_result, "rcnn_train": rcnn_train_result, "dense_det": dense_result,
-        "rcnn_heads": heads_result, "phase_seconds": phase_seconds,
+        "rcnn_heads": heads_result, "panoptic": panoptic_result, "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
         "k5_decoder_form": measured["bwd_decoder"], "k6_backward_decoder_form": measured["bwd6_decoder"],
@@ -5657,7 +5907,7 @@ def main(argv=None) -> int:
              "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches, **entry_point_launches,
              **minvis_entry_launches, **seq_train_launches, **swin_train_launches, **seq_swin_train_launches,
              **fused_launches, **coco_launches, **tools_launches, **rcnn_launches, **rcnn_train_launches,
-             **dense_launches, **heads_launches}
+             **dense_launches, **heads_launches, **panoptic_launches}
     for path, names in (("minvis_entry_eval", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
                         ("minvis_entry_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
                         ("seqformer_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
@@ -5675,7 +5925,8 @@ def main(argv=None) -> int:
                         ("tools_lazyconfig_train_net", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
                         ("rcnn_eval", (stem_conv.KERNEL,)), ("rcnn_train", (stem_conv.KERNEL,)),
                         ("cascade_eval", (stem_conv.KERNEL,)), ("cascade_train", (stem_conv.KERNEL,)),
-                        ("keypoint_eval", (stem_conv.KERNEL,)), ("keypoint_train", (stem_conv.KERNEL,))):
+                        ("keypoint_eval", (stem_conv.KERNEL,)), ("keypoint_train", (stem_conv.KERNEL,)),
+                        ("panoptic_eval", (stem_conv.KERNEL,)), ("panoptic_train", (stem_conv.KERNEL,))):
         for kern in names:
             require(paths[path].get(kern.name, 0) > 0, f"{kern.name}: no launch on the {path} path")
     # K4, K5 and K2 at the new train steps' shapes, beside their rows' train-step shape

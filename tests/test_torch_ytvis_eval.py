@@ -228,8 +228,14 @@ def test_build_evaluator_has_the_ytvis_type_only(tmp_path):
     # the COCO type is the COCO evaluator since Mask R-CNN serves (tests/test_torch_detection.py)
     MetadataCatalog.get("eval_coco_kind").set(evaluator_type="coco")
     assert type(build_evaluator(cfg, "eval_coco_kind")).__name__ == "COCOEvaluator"
+    # the panoptic and semantic types since PanopticFPN and SemanticSegmentor serve (tests/test_torch_panoptic.py)
+    MetadataCatalog.get("eval_panoptic_kind").set(evaluator_type="coco_panoptic_seg")
+    assert [type(e).__name__ for e in build_evaluator(cfg, "eval_panoptic_kind")._evaluators] == [
+        "COCOEvaluator", "COCOPanopticEvaluator"]
+    MetadataCatalog.get("eval_sem_seg_kind").set(evaluator_type="sem_seg")
+    assert type(build_evaluator(cfg, "eval_sem_seg_kind")).__name__ == "SemSegEvaluator"
     MetadataCatalog.get("eval_lvis_kind").set(evaluator_type="lvis")
-    with pytest.raises(NotImplementedError, match="Queue 1, items 11d and 11e"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 11e"):
         build_evaluator(cfg, "eval_lvis_kind")
 
 

@@ -16,7 +16,10 @@ port's ``ConvTranspose`` keeps that layout in its parameter and arranges it for
 ``conv_transpose2d`` at use (``models/layers.py``; InstMove's decoder, the
 Mask R-CNN mask head and the keypoint head's 4x4 ``score_lowres`` use it).
 A rank-1 leaf that is not a kernel, such as FCOS's per-level ``scales``,
-carries across as it is, and the cascade's ``stage{k}`` heads by their paths.
+carries across as it is, and the cascade's ``stage{k}`` heads by their paths;
+so do PanopticFPN's and SemanticSegmentor's ``sem_seg_head`` (its
+``head_p{2..5}_conv`` kernels by the 4-d rule, its ``head_p{2..5}_norm``
+GroupNorm scales by ``scale``, its 1x1 ``predictor``).
 
 The input is a nested dict of numpy arrays (``jax.tree.map(np.asarray, params)``),
 so this module needs neither jax nor flax.

@@ -8,6 +8,13 @@ PNGs of 1-3 rectangles with a COCO-format json (a polygon, a box, an area and a
 seed writes files byte-equal to the JAX package's generator, so the two
 packages can be held to each other on the files. Real YouTube-VIS, OVIS and
 COCO data are not in the repository.
+
+``generate_synthetic_panoptic`` (test data for PanopticFPN and
+SemanticSegmentor; the JAX package has none) writes the COCO set's images and
+instances (byte-equal for the same seed) and labels them with two stuff bands
+and a void strip drawn apart, in detectron2's "separated" files: the
+instances json, a stuff label PNG per image (things 0, void 255) and a
+COCO-panoptic id PNG (``id2rgb``) with its json.
 """
 
 from __future__ import annotations
@@ -182,6 +189,94 @@ def generate_synthetic_ytvis(
     return json_file
 
 
+# the panoptic set's format version (a cached copy of another is written again)
+_PANOPTIC_FORMAT = 2
+
+
+def _panoptic_maps(rng: np.random.RandomState, h: int, w: int, annotations, sem_seg_classes: int):
+    """The stuff label map [h, w] (two bands of semantic classes 1.., drawn
+    from ``rng``, things 0, a void strip of 255 along the bottom), the
+    panoptic id map [h, w] (0 = void) and its segments' info, for rectangles
+    ``annotations`` painted in order over the bands (a later one covers an
+    earlier one, as in the image). Segment category ids are those the
+    panoptic fusion writes: a thing's contiguous class (its dataset id - 1), a
+    stuff band's semantic class."""
+    cut = int(rng.randint(h // 4, 3 * h // 4))
+    bands = rng.randint(1, sem_seg_classes, size=2)
+    sem = np.empty((h, w), np.int32)
+    sem[:cut], sem[cut:] = bands
+    owner = np.full((h, w), -1, np.int64)
+    for i, ann in enumerate(annotations):
+        x, y, bw, bh = ann["bbox"]
+        owner[y:y + bh, x:x + bw] = i
+    sem[owner >= 0] = 0
+    sem[h - max(h // 40, 1):] = 255
+    pan = np.zeros((h, w), np.int32)
+    segments = []
+
+    def add(mask, category_id, isthing):
+        if not mask.any():
+            return
+        ys, xs = np.nonzero(mask)
+        seg_id = len(segments) + 1
+        pan[mask] = seg_id
+        segments.append({"id": seg_id, "category_id": int(category_id), "iscrowd": 0, "isthing": isthing,
+                         "area": int(mask.sum()), "bbox": [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                                                          int(ys.max() - ys.min() + 1)]})
+
+    for cls in np.unique(bands):
+        add(sem == cls, cls, False)
+    for i, ann in enumerate(annotations):
+        add((owner == i) & (sem != 255), ann["category_id"] - 1, True)
+    return sem, pan, segments
+
+
+def generate_synthetic_panoptic(root: str, num_images: int = 8, h: int = 160, w: int = 224, seed: int = 0,
+                                sem_seg_classes: int = 4, thing_classes=THING_CLASSES) -> dict:
+    """Write under ``root`` the images (``images/``) and ``instances.json`` of
+    ``generate_synthetic_coco`` for the same seed (the same draws: byte-equal
+    PNGs, the same objects; categories ``thing_classes``, the objects taking
+    ids 1-3), ``sem_seg/`` (stuff label PNGs of ``sem_seg_classes`` classes,
+    their bands drawn from a generator of their own: the stuff is labelled,
+    not painted), and ``panoptic/`` with ``panoptic.json`` (one annotation per
+    image: its id PNG's file name and its segments' info). Returns the paths
+    by key (image_root, instances_json, sem_seg_root, panoptic_root,
+    panoptic_json)."""
+    from PIL import Image
+
+    from .coco_panoptic import id2rgb
+
+    paths = {"image_root": os.path.join(root, "images"), "instances_json": os.path.join(root, "instances.json"),
+             "sem_seg_root": os.path.join(root, "sem_seg"), "panoptic_root": os.path.join(root, "panoptic"),
+             "panoptic_json": os.path.join(root, "panoptic.json")}
+    if os.path.exists(paths["panoptic_json"]):
+        with open(paths["panoptic_json"]) as f:
+            if json.load(f).get("info", {}).get("synth_panoptic_format") == _PANOPTIC_FORMAT:
+                return paths
+    for key in ("image_root", "sem_seg_root", "panoptic_root"):
+        os.makedirs(paths[key], exist_ok=True)
+    rng, stuff_rng = np.random.RandomState(seed), np.random.RandomState(seed + 1)
+    images, anns, pan_anns = [], [], []
+    for i in range(num_images):
+        img, objs = _make_image(rng, h, w, n_objs=int(rng.randint(1, 4)))
+        sem, pan, segments = _panoptic_maps(stuff_rng, h, w, objs, sem_seg_classes)
+        fname = f"synth_{i:04d}.png"
+        for folder, array in (("image_root", img), ("sem_seg_root", sem.astype(np.uint8)),
+                              ("panoptic_root", id2rgb(pan))):
+            _write_atomically(os.path.join(paths[folder], fname),
+                              lambda tmp, a=array: Image.fromarray(a).save(tmp, format="PNG"))
+        images.append({"id": i + 1, "file_name": fname, "height": h, "width": w})
+        anns += [dict(obj, id=len(anns) + k + 1, image_id=i + 1) for k, obj in enumerate(objs)]
+        pan_anns.append({"image_id": i + 1, "file_name": fname, "segments_info": segments})
+    categories = [{"id": i + 1, "name": n} for i, n in enumerate(thing_classes)]
+    coco = {"info": {"synth_format": _FORMAT_VERSION}, "images": images, "annotations": anns,
+            "categories": categories}
+    _write_atomically(paths["instances_json"], lambda tmp: Path(tmp).write_text(json.dumps(coco)))
+    panoptic = {"info": {"synth_panoptic_format": _PANOPTIC_FORMAT}, "images": images, "annotations": pan_anns}
+    _write_atomically(paths["panoptic_json"], lambda tmp: Path(tmp).write_text(json.dumps(panoptic)))
+    return paths
+
+
 def _write_atomically(path: str, write) -> None:
     """``write(tmp)`` to a name of this process's, then renamed to ``path``:
     processes that generate one dataset at once never read a half-written file."""
@@ -241,3 +336,30 @@ def register_synthetic_coco(
         thing_classes=list(THING_CLASSES),
         thing_dataset_id_to_contiguous_id={i + 1: i for i in range(len(THING_CLASSES))},
     )
+
+
+def register_synthetic_panoptic(name: str = "coco_panoptic_synthetic_tiny", root: Optional[str] = None,
+                                num_images: int = 8, h: int = 160, w: int = 224, sem_seg_classes: int = 4,
+                                thing_classes=THING_CLASSES, seed: int = 0) -> None:
+    """Generate (unless a valid copy is there) the panoptic set under ``root``
+    (default: ``build/synthetic_datasets/<name>`` in the repository) and
+    register it twice over the same files: ``name`` through
+    ``register_coco_panoptic`` ("separated" records, the ``coco_panoptic_seg``
+    evaluator type) and ``name + "_sem_seg"`` with the ``sem_seg`` type, both
+    with the thing classes' id map and the ``sem_seg_classes`` stuff classes
+    ("things" first). A name already registered is left as it is."""
+    from ..catalog import DatasetCatalog, MetadataCatalog
+    from .coco_panoptic import register_coco_panoptic
+
+    if name in DatasetCatalog:
+        return
+    root = root or str(_DEFAULT_ROOT / name)
+    paths = generate_synthetic_panoptic(root, num_images, h, w, seed, sem_seg_classes, thing_classes)
+    metadata = dict(thing_classes=list(thing_classes),
+                    thing_dataset_id_to_contiguous_id={i + 1: i for i in range(len(thing_classes))},
+                    stuff_classes=["things"] + [f"stuff_{i}" for i in range(1, sem_seg_classes)], ignore_label=255)
+    register_coco_panoptic(name, metadata, paths["image_root"], paths["panoptic_root"], paths["panoptic_json"],
+                           instances_json=paths["instances_json"], sem_seg_root=paths["sem_seg_root"])
+    twin = f"{name}_sem_seg"
+    DatasetCatalog.register(twin, lambda: DatasetCatalog.get(name))
+    MetadataCatalog.get(twin).set(evaluator_type="sem_seg", json_file=paths["instances_json"], **metadata)

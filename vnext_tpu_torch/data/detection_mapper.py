@@ -9,6 +9,15 @@ and padded to ``target_size``, its true size, and up to ``max_insts`` ground
 truth slots of absolute-xyxy boxes, labels and a validity mask, with
 full-resolution bitmasks for Mask R-CNN and keypoints for keypoint R-CNN;
 ``stack_detection_batch`` collates a train batch.
+
+A record with a ``sem_seg_file_name`` also gives ``sem_seg``, the semantic
+ground truth of PanopticFPN and SemanticSegmentor: the label PNG through the
+image's transforms (nearest where they resample), cut as the image is, padded
+with ``sem_seg_ignore_value`` to ``target_size`` and taken to a quarter of it
+by ``_resize_nearest`` (every fourth row and column). The JAX package's mapper
+never makes it, so neither of its semantic architectures can train on a
+dataset there (ROADMAP Queue 3, item 6); a record without the file maps
+exactly as there.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import random
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+from PIL import Image
 
 from .dataset_mapper import _load_image, decode_segmentation
 from .datasets.builtin_meta import keypoint_flip_indices
@@ -36,6 +46,7 @@ class DetectionDatasetMapper:
         num_keypoints: int = 17,
         kp_hflip_indices=None,
         image_loader=_load_image,
+        sem_seg_ignore_value: int = 255,
     ):
         self.is_train = is_train
         self.aug = ClipAugmentation(
@@ -52,6 +63,7 @@ class DetectionDatasetMapper:
             list(kp_hflip_indices) if kp_hflip_indices is not None else list(keypoint_flip_indices())
         )
         self.image_loader = image_loader
+        self.sem_seg_ignore_value = sem_seg_ignore_value
 
     @classmethod
     def from_config(cls, cfg, is_train: bool = True) -> "DetectionDatasetMapper":
@@ -64,6 +76,7 @@ class DetectionDatasetMapper:
             mask_on=cfg.MODEL.MASK_ON,
             keypoint_on=cfg.MODEL.KEYPOINT_ON,
             num_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS,
+            sem_seg_ignore_value=cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE,
         )
 
     def draw(self, record: dict, rng: random.Random) -> None:
@@ -137,7 +150,21 @@ class DetectionDatasetMapper:
             out["masks"] = masks
         if self.keypoint_on:
             out["keypoints"] = keypoints
+        if "sem_seg_file_name" in record:
+            with Image.open(record["sem_seg_file_name"]) as im:
+                labels = tfms.apply_segmentation(np.asarray(im))
+            sem_seg = np.full((th, tw), self.sem_seg_ignore_value, np.int32)
+            sem_seg[:h, :w] = labels[:h, :w]
+            out["sem_seg"] = _resize_nearest(sem_seg, (th // 4, tw // 4))
         return out
+
+
+def _resize_nearest(arr: np.ndarray, shape) -> np.ndarray:
+    """Nearest resize of a label map to ``shape`` (floor of i * in / out)."""
+    oh, ow = shape
+    ys = (np.arange(oh) * arr.shape[0] / oh).astype(np.int64).clip(0, arr.shape[0] - 1)
+    xs = (np.arange(ow) * arr.shape[1] / ow).astype(np.int64).clip(0, arr.shape[1] - 1)
+    return arr[ys][:, xs]
 
 
 def stack_detection_batch(samples) -> Dict[str, np.ndarray]:

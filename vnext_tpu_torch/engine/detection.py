@@ -15,11 +15,14 @@ the same padded input. Training: the mapper's fixed-shape samples (padded to
 collated, normalized on the card and fed to ``make_train_step`` with every
 loss at weight 1 (the JAX step's plain sum of the loss dict).
 
-``GeneralizedRCNN`` (with keypoint R-CNN and Cascade R-CNN), ``ProposalNetwork``,
-``RetinaNet`` and ``FCOS`` are ported, each with its row of the JAX package's
-per-architecture table (``SPEC``: whether the forward takes the images' true
-sizes, and whether it trains on masks); PanopticFPN and SemanticSegmentor
-raise in ``models.build_model`` naming their ROADMAP item.
+Every image architecture of the JAX package is ported, each with its row of
+its per-architecture table (``SPEC``: whether the forward takes the images'
+true sizes, whether it trains on masks, whether it trains on a semantic
+ground truth): ``GeneralizedRCNN`` (with keypoint R-CNN and Cascade R-CNN),
+``PanopticFPN``, ``ProposalNetwork``, ``RetinaNet``, ``FCOS`` and
+``SemanticSegmentor``. The runner's PanopticFPN output adds the semantic map
+and the panoptic fusion of it with the detections, which JAX's runner does not
+make (ROADMAP Queue 3, item 6).
 Two choices differ from the JAX package's ``do_train_detection`` (ROADMAP
 Queue 3): it initializes on the loader's first batch and trains from its
 second, where the port trains from the first; and a resumed run here takes up
@@ -40,13 +43,14 @@ from ..checkpoint.checkpointer import Checkpointer, load_weights
 from ..data.build import PrefetchIterator, TrainingSampler
 from ..data.catalog import DatasetCatalog
 from ..data.dataset_mapper import _load_image
-from ..data.detection_mapper import DetectionDatasetMapper, stack_detection_batch
+from ..data.detection_mapper import DetectionDatasetMapper, _resize_nearest, stack_detection_batch
 from ..data.transforms import ClipAugmentation
 from ..evaluation.testing import verify_final_loss, verify_results
 from ..evaluation.ytvis_eval import build_evaluator
-from ..models import DETECTRON2_ARCHITECTURES, build_model
+from ..models import build_model
 from ..models.cascade_rcnn import STAGE_IOUS
 from ..models.rcnn import DetTargets
+from ..models.semantic_seg import combine_semantic_and_instance_outputs
 from ..ops.mask_ops import paste_masks_in_image
 from ..solver.build import build_grad_clip, build_lr_schedule, build_lr_scheduler, build_optimizer
 from ..utils.events import CommonMetricPrinter, JSONWriter
@@ -54,18 +58,17 @@ from .hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, Pe
 from .train_step import TrainState, make_train_step
 from .trainer import VISTrainer
 
-# the ported image meta-architectures: does the forward take the true sizes, and does it train on masks
-# (the JAX package's table, engine/detection.py _ARCH, less its sem_seg and rng columns: the sem_seg
-# architectures are not ported, and every train forward here takes the step's generator)
+# the image meta-architectures: does the forward take the true sizes, does it train on masks, and on a
+# semantic ground truth (the JAX package's table, engine/detection.py _ARCH, less its rng column: every train
+# forward here takes the step's generator)
 SPEC = {
-    "GeneralizedRCNN": dict(sizes=True, masks=True),
-    "ProposalNetwork": dict(sizes=True, masks=False),
-    "RetinaNet": dict(sizes=False, masks=False),
-    "FCOS": dict(sizes=False, masks=False),
+    "GeneralizedRCNN": dict(sizes=True, masks=True, sem_seg=False),
+    "PanopticFPN": dict(sizes=True, masks=True, sem_seg=True),
+    "ProposalNetwork": dict(sizes=True, masks=False, sem_seg=False),
+    "RetinaNet": dict(sizes=False, masks=False, sem_seg=False),
+    "FCOS": dict(sizes=False, masks=False, sem_seg=False),
+    "SemanticSegmentor": dict(sizes=False, masks=False, sem_seg=True),
 }
-PORTED = tuple(SPEC)
-# then the JAX package's others (the entry point sends all of them here)
-_ARCH = (*PORTED, *DETECTRON2_ARCHITECTURES)
 
 
 def build_detection_train_loader(cfg, seed: int = 0, start_iter: int = 0) -> Iterator[Dict[str, np.ndarray]]:
@@ -97,22 +100,18 @@ def build_detection_train_loader(cfg, seed: int = 0, start_iter: int = 0) -> Ite
     return PrefetchIterator(gen())
 
 
-def _spec(arch: str, what: str) -> dict:
-    if arch not in PORTED:
-        raise NotImplementedError(f"{what} MODEL.META_ARCHITECTURE {arch!r}: not ported to vnext_tpu_torch yet "
-                                  f"(ROADMAP Queue 1, item {DETECTRON2_ARCHITECTURES.get(arch, '11')})")
-    return SPEC[arch]
-
-
 def make_batch_adapter(cfg, device):
     """Collated batch -> the train forward's inputs on ``device``: images
-    normalized [B, H, W, 3], the true sizes [B, 2] where the architecture
-    takes them (not RetinaNet's nor FCOS's), ``DetTargets``; then for Mask
-    R-CNN the bitmasks [B, K, H, W] as they come (bool), and for keypoint
+    normalized [B, H, W, 3], then SemanticSegmentor's labels [B, H/4, W/4];
+    for the others the true sizes [B, 2] where the architecture takes them
+    (not RetinaNet's nor FCOS's) and ``DetTargets``; then for Mask R-CNN and
+    PanopticFPN the bitmasks [B, K, H, W] as they come (bool), for keypoint
     R-CNN the keypoints [B, K, num_keypoints, 3] (after a None in the masks'
-    place without ``MODEL.MASK_ON``)."""
+    place without ``MODEL.MASK_ON``), for PanopticFPN the labels when the
+    batch has them (after a None in the masks' place without
+    ``MODEL.MASK_ON``)."""
     arch = cfg.MODEL.META_ARCHITECTURE
-    spec = _spec(arch, "training")
+    spec = SPEC[arch]
     mean = torch.tensor(cfg.MODEL.PIXEL_MEAN, dtype=torch.float32, device=device)
     std = torch.tensor(cfg.MODEL.PIXEL_STD, dtype=torch.float32, device=device)
     mask_on = spec["masks"] and cfg.MODEL.MASK_ON
@@ -121,12 +120,19 @@ def make_batch_adapter(cfg, device):
     def tensor(a):
         return torch.as_tensor(np.asarray(a)).to(device, non_blocking=True)
 
+    sem_seg_on = spec["sem_seg"] and arch != "SemanticSegmentor"
+
     def adapter(batch):
         images = (tensor(batch["image"]).float() - mean) / std
+        if arch == "SemanticSegmentor":
+            return images, tensor(batch["sem_seg"])
         targets = DetTargets(tensor(batch["labels"]), tensor(batch["boxes"]), tensor(batch["valid"]))
         inputs = (images, tensor(batch["size"]), targets) if spec["sizes"] else (images, targets)
-        if mask_on or keypoint_on:
+        sem_seg = sem_seg_on and "sem_seg" in batch
+        if mask_on or keypoint_on or sem_seg:
             inputs += (tensor(batch["masks"]) if mask_on else None,)
+        if sem_seg:
+            inputs += (tensor(batch["sem_seg"]),)
         return inputs + (tensor(batch["keypoints"]),) if keypoint_on else inputs
 
     return adapter
@@ -135,18 +141,22 @@ def make_batch_adapter(cfg, device):
 def loss_keys(cfg) -> tuple:
     """The train forward's loss keys, each summed at weight 1, in its order."""
     arch = cfg.MODEL.META_ARCHITECTURE
+    if arch == "SemanticSegmentor":
+        return ("loss_sem_seg",)
     if arch == "RetinaNet":
         return ("loss_cls", "loss_box_reg")
     if arch == "FCOS":
         return ("loss_fcos_cls", "loss_fcos_loc", "loss_fcos_ctr")
     keys = ("loss_rpn_cls", "loss_rpn_loc")
-    if arch != "GeneralizedRCNN":
+    if arch == "ProposalNetwork":
         return keys
     if cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads":
-        return keys + tuple(k for i in range(len(STAGE_IOUS))
-                            for k in (f"loss_cls_stage{i}", f"loss_box_reg_stage{i}"))
-    return (keys + ("loss_cls", "loss_box_reg") + (("loss_mask",) if cfg.MODEL.MASK_ON else ())
-            + (("loss_keypoint",) if cfg.MODEL.KEYPOINT_ON else ()))
+        keys += tuple(k for i in range(len(STAGE_IOUS)) for k in (f"loss_cls_stage{i}", f"loss_box_reg_stage{i}"))
+    else:
+        keys += (("loss_cls", "loss_box_reg") + (("loss_mask",) if cfg.MODEL.MASK_ON else ())
+                 + (("loss_keypoint",) if cfg.MODEL.KEYPOINT_ON else ()))
+    # PanopticFPN's semantic loss, where the batch has the labels
+    return keys + (("loss_sem_seg",) if arch == "PanopticFPN" else ())
 
 
 def make_detection_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimizer, seed: int = 0):
@@ -166,12 +176,19 @@ class DetectionInference:
     masks [D, H, W] bool with ``MODEL.MASK_ON`` and keypoints [D, K, 3] (x, y,
     score) with ``MODEL.KEYPOINT_ON``; a ProposalNetwork's proposal_boxes and
     objectness_logits). ``model`` is in eval mode on its device; the image's
-    normalization, the forward and the mask pasting run there. RetinaNet's and
-    FCOS's ``inference`` take the images alone."""
+    normalization, the forward and the mask pasting run there. RetinaNet's,
+    FCOS's and SemanticSegmentor's ``inference`` take the images alone.
+
+    The semantic argmax at H/4 becomes sem_seg [H, W] at the original size as
+    in JAX: each label repeated 4 x 4, cut to the resized image, resized
+    nearest. SemanticSegmentor returns only that; PanopticFPN adds it and
+    panoptic_seg, the fusion of it with the kept detections' masks, scores
+    and classes (``combine_semantic_and_instance_outputs`` at its defaults),
+    an (id map [H, W], segments' info) pair."""
 
     def __init__(self, cfg, model: torch.nn.Module):
         self.arch = cfg.MODEL.META_ARCHITECTURE
-        self.spec = _spec(self.arch, "DetectionInference for")
+        self.spec = SPEC[self.arch]
         self.model = model
         self.device = next(model.parameters()).device
         # DetectionDatasetMapper's test-time resize (its targets are not needed to serve)
@@ -199,6 +216,8 @@ class DetectionInference:
     def __call__(self, record: dict) -> dict:
         images, sizes, (h, w), (oh, ow) = self.preprocess(record)
         out = self.model.inference(images, sizes) if self.spec["sizes"] else self.model.inference(images)
+        if self.arch == "SemanticSegmentor":
+            return {"sem_seg": _sem_seg_at(out[0].cpu().numpy(), (h, w), (oh, ow))}
         sx, sy = ow / max(w, 1), oh / max(h, 1)
         scale = torch.tensor([sx, sy, sx, sy], dtype=torch.float32, device=self.device)
         if "proposal_boxes" in out:
@@ -211,15 +230,21 @@ class DetectionInference:
             result["masks"] = paste_masks_in_image(out["mask_probs"][0], boxes, (oh, ow))
         if "keypoints" in out:
             result["keypoints"] = out["keypoints"][0] * torch.tensor([sx, sy, 1.0], device=self.device)
-        return {k: v.cpu().numpy() for k, v in result.items()}
+        result = {k: v.cpu().numpy() for k, v in result.items()}
+        if "sem_seg" in out:
+            result["sem_seg"] = _sem_seg_at(out["sem_seg"][0].cpu().numpy(), (h, w), (oh, ow))
+            kept = result["valid"]
+            result["panoptic_seg"] = combine_semantic_and_instance_outputs(
+                result["sem_seg"], result["masks"][kept], result["scores"][kept], result["classes"][kept])
+        return result
 
 
-def _resize_nearest(arr: np.ndarray, shape) -> np.ndarray:
-    """Nearest resize of a label map to ``shape`` (floor of i * in / out)."""
-    oh, ow = shape
-    ys = (np.arange(oh) * arr.shape[0] / oh).astype(np.int64).clip(0, arr.shape[0] - 1)
-    xs = (np.arange(ow) * arr.shape[1] / ow).astype(np.int64).clip(0, arr.shape[1] - 1)
-    return arr[ys][:, xs]
+def _sem_seg_at(sem: np.ndarray, resized, original) -> np.ndarray:
+    """A label map at H/4 of the padded input -> at the original image size:
+    each label repeated 4 x 4, cut to the ``resized`` (h, w), then resized
+    nearest to ``original``."""
+    h, w = resized
+    return _resize_nearest(sem.repeat(4, axis=0).repeat(4, axis=1)[:h, :w], original)
 
 
 def do_eval_detection(cfg, model: Optional[torch.nn.Module] = None,

@@ -4,8 +4,9 @@ json has ground truth.
 
 Counterpart of ``vnext_tpu.evaluation.ytvis_eval`` (``DatasetEvaluator``,
 ``YTVISEvaluator``, ``_normalize_gt``, ``build_evaluator``) for the ``ytvis``
-evaluator type; ``build_evaluator`` also makes ``coco_eval.COCOEvaluator``
-for the ``coco`` type. One process evaluates everything: the gather across processes
+evaluator type; ``build_evaluator`` also makes ``coco_eval.COCOEvaluator``,
+``panoptic_eval.COCOPanopticEvaluator`` and ``sem_seg_eval.SemSegEvaluator``
+for the ``coco``, ``coco_panoptic_seg`` and ``sem_seg`` types. One process evaluates everything: the gather across processes
 waits for the port's distribution (ROADMAP Queue 1, item 12).
 """
 
@@ -110,21 +111,38 @@ def _normalize_gt(gt: dict) -> dict:
 
 def build_evaluator(cfg, dataset_name: str, output_dir: Optional[str] = None) -> DatasetEvaluator:
     """The evaluator of the dataset's ``evaluator_type`` metadata: "ytvis" (the
-    video AP) or "coco" (``COCOEvaluator``, "bbox" and with ``MODEL.MASK_ON``
-    "segm"); the other types come with the rest of the Detectron2 families
-    (ROADMAP Queue 1, items 11d and 11e)."""
-    evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "ytvis")
+    video AP); "coco" (``COCOEvaluator``, "bbox" and with ``MODEL.MASK_ON``
+    "segm", with ``MODEL.KEYPOINT_ON`` "keypoints"); "coco_panoptic_seg" (that
+    and ``COCOPanopticEvaluator`` with the id map's contiguous ids as things,
+    combined by ``DatasetEvaluators``); "sem_seg" (``SemSegEvaluator`` over the
+    dataset's ``stuff_classes``, else ``MODEL.SEM_SEG_HEAD.NUM_CLASSES``, and
+    its ``ignore_label``, default 255). The other types come with the rest of
+    the Detectron2 families (ROADMAP Queue 1, item 11e)."""
+    meta = MetadataCatalog.get(dataset_name)
+    evaluator_type = meta.get("evaluator_type", "ytvis")
     output_dir = output_dir or cfg.OUTPUT_DIR
     if evaluator_type == "ytvis":
         return YTVISEvaluator(dataset_name, output_dir)
-    if evaluator_type == "coco":
+    if evaluator_type in ("coco", "coco_panoptic_seg"):
         from .coco_eval import COCOEvaluator
 
         tasks = ("bbox", "segm") if cfg.MODEL.MASK_ON else ("bbox",)
         if cfg.MODEL.KEYPOINT_ON:
             tasks += ("keypoints",)
-        return COCOEvaluator(dataset_name, tasks=tasks, output_dir=output_dir)
+        coco = COCOEvaluator(dataset_name, tasks=tasks, output_dir=output_dir)
+        if evaluator_type == "coco":
+            return coco
+        from .evaluator import DatasetEvaluators
+        from .panoptic_eval import COCOPanopticEvaluator
+
+        thing_ids = set((meta.get("thing_dataset_id_to_contiguous_id") or {}).values()) or None
+        return DatasetEvaluators([coco, COCOPanopticEvaluator(thing_ids=thing_ids)])
+    if evaluator_type == "sem_seg":
+        from .sem_seg_eval import SemSegEvaluator
+
+        return SemSegEvaluator(num_classes=len(meta.get("stuff_classes") or []) or cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                               ignore_label=meta.get("ignore_label", 255))
     raise NotImplementedError(
-        f"no evaluator for type {evaluator_type!r} (dataset {dataset_name}): the port has the 'ytvis' and "
-        "'coco' evaluators; the others come with the rest of the Detectron2 families (ROADMAP Queue 1, "
-        "items 11d and 11e)")
+        f"no evaluator for type {evaluator_type!r} (dataset {dataset_name}): the port has the 'ytvis', 'coco', "
+        "'coco_panoptic_seg' and 'sem_seg' evaluators; the others come with the rest of the Detectron2 families "
+        "(ROADMAP Queue 1, item 11e)")

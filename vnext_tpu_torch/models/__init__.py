@@ -5,10 +5,9 @@
 ``MaskFormer`` / ``VideoMaskFormer_frame`` (MinVIS's registry name), and the
 Detectron2 families ``GeneralizedRCNN`` (Mask R-CNN, Faster R-CNN, keypoint
 R-CNN with ``MODEL.KEYPOINT_ON``, Cascade R-CNN with ``ROI_HEADS.NAME
-CascadeROIHeads``), ``ProposalNetwork``, ``RetinaNet`` and ``FCOS``.
-PanopticFPN and SemanticSegmentor are not ported yet (ROADMAP Queue 1, item
-11d) and raise; a name neither package knows raises the registry's
-``KeyError``.
+CascadeROIHeads``), ``PanopticFPN``, ``SemanticSegmentor``,
+``ProposalNetwork``, ``RetinaNet`` and ``FCOS``; a name neither package knows
+raises the registry's ``KeyError``.
 The entry points keep their own builders; the tools (demo, export, analysis,
 model zoo) use this one.
 """
@@ -22,12 +21,14 @@ from .fcos import FCOS
 from .idol import IDOL, build_idol_model, idol_kwargs_from_cfg
 from .layers import init_weights
 from .mask2former import MaskFormer, build_maskformer_model, maskformer_kwargs_from_cfg
-from .rcnn import GeneralizedRCNN, ProposalNetwork
+from .rcnn import GeneralizedRCNN, PanopticFPN, ProposalNetwork
 from .retinanet import RetinaNet
+from .semantic_seg import SemanticSegmentor
 from .seqformer import SeqFormer, build_seqformer_model, seqformer_kwargs_from_cfg
 
 META_ARCH_REGISTRY = Registry("META_ARCH")
-for _cls in (IDOL, SeqFormer, MaskFormer, GeneralizedRCNN, ProposalNetwork, RetinaNet, FCOS):
+for _cls in (IDOL, SeqFormer, MaskFormer, GeneralizedRCNN, PanopticFPN, ProposalNetwork, RetinaNet, FCOS,
+             SemanticSegmentor):
     META_ARCH_REGISTRY.register(_cls)
 
 
@@ -49,6 +50,24 @@ def rcnn_kwargs_from_cfg(cfg) -> dict:
         max_detections=cfg.TEST.DETECTIONS_PER_IMAGE, cascade_on=cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads",
         dtype=torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32,
     )
+
+
+def panoptic_kwargs_from_cfg(cfg) -> dict:
+    """PanopticFPN's constructor arguments (``_build_rcnn(cfg, panoptic=True)``
+    there): GeneralizedRCNN's and the semantic head's classes, ignore value
+    and loss weight from ``MODEL.SEM_SEG_HEAD``."""
+    head = cfg.MODEL.SEM_SEG_HEAD
+    return dict(rcnn_kwargs_from_cfg(cfg), sem_seg_classes=head.NUM_CLASSES, sem_seg_ignore_value=head.IGNORE_VALUE,
+                sem_seg_loss_weight=head.LOSS_WEIGHT)
+
+
+def semseg_kwargs_from_cfg(cfg) -> dict:
+    """SemanticSegmentor's constructor arguments (``_semseg`` there): the
+    head's classes and ignore value and the ResNet depth; in f32 whatever
+    ``TPU.COMPUTE_DTYPE`` says, as there, so the card runs no hand-written
+    kernel for it."""
+    return dict(num_classes=cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, backbone_depth=cfg.MODEL.RESNETS.DEPTH,
+                ignore_value=cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE)
 
 
 def proposal_kwargs_from_cfg(cfg) -> dict:
@@ -93,6 +112,16 @@ def build_rcnn_model(cfg, device="cuda", seed: int = 0) -> GeneralizedRCNN:
     return _seeded(GeneralizedRCNN, rcnn_kwargs_from_cfg(cfg), device, seed, "build_rcnn_model")
 
 
+def build_panoptic_model(cfg, device="cuda", seed: int = 0) -> PanopticFPN:
+    """PanopticFPN as ``build_rcnn_model`` builds GeneralizedRCNN."""
+    return _seeded(PanopticFPN, panoptic_kwargs_from_cfg(cfg), device, seed, "build_panoptic_model")
+
+
+def build_semseg_model(cfg, device="cuda", seed: int = 0) -> SemanticSegmentor:
+    """SemanticSegmentor as ``build_rcnn_model`` builds GeneralizedRCNN."""
+    return _seeded(SemanticSegmentor, semseg_kwargs_from_cfg(cfg), device, seed, "build_semseg_model")
+
+
 def build_proposal_model(cfg, device="cuda", seed: int = 0) -> ProposalNetwork:
     """ProposalNetwork as ``build_rcnn_model`` builds GeneralizedRCNN."""
     return _seeded(ProposalNetwork, proposal_kwargs_from_cfg(cfg), device, seed, "build_proposal_model")
@@ -115,12 +144,12 @@ _BUILDERS = {
     "MaskFormer": (MaskFormer, maskformer_kwargs_from_cfg, build_maskformer_model),
     "VideoMaskFormer_frame": (MaskFormer, maskformer_kwargs_from_cfg, build_maskformer_model),
     "GeneralizedRCNN": (GeneralizedRCNN, rcnn_kwargs_from_cfg, build_rcnn_model),
+    "PanopticFPN": (PanopticFPN, panoptic_kwargs_from_cfg, build_panoptic_model),
+    "SemanticSegmentor": (SemanticSegmentor, semseg_kwargs_from_cfg, build_semseg_model),
     "ProposalNetwork": (ProposalNetwork, proposal_kwargs_from_cfg, build_proposal_model),
     "RetinaNet": (RetinaNet, retinanet_kwargs_from_cfg, build_retinanet_model),
     "FCOS": (FCOS, fcos_kwargs_from_cfg, build_fcos_model),
 }
-# vnext_tpu.models.build_model's image architectures that are not ported yet, each with its ROADMAP item
-DETECTRON2_ARCHITECTURES = {"PanopticFPN": "11d", "SemanticSegmentor": "11d"}
 
 
 def build_model(cfg, device="cuda", seed: int = 0) -> torch.nn.Module:
@@ -130,9 +159,6 @@ def build_model(cfg, device="cuda", seed: int = 0) -> torch.nn.Module:
     ``meta`` device the module is only shaped, with no storage and no
     initialization: cheap enough to build every model-zoo entry."""
     name = cfg.MODEL.META_ARCHITECTURE
-    if name in DETECTRON2_ARCHITECTURES:
-        raise NotImplementedError(f"MODEL.META_ARCHITECTURE {name!r}: this Detectron2 architecture is not ported "
-                                  f"to vnext_tpu_torch yet (ROADMAP Queue 1, item {DETECTRON2_ARCHITECTURES[name]})")
     if name not in _BUILDERS:
         META_ARCH_REGISTRY.get(name)   # raises KeyError, naming what is registered
     cls, kwargs_from_cfg, builder = _BUILDERS[name]
@@ -143,6 +169,7 @@ def build_model(cfg, device="cuda", seed: int = 0) -> torch.nn.Module:
     return builder(cfg, device=device, seed=seed)
 
 
-__all__ = ["META_ARCH_REGISTRY", "DETECTRON2_ARCHITECTURES", "build_fcos_model", "build_model", "build_proposal_model",
-           "build_rcnn_model", "build_retinanet_model", "fcos_kwargs_from_cfg", "proposal_kwargs_from_cfg",
-           "rcnn_kwargs_from_cfg", "retinanet_kwargs_from_cfg"]
+__all__ = ["META_ARCH_REGISTRY", "build_fcos_model", "build_model", "build_panoptic_model", "build_proposal_model",
+           "build_rcnn_model", "build_retinanet_model", "build_semseg_model", "fcos_kwargs_from_cfg",
+           "panoptic_kwargs_from_cfg", "proposal_kwargs_from_cfg", "rcnn_kwargs_from_cfg", "retinanet_kwargs_from_cfg",
+           "semseg_kwargs_from_cfg"]

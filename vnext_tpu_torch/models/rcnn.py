@@ -1,12 +1,13 @@
-"""GeneralizedRCNN (Mask R-CNN, Faster R-CNN, keypoint R-CNN, Cascade R-CNN)
-and ProposalNetwork: ResNet + FPN, the RPN, and the standard ROI box, mask and
-keypoint heads or the cascade's (``models/cascade_rcnn.py``), serving and
+"""GeneralizedRCNN (Mask R-CNN, Faster R-CNN, keypoint R-CNN, Cascade R-CNN),
+PanopticFPN and ProposalNetwork: ResNet + FPN, the RPN, and the standard ROI
+box, mask and keypoint heads or the cascade's (``models/cascade_rcnn.py``),
+with PanopticFPN's semantic head (``models/semantic_seg.py``), serving and
 training.
 
 Counterpart of ``vnext_tpu.models.rcnn`` (reference surface:
 detectron2/modeling/meta_arch/rcnn.py GeneralizedRCNN and ProposalNetwork,
-proposal_generator/rpn.py, roi_heads/roi_heads.py StandardROIHeads,
-keypoint_head.py, cascade_rcnn.py); PanopticFPN is ROADMAP Queue 1 item 11d.
+panoptic_fpn.py PanopticFPN, proposal_generator/rpn.py,
+roi_heads/roi_heads.py StandardROIHeads, keypoint_head.py, cascade_rcnn.py).
 Module and parameter names follow the flax tree, so ``checkpoint/from_jax.py``
 carries the JAX package's parameters across.
 
@@ -64,6 +65,7 @@ from .backbones.resnet import ResNet
 from .dense_heads import Box2BoxTransform, anchors_for_level, generate_cell_anchors, iou_matcher
 from .layers import Conv, ConvTranspose, Dense
 from .roi_heads_extra import KRCNNConvDeconvUpsampleHead, keypoint_rcnn_inference, keypoint_rcnn_loss
+from .semantic_seg import SemSegFPNHead, sem_seg_loss
 
 
 class DetTargets(NamedTuple):
@@ -457,6 +459,40 @@ class GeneralizedRCNN(nn.Module):
         ml = self.roi_heads(self._features(images), boxes)["mask_logits"]
         idx = torch.arange(boxes.shape[1], device=boxes.device).expand(boxes.shape[0], -1)
         return torch.sigmoid(self._class_masks(ml, idx, classes))
+
+
+class PanopticFPN(GeneralizedRCNN):
+    """GeneralizedRCNN's instance branch and a ``SemSegFPNHead`` of
+    ``sem_seg_classes`` over the same FPN (reference meta_arch/panoptic_fpn.py).
+    ``inference`` adds sem_seg, the semantic argmax [B, H/4, W/4], to the
+    detections; the panoptic fusion is ``combine_semantic_and_instance_outputs``
+    on the host, after the masks are pasted. In train mode ``forward`` adds
+    loss_sem_seg (at ``sem_seg_loss_weight``) of ``sem_seg_gt`` [B, H/4, W/4]
+    when it is given. It trains on no keypoints, as JAX's."""
+
+    def __init__(self, sem_seg_classes: int = 54, sem_seg_ignore_value: int = 255, sem_seg_loss_weight: float = 0.5,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.sem_seg_ignore_value, self.sem_seg_loss_weight = sem_seg_ignore_value, sem_seg_loss_weight
+        self.sem_seg_head = SemSegFPNHead(sem_seg_classes, kwargs.get("fpn_channels", 256), dtype=self.dtype)
+
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor, targets: Optional[DetTargets] = None,
+                gt_masks: Optional[torch.Tensor] = None, sem_seg_gt: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        if not self.training:
+            return self.inference(images, image_sizes)
+        feats = self._features(images)
+        losses = self.losses_on_features(feats, image_sizes, targets, gt_masks, generator)
+        if sem_seg_gt is not None:
+            losses["loss_sem_seg"] = self.sem_seg_loss_weight * sem_seg_loss(
+                self.sem_seg_head(feats), sem_seg_gt, self.sem_seg_ignore_value)
+        return losses
+
+    def inference(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
+        feats = self._features(images)
+        out = self.inference_on_features(feats, image_sizes)
+        out["sem_seg"] = self.sem_seg_head(feats).argmax(1)
+        return out
 
 
 class ProposalNetwork(nn.Module):

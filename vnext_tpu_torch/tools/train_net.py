@@ -24,11 +24,11 @@ opened as a path (a ``detectron2://`` URL is not resolved).
 
 A ``GeneralizedRCNN`` config (Mask R-CNN, Faster R-CNN, keypoint R-CNN with
 ``MODEL.KEYPOINT_ON``, Cascade R-CNN with ``ROI_HEADS.NAME CascadeROIHeads``),
-a ``RetinaNet`` or an ``FCOS`` one runs ``--eval-only`` through
-``engine/detection.do_eval_detection``: each image of the COCO-type
-``DATASETS.TEST`` sets (the COCO splits and the synthetic COCO set are
-registered) is served at ``TPU.TEST_IMAGE_SIZE`` and scored by the COCO
-evaluator's box, mask and keypoint AP. Without it,
+a ``RetinaNet``, an ``FCOS``, a ``PanopticFPN`` or a ``SemanticSegmentor`` one
+runs ``--eval-only`` through ``engine/detection.do_eval_detection``: each
+image of the ``DATASETS.TEST`` sets (the COCO splits and the synthetic COCO
+set are registered) is served at ``TPU.TEST_IMAGE_SIZE`` and scored by the
+dataset's evaluators (the COCO evaluator's box, mask and keypoint AP). Without it,
 ``engine/detection.do_train_detection`` trains it (and a ``ProposalNetwork``)
 on ``DATASETS.TRAIN`` at ``TPU.TRAIN_IMAGE_SIZE``, ``SOLVER.IMS_PER_BATCH``
 images a step:
@@ -39,9 +39,14 @@ images a step:
     python -m vnext_tpu_torch.tools.train_net --config-file configs/Misc/cascade_rcnn_R_50_FPN_1x.yaml
     python -m vnext_tpu_torch.tools.train_net --config-file configs/COCO-Detection/Base-RCNN-FPN.yaml \\
         MODEL.KEYPOINT_ON True
+    python -m vnext_tpu_torch.tools.train_net \\
+        --config-file configs/COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml [MODEL.META_ARCHITECTURE SemanticSegmentor]
 
-PanopticFPN and SemanticSegmentor raise naming their ROADMAP item (Queue 1,
-item 11d).
+PanopticFPN is scored by the COCO evaluator and the panoptic one (PQ / SQ /
+RQ), SemanticSegmentor by the semantic one (mIoU / fwIoU / pACC / mACC); the
+synthetic panoptic set (``coco_panoptic_synthetic_tiny``, and its twin
+``coco_panoptic_synthetic_tiny_sem_seg`` of the ``sem_seg`` type) is
+registered where the config names it.
 
 The run is on the card unless the config says ``MODEL.DEVICE cpu`` (the
 tests' setting, which runs the kernels' plain versions); with no CUDA device
@@ -61,9 +66,9 @@ from ..checkpoint.checkpointer import Checkpointer, load_weights
 from ..config import add_idol_config, get_cfg
 from ..data import (CocoClipDatasetMapper, MetadataCatalog, build_vis_test_loader, build_vis_train_loader,
                     register_all_coco, register_all_ytvis)
-from ..data.datasets.synthetic import register_synthetic_coco, register_synthetic_ytvis
+from ..data.datasets.synthetic import register_synthetic_coco, register_synthetic_panoptic, register_synthetic_ytvis
 from ..engine.hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, PeriodicWriter
-from ..engine.detection import _ARCH as IMAGE_ARCHITECTURES
+from ..engine.detection import SPEC as IMAGE_ARCHITECTURES
 from ..engine.detection import do_eval_detection, do_train_detection
 from ..engine.launch import launch
 from ..engine.train_step import TrainState, make_train_step
@@ -81,6 +86,8 @@ from ..utils.logger import setup_logger
 SYNTHETIC_DATASET = "ytvis_synthetic_tiny"
 # the COCO-format synthetic dataset, for the COCO-pretrain stage on the quick-schedule config
 SYNTHETIC_COCO_DATASET = "coco_synthetic_tiny"
+# the synthetic panoptic set, and its twin of the sem_seg type, for PanopticFPN and SemanticSegmentor
+SYNTHETIC_PANOPTIC_DATASET = "coco_panoptic_synthetic_tiny"
 
 
 def default_argument_parser():
@@ -255,10 +262,13 @@ def run(argv, setup, archs, elsewhere: str, do_eval, do_train):
 
 
 def _register_image_datasets(cfg):
-    """The builtin COCO splits, and the synthetic COCO set where the config names it."""
+    """The builtin COCO splits, and the synthetic COCO and panoptic sets where the config names them."""
     register_all_coco()
-    if SYNTHETIC_COCO_DATASET in (*cfg.DATASETS.TRAIN, *cfg.DATASETS.TEST):
+    named = (*cfg.DATASETS.TRAIN, *cfg.DATASETS.TEST)
+    if SYNTHETIC_COCO_DATASET in named:
         register_synthetic_coco(SYNTHETIC_COCO_DATASET)
+    if any(n.startswith(SYNTHETIC_PANOPTIC_DATASET) for n in named):
+        register_synthetic_panoptic(SYNTHETIC_PANOPTIC_DATASET)
 
 
 def _eval(cfg):
