@@ -17,6 +17,7 @@
     python3 chip_smoke.py --only dense_det         # phases 1 and 28 alone (RetinaNet, FCOS)
     python3 chip_smoke.py --only rcnn_heads        # phases 1 and 29 alone (Cascade R-CNN, keypoint R-CNN)
     python3 chip_smoke.py --only panoptic          # phase 1, K2 at PanopticFPN's image and step, phase 30 alone
+    python3 chip_smoke.py --only datasets          # phase 1, K2 at Cityscapes' image and step, phase 31 alone
 
 Phases, each printed as it ends; any failure raises and exits non-zero. Each
 path zeroes every kernel's launch counter just before it runs and reads them
@@ -110,15 +111,15 @@ port's own reader (``vnext_tpu_torch.config``).
     K2 / K3 = 12 / 0 / 6 per clip (a patch embed, no stem), and the forward of
     a clip of 10 at 480x864 (``bench_swinl``'s shape) with its window
     attention's time; then frame 0 card vs CPU as phase 4.
-15. SeqFormer-Swin-L (``configs/seqformer/swin_ytvis.yaml``) as phases 7 and 8:
-    K1 / K2 / K3 / K4 = 6 / 0 / 6 / 6 per clip.
+15. SeqFormer-Swin-L (``configs/seqformer/swin_ytvis.yaml``) as phase 7:
+    K1 / K2 / K3 / K4 = 6 / 0 / 6 / 6 per clip. Its forward is held card vs
+    CPU by phase 21's train forward (the same model's losses and gradients).
 16. IDOL-R101 (``configs/idol/ytvis19_r101.yaml``): one clip (K1 / K2 / K3 =
     12 / 1 / 6), its forward's profile, frame 0 card vs CPU; then IDOL-Swin-L's
     seeded state written out under the reference's names (``module.``
     prefixed ``.pth``) and imported into a model of another seed
     (``checkpoint/torch_import.py``): a clean report, and outputs equal bit for
     bit to the seeded model's on a clip.
-    The seconds of phases 11-16 are printed.
 17. IDOL's entry point (``vnext_tpu_torch.tools.train_net.main``, in-process)
     on a synthetic YTVIS dataset written to a temporary directory (2 videos x
     11 frames at 480x853, PNG): ``--eval-only`` with
@@ -180,15 +181,20 @@ port's own reader (``vnext_tpu_torch.config``).
     the update held landed as phase 19's, the step's split, busy share and
     peak memory; every Swin block's rate from the linspace table and, over the
     steps' draws, its kept share within 4 sigma of 1 - rate; two forwards from
-    one (seed, step) draw the same masks. One clip card vs CPU at drop-path 0
-    and dropout 0, the CPU's simOTA matching and ReID selection replayed on
-    the card. Then ``train_net.main`` on a synthetic dataset (2 videos x 6
-    frames): 2 steps with a checkpoint, ``--resume`` to 3, the restored state
-    equal to the file bit for bit.
+    one (seed, step) draw the same masks. Then ``train_net.main`` on a
+    synthetic dataset (2 videos x 6 frames): 2 steps with a checkpoint,
+    ``--resume`` to 3, the restored state equal to the file bit for bit. Then
+    one clip card vs CPU at drop-path 0 and dropout 0, the CPU's simOTA
+    matching and ReID selection replayed on the card.
 21. SeqFormer-Swin-L's train step (``configs/seqformer/swin_ytvis.yaml``) as
-    phase 19, 4 clips x 5 frames at 512x640, K4 / K5 = 12 / 12 a step, with
+    phase 19, 2 clips x 5 frames at 512x640, K4 / K5 = 12 / 12 a step, with
     phase 20's drop-path checks; card vs CPU on one clip of 5 frames at
     384x480 (the CPU's f32 reference near a minute).
+    Phases 19-21's card-vs-CPU clips have their CPU sides (the models' seeded
+    weights too) computed in one process of their own (``CpuReference``), at
+    the lowest priority with 7 threads on the host's 8 cores, from phase 17's start
+    (from the phase's start when a phase runs alone), while this process
+    drives the card; each phase's card side follows.
 22. InstMove training through ``vnext_tpu_torch.tools.train_instmove.main``
     (``configs/minvis/ovis_r50_motion.yaml``, full width, f32, TF32 off) on a
     synthetic dataset of 2 videos x 20 frames (``INSTMOVE_VIDEO_FRAMES``): 8 steps of 16 sequences at
@@ -224,10 +230,10 @@ port's own reader (``vnext_tpu_torch.config``).
     tracks equal to ``IDOLVideoInference``'s called directly on the same
     record; the model's class-0 bias raised as in phase 3 and passed as
     ``MODEL.WEIGHTS``), then ``--model-type seqformer`` and ``minvis`` on 6
-    frames; IDOL-R50 and SeqFormer-R50 at full width with 2 encoder and 2
-    decoder layers (the yamls' 6 cut: the trace's and the load's time go with the graph) exported at 10 x 480x864
+    frames; IDOL-R50 and SeqFormer-R50 at full width with 1 encoder and 1
+    decoder layer (the yamls' 6 cut: the trace's and the load's time go with the graph) exported at 10 x 480x864
     (``export_program``): the graph holds exactly their ``vnext::`` operators
-    (IDOL K1 4, K2 1, K3 2; SeqFormer K1 2, K4 2, K2 1, K3 2) and no plain
+    (IDOL K1 2, K2 1, K3 1; SeqFormer K1 1, K4 1, K2 1, K3 1) and no plain
     version, the ``.pt2`` saved and loaded, its run launches exactly those and
     equals the eager model within one bf16 ulp at the largest element, its
     forward timed beside the eager one; ``analyze_model`` on IDOL-R50 at
@@ -271,7 +277,7 @@ port's own reader (``vnext_tpu_torch.config``).
     ``MODEL.WEIGHTS``), every output finite, the COCO evaluator's bbox dict;
     the forward alone, the greedy NMS walk's synchronized share of it (1,000
     candidates an image), device busy share, peak memory; trained through
-    ``train_net.main`` from the same weights, 3 steps of 2 images at 800x1344
+    ``train_net.main`` from the same weights, 2 steps of 2 images at 800x1344
     and the evaluation after the last (each update landed, the frozen
     parameters bit-equal), a step under the profiler; one image's losses and
     gradients card vs CPU at the seeded weights, with TF32 off (the script's
@@ -299,6 +305,22 @@ port's own reader (``vnext_tpu_torch.config``).
     choices, the FPN maps and the semantic logits compared too (5%).
     SemanticSegmentor served with the semantic evaluator's mIoU / fwIoU /
     pACC / mACC, trained, and card vs CPU with TF32 off and on as phase 28.
+31. The LVIS v1 / v0.5 (Mask R-CNN, 1203 / 1230 classes, 300 detections an
+    image at score 1e-4), Pascal VOC (Faster R-CNN, 20 classes) and Cityscapes
+    (Mask R-CNN, 8 classes, 1024x2048) yamls at full width, bf16, on
+    synthetic sets written in each dataset's own layout under
+    ``$VNEXT_DATASETS`` (LVIS jsons with every category over 480x640 JPEGs,
+    VOC XML at 375x500, Cityscapes' PNGs at 1024x2048), the yamls' own
+    ``DATASETS`` names resolved by the entry point: each served through
+    ``train_net.main --eval-only`` on 4 images (K2 once an image) and scored
+    by its own evaluator (LVIS's AP with APr / APc / APf, VOC's AP50,
+    Cityscapes' mask AP); the forward alone (LVIS v1, Cityscapes) by
+    CUDA events with its NMS walks' share, busy share and peak memory; LVIS v1
+    (2 images a step) and Cityscapes (1) trained 3 steps with the evaluation
+    after, VOC 2 steps on VOC2007 + VOC2012 (K2 once a step); one LVIS image
+    card vs CPU as phase 26 (the 1203-class box predictor and mask head, 5%).
+    K2 is held against its plain version at Cityscapes' [1, 1024, 2048, 3],
+    forward (2a) and backward (2b).
 
 Then the seconds by phase and of the whole run, a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -310,6 +332,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import logging
@@ -688,6 +711,7 @@ def phase_kernels(dev):
     results["stem"] = stem_serving_case(dev, rng, (CLIP, HEIGHT, WIDTH, 3))
     results["stem_instmove"] = stem_serving_case(dev, np.random.RandomState(13), (INSTMOVE_BATCH, *INSTMOVE_HW, 3))
     results["stem_rcnn"] = stem_serving_case(dev, np.random.RandomState(26), RCNN_SHAPE)     # Mask R-CNN's image
+    results["stem_cityscapes"] = stem_serving_case(dev, np.random.RandomState(31), CITYSCAPES_SHAPE)
 
     # K3 encoder epilogue
     results["epilogue"], (attn, src, params) = epilogue_case(t, rng, CLIP, s, f"[{CLIP},{s},256]")
@@ -1089,6 +1113,8 @@ def phase_train_kernels(dev):
     results["stem_train"] = stem_train_case(dev, rng, TRAIN_CLIPS, TRAIN_HW, "train shape")
     # Mask R-CNN's train step (phase 27): 2 images at 800x1344
     results["stem_rcnn_train"] = stem_train_case(dev, rng, RCNN_TRAIN_BATCH, RCNN_TRAIN_HW, "Mask R-CNN train")
+    # the Cityscapes yaml's train step (phase 31): 1 image at 1024x2048
+    results["stem_cityscapes_train"] = stem_train_case(dev, rng, 1, CITYSCAPES_SHAPE[1:3], "Cityscapes train")
     print("[phase 2b] K4, K5 (and the v6 route's backward) and K2 agree with their plain versions at "
           "train-step shapes; K2 has a backward")
     return results
@@ -1711,7 +1737,7 @@ def phase_seqformer(dev, kernels, config="seqformer/ytvis19_r50.yaml", label="Se
     return model, whole, records[0], cfg, launches, timing
 
 
-def phase_seqformer_numerics(model, runner, record, cfg, tag="8"):
+def phase_seqformer_numerics(model, runner, record, cfg):
     import torch
 
     from vnext_tpu_torch.models.seqformer import build_seqformer_model
@@ -1742,7 +1768,7 @@ def phase_seqformer_numerics(model, runner, record, cfg, tag="8"):
         err = float((a - b).norm() / b.norm().clamp_min(1e-30))
         print(f"  {name}: relative L2 error {err:.4g} tolerance 0.05: {reason}")
         require(err <= 0.05, f"{name}: relative error {err}")
-    print(f"[phase {tag}] SeqFormer card (kernels, bf16) agrees with CPU (plain, f32) on a 2-frame clip")
+    print("[phase 8] SeqFormer card (kernels, bf16) agrees with CPU (plain, f32) on a 2-frame clip")
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2811,25 +2837,20 @@ class MaskLossTrace:
         return out
 
 
-def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights, taps=("assign_batched",),
-                      trace=None):
-    """One train forward and backward of ``card`` (bf16, kernels) and ``cpu``
-    (f32, plain versions; the card's weights) on the same inputs: each loss
-    within 5% relative, each parameter group's gradient within 10% relative L2,
-    at the card's own assignment and again with the CPU's replayed on the card.
-    ``module`` is the model's module (``mask2former``, ``seqformer`` or
-    ``idol``) and ``taps`` its matching functions (IDOL: simOTA's ``match`` and
-    the ReID ``pos_neg_masks``); a MaskFormer's sampled-loss coordinates are
-    drawn once, on the CPU's run, and the card's runs take the same. With
-    ``trace`` (``MaskLossTrace``), the CPU's run and the card's at the CPU's
-    assignment are recorded and compared stage by stage before the limits
-    are held."""
+def train_pass(module, model, inputs, groups, weights, taps, trace=None, coords=None, replay=None):
+    """One train forward and backward of ``model`` on ``inputs``: the losses,
+    each parameter group's gradient (f32, on the host), the assignments
+    ``module``'s matching functions ``taps`` returned (or, with ``replay``,
+    were made to return) and ``trace``'s record (``MaskLossTrace``, or None).
+    A MaskFormer's sampled-loss coordinates are drawn into ``coords`` when it
+    is empty, and taken from it in order when it is not."""
     import torch
 
     from vnext_tpu_torch.models import mask2former
     from vnext_tpu_torch.ops import point_sample
 
-    coords, replay_coords = [], []
+    coords = [] if coords is None else coords
+    replay_coords = list(coords)
 
     def sampled(src, tgt, valid, num, num_points=12544, generator=None):
         if replay_coords:
@@ -2841,28 +2862,156 @@ def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights, taps
             coords.append(c.cpu())
         return point_sample.mask_losses_at(src, tgt, c, valid, num)
 
-    def run(model, device, replay=None):
-        model.zero_grad(set_to_none=True)
-        replay_coords[:] = coords
-        with contextlib.ExitStack() as stack:
-            stack.enter_context(patched(mask2former, "sampled_mask_losses", sampled))
-            tapped = [stack.enter_context(AssignmentTap(module, name)) for name in taps]
-            traced = stack.enter_context(trace()) if trace is not None else None
-            for i, tap in enumerate(tapped):
-                tap.replay = None if replay is None else list(replay[i])
-            losses = model(*inputs_on(device))
-            total = sum(losses[k] * weights[k] for k in losses if k in weights)
-            total.backward()
-        grads = {}
-        for group, prefixes in groups:
-            gs = [p.grad.detach().float().cpu().reshape(-1) for n, p in model.named_parameters()
-                  if n.startswith(prefixes) and p.grad is not None]
-            grads[group] = torch.cat(gs)
-        return {k: float(v.detach()) for k, v in losses.items()}, grads, [tap.recorded for tap in tapped], traced
+    model.zero_grad(set_to_none=True)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(mask2former, "sampled_mask_losses", sampled))
+        tapped = [stack.enter_context(AssignmentTap(module, name)) for name in taps]
+        traced = stack.enter_context(trace()) if trace is not None else None
+        for i, tap in enumerate(tapped):
+            tap.replay = None if replay is None else list(replay[i])
+        losses = model(*inputs)
+        total = sum(losses[k] * weights[k] for k in losses if k in weights)
+        total.backward()
+    grads = {}
+    for group, prefixes in groups:
+        gs = [p.grad.detach().float().cpu().reshape(-1) for n, p in model.named_parameters()
+              if n.startswith(prefixes) and p.grad is not None]
+        grads[group] = torch.cat(gs)
+    return {k: float(v.detach()) for k, v in losses.items()}, grads, [tap.recorded for tap in tapped], traced
 
-    t0 = time.perf_counter()
-    want_losses, want_grads, cpu_assign, cpu_trace = run(cpu, "cpu")
-    cpu_s = time.perf_counter() - t0
+
+CPU_REFERENCE_THREADS = 7       # the worker's threads: one of the host's eight cores stays with the card's driver
+
+
+def cpu_reference_worker(job_dir, n_jobs):
+    """Entry of the CPU reference's process. For each ``job<i>.pt`` in
+    ``job_dir``, one after another: the model's weights from its seed (as the
+    card's model is built), written to ``state<i>.pt``; then the CPU side of
+    the train card-vs-CPU check (``train_pass`` of the f32 model with those
+    weights), written to ``result<i>.pt``. It runs at the lowest priority, so
+    that the card's driver keeps its core."""
+    import importlib
+
+    import torch
+
+    from vnext_tpu_torch.models.layers import init_weights
+
+    def write(obj, name):             # whole when it appears under its name
+        torch.save(obj, f"{job_dir}/{name}.tmp")
+        os.replace(f"{job_dir}/{name}.tmp", f"{job_dir}/{name}.pt")
+
+    os.nice(19)
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
+    for i in range(n_jobs):
+        job = torch.load(f"{job_dir}/job{i}.pt", weights_only=False)
+        module = importlib.import_module(job["module"])
+        cls = getattr(module, job["cls"])
+        seeded = cls(**job["kwargs"])
+        init_weights(seeded, job["seed"])
+        write(seeded.state_dict(), f"state{i}")
+        model = cls(**{**job["kwargs"], "dtype": torch.float32}).train()
+        model.load_state_dict(seeded.state_dict())
+        del seeded
+        coords = []
+        t0 = time.perf_counter()
+        losses, grads, assign, traced = train_pass(module, model, job["inputs"], job["groups"], job["weights"],
+                                                   job["taps"], MaskLossTrace if job["trace"] else None, coords)
+        write({"losses": losses, "grads": grads, "assign": assign, "coords": coords,
+               "seconds": time.perf_counter() - t0,
+               "trace": None if traced is None else (traced.head_in, traced.focal_in)}, f"result{i}")
+        del job, model, losses, grads, assign, traced
+
+
+class CpuReference:
+    """The CPU sides of train card-vs-CPU checks, computed one after another in
+    a process of its own (spawned: the card's context stays in this one)
+    while this one drives the card. Each job names the model (``module``,
+    ``cls`` and ``kwargs``, its weights from ``seed``), its ``inputs`` on the
+    host, and ``train_pass``'s ``groups``, ``weights``, ``taps`` and
+    ``trace``; ``state(i)`` waits for the i-th model's weights (for the card's
+    model) and ``result(i)`` for its CPU side."""
+
+    def __init__(self, jobs):
+        import multiprocessing
+
+        import torch
+
+        self.dir = tempfile.TemporaryDirectory(prefix="cpu_reference_")
+        for i, job in enumerate(jobs):
+            torch.save(job, f"{self.dir.name}/job{i}.pt")
+        self.left = len(jobs)
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=cpu_reference_worker, args=(self.dir.name, len(jobs)), daemon=True)
+        self.proc.start()
+
+    def _take(self, name):
+        import torch
+
+        path = f"{self.dir.name}/{name}.pt"
+        while not os.path.exists(path):
+            require(self.proc.is_alive() or os.path.exists(path),
+                    f"the CPU reference's process exited with {self.proc.exitcode} before {name}")
+            time.sleep(0.2)
+        out = torch.load(path, weights_only=False)
+        os.remove(path)
+        return out
+
+    def state(self, i):
+        return self._take(f"state{i}")
+
+    def result(self, i):
+        import types
+
+        out = self._take(f"result{i}")
+        self.left -= 1
+        if not self.left:
+            self.proc.join()
+            self.dir.cleanup()
+        if out["trace"] is not None:
+            out["trace"] = types.SimpleNamespace(head_in=out["trace"][0], focal_in=out["trace"][1])
+        return out
+
+
+def started_references(setups):
+    """``setups`` (``seqformer_reference`` / ``idol_swin_reference`` results:
+    the card's inputs and the job of its CPU side) with the jobs started, in
+    this order, in one ``CpuReference`` process: each (inputs, job, a function
+    that waits for the model's seeded weights, one that waits for the CPU
+    side's result)."""
+    references = CpuReference([job for _, job in setups])
+    return [(inputs, job, functools.partial(references.state, i), functools.partial(references.result, i))
+            for i, (inputs, job) in enumerate(setups)]
+
+
+def train_card_vs_cpu(label, module, card, cpu, inputs_on, groups, weights, taps=("assign_batched",),
+                      trace=None, cpu_side=None):
+    """One train forward and backward of ``card`` (bf16, kernels) and ``cpu``
+    (f32, plain versions; the card's weights) on the same inputs: each loss
+    within 5% relative, each parameter group's gradient within 10% relative L2,
+    at the card's own assignment and again with the CPU's replayed on the card.
+    ``module`` is the model's module (``mask2former``, ``seqformer`` or
+    ``idol``) and ``taps`` its matching functions (IDOL: simOTA's ``match`` and
+    the ReID ``pos_neg_masks``); a MaskFormer's sampled-loss coordinates are
+    drawn once, on the CPU's run, and the card's runs take the same. With
+    ``trace`` (``MaskLossTrace``), the CPU's run and the card's at the CPU's
+    assignment are recorded and compared stage by stage before the limits
+    are held. ``cpu_side`` is a ``CpuReference``'s result, the CPU's run made
+    in its process (``cpu`` then serves the trace alone)."""
+    import torch
+
+    coords = []
+
+    def run(model, device, replay=None):
+        return train_pass(module, model, inputs_on(device), groups, weights, taps, trace, coords, replay)
+
+    if cpu_side is None:
+        t0 = time.perf_counter()
+        want_losses, want_grads, cpu_assign, cpu_trace = run(cpu, "cpu")
+        cpu_s = time.perf_counter() - t0
+    else:
+        want_losses, want_grads, cpu_assign = cpu_side["losses"], cpu_side["grads"], cpu_side["assign"]
+        cpu_trace, cpu_s = cpu_side["trace"], cpu_side["seconds"]
+        coords[:] = cpu_side["coords"]
     got_losses, got_grads, card_assign, _ = run(card, "card")
     # the first tap's first field: an assignment's gt slot per query, simOTA's selected queries
     first = [(a[0] if isinstance(a, tuple) else a, b[0] if isinstance(b, tuple) else b)
@@ -3392,31 +3541,50 @@ def check_draws_repeat(model, inputs, dev, label):
     print(f"  drop-path: two forwards from the generator of one (seed, step) drew the same {len(runs[0])} masks")
 
 
+def seqformer_reference(cfg, cpu_hw):
+    """Phases 19 and 21's card-vs-CPU clip at ``cpu_hw`` on the host, and the
+    ``CpuReference`` job of its CPU side (the model at seed 3, dropout 0 and
+    drop-path 0)."""
+    from vnext_tpu_torch.models import seqformer
+
+    kwargs = {**seqformer.seqformer_kwargs_from_cfg(cfg), "dropout": 0.0}
+    if "swin" in cfg.MODEL.BACKBONE.NAME.lower():
+        kwargs["swin"] = kwargs["swin"][:4] + (0.0,)
+    clip_inputs = seqformer_clip_batch(np.random.RandomState(19), 1, "cpu", tuple(cfg.MODEL.PIXEL_MEAN),
+                                       tuple(cfg.MODEL.PIXEL_STD), hw=cpu_hw)
+    return clip_inputs, {"module": seqformer.__name__, "cls": "SeqFormer", "kwargs": kwargs, "seed": 3,
+                         "inputs": clip_inputs, "groups": SEQ_GROUPS, "weights": seqformer.seqformer_weight_dict(cfg),
+                         "taps": ("assign_batched",), "trace": True}
+
+
 def phase_seqformer_train(dev, kernels, smi, config="seqformer/ytvis19_r50.yaml", label="SeqFormer-R50", tag="19",
-                          n_clips=SEQ_TRAIN_CLIPS, cpu_hw=TRAIN_HW, path="seqformer_train"):
+                          n_clips=SEQ_TRAIN_CLIPS, cpu_hw=TRAIN_HW, path="seqformer_train", reference=None):
     """SeqFormer's clip-level train step at its config's width through
     ``make_train_step``: ``n_clips`` clips x 5 frames at 512x640 a step, 3
     steps, then the step's parts, the device's busy time, and one clip (at
-    ``cpu_hw``) train forward on the card against the CPU. For Swin-L, also
-    drop-path's rates and draws."""
+    ``cpu_hw``) train forward on the card against the CPU (its CPU side
+    computed meanwhile: ``reference`` from ``started_references``, else
+    started here). For Swin-L, also drop-path's rates and draws."""
     import torch
 
     from vnext_tpu_torch.engine.train_step import TrainState, make_train_step
     from vnext_tpu_torch.models import seqformer
-    from vnext_tpu_torch.models.layers import init_weights
     from vnext_tpu_torch.solver import build as solver
 
     t_phase = time.perf_counter()
     cfg = read_config(config)
-    model = seqformer.build_seqformer_model(cfg, device=dev, seed=0).train()
-    describe(model, f"{label} for training", config, t_phase)
     swin = "swin" in cfg.MODEL.BACKBONE.NAME.lower()          # as backbone_kwargs_from_cfg selects Swin
+    weights = seqformer.seqformer_weight_dict(cfg)
+    mean, std = tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD)
+
+    clip_inputs, job, seeded, cpu_side = reference or started_references([seqformer_reference(cfg, cpu_hw)])[0]
+    t0 = time.perf_counter()
+    model = seqformer.build_seqformer_model(cfg, device=dev, seed=0).train()
+    describe(model, f"{label} for training", config, t0)
     optimizer = solver.build_optimizer(cfg, model)
     state = TrainState.create(model, optimizer, solver.build_lr_scheduler(cfg, optimizer))
-    weights = seqformer.seqformer_weight_dict(cfg)
     clip = solver.build_grad_clip(cfg)
     step = make_train_step(model, optimizer, weights, clip)
-    mean, std = tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD)
     inputs = [seqformer_clip_batch(np.random.RandomState(190 + i), n_clips, dev, mean, std)
               for i in range(SEQ_TRAIN_STEPS)]
     print(f"  batches: {n_clips} clips x {SEQ_TRAIN_FRAMES} frames at {TRAIN_HW[0]}x{TRAIN_HW[1]}, instances "
@@ -3436,16 +3604,14 @@ def phase_seqformer_train(dev, kernels, smi, config="seqformer/ytvis19_r50.yaml"
     del model, state, optimizer, step, inputs, drops
     torch.cuda.empty_cache()
 
-    # ---- one clip, card vs CPU, dropout 0 (and drop-path 0)
-    kwargs = {**seqformer.seqformer_kwargs_from_cfg(cfg), "dropout": 0.0}
-    if swin:
-        kwargs["swin"] = kwargs["swin"][:4] + (0.0,)
-    card = seqformer.SeqFormer(**kwargs)
-    init_weights(card, 3)
+    # ---- one clip, card vs CPU, dropout 0 (and drop-path 0): the CPU's f32 model serves the trace's head
+    state = seeded()
+    cpu = seqformer.SeqFormer(**{**job["kwargs"], "dtype": torch.float32}).train()
+    cpu.load_state_dict(state)
+    card = seqformer.SeqFormer(**job["kwargs"])
+    card.load_state_dict(state)
     card = card.to(dev).train()
-    cpu = seqformer.SeqFormer(**{**kwargs, "dtype": torch.float32}).train()
-    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
-    clip_inputs = seqformer_clip_batch(np.random.RandomState(19), 1, "cpu", mean, std, hw=cpu_hw)
+    del state
 
     def on(device):
         x, sizes, t = clip_inputs
@@ -3455,7 +3621,7 @@ def phase_seqformer_train(dev, kernels, smi, config="seqformer/ytvis19_r50.yaml"
 
     result["card_vs_cpu"] = train_card_vs_cpu(
         f"{label} train forward (one clip of {SEQ_TRAIN_FRAMES} frames at {cpu_hw[0]}x{cpu_hw[1]})", seqformer, card,
-        cpu, on, SEQ_GROUPS, weights, trace=MaskLossTrace)
+        cpu, on, SEQ_GROUPS, weights, trace=MaskLossTrace, cpu_side=cpu_side())
     del card, cpu
     torch.cuda.empty_cache()
     result["phase_s"] = time.perf_counter() - t_phase
@@ -3466,11 +3632,11 @@ def phase_seqformer_train(dev, kernels, smi, config="seqformer/ytvis19_r50.yaml"
     return {path: {k: sum(c.get(k, 0) for c in per_step) for k in per_step[0]}}, result
 
 
-def phase_seqformer_swin_train(dev, kernels, smi):
+def phase_seqformer_swin_train(dev, kernels, smi, reference=None):
     """Phase 21: phase 19 on SeqFormer-Swin-L (configs/seqformer/swin_ytvis.yaml),
     drop-path 0.3, card vs CPU on one clip of 5 frames at 384x480."""
     return phase_seqformer_train(dev, kernels, smi, "seqformer/swin_ytvis.yaml", "SeqFormer-Swin-L", "21",
-                                 SEQ_SWIN_TRAIN_CLIPS, SEQ_SWIN_CPU_HW, "seqformer_swinl_train")
+                                 SEQ_SWIN_TRAIN_CLIPS, SEQ_SWIN_CPU_HW, "seqformer_swinl_train", reference)
 
 
 # ---------------------------------------------------------------- phase 20
@@ -3493,12 +3659,28 @@ def idol_weight_dict(cfg):
                                dec_layers=c.DEC_LAYERS, deep_supervision=c.DEEP_SUPERVISION)
 
 
-def phase_idol_swin_train(dev, kernels, smi):
+def idol_swin_reference(cfg):
+    """Phase 20's card-vs-CPU clip (a loader batch: key + reference at
+    512x640) on the host, and the ``CpuReference`` job of its CPU side (the
+    model at seed 3, drop-path 0 and dropout 0)."""
+    from vnext_tpu_torch.engine.trainer import PIXEL_MEAN, PIXEL_STD, batch_to_model_inputs
+    from vnext_tpu_torch.models import idol
+
+    kwargs = {**idol.idol_kwargs_from_cfg(cfg), "dropout": 0.0}
+    kwargs["swin"] = kwargs["swin"][:4] + (0.0,)
+    batch = synthetic_batch(np.random.RandomState(20), n_clips=1)
+    return batch, {"module": idol.__name__, "cls": "IDOL", "kwargs": kwargs, "seed": 3,
+                   "inputs": batch_to_model_inputs(batch, PIXEL_MEAN, PIXEL_STD, "cpu"), "groups": IDOL_GROUPS,
+                   "weights": idol_weight_dict(cfg), "taps": ("match", "pos_neg_masks"), "trace": False}
+
+
+def phase_idol_swin_train(dev, kernels, smi, reference=None):
     """IDOL-Swin-L training at full width: 3 steps of 4 clips (key + reference
     at 512x640) through ``make_train_step`` at drop-path 0.3, the step's parts,
-    busy share and peak memory; drop-path's rates and draws on the card; one
-    clip card vs CPU at drop-path 0 and dropout 0; then ``train_net`` on a
-    synthetic dataset with ``--resume``."""
+    busy share and peak memory; drop-path's rates and draws on the card;
+    ``train_net`` on a synthetic dataset with ``--resume``; then one clip card
+    vs CPU at drop-path 0 and dropout 0 (its CPU side computed meanwhile:
+    ``reference`` from ``started_references``, else started here)."""
     import torch
 
     from vnext_tpu_torch.checkpoint.checkpointer import Checkpointer
@@ -3506,18 +3688,20 @@ def phase_idol_swin_train(dev, kernels, smi):
     from vnext_tpu_torch.engine.train_step import TrainState, make_train_step
     from vnext_tpu_torch.engine.trainer import PIXEL_MEAN, PIXEL_STD, batch_to_model_inputs
     from vnext_tpu_torch.models import idol
-    from vnext_tpu_torch.models.layers import init_weights
     from vnext_tpu_torch.solver import build as solver
     from vnext_tpu_torch.tools import train_net
 
     t_phase = time.perf_counter()
     config = "idol/ytvis19_swinL.yaml"
     cfg = read_config(config)
+    weights, clip = idol_weight_dict(cfg), solver.build_grad_clip(cfg)
+
+    batch, job, seeded, cpu_side = reference or started_references([idol_swin_reference(cfg)])[0]
+    t0 = time.perf_counter()
     model = idol.build_idol_model(cfg, device=dev, seed=0).train()
-    describe(model, "IDOL-Swin-L for training", config, t_phase)
+    describe(model, "IDOL-Swin-L for training", config, t0)
     optimizer = solver.build_optimizer(cfg, model)
     state = TrainState.create(model, optimizer, solver.build_lr_scheduler(cfg, optimizer))
-    weights, clip = idol_weight_dict(cfg), solver.build_grad_clip(cfg)
     step = make_train_step(model, optimizer, weights, clip)
     inputs = [batch_to_model_inputs(synthetic_batch(np.random.RandomState(200 + i), n_clips=SWIN_TRAIN_CLIPS),
                                     PIXEL_MEAN, PIXEL_STD, dev) for i in range(SWIN_TRAIN_STEPS)]
@@ -3532,22 +3716,6 @@ def phase_idol_swin_train(dev, kernels, smi):
     check_draws_repeat(model, inputs[0], dev, "IDOL-Swin-L")
     per_step = result["launches_per_step"]
     del model, state, optimizer, step, inputs, drops
-    torch.cuda.empty_cache()
-
-    # ---- one clip, card vs CPU, drop-path 0 and dropout 0, the CPU's matching replayed on the card
-    kwargs = {**idol.idol_kwargs_from_cfg(cfg), "dropout": 0.0}
-    kwargs["swin"] = kwargs["swin"][:4] + (0.0,)
-    card = idol.IDOL(**kwargs)
-    init_weights(card, 3)
-    card = card.to(dev).train()
-    cpu = idol.IDOL(**{**kwargs, "dtype": torch.float32}).train()
-    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
-    batch = synthetic_batch(np.random.RandomState(20), n_clips=1)
-    result["card_vs_cpu"] = train_card_vs_cpu(
-        "IDOL-Swin-L train forward (one clip, key + reference at 512x640)", idol, card, cpu,
-        lambda d: batch_to_model_inputs(batch, PIXEL_MEAN, PIXEL_STD, dev if d == "card" else "cpu"),
-        IDOL_GROUPS, weights, taps=("match", "pos_neg_masks"))
-    del card, cpu
     torch.cuda.empty_cache()
 
     # ---- the entry point: training with a checkpoint, then --resume
@@ -3599,6 +3767,17 @@ def phase_idol_swin_train(dev, kernels, smi):
         print(f"  --resume from {Path(loaded['path']).name}: started at iteration 2; model, optimizer and scheduler "
               f"state equal to the file bit for bit")
         result["entry_point"] = runs
+
+    # ---- one clip, card vs CPU, drop-path 0 and dropout 0, the CPU's matching replayed on the card
+    card = idol.IDOL(**job["kwargs"])
+    card.load_state_dict(seeded())
+    card = card.to(dev).train()
+    result["card_vs_cpu"] = train_card_vs_cpu(
+        "IDOL-Swin-L train forward (one clip, key + reference at 512x640)", idol, card, None,
+        lambda d: batch_to_model_inputs(batch, PIXEL_MEAN, PIXEL_STD, dev if d == "card" else "cpu"),
+        IDOL_GROUPS, weights, taps=("match", "pos_neg_masks"), cpu_side=cpu_side())
+    del card
+    torch.cuda.empty_cache()
     result["phase_s"] = time.perf_counter() - t_phase
     print(f"  {smi}")
     print(f"[phase 20] IDOL-Swin-L's train step ran {SWIN_TRAIN_STEPS} steps of {SWIN_TRAIN_CLIPS} clips through K4 / "
@@ -4159,7 +4338,7 @@ TOOLS_STEPS = 2              # plain_train_net's and lazyconfig_train_net's step
 # what their exported graphs hold): the operator name -> its kernel's counter
 OP_KERNEL = {"msda_fwd": "ms_deform_attn_fwd", "msda_fwd_loc": "ms_deform_attn_v9_fwd", "stem_conv": "stem_conv",
              "encoder_epilogue": "encoder_epilogue"}
-EXPORT_LAYERS = 2           # encoder and decoder layers of the exported models (the yamls have 6)
+EXPORT_LAYERS = 1           # encoder and decoder layers of the exported models (the yamls have 6)
 EXPORT_OPS = {"IDOL": {"msda_fwd": 2 * EXPORT_LAYERS, "stem_conv": 1, "encoder_epilogue": EXPORT_LAYERS},
               "SeqFormer": {"msda_fwd": EXPORT_LAYERS, "msda_fwd_loc": EXPORT_LAYERS, "stem_conv": 1,
                             "encoder_epilogue": EXPORT_LAYERS}}
@@ -5181,7 +5360,7 @@ def phase_rcnn_train(dev, kernels, smi):
 
 # ---------------------------------------------------------------- phases 28, 29 and 30
 PANOPTIC_CONFIG = "COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml"
-DET_STEPS = 3                       # train steps of each detector; the first is warm-up
+DET_STEPS = 2                       # train steps of each detector; the first is warm-up
 DET_FORWARDS = 3                    # timed forwards of each detector's serving path
 KEYPOINT_CLASSES = ("person",)      # COCO's keypoint category, the only class of keypoint R-CNN
 # (label, config under configs/, overrides, the dataset's classes, the classes' bias to raise, loss groups,
@@ -5681,12 +5860,280 @@ def phase_rcnn_heads(dev, kernels, smi):
     return launches, result
 
 
+# ---------------------------------------------------------------- phase 31
+DATASETS_IMAGES = 4                 # each yaml's test set: the images served
+CITYSCAPES_SHAPE = (1, 1024, 2048, 3)     # the Cityscapes yaml's TPU.TEST_IMAGE_SIZE: K2's input, one image a forward
+# (label, config under configs/, train steps (0: served only), images a train step: one card's share of the
+#  yaml's SOLVER.IMS_PER_BATCH on 8 cards, the evaluation after training)
+DATASET_CONFIGS = {
+    "lvis_v1": ("Mask R-CNN R50-FPN LVIS v1", "LVISv1-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml", 3, 2, True),
+    "lvis_v0.5": ("Mask R-CNN R50-FPN LVIS v0.5", "LVISv0.5-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml", 0, 2,
+                  False),
+    "voc": ("Faster R-CNN R50-FPN Pascal VOC", "PascalVOC-Detection/faster_rcnn_R_50_FPN.yaml", 2, 2, False),
+    "cityscapes": ("Mask R-CNN R50-FPN Cityscapes", "Cityscapes/mask_rcnn_R_50_FPN.yaml", 3, 1, True),
+}
+DATASET_FORWARDS = ("lvis_v1", "cityscapes")    # the forward alone (v0.5 is v1's at 1230; VOC is phase 26's, boxes only)
+
+
+@contextlib.contextmanager
+def datasets_root(root):
+    """``$VNEXT_DATASETS`` set to ``root`` inside, as it was after."""
+    old = os.environ.get("VNEXT_DATASETS")
+    os.environ["VNEXT_DATASETS"] = root
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["VNEXT_DATASETS"]
+        else:
+            os.environ["VNEXT_DATASETS"] = old
+
+
+def write_builtin_datasets(root):
+    """The synthetic LVIS (v1 and v0.5 jsons over 2 train and 4 val images at
+    480x640), VOC (VOC2007 trainval 2 and test 4, VOC2012 trainval 2, at
+    375x500) and Cityscapes (2 train and 4 val images at 1024x2048) sets in
+    their own layouts under ``root`` (``$VNEXT_DATASETS``); then the builtin
+    names registered there (forgotten first: an earlier phase's ``train_net``
+    registered them under the default root)."""
+    from vnext_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
+    from vnext_tpu_torch.data.datasets import builtin, synthetic
+
+    t0 = time.perf_counter()
+    synthetic.generate_synthetic_lvis(root, num_train=2, num_val=DATASETS_IMAGES, seed=31)
+    synthetic.generate_synthetic_voc(root, num_train=1, num_val=1, num_test=DATASETS_IMAGES, seed=31)
+    synthetic.generate_synthetic_cityscapes(root, num_train=2, num_val=DATASETS_IMAGES, seed=31)
+    for catalog in (DatasetCatalog, MetadataCatalog):
+        for name in builtin.BUILTIN_NAMES:
+            if name in catalog:
+                catalog.remove(name)
+    builtin.register_all_builtin()
+    print(f"  synthetic LVIS, Pascal VOC and Cityscapes sets written in {time.perf_counter() - t0:.1f} s under one root")
+
+
+def check_dataset_stats(name, stats, what):
+    """Each yaml's evaluator: LVIS's COCO keys with APr / APc / APf (bbox and
+    segm), VOC's AP50 by class and its mean in percent (bbox), Cityscapes'
+    mask AP (segm); fractions in [0, 1] (NaN where an area bin has no ground
+    truth), percentages in [0, 100]."""
+    if name == "voc":
+        require(list(stats) == ["bbox"] and "AP50" in stats["bbox"], f"{what}: {stats}")
+        require(all(np.isfinite(v) and 0 <= v <= 100 for v in stats["bbox"].values()), f"{what}: {stats}")
+        return
+    tasks = ["segm"] if name == "cityscapes" else ["bbox", "segm"]
+    require(sorted(stats) == tasks, f"{what}: tasks {sorted(stats)}")
+    for task in tasks:
+        common = {k: v for k, v in stats[task].items() if k not in ("APr", "APc", "APf")}
+        check_stats(common, f"{what} {task}")
+        if name.startswith("lvis"):
+            require(all(np.isfinite(stats[task][k]) and 0 <= stats[task][k] <= 1 for k in ("APr", "APc", "APf")),
+                    f"{what} {task}: frequency bands {stats[task]}")
+
+
+def phase_datasets(dev, kernels, smi):
+    """Phase 31: the LVIS v1 / v0.5, Pascal VOC and Cityscapes yamls at full
+    width (R50-FPN, bf16, their own classes, detections and image sizes) on
+    synthetic sets written in each dataset's own layout under
+    ``$VNEXT_DATASETS``, the yamls' own ``DATASETS`` names resolved by the
+    entry point. Each served through ``train_net.main --eval-only`` (seeded
+    weights, class 0's bias raised, as ``MODEL.WEIGHTS``; K2 once an image)
+    and scored by its own evaluator; LVIS v1's and Cityscapes' forward alone by
+    CUDA events with its NMS walks' share, busy share and peak memory; both
+    trained 3 steps (2 and 1 images: one card's share of 16 and 8 on 8 cards)
+    with the evaluation after; VOC 2 steps on its two train sets (VOC2007 +
+    VOC2012, XYXY boxes read by their mode); then one LVIS image card vs CPU
+    (the 1203-class box predictor and mask head) under phase 26's limits."""
+    import torch
+
+    from vnext_tpu_torch.data.catalog import DatasetCatalog
+    from vnext_tpu_torch.data.detection_mapper import DetectionDatasetMapper
+    from vnext_tpu_torch.engine import detection
+    from vnext_tpu_torch.models import build_model, rcnn
+    from vnext_tpu_torch.ops import stem_conv
+    from vnext_tpu_torch.structures.boxes import BoxMode
+    from vnext_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    k2 = {stem_conv.KERNEL.name: 1}
+    launches, result = {}, {}
+    with tempfile.TemporaryDirectory() as tmp, datasets_root(tmp):
+        write_builtin_datasets(tmp)
+        for name, (label, rel, steps, batch, eval_after) in DATASET_CONFIGS.items():
+            t0 = time.perf_counter()
+            cfg = read_config(rel)
+            model = build_model(cfg, device=dev, seed=0)
+            prepare_seeded(model, name)
+            describe(model, label, rel, t0)
+            require(model.dtype == torch.bfloat16 and model.roi_heads.cls_score.weight.shape[0]
+                    == cfg.MODEL.ROI_HEADS.NUM_CLASSES + 1, f"{label}: {model.dtype}")
+            weights = f"{tmp}/{name}_seeded.pth"
+            torch.save({"model": model.state_dict()}, weights)
+            cfg_file = ["--config-file", str(Path(__file__).resolve().parent / "configs" / rel)]
+            test_set = cfg.DATASETS.TEST[0]
+            rec = result[name] = {}
+
+            # ---- served through the entry point on the yaml's own test set
+            outputs, image_ms = [], []
+            call = detection.DetectionInference.__call__
+
+            def timed(self, record):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = call(self, record)
+                image_ms.append((time.perf_counter() - t0) * 1e3)
+                outputs.append((record, out))
+                return out
+
+            zero(kernels)
+            t0 = time.perf_counter()
+            with patched(detection.DetectionInference, "__call__", timed):
+                results = train_net.main([*cfg_file, "--eval-only", "MODEL.WEIGHTS", weights,
+                                          "OUTPUT_DIR", f"{tmp}/{name}_eval"])
+            eval_s = time.perf_counter() - t0
+            got = counts(kernels)
+            require(got == {k: v * DATASETS_IMAGES for k, v in k2.items()}, f"{label} serving launches {got}")
+            require(list(results) == [test_set] and len(outputs) == DATASETS_IMAGES, f"{label}: {list(results)}")
+            kept = []
+            for record, out in outputs:
+                require(all(np.isfinite(out[k]).all() for k in ("boxes", "scores")), f"{label}: non-finite outputs")
+                d = cfg.TEST.DETECTIONS_PER_IMAGE
+                require(out["boxes"].shape == (d, 4) and ("masks" in out) == cfg.MODEL.MASK_ON, f"{label}: {sorted(out)}")
+                if cfg.MODEL.MASK_ON:
+                    require(out["masks"].shape == (d, record["height"], record["width"]), f"{out['masks'].shape}")
+                kept.append(int(out["valid"].sum()))
+            require(sum(kept) > 0, f"{label}: no detection kept")
+            stats = results[test_set]
+            check_dataset_stats(name, stats, label)
+            print(f"  {label} train_net --eval-only on {test_set} ({outputs[0][0]['height']}x{outputs[0][0]['width']}):"
+                  f" {eval_s:.1f} s with the build, the load and the evaluator; per image through the runner "
+                  f"{', '.join(f'{v:.1f}' for v in image_ms)} ms; launches {got}; detections kept {kept} of "
+                  f"{cfg.TEST.DETECTIONS_PER_IMAGE}; the evaluator: {json.dumps(stats)}")
+            rec["serve"] = dict(eval_s=eval_s, image_ms=image_ms, kept=kept, stats=stats, launches=got)
+            launches[f"{name}_eval"] = got
+
+            # ---- the forward alone: events, the NMS walks' synchronized share, busy share, peak memory
+            runner = detection.DetectionInference(cfg, model)
+            images, sizes, _, _ = runner.preprocess(outputs[0][0])
+            want_shape = (1, *cfg.TPU.TEST_IMAGE_SIZE, 3)
+            require(tuple(images.shape) == want_shape, f"padded input {tuple(images.shape)}")
+            if name == "lvis_v1":
+                torch.cuda.empty_cache()
+                rec["card_vs_cpu"] = rcnn_card_vs_cpu(model, cfg, images, sizes)
+            if name in DATASET_FORWARDS:
+                def forward():
+                    with torch.no_grad():
+                        return model.inference(images, sizes)
+
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                forward_ms = time_ms(forward, reps=DET_FORWARDS, warmup=1)
+                peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+                above_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                acc, spans = {}, []
+
+                def span(key, fn):
+                    def wrapped(*a, **kw):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        res = fn(*a, **kw)
+                        torch.cuda.synchronize()
+                        acc[key] = acc.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+                        return res
+                    return wrapped
+
+                with patched(rcnn, "nms_mask", span("rpn_nms", rcnn.nms_mask)), \
+                        patched(rcnn, "batched_nms_mask", span("class_nms", rcnn.batched_nms_mask)):
+                    for _ in range(DET_FORWARDS):
+                        acc.clear()
+                        span("forward", forward)()
+                        spans.append(dict(acc))
+                split = {k: statistics.median(s[k] for s in spans) for k in spans[0]}
+                nms_share = (split["rpn_nms"] + split["class_nms"]) / split["forward"]
+                busy, wall = profile_busy(forward, f"{label} forward at {want_shape[1]}x{want_shape[2]}", calls=1,
+                                          top=6)
+                c, d = cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.TEST.DETECTIONS_PER_IMAGE
+                mask_gib = d * c * 14 * 14 * 2 / 2 ** 30 if cfg.MODEL.MASK_ON else 0.0
+                print(f"  {label} forward at {want_shape[1]}x{want_shape[2]}: {forward_ms:.2f} ms by CUDA events "
+                      f"(median of {DET_FORWARDS}); synchronized spans (median): "
+                      + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+                      + f"; the two greedy NMS walks {nms_share:.1%} of the forward (the class NMS over "
+                      f"{4 * d} candidates of {c} classes); device busy {busy:.2f} of {wall:.2f} ms under the profiler "
+                      f"({busy / wall:.1%}); peak memory {peak_gib:.2f} GiB ({above_gib:.2f} GiB above the weights and "
+                      f"the input), of which the mask head's class-specific logits [{d}, {c}, 14, 14] bf16 "
+                      f"{mask_gib:.3f} GiB")
+                rec["forward"] = dict(forward_ms=forward_ms, spans_ms=split, nms_share=nms_share, busy_ms=busy,
+                                      profiled_wall_ms=wall, peak_gib=peak_gib, above_weights_gib=above_gib,
+                                      mask_logits_gib=mask_gib)
+            del runner, images, sizes, model
+            torch.cuda.empty_cache()
+
+            # ---- trained through the entry point from the same weights
+            if steps:
+                if name == "voc":
+                    # the two train sets concatenated; their XYXY boxes mapped by their mode
+                    records = [r for n in cfg.DATASETS.TRAIN for r in DatasetCatalog.get(n)]
+                    years = {n: len(DatasetCatalog.get(n)) for n in cfg.DATASETS.TRAIN}
+                    require(all(years.values()) and all(a["bbox_mode"] == BoxMode.XYXY_ABS
+                                                        for r in records for a in r["annotations"]), f"VOC sets {years}")
+                    mapper = DetectionDatasetMapper.from_config(cfg, is_train=True)
+                    r = records[0]
+                    sample = mapper(r, random.Random(31))
+                    tfms = mapper.aug.build(r["height"], r["width"], random.Random(31))
+                    xyxy = np.asarray([a["bbox"] for a in r["annotations"]], np.float64)
+                    n_obj = len(xyxy)
+                    require(np.array_equal(sample["boxes"][:n_obj], tfms.apply_box(xyxy).astype(np.float32)),
+                            "VOC boxes not at the XML's corners")
+                    print(f"  VOC train sets {years} concatenated; a record's XYXY boxes mapped at the XML's corners")
+                argv = [*cfg_file, "MODEL.WEIGHTS", weights, "SOLVER.IMS_PER_BATCH", str(batch), "SOLVER.MAX_ITER",
+                        str(steps), "TEST.EVAL_PERIOD", "0", "OUTPUT_DIR", f"{tmp}/{name}_train",
+                        *([] if eval_after else ["DATASETS.TEST", "()"])]
+                trainer, trec = rcnn_train_run(argv, kernels)
+                require(trec["step_launches"] == [k2] * steps, f"{label} launches per step {trec['step_launches']}")
+                hist = trainer.storage.histories()
+                keys = sorted(k for k in hist if k.startswith("loss_"))
+                require(keys == sorted(detection.loss_keys(cfg)), f"{label} loss keys {keys}")
+                for k in keys + ["total_loss"]:
+                    require(hist[k].count() == steps and np.isfinite(hist[k].values()).all(), f"{k}: {hist[k].values()}")
+                require(len(trec["evals"]) == 1 and (eval_after or trec["evals"][0] == ({}, {})),
+                        f"{label}: evaluations {trec['evals']}")
+                steady = statistics.median(trec["step_ms"][1:])
+                line = (f"  {label} train_net: {steps} steps of {batch} image(s) at {cfg.TPU.TRAIN_IMAGE_SIZE[0]}x"
+                        f"{cfg.TPU.TRAIN_IMAGE_SIZE[1]}, {trec['wall_s']:.1f} s with the build, the load and the "
+                        f"evaluation; step ms {', '.join(f'{v:.1f}' for v in trec['step_ms'])} (steady {steady:.1f}); "
+                        f"launches per step {trec['step_launches']}; peak memory {trec['peak_gib']:.2f} GiB; losses "
+                        + "; ".join(f"{k} {', '.join(f'{v:.4g}' for v in hist[k].values())}"
+                                    for k in keys + ["total_loss"]))
+                rec["train"] = dict(steps_ms=trec["step_ms"], steady_step_ms=steady, peak_gib=trec["peak_gib"],
+                                    step_launches=trec["step_launches"], train_wall_s=trec["wall_s"],
+                                    losses={k: hist[k].values() for k in keys + ["total_loss"]})
+                if eval_after:
+                    eval_launches, eval_out = trec["evals"][0]
+                    require(eval_launches == {k: v * DATASETS_IMAGES for k, v in k2.items()},
+                            f"evaluation launches {eval_launches}")
+                    check_dataset_stats(name, eval_out[test_set], f"{label} after training")
+                    line += f"; the evaluation after training: launches {eval_launches}, {json.dumps(eval_out[test_set])}"
+                    rec["train"].update(eval_launches=eval_launches, eval_stats=eval_out[test_set])
+                print(line)
+                launches[f"{name}_train"] = {k: v * steps for k, v in k2.items()}
+                del trainer
+                torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {smi}")
+    print(f"[phase 31] the LVIS v1 / v0.5, Pascal VOC and Cityscapes yamls served through train_net --eval-only on "
+          f"their own datasets' names and scored by their own evaluators (K2 = 1 an image, at 1024x2048 for "
+          f"Cityscapes), LVIS v1 and Cityscapes trained with the evaluation after, VOC on VOC2007 + VOC2012; one LVIS "
+          f"image card vs CPU; {result['phase_s']:.1f} s")
+    return launches, result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
                                                  "with no argument, every phase.")
     parser.add_argument("--only", choices=("train_numerics", "entry_point", "minvis_entry", "seqformer_train",
                                            "swin_train", "instmove_train", "fused_tracker", "coco_pretrain",
-                                           "tools", "rcnn", "rcnn_train", "dense_det", "rcnn_heads", "panoptic"),
+                                           "tools", "rcnn", "rcnn_train", "dense_det", "rcnn_heads", "panoptic",
+                                           "datasets"),
                         help="phase 1 and this phase alone (train_numerics: phase 6; entry_point: phase 17; "
                              "minvis_entry: phase 2b's MinVIS and SeqFormer shapes and phase 18; seqformer_train: "
                              "phase 19; swin_train: phases 20 and 21; instmove_train: K2 at InstMove's shape and "
@@ -5694,7 +6141,8 @@ def main(argv=None) -> int:
                              "at Mask R-CNN's [1, 800, 1344, 3] and phase 26; rcnn_train: K2's forward and backward "
                              "at Mask R-CNN's train step [2, 800, 1344, 3] and phase 27; dense_det: phase 28; "
                              "rcnn_heads: phase 29; panoptic: K2 at PanopticFPN's [1, 800, 1344, 3] and "
-                             "[2, 800, 1344, 3] and phase 30)")
+                             "[2, 800, 1344, 3] and phase 30; datasets: K2's forward and backward at "
+                             "Cityscapes' [1, 1024, 2048, 3] and phase 31)")
     parser.add_argument("--trace", action="store_true",
                         help="with --only rcnn_heads or panoptic: first trace each R-CNN's card-vs-CPU check with "
                              "the card in f32 and with the CPU in bf16 (nothing required of the traces)")
@@ -5782,6 +6230,12 @@ def main(argv=None) -> int:
                                            "PanopticFPN train")}
             launches, panoptic = phase_panoptic(dev, kernels, smi)
             print(json.dumps({"k2_panoptic": k2, "panoptic": panoptic, "launches": launches}))
+        elif args.only == "datasets":
+            k2 = {"serving": stem_serving_case(dev, np.random.RandomState(31), CITYSCAPES_SHAPE),
+                  "train": stem_train_case(dev, np.random.RandomState(32), 1, CITYSCAPES_SHAPE[1:3],
+                                           "Cityscapes train")}
+            launches, datasets = phase_datasets(dev, kernels, smi)
+            print(json.dumps({"k2_cityscapes": k2, "datasets": datasets, "launches": launches}))
         else:
             launches, tools = phase_tools(dev, kernels, smi)
             print(json.dumps({"tools": tools, "launches": launches}))
@@ -5800,6 +6254,8 @@ def main(argv=None) -> int:
                                    msda.KERNEL_V9_BWD, msda.KERNEL_CM, msda.KERNEL_V6_FWD, msda.KERNEL_V6_BWD,
                                    msda.KERNEL_V7_FWD, msda.KERNEL_V8_FWD, exp_dynstore.KERNEL)}
     smi = phase_card()
+    phase_seconds = {"1": time.perf_counter() - t_run}
+    t0 = time.perf_counter()
     measured = phase_kernels(dev)
     measured.update(phase_train_kernels(dev))
     measured.update(phase_new_train_kernels(dev))
@@ -5807,20 +6263,30 @@ def main(argv=None) -> int:
     measured.update(more)
     entry_launches = phase_entry_points(kernels, cm_inputs)
     del cm_inputs
+    phase_seconds["2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     model, runner, record, cfg, serve_launches, timing = phase_main_path(dev, kernels)
     phase_numerics(model, runner, record, cfg)
     route_launches, route_forward_ms = phase_selector_serve(dev, kernels, model, runner, record)
     del model, runner
     torch.cuda.empty_cache()
+    phase_seconds["3, 4, 9"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     seq_model, seq_runner, seq_record, seq_cfg, seq_launches, seq_timing = phase_seqformer(dev, kernels)
     phase_seqformer_numerics(seq_model, seq_runner, seq_record, seq_cfg)
     del seq_model, seq_runner
     torch.cuda.empty_cache()
+    phase_seconds["7, 8"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     train_launches, train_timing = phase_train(dev, kernels)
+    phase_seconds["5"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_train_numerics(dev)
+    phase_seconds["6"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     route_train_launches = phase_selector_train(dev, kernels)
     torch.cuda.empty_cache()
-    phase_seconds = {}
+    phase_seconds["10"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     mv_model, mv_runner, mv_record, minvis_launches, minvis_timing = phase_minvis(dev, kernels)
     phase_seconds["11"] = time.perf_counter() - t0
@@ -5841,24 +6307,30 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sq_model, sq_runner, sq_record, sq_cfg, seq_swin_launches, seq_swin_timing = phase_seqformer(
         dev, kernels, "seqformer/swin_ytvis.yaml", "SeqFormer-Swin-L", tag="15")
-    phase_seqformer_numerics(sq_model, sq_runner, sq_record, sq_cfg, tag="15")
-    del sq_model, sq_runner
+    del sq_model, sq_runner, sq_record, sq_cfg
     torch.cuda.empty_cache()
     phase_seconds["15"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     r101_launches, r101_timing, import_result = phase_r101_and_import(dev, kernels, swin_model, swin_cfg)
     del swin_model
     phase_seconds["16"] = time.perf_counter() - t0
+    # phases 19-21's card-vs-CPU CPU sides, computed in their own process from here on
+    t0 = time.perf_counter()
+    ref19, ref20, ref21 = started_references([
+        seqformer_reference(read_config("seqformer/ytvis19_r50.yaml"), TRAIN_HW),
+        idol_swin_reference(read_config("idol/ytvis19_swinL.yaml")),
+        seqformer_reference(read_config("seqformer/swin_ytvis.yaml"), SEQ_SWIN_CPU_HW)])
+    phase_seconds["19-21 CPU sides started"] = time.perf_counter() - t0
     entry_point_launches, entry_result = phase_entry_point(dev, kernels, smi)
     phase_seconds["17"] = entry_result["phase_s"]
     torch.cuda.empty_cache()
     minvis_entry_launches, minvis_entry_result = phase_minvis_entry(dev, kernels, smi)
     phase_seconds["18"] = minvis_entry_result["phase_s"]
-    seq_train_launches, seq_train_result = phase_seqformer_train(dev, kernels, smi)
+    seq_train_launches, seq_train_result = phase_seqformer_train(dev, kernels, smi, reference=ref19)
     phase_seconds["19"] = seq_train_result["phase_s"]
-    swin_train_launches, swin_train_result = phase_idol_swin_train(dev, kernels, smi)
+    swin_train_launches, swin_train_result = phase_idol_swin_train(dev, kernels, smi, reference=ref20)
     phase_seconds["20"] = swin_train_result["phase_s"]
-    seq_swin_train_launches, seq_swin_train_result = phase_seqformer_swin_train(dev, kernels, smi)
+    seq_swin_train_launches, seq_swin_train_result = phase_seqformer_swin_train(dev, kernels, smi, reference=ref21)
     phase_seconds["21"] = seq_swin_train_result["phase_s"]
     instmove_train_result = phase_instmove_train(dev, kernels, smi)
     phase_seconds["22"] = instmove_train_result["phase_s"]
@@ -5882,6 +6354,9 @@ def main(argv=None) -> int:
     phase_seconds["29"] = heads_result["phase_s"]
     panoptic_launches, panoptic_result = phase_panoptic(dev, kernels, smi)
     phase_seconds["30"] = panoptic_result["phase_s"]
+    torch.cuda.empty_cache()
+    datasets_launches, datasets_result = phase_datasets(dev, kernels, smi)
+    phase_seconds["31"] = datasets_result["phase_s"]
     print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
     print(f"  the whole run: {time.perf_counter() - t_run:.1f} s")
 
@@ -5893,7 +6368,8 @@ def main(argv=None) -> int:
         "idol_swinl_train": swin_train_result, "seqformer_swinl_train": seq_swin_train_result,
         "instmove_train": instmove_train_result, "fused_tracker": fused_result, "coco_pretrain": coco_result,
         "tools": tools_result, "rcnn": rcnn_result, "rcnn_train": rcnn_train_result, "dense_det": dense_result,
-        "rcnn_heads": heads_result, "panoptic": panoptic_result, "phase_seconds": phase_seconds,
+        "rcnn_heads": heads_result, "panoptic": panoptic_result, "datasets": datasets_result,
+        "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
         "k5_decoder_form": measured["bwd_decoder"], "k6_backward_decoder_form": measured["bwd6_decoder"],
@@ -5907,7 +6383,7 @@ def main(argv=None) -> int:
              "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches, **entry_point_launches,
              **minvis_entry_launches, **seq_train_launches, **swin_train_launches, **seq_swin_train_launches,
              **fused_launches, **coco_launches, **tools_launches, **rcnn_launches, **rcnn_train_launches,
-             **dense_launches, **heads_launches, **panoptic_launches}
+             **dense_launches, **heads_launches, **panoptic_launches, **datasets_launches}
     for path, names in (("minvis_entry_eval", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
                         ("minvis_entry_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
                         ("seqformer_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
@@ -5926,7 +6402,9 @@ def main(argv=None) -> int:
                         ("rcnn_eval", (stem_conv.KERNEL,)), ("rcnn_train", (stem_conv.KERNEL,)),
                         ("cascade_eval", (stem_conv.KERNEL,)), ("cascade_train", (stem_conv.KERNEL,)),
                         ("keypoint_eval", (stem_conv.KERNEL,)), ("keypoint_train", (stem_conv.KERNEL,)),
-                        ("panoptic_eval", (stem_conv.KERNEL,)), ("panoptic_train", (stem_conv.KERNEL,))):
+                        ("panoptic_eval", (stem_conv.KERNEL,)), ("panoptic_train", (stem_conv.KERNEL,)),
+                        *((f"{name}_eval", (stem_conv.KERNEL,)) for name in DATASET_CONFIGS),
+                        *((f"{name}_train", (stem_conv.KERNEL,)) for name, c in DATASET_CONFIGS.items() if c[2])):
         for kern in names:
             require(paths[path].get(kern.name, 0) > 0, f"{kern.name}: no launch on the {path} path")
     # K4, K5 and K2 at the new train steps' shapes, beside their rows' train-step shape
@@ -5938,7 +6416,9 @@ def main(argv=None) -> int:
                                         "seqformer_train": measured["stem_seqformer_train"],
                                         "instmove_serving": measured["stem_instmove"],
                                         "rcnn_serving": measured["stem_rcnn"],
-                                        "rcnn_train": measured["stem_rcnn_train"]}
+                                        "rcnn_train": measured["stem_rcnn_train"],
+                                        "cityscapes_serving": measured["stem_cityscapes"],
+                                        "cityscapes_train": measured["stem_cityscapes_train"]}
     rows = [  # (kernel, the path its launches are reported from, the measurement it is reported by)
         (msda.KERNEL, "serve", "enc"),
         (stem_conv.KERNEL, "train", "stem_train"),

@@ -350,9 +350,13 @@ def test_refusals_name_their_item(served, tmp_path):
                 build_model(other, device="meta")
     assert type(build_model(cfg, device="meta")).__name__ == "GeneralizedRCNN"
     assert COCOEvaluator(DATASET, ("bbox", "keypoints"))._tasks == ("bbox", "keypoints")
+    # LVIS is the LVIS evaluator since its datasets are ported (tests/test_torch_datasets_extra.py); the rotated
+    # type still raises, naming the rest of 11e
     MetadataCatalog.get("detection_lvis_kind").set(evaluator_type="lvis")
-    with pytest.raises(NotImplementedError, match="no evaluator for type 'lvis'.*item 11e"):
-        build_evaluator(cfg, "detection_lvis_kind")
+    assert type(build_evaluator(cfg, "detection_lvis_kind")).__name__ == "LVISEvaluator"
+    MetadataCatalog.get("detection_rotated_kind").set(evaluator_type="rotated_coco")
+    with pytest.raises(NotImplementedError, match="'rotated_coco'.*item 11e"):
+        build_evaluator(cfg, "detection_rotated_kind")
     cfg.MODEL.META_ARCHITECTURE = "NoSuchArch"
     with pytest.raises(KeyError, match="No object named"):
         build_model(cfg, device="meta")

@@ -1,6 +1,6 @@
 """The data layer: catalogs, datasets, transforms and augmentation policies,
 the YTVIS and COCO pseudo-clip mappers, the plain-image detection mapper,
-the samplers and the loaders
+the samplers and the loaders, and the builtin splits' registration
 (counterpart of ``vnext_tpu.data``)."""
 
 from . import augmentation as augmentations  # the policy API (detectron2's T.* namespace)
@@ -19,6 +19,7 @@ from .catalog import DatasetCatalog, Metadata, MetadataCatalog
 from .coco_clip_mapper import CocoClipDatasetMapper
 from .dataset_mapper import YTVISDatasetMapper
 from .detection_mapper import DetectionDatasetMapper
+from .datasets.builtin import register_all_builtin
 from .datasets.coco import load_coco_json, register_all_coco, register_coco_instances
 from .datasets.synthetic import register_synthetic_coco, register_synthetic_ytvis
 from .datasets.ytvis import (
@@ -51,6 +52,7 @@ __all__ = [
     "YTVISDatasetMapper",
     "CocoClipDatasetMapper",
     "DetectionDatasetMapper",
+    "register_all_builtin",
     "load_coco_json",
     "register_all_coco",
     "register_coco_instances",

@@ -15,6 +15,14 @@ instances (byte-equal for the same seed) and labels them with two stuff bands
 and a void strip drawn apart, in detectron2's "separated" files: the
 instances json, a stuff label PNG per image (things 0, void 255) and a
 COCO-panoptic id PNG (``id2rgb``) with its json.
+
+``generate_synthetic_lvis``, ``generate_synthetic_voc`` and
+``generate_synthetic_cityscapes`` (the JAX package has none) write each of
+those datasets in its own on-disk layout under a root, so that the builtin
+splits (``datasets/builtin.py``) find them there as they would the real
+data: LVIS v1 / v0.5 jsons with every category, VOC2007 / VOC2012 XML
+annotations and split lists, Cityscapes' leftImg8bit images with their
+gtFine instance-id and train-id PNGs.
 """
 
 from __future__ import annotations
@@ -363,3 +371,165 @@ def register_synthetic_panoptic(name: str = "coco_panoptic_synthetic_tiny", root
     twin = f"{name}_sem_seg"
     DatasetCatalog.register(twin, lambda: DatasetCatalog.get(name))
     MetadataCatalog.get(twin).set(evaluator_type="sem_seg", json_file=paths["instances_json"], **metadata)
+
+
+# LVIS's categories by frequency band (rare, common, frequent), as its published jsons count them
+LVIS_FREQUENCY_COUNTS = {"v1": (337, 461, 405), "v0.5": (454, 461, 315)}
+
+
+def _rectangles(rng: np.random.RandomState, h: int, w: int, n_objs: int):
+    """An [h, w, 3] uint8 noise image with ``n_objs`` filled rectangles drawn
+    in order, and their (x, y, bw, bh) boxes."""
+    img = (rng.rand(h, w, 3) * 60 + 40).astype(np.uint8)
+    boxes = []
+    for _ in range(n_objs):
+        bw, bh = int(rng.randint(w // 8, w // 3)), int(rng.randint(h // 8, h // 3))
+        x, y = int(rng.randint(0, w - bw)), int(rng.randint(0, h - bh))
+        img[y:y + bh, x:x + bw] = rng.randint(150, 255, size=3)
+        boxes.append((x, y, bw, bh))
+    return img, boxes
+
+
+def _save(path: str, array: np.ndarray, **kwargs) -> None:
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fmt = "JPEG" if path.endswith(".jpg") else "PNG"
+    _write_atomically(path, lambda tmp: Image.fromarray(array).save(tmp, format=fmt, **kwargs))
+
+
+def generate_synthetic_lvis(root: str, num_train: int = 2, num_val: int = 4, h: int = 480, w: int = 640,
+                            seed: int = 0) -> dict:
+    """LVIS under ``root``: JPEGs under ``coco/train2017`` and ``coco/val2017``
+    (named by each image's ``coco_url``, as LVIS names them), shared by
+    ``lvis/lvis_v1_{train,val}.json`` and ``lvis/lvis_v0.5_{train,val}.json``.
+    Each json lists all of its version's categories (1203 or 1230, ids from
+    1, with synonyms and r / c / f frequencies in LVIS's counts); each object
+    is a rectangle of a category drawn from the three bands in turn, with a
+    polygon, an XYWH box and an area; each image has ``neg_category_ids``
+    (categories it does not show) and ``not_exhaustive_category_ids`` (one
+    it shows). Returns the json paths by name (``lvis_v1_val``, ...)."""
+    rng = np.random.RandomState(seed)
+    images = {}
+    for split, n in (("train", num_train), ("val", num_val)):
+        images[split] = []
+        for i in range(n):
+            img, boxes = _rectangles(rng, h, w, int(rng.randint(1, 4)))
+            image_id = len(images["train"]) + i + 1 if split == "val" else i + 1
+            fname = f"{image_id:012d}.jpg"
+            _save(os.path.join(root, "coco", f"{split}2017", fname), img, quality=95)
+            images[split].append((image_id, fname, boxes))
+    paths = {}
+    for version, counts in LVIS_FREQUENCY_COUNTS.items():
+        bands = [[] for _ in counts]
+        categories = []
+        for freq, (band, n) in enumerate(zip("rcf", counts)):
+            for _ in range(n):
+                cat_id = len(categories) + 1
+                bands[freq].append(cat_id)
+                categories.append({"id": cat_id, "name": f"lvis_{version}_{cat_id:04d}",
+                                   "synonyms": [f"lvis_{version}_{cat_id:04d}"], "frequency": band,
+                                   "image_count": int(rng.randint(1, 10)), "instance_count": int(rng.randint(1, 20))})
+        for split, entries in images.items():
+            imgs, anns = [], []
+            for image_id, fname, boxes in entries:
+                shown = []
+                for k, (x, y, bw, bh) in enumerate(boxes):
+                    band = bands[(image_id + k) % 3]
+                    cat_id = int(band[rng.randint(len(band))])
+                    shown.append(cat_id)
+                    anns.append({"id": len(anns) + 1, "image_id": image_id, "category_id": cat_id,
+                                 "bbox": [x, y, bw, bh], "area": bw * bh,
+                                 "segmentation": [[x, y, x + bw, y, x + bw, y + bh, x, y + bh]]})
+                absent = [c for c in rng.choice(len(categories), 3, replace=False) + 1 if c not in shown]
+                imgs.append({"id": image_id, "height": h, "width": w,
+                             "coco_url": f"http://images.cocodataset.org/{split}2017/{fname}",
+                             "neg_category_ids": [int(c) for c in absent],
+                             "not_exhaustive_category_ids": shown[:1]})
+            path = os.path.join(root, "lvis", f"lvis_{version}_{split}.json")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            data = {"info": {"synthetic": True}, "images": imgs, "annotations": anns, "categories": categories}
+            _write_atomically(path, lambda tmp, d=data: Path(tmp).write_text(json.dumps(d)))
+            paths[f"lvis_{version}_{split}"] = path
+    return paths
+
+
+def _voc_xml(fileid: str, h: int, w: int, objects) -> str:
+    """A VOC annotation: (class name, difficult, xmin, ymin, xmax, ymax) per
+    object in VOC's 1-based inclusive pixels."""
+    objs = "".join(
+        f"<object><name>{name}</name><pose>Unspecified</pose><truncated>0</truncated>"
+        f"<difficult>{int(difficult)}</difficult><bndbox><xmin>{x0}</xmin><ymin>{y0}</ymin>"
+        f"<xmax>{x1}</xmax><ymax>{y1}</ymax></bndbox></object>"
+        for name, difficult, x0, y0, x1, y1 in objects)
+    return (f"<annotation><folder>VOC</folder><filename>{fileid}.jpg</filename><size><width>{w}</width>"
+            f"<height>{h}</height><depth>3</depth></size><segmented>0</segmented>{objs}</annotation>")
+
+
+def generate_synthetic_voc(root: str, num_train: int = 1, num_val: int = 1, num_test: int = 4, h: int = 375,
+                           w: int = 500, seed: int = 0) -> None:
+    """``VOC2007/`` and ``VOC2012/`` under ``root``, each with
+    ``Annotations/<id>.xml``, ``JPEGImages/<id>.jpg`` and
+    ``ImageSets/Main/{train,val,trainval}.txt`` (VOC2007 also ``test.txt``):
+    1-3 rectangles an image, each of one of the 20 classes, every third
+    object ``difficult``."""
+    from .pascal_voc import CLASS_NAMES
+
+    rng = np.random.RandomState(seed)
+    for year, splits in ((2007, (("train", num_train), ("val", num_val), ("test", num_test))),
+                         (2012, (("train", num_train), ("val", num_val)))):
+        base = os.path.join(root, f"VOC{year}")
+        os.makedirs(os.path.join(base, "Annotations"), exist_ok=True)
+        os.makedirs(os.path.join(base, "ImageSets", "Main"), exist_ok=True)
+        lists, count = {}, 0
+        for split, n in splits:
+            lists[split] = []
+            for _ in range(n):
+                count += 1
+                fileid = f"{count:06d}" if year == 2007 else f"{year}_{count:06d}"
+                img, boxes = _rectangles(rng, h, w, int(rng.randint(1, 4)))
+                _save(os.path.join(base, "JPEGImages", fileid + ".jpg"), img, quality=95)
+                objects = [(CLASS_NAMES[rng.randint(len(CLASS_NAMES))], k % 3 == 2, x + 1, y + 1, x + bw, y + bh)
+                           for k, (x, y, bw, bh) in enumerate(boxes)]
+                Path(base, "Annotations", fileid + ".xml").write_text(_voc_xml(fileid, h, w, objects))
+                lists[split].append(fileid)
+        lists["trainval"] = lists["train"] + lists["val"]
+        for split, ids in lists.items():
+            Path(base, "ImageSets", "Main", split + ".txt").write_text("".join(f"{i}\n" for i in ids))
+
+
+# Cityscapes label ids: the stuff drawn under the things (road, building, sky) and their train ids
+_CITYSCAPES_STUFF = ((7, 0), (11, 2), (23, 10))
+_CITYSCAPES_THING_TRAIN_IDS = {24: 11, 25: 12, 26: 13, 27: 14, 28: 15, 31: 16, 32: 17, 33: 18}
+
+
+def generate_synthetic_cityscapes(root: str, num_train: int = 1, num_val: int = 4, h: int = 1024, w: int = 2048,
+                                  seed: int = 0) -> None:
+    """``cityscapes/`` under ``root``: ``leftImg8bit/{train,val}/<city>/
+    <city>_<seq>_<frame>_leftImg8bit.png`` with, under ``gtFine/`` at the same
+    place, ``..._gtFine_instanceIds.png`` (16-bit: sky, building and road
+    bands as their label ids, each thing rectangle as label id * 1000 + its
+    index, an unlabeled strip 0) and ``..._gtFine_labelTrainIds.png`` (uint8:
+    train ids, 255 void)."""
+    from .cityscapes import CITYSCAPES_THING_CLASSES
+
+    rng = np.random.RandomState(seed)
+    for split, city, n in (("train", "aachen", num_train), ("val", "frankfurt", num_val)):
+        for i in range(n):
+            base = f"{city}_{i:06d}_000019"
+            img, boxes = _rectangles(rng, h, w, int(rng.randint(2, 5)))
+            inst = np.zeros((h, w), np.uint16)
+            train_ids = np.full((h, w), 255, np.uint8)
+            cuts = (0, h // 4, h // 2, h - max(h // 32, 1))
+            for (label_id, train_id), top, bottom in zip(_CITYSCAPES_STUFF[::-1], cuts[:-1], cuts[1:]):
+                inst[top:bottom], train_ids[top:bottom] = label_id, train_id
+            for k, (x, y, bw, bh) in enumerate(boxes):
+                label_id = CITYSCAPES_THING_CLASSES[rng.randint(len(CITYSCAPES_THING_CLASSES))][1]
+                inst[y:y + bh, x:x + bw] = label_id * 1000 + k
+                train_ids[y:y + bh, x:x + bw] = _CITYSCAPES_THING_TRAIN_IDS[label_id]
+            inst[cuts[-1]:], train_ids[cuts[-1]:] = 0, 255
+            _save(os.path.join(root, "cityscapes", "leftImg8bit", split, city, base + "_leftImg8bit.png"), img,
+                  compress_level=1)
+            gt = os.path.join(root, "cityscapes", "gtFine", split, city, base)
+            _save(gt + "_gtFine_instanceIds.png", inst)
+            _save(gt + "_gtFine_labelTrainIds.png", train_ids)

@@ -18,6 +18,12 @@ by ``_resize_nearest`` (every fourth row and column). The JAX package's mapper
 never makes it, so neither of its semantic architectures can train on a
 dataset there (ROADMAP Queue 3, item 6); a record without the file maps
 exactly as there.
+
+Each annotation's box is read by its ``bbox_mode``, XYWH_ABS where the record
+names none (COCO's and LVIS's records). The JAX package's mapper reads every
+box as XYWH, so it trains Pascal VOC's and Cityscapes' XYXY boxes as
+``[x0, y0, x0 + x1, y0 + y1]`` (ROADMAP Queue 3, item 7); a record without the
+key maps exactly as there.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 from PIL import Image
 
+from ..structures.boxes import BoxMode
 from .dataset_mapper import _load_image, decode_segmentation
 from .datasets.builtin_meta import keypoint_flip_indices
 from .transforms import ClipAugmentation, transform_keypoint_annotations
@@ -118,8 +125,7 @@ class DetectionDatasetMapper:
                 break
             if obj.get("iscrowd", 0):
                 continue
-            x, y, bw, bh = obj["bbox"]
-            box = tfms.apply_box(np.asarray([[x, y, x + bw, y + bh]], np.float64))[0]
+            box = tfms.apply_box(np.asarray([_xyxy(obj)], np.float64))[0]
             box = np.clip(box, [0, 0, 0, 0], [tw, th, tw, th])
             if box[2] - box[0] < 1 or box[3] - box[1] < 1:
                 continue
@@ -157,6 +163,18 @@ class DetectionDatasetMapper:
             sem_seg[:h, :w] = labels[:h, :w]
             out["sem_seg"] = _resize_nearest(sem_seg, (th // 4, tw // 4))
         return out
+
+
+def _xyxy(obj: dict) -> list:
+    """An annotation's box as [x0, y0, x1, y1], read by its ``bbox_mode``:
+    XYWH_ABS (COCO's, and the mode of a record that names none) or XYXY_ABS."""
+    mode = obj.get("bbox_mode", BoxMode.XYWH_ABS)
+    if mode == BoxMode.XYWH_ABS:
+        x, y, bw, bh = obj["bbox"]
+        return [x, y, x + bw, y + bh]
+    if mode == BoxMode.XYXY_ABS:
+        return list(obj["bbox"])
+    raise ValueError(f"bbox_mode {BoxMode(mode).name}: the detection mapper reads XYWH_ABS and XYXY_ABS boxes")
 
 
 def _resize_nearest(arr: np.ndarray, shape) -> np.ndarray:

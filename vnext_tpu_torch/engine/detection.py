@@ -32,6 +32,7 @@ random draws and nothing else), where JAX's starts the loader again.
 
 from __future__ import annotations
 
+import logging
 import os
 import random
 from typing import Dict, Iterator, List, Optional
@@ -58,6 +59,8 @@ from .hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, Pe
 from .train_step import TrainState, make_train_step
 from .trainer import VISTrainer
 
+logger = logging.getLogger("vnext_tpu_torch")
+
 # the image meta-architectures: does the forward take the true sizes, does it train on masks, and on a
 # semantic ground truth (the JAX package's table, engine/detection.py _ARCH, less its rng column: every train
 # forward here takes the step's generator)
@@ -72,12 +75,18 @@ SPEC = {
 
 
 def build_detection_train_loader(cfg, seed: int = 0, start_iter: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-    """Infinite loader of collated train batches of ``DATASETS.TRAIN`` (reference
-    data/build.py:378): ``TrainingSampler``'s shuffled indices, the train
+    """Infinite loader of collated train batches of ``DATASETS.TRAIN``, its sets
+    concatenated in order (reference data/build.py:378): ``TrainingSampler``'s
+    shuffled indices whatever ``DATALOADER.SAMPLER_TRAIN`` says (the LVIS
+    yamls' ``RepeatFactorTrainingSampler`` gets a warning: JAX's loader
+    ignores the key too, ROADMAP Queue 3, item 5), the train
     ``DetectionDatasetMapper`` drawing from one ``random.Random(seed * 1000)``,
     ``SOLVER.IMS_PER_BATCH`` samples a batch, made ahead in the prefetch
     thread. From ``start_iter`` on: the samples of the batches before it make
     only their random draws (``mapper.draw``)."""
+    if cfg.DATALOADER.SAMPLER_TRAIN != "TrainingSampler":
+        logger.warning("DATALOADER.SAMPLER_TRAIN %r is not read on the detection path: the train loader samples "
+                       "with TrainingSampler, as the JAX package's does", cfg.DATALOADER.SAMPLER_TRAIN)
     dataset_dicts = [d for n in cfg.DATASETS.TRAIN for d in DatasetCatalog.get(n)]
     mapper = DetectionDatasetMapper.from_config(cfg, is_train=True)
     batch_size = max(cfg.SOLVER.IMS_PER_BATCH, 1)

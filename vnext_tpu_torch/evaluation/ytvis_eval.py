@@ -4,10 +4,11 @@ json has ground truth.
 
 Counterpart of ``vnext_tpu.evaluation.ytvis_eval`` (``DatasetEvaluator``,
 ``YTVISEvaluator``, ``_normalize_gt``, ``build_evaluator``) for the ``ytvis``
-evaluator type; ``build_evaluator`` also makes ``coco_eval.COCOEvaluator``,
-``panoptic_eval.COCOPanopticEvaluator`` and ``sem_seg_eval.SemSegEvaluator``
-for the ``coco``, ``coco_panoptic_seg`` and ``sem_seg`` types. One process evaluates everything: the gather across processes
-waits for the port's distribution (ROADMAP Queue 1, item 12).
+evaluator type; ``build_evaluator`` also makes the evaluators of the
+``coco``, ``coco_panoptic_seg``, ``sem_seg``, ``lvis``, ``pascal_voc``,
+``cityscapes_instance`` and ``cityscapes_sem_seg`` types. One process
+evaluates everything: the gather across processes waits for the port's
+distribution (ROADMAP Queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -116,8 +117,12 @@ def build_evaluator(cfg, dataset_name: str, output_dir: Optional[str] = None) ->
     and ``COCOPanopticEvaluator`` with the id map's contiguous ids as things,
     combined by ``DatasetEvaluators``); "sem_seg" (``SemSegEvaluator`` over the
     dataset's ``stuff_classes``, else ``MODEL.SEM_SEG_HEAD.NUM_CLASSES``, and
-    its ``ignore_label``, default 255). The other types come with the rest of
-    the Detectron2 families (ROADMAP Queue 1, item 11e)."""
+    its ``ignore_label``, default 255); "lvis" (``LVISEvaluator``, "bbox" and
+    with ``MODEL.MASK_ON`` "segm"); "pascal_voc"
+    (``PascalVOCDetectionEvaluator`` over the ``thing_classes``, VOC07's
+    11-point AP when the dataset's ``year`` is 2007); "cityscapes_instance"
+    and "cityscapes_sem_seg". "rotated_coco" comes with the rotated boxes
+    (ROADMAP Queue 1, item 11e)."""
     meta = MetadataCatalog.get(dataset_name)
     evaluator_type = meta.get("evaluator_type", "ytvis")
     output_dir = output_dir or cfg.OUTPUT_DIR
@@ -142,7 +147,26 @@ def build_evaluator(cfg, dataset_name: str, output_dir: Optional[str] = None) ->
 
         return SemSegEvaluator(num_classes=len(meta.get("stuff_classes") or []) or cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
                                ignore_label=meta.get("ignore_label", 255))
-    raise NotImplementedError(
-        f"no evaluator for type {evaluator_type!r} (dataset {dataset_name}): the port has the 'ytvis', 'coco', "
-        "'coco_panoptic_seg' and 'sem_seg' evaluators; the others come with the rest of the Detectron2 families "
-        "(ROADMAP Queue 1, item 11e)")
+    if evaluator_type == "lvis":
+        from .lvis_eval import LVISEvaluator
+
+        return LVISEvaluator(dataset_name, tasks=("bbox", "segm") if cfg.MODEL.MASK_ON else ("bbox",),
+                             output_dir=output_dir)
+    if evaluator_type == "pascal_voc":
+        from .pascal_voc_eval import PascalVOCDetectionEvaluator
+
+        return PascalVOCDetectionEvaluator(class_names=list(meta.get("thing_classes") or []),
+                                           use_07_metric=meta.get("year", 2007) == 2007)
+    if evaluator_type == "cityscapes_instance":
+        from .cityscapes_eval import CityscapesInstanceEvaluator
+
+        return CityscapesInstanceEvaluator(class_names=meta.get("thing_classes"))
+    if evaluator_type == "cityscapes_sem_seg":
+        from .cityscapes_eval import CityscapesSemSegEvaluator
+
+        return CityscapesSemSegEvaluator(class_names=meta.get("stuff_classes"))
+    if evaluator_type == "rotated_coco":
+        raise NotImplementedError(
+            f"evaluator type 'rotated_coco' (dataset {dataset_name}): the rotated evaluator comes with the rest of "
+            "the Detectron2 families, RotatedBoxes, the rotated ROI heads and ops (ROADMAP Queue 1, item 11e)")
+    raise NotImplementedError(f"no evaluator for type {evaluator_type!r} (dataset {dataset_name})")

@@ -201,7 +201,12 @@ class YTVOSeval:
         precision = -np.ones((T, R, n_cats, len(self.area_ranges), len(self.max_dets)))
         recall = -np.ones((T, n_cats, len(self.area_ranges), len(self.max_dets)))
 
+        # a category without ground truth keeps precision and recall at -1 whatever its detections
+        # (LVIS lists 1203 categories, most absent from a few images)
+        cats_with_gt = {cat for _, cat in gts}
         for ci, cat in enumerate(self.cat_ids):
+            if cat not in cats_with_gt:
+                continue
             for ai, arange in enumerate(self.area_ranges.values()):
                 for mi, max_det in enumerate(self.max_dets):
                     scores_all, matches_all, ignored_det_all = [], [], []

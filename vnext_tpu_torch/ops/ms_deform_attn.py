@@ -244,7 +244,9 @@ def ms_deform_attn_plain(value, spatial_shapes, offsets, reference_points, logit
 def _bilinear_sum(value, spatial_shapes, pix, attn):
     """sum_{l,p} attn * bilinear(V_l, pix) -> [B, Q, M*D] in the sums' dtype
     (f32, or f64 for f64 inputs). pix [B, Q, M, L, P, 2] are pixel coordinates
-    (align_corners=False); a corner outside its level adds zero."""
+    (align_corners=False); a corner outside its level adds zero. A level's
+    four corners of its P samples are gathered at once and weighted by one
+    batched product ([1, 4P] @ [4P, D] per query and head)."""
     b, s, m, d = value.shape
     q, p = pix.shape[1], pix.shape[4]
     ct = torch.promote_types(value.dtype, torch.float32)
@@ -260,13 +262,16 @@ def _bilinear_sum(value, spatial_shapes, pix, attn):
         a = attn[:, :, :, lvl].permute(0, 2, 1, 3)
         x0, y0 = torch.floor(x), torch.floor(y)
         tx, ty = x - x0, y - y0
+        wgts, idxs = [], []
         for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
             xi, yi = x0 + dx, y0 + dy
             valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-            wgt = (tx if dx else 1.0 - tx) * (ty if dy else 1.0 - ty) * valid * a
-            idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
-            g = torch.gather(v_l, 2, idx.reshape(b, m, q * p, 1).expand(-1, -1, -1, d))
-            out = out + (wgt[..., None] * g.view(b, m, q, p, d)).sum(3)
+            wgts.append((tx if dx else 1.0 - tx) * (ty if dy else 1.0 - ty) * valid * a)
+            idxs.append((yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long())
+        wgt = torch.stack(wgts, -1).reshape(b, m, q, 1, 4 * p)
+        idx = torch.stack(idxs, -1).reshape(b, m, q * 4 * p, 1)
+        g = torch.gather(v_l, 2, idx.expand(-1, -1, -1, d))
+        out = out + torch.matmul(wgt, g.view(b, m, q, 4 * p, d)).squeeze(3)
     return out.permute(0, 2, 1, 3).reshape(b, q, m * d)
 
 
