@@ -18,6 +18,7 @@
     python3 chip_smoke.py --only rcnn_heads        # phases 1 and 29 alone (Cascade R-CNN, keypoint R-CNN)
     python3 chip_smoke.py --only panoptic          # phase 1, K2 at PanopticFPN's image and step, phase 30 alone
     python3 chip_smoke.py --only datasets          # phase 1, K2 at Cityscapes' image and step, phase 31 alone
+    python3 chip_smoke.py --only rest              # phase 1 and phase 32 alone (K2 at TTA's odd shape in it)
 
 Phases, each printed as it ends; any failure raises and exits non-zero. Each
 path zeroes every kernel's launch counter just before it runs and reads them
@@ -190,11 +191,15 @@ port's own reader (``vnext_tpu_torch.config``).
     phase 19, 2 clips x 5 frames at 512x640, K4 / K5 = 12 / 12 a step, with
     phase 20's drop-path checks; card vs CPU on one clip of 5 frames at
     384x480 (the CPU's f32 reference near a minute).
-    Phases 19-21's card-vs-CPU clips have their CPU sides (the models' seeded
-    weights too) computed in one process of their own (``CpuReference``), at
+    Phases 19-21's card-vs-CPU clips (and phase 32's DCN trunk and TTA size)
+    have their CPU sides (the models' seeded weights too) computed in one
+    process of their own (``CpuReference``), at
     the lowest priority with 7 threads on the host's 8 cores, from phase 17's start
     (from the phase's start when a phase runs alone), while this process
-    drives the card; each phase's card side follows.
+    drives the card; each phase's card side follows. Phase 18's clip is first
+    in that process's queue; the R-CNN images of phases 27, 29 and 30 have
+    theirs computed in such a process each, started when the phase has its
+    inputs.
 22. InstMove training through ``vnext_tpu_torch.tools.train_instmove.main``
     (``configs/minvis/ovis_r50_motion.yaml``, full width, f32, TF32 off) on a
     synthetic dataset of 2 videos x 20 frames (``INSTMOVE_VIDEO_FRAMES``): 8 steps of 16 sequences at
@@ -321,6 +326,21 @@ port's own reader (``vnext_tpu_torch.config``).
     card vs CPU as phase 26 (the 1203-class box predictor and mask head, 5%).
     K2 is held against its plain version at Cityscapes' [1, 1024, 2048, 3],
     forward (2a) and backward (2b).
+32. The rest of the Detectron2 surface, bf16, seeded weights: K2 forward and
+    backward against its plain version at [1, 500, 667, 3], the first
+    test-time-augmentation size with an odd side; the DCN v1 / v2 (c3-c5),
+    ResNeXt-101 32x8d, DC5 and RegNetX / RegNetY-4GF trunks forward and a
+    train step at 2 x 800x1344 (K2 once a forward on the ResNets; times,
+    peak memory, the deformable convolutions' share); the C4 head
+    (``Res5ROIHeads``, 80 classes, masks, 512 ROIs an image) and the rotated
+    heads (``RROIHeads``: 512 rotated ROIs an image trained, 1,000 served
+    with the rotated NMS, ``RotatedCOCOEvaluator`` on 3 images) on an R-50
+    res4; ``GeneralizedRCNNWithTTA`` around phase 26's Mask R-CNN on one
+    480x640 image at ``TEST.AUG.MIN_SIZES`` with flip (18 detection and 18
+    mask passes, K2 = 36); the three box trackers over the Mask R-CNN's
+    detections on 6 frames. Card vs CPU: the DCN v2 trunk at 256x384, the two
+    heads on the card's res4, one TTA size at the CPU's replayed choices; the
+    DCN and TTA CPU sides run in the CPU reference's process.
 
 Then the seconds by phase and of the whole run, a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -1164,7 +1184,7 @@ def stem_train_case(dev, rng, n, hw, label):
     # point (a ReLU mask that differs on ~0.1% of outputs would otherwise move the
     # random-sign sums by ~sqrt(1e-3) = 3%)
     x = x.to(bf16).float()
-    g = t(rng.randn(n, hw[0] // 2, hw[1] // 2, 64), bf16)
+    g = t(rng.randn(n, (hw[0] + 1) // 2, (hw[1] + 1) // 2, 64), bf16)
     args = (k, scale, bias)
 
     def grads(fn):
@@ -2888,7 +2908,9 @@ def cpu_reference_worker(job_dir, n_jobs):
     ``job_dir``, one after another: the model's weights from its seed (as the
     card's model is built), written to ``state<i>.pt``; then the CPU side of
     the train card-vs-CPU check (``train_pass`` of the f32 model with those
-    weights), written to ``result<i>.pt``. It runs at the lowest priority, so
+    weights), written to ``result<i>.pt``. A job with a ``call`` runs that
+    function of this script with its ``kwargs`` instead (phase 32's CPU
+    sides) and writes what it returns. It runs at the lowest priority, so
     that the card's driver keeps its core."""
     import importlib
 
@@ -2904,6 +2926,12 @@ def cpu_reference_worker(job_dir, n_jobs):
     torch.set_num_threads(CPU_REFERENCE_THREADS)
     for i in range(n_jobs):
         job = torch.load(f"{job_dir}/job{i}.pt", weights_only=False)
+        if "call" in job:             # a function of this script, its result as it returns it
+            t0 = time.perf_counter()
+            out = globals()[job["call"]](**job["kwargs"])
+            write({**out, "seconds": time.perf_counter() - t0}, f"result{i}")
+            del job, out
+            continue
         module = importlib.import_module(job["module"])
         cls = getattr(module, job["cls"])
         seeded = cls(**job["kwargs"])
@@ -2967,7 +2995,7 @@ class CpuReference:
         if not self.left:
             self.proc.join()
             self.dir.cleanup()
-        if out["trace"] is not None:
+        if out.get("trace") is not None:
             out["trace"] = types.SimpleNamespace(head_in=out["trace"][0], focal_in=out["trace"][1])
         return out
 
@@ -3065,12 +3093,29 @@ MINVIS_TRAIN_STEPS, MINVIS_RESUME_STEPS = 2, 4
 MINVIS_VIDEO_FRAMES = 7       # each synthetic video's frames (phase 17's kind at 480x853), windows of 3, 3 and 1
 
 
-def phase_minvis_entry(dev, kernels, smi):
+def minvis_reference(cfg):
+    """Phase 18's card-vs-CPU clip (key + reference at ``MINVIS_CPU_HW``) on
+    the host, and the ``CpuReference`` job of its CPU side (the model at seed
+    3, as the card's)."""
+    from vnext_tpu_torch.models import mask2former
+    from vnext_tpu_torch.tools import train_net_video as tv
+
+    batch = synthetic_batch(np.random.RandomState(18), n_clips=1, hw=MINVIS_CPU_HW, n_classes=MINVIS_CLASSES)
+    inputs = tv.minvis_batch_adapter(cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, "cpu")(batch)
+    return batch, {"module": mask2former.__name__, "cls": "MaskFormer",
+                   "kwargs": mask2former.maskformer_kwargs_from_cfg(cfg), "seed": 3, "inputs": inputs,
+                   "groups": MINVIS_GROUPS, "weights": mask2former.maskformer_weight_dict(cfg),
+                   "taps": ("assign_batched",), "trace": False}
+
+
+def phase_minvis_entry(dev, kernels, smi, reference=None):
     """MinVIS-R50 through the port's ``train_net_video.main``, in-process, on a
     synthetic OVIS-category dataset: ``--eval-only`` in windows of 3, the ground
     truth through the evaluator, training with periodic checkpoints,
     ``--resume``, the motion config's ``ValueError``; then one clip's train
-    forward on the card against the CPU."""
+    forward on the card against the CPU, whose side a ``CpuReference`` process
+    computes (``reference`` from ``started_references``, else one the phase
+    starts)."""
     import torch
 
     from vnext_tpu_torch.checkpoint.checkpointer import Checkpointer
@@ -3081,6 +3126,8 @@ def phase_minvis_entry(dev, kernels, smi):
 
     t_phase = time.perf_counter()
     result = {}
+    batch, _, _, cpu_side = reference or started_references(
+        [minvis_reference(read_config("minvis/ovis_r50.yaml"))])[0]
     configs = Path(__file__).resolve().parent / "configs" / "minvis"
     with tempfile.TemporaryDirectory() as tmp:
         register_synthetic(f"{tmp}/data", MINVIS_DATASET, OVIS_CLASSES, num_frames=MINVIS_VIDEO_FRAMES)
@@ -3267,19 +3314,14 @@ def phase_minvis_entry(dev, kernels, smi):
             require(False, "ovis_r50_motion.yaml --eval-only ran at 120x216 masks")
     torch.cuda.empty_cache()
 
-    # ---- one clip's train forward, card vs CPU
+    # ---- one clip's train forward, card vs CPU; the CPU's side in the CPU reference's process
     cfg = read_config("minvis/ovis_r50.yaml")
     card = mask2former.build_maskformer_model(cfg, device=dev, seed=3).train()
-    cpu = mask2former.build_maskformer_model(cfg, device="cpu", dtype=torch.float32, seed=4).train()
-    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
-    batch = synthetic_batch(np.random.RandomState(18), n_clips=1, hw=MINVIS_CPU_HW, n_classes=MINVIS_CLASSES)
-    adapters = {"card": tv.minvis_batch_adapter(cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, dev),
-                "cpu": tv.minvis_batch_adapter(cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, "cpu")}
     result["card_vs_cpu"] = train_card_vs_cpu(
         f"MinVIS train forward (one clip, key + reference at {MINVIS_CPU_HW[0]}x{MINVIS_CPU_HW[1]})", mask2former,
-        card, cpu,
-        lambda d: adapters[d](batch), MINVIS_GROUPS, mask2former.maskformer_weight_dict(cfg))
-    del card, cpu
+        card, None, lambda d: tv.minvis_batch_adapter(cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, dev)(batch),
+        MINVIS_GROUPS, mask2former.maskformer_weight_dict(cfg), cpu_side=cpu_side())
+    del card
     torch.cuda.empty_cache()
     result["phase_s"] = time.perf_counter() - t_phase
     print(f"  {smi}")
@@ -4995,16 +5037,18 @@ def rcnn_train_run(argv, kernels):
 
 
 class ReplayTap:
-    """A function of ``models/rcnn.py`` (by name), recorded on the CPU's run
+    """A function of ``models/rcnn.py`` (by name; or of another module of
+    ``vnext_tpu_torch.models``, as ``tta``), recorded on the CPU's run
     (detached, on the host) and replayed in order on the card's: a discrete
     choice returns the CPU's result; ``clip_boxes`` (the RPN's candidate
     boxes) returns the CPU's values with the card's own gradient, so that both
     sides pool and regress from the same proposals."""
 
-    def __init__(self, name):
-        from vnext_tpu_torch.models import rcnn
+    def __init__(self, name, module="rcnn"):
+        import importlib
 
-        self.module, self.name, self.fn = rcnn, name, getattr(rcnn, name)
+        self.module = importlib.import_module(f"vnext_tpu_torch.models.{module}")
+        self.name, self.fn = name, getattr(self.module, name)
         self.recorded, self.replay = [], None
 
     def __call__(self, x, *args, **kwargs):
@@ -5044,8 +5088,115 @@ def rcnn_constructor(cfg):
     return rcnn.GeneralizedRCNN, rcnn_kwargs_from_cfg(cfg)
 
 
+def rcnn_train_run_pass(m, cfg, batch, taps, draws, probes, probed=None, pooled=None):
+    """One train forward of the R-CNN ``m`` on ``batch`` under the replay taps
+    and ``draws`` (its sampling priorities), and one backward pass per part of
+    the losses (the RPN's, the ROI heads', PanopticFPN's semantic loss): the
+    losses and, per part, each trainable parameter's gradient on the host.
+    On the CPU side the pooled ROIs are recorded into ``pooled``; each probe
+    (a submodule's method, by its path) records its outputs into ``probed``."""
+    import torch
+
+    from vnext_tpu_torch.engine import detection
+    from vnext_tpu_torch.models import rcnn
+    from vnext_tpu_torch.solver import build as solver
+
+    keys = detection.loss_keys(cfg)
+    part_keys = rcnn_loss_parts(keys)
+    dev = next(m.parameters()).device
+    inputs = detection.make_batch_adapter(cfg, dev)(batch)
+    pool = rcnn.pool_rois
+
+    def recording_pool(features, rois, *args):
+        pooled.append(rois.detach().clone())
+        return pool(features, rois, *args)
+
+    def probe(path):
+        owner, _, name = path.rpartition(".")
+        module = m.get_submodule(owner)
+        fn = getattr(module, name)
+
+        def recording(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            outs = tuple(out.values()) if isinstance(out, dict) else out if isinstance(out, tuple) else (out,)
+            probed[path].append(tuple(o.detach().float().cpu() for o in outs))
+            return out
+
+        return patched(module, name, recording)
+
+    named = [(n, p) for n, p in m.named_parameters() if not solver.is_frozen(n)]
+    params = [p for _, p in named]
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(rcnn, "sampling_priorities", draws))
+        for tap in taps.values():
+            stack.enter_context(tap)
+        if pooled is not None:
+            stack.enter_context(patched(rcnn, "pool_rois", recording_pool))
+        for path in probes if probed is not None else ():
+            stack.enter_context(probe(path))
+        losses = m(*inputs)
+    parts = [torch.autograd.grad(sum(losses[k] for k in ks), params, retain_graph=i < len(part_keys) - 1,
+                                 allow_unused=True)
+             for i, ks in enumerate(part_keys.values())]
+    grads = [{n: (g.float().cpu() if g is not None else torch.zeros(p.shape)) for (n, p), g in zip(named, gs)}
+             for gs in parts]
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def rcnn_loss_parts(keys):
+    """The losses by the part of the model they come from: the RPN's, the ROI
+    heads', and PanopticFPN's semantic loss."""
+    parts = {"the RPN's losses": keys[:2], "the ROI losses": tuple(k for k in keys[2:] if k != "loss_sem_seg")}
+    if "loss_sem_seg" in keys:
+        parts["loss_sem_seg"] = ("loss_sem_seg",)
+    return parts
+
+
+def rcnn_cpu_side(cfg, batch, probes=(), state=None, weights=None, seed=None, cpu_dtype=None):
+    """The CPU side of ``rcnn_train_card_vs_cpu``: the R-CNN of ``cfg`` in f32
+    (or ``cpu_dtype``) with the card's weights (``state``, the checkpoint file
+    ``weights``, or the seeded ones of ``seed``), its train forward and
+    backward on ``batch`` with its choices recorded, the pooled ROIs and the
+    probes' outputs. Runs in this process or, as a ``CpuReference`` call job,
+    in the reference's."""
+    import torch
+
+    from vnext_tpu_torch.models.layers import init_weights
+
+    cls, kwargs = rcnn_constructor(cfg)
+    cpu = cls(**{**kwargs, "dtype": cpu_dtype or torch.float32}).train()
+    if state is None and weights is not None:
+        state = torch.load(weights, map_location="cpu", weights_only=True)["model"]
+    if state is None:
+        init_weights(cpu, seed)
+    else:
+        cpu.load_state_dict(state)
+    taps, draws, pooled = {n: ReplayTap(n) for n in RCNN_REPLAYED}, SamePriorities(), []
+    probed = {p: [] for p in probes}
+    t0 = time.perf_counter()
+    losses, parts = rcnn_train_run_pass(cpu, cfg, batch, taps, draws, probes, probed, pooled)
+    out = {"losses": losses, "parts": parts, "recorded": {n: tap.recorded for n, tap in taps.items()},
+           "pooled": pooled, "probed": probed, "draws": draws.draws, "cpu_s": time.perf_counter() - t0}
+    return out
+
+
+def rcnn_bf16_spread(cfg, state, batch, recorded, draws):
+    """bf16's own spread: the CPU's forward and backward in bf16 at the f32
+    run's recorded choices (its gradients by part, and the seconds)."""
+    cls, kwargs = rcnn_constructor(cfg)
+    cpu_bf16 = cls(**kwargs).train()
+    cpu_bf16.load_state_dict(state)
+    taps, same = {n: ReplayTap(n) for n in RCNN_REPLAYED}, SamePriorities()
+    for n, tap in taps.items():
+        tap.replay = list(recorded[n])
+    same.draws = dict(draws)
+    t0 = time.perf_counter()
+    parts = rcnn_train_run_pass(cpu_bf16, cfg, batch, taps, same, ())[1]
+    return {"bf16_parts": parts, "bf16_s": time.perf_counter() - t0}
+
+
 def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Mask R-CNN R50-FPN", probes=(),
-                           check=True, cpu_dtype=None):
+                           check=True, cpu_dtype=None, cpu_side=None):
     """One train forward and backward of a GeneralizedRCNN (Mask R-CNN; with
     ``groups`` and ``probes``, Cascade or keypoint R-CNN, or PanopticFPN) on
     ``batch`` (one image) at 800x1344: the card (bf16, K2) against the CPU (f32, plain versions) with
@@ -5067,73 +5218,29 @@ def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Ma
     5% (a dict's outputs, as the FPN's, each). Each group's gradient is also
     reported by the losses it comes from (the RPN's, the ROI heads', and
     PanopticFPN's semantic loss). Prints how many of the sampled ROIs have an
-    area. With ``check`` False (a trace: ``model`` may be any precision on
-    any device) nothing is required, and ``cpu_dtype`` may set the CPU's
-    precision (f32 otherwise)."""
+    area. ``cpu_side`` is ``rcnn_cpu_side``'s result made in the CPU
+    reference's process, else the CPU side runs here; bf16's spread runs here
+    when a group needs it. With ``check`` False (a trace:
+    ``model`` may be any precision on any device) nothing is required, and
+    ``cpu_dtype`` may set the CPU's precision (f32 otherwise)."""
     import torch
 
-    from vnext_tpu_torch.engine import detection
-    from vnext_tpu_torch.models import rcnn
-    from vnext_tpu_torch.solver import build as solver
-
-    cls, kwargs = rcnn_constructor(cfg)
-    cpu = cls(**{**kwargs, "dtype": cpu_dtype or torch.float32}).train()
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    if cpu_side is None:
+        cpu_side = rcnn_cpu_side(cfg, batch, probes, state={k: v.cpu() for k, v in model.state_dict().items()},
+                                 cpu_dtype=cpu_dtype)
+    want_losses, want_parts, cpu_s = cpu_side["losses"], cpu_side["parts"], cpu_side["cpu_s"]
+    taps, draws = {n: ReplayTap(n) for n in RCNN_REPLAYED}, SamePriorities()
+    for n, tap in taps.items():
+        tap.replay = list(cpu_side["recorded"][n])
+    draws.draws = dict(cpu_side["draws"])
+    probed = {p: [] for p in probes}
     model.train()
-    keys = detection.loss_keys(cfg)
-    part_keys = {"the RPN's losses": keys[:2], "the ROI losses": tuple(k for k in keys[2:] if k != "loss_sem_seg")}
-    if "loss_sem_seg" in keys:
-        part_keys["loss_sem_seg"] = ("loss_sem_seg",)
-    inputs = {"card": detection.make_batch_adapter(cfg, dev)(batch),
-              "cpu": detection.make_batch_adapter(cfg, "cpu")(batch)}
-    taps, draws, pooled = {n: ReplayTap(n) for n in RCNN_REPLAYED}, SamePriorities(), []
-    probed = {side: {p: [] for p in probes} for side in ("card", "cpu")}
-    pool = rcnn.pool_rois
-
-    def recording_pool(features, rois, *args):
-        pooled.append(rois.detach().clone())
-        return pool(features, rois, *args)
-
-    def probe(side, path, m):
-        owner, _, name = path.rpartition(".")
-        module = m.get_submodule(owner)
-        fn = getattr(module, name)
-
-        def recording(*args, **kwargs):
-            out = fn(*args, **kwargs)
-            outs = tuple(out.values()) if isinstance(out, dict) else out if isinstance(out, tuple) else (out,)
-            probed[side][path].append(tuple(o.detach().float().cpu() for o in outs))
-            return out
-
-        return patched(module, name, recording)
-
-    def run(m, side, probing=True):
-        named = [(n, p) for n, p in m.named_parameters() if not solver.is_frozen(n)]
-        params = [p for _, p in named]
-        with contextlib.ExitStack() as stack:
-            stack.enter_context(patched(rcnn, "sampling_priorities", draws))
-            for tap in taps.values():
-                stack.enter_context(tap)
-            if side == "cpu":
-                stack.enter_context(patched(rcnn, "pool_rois", recording_pool))
-            for path in probes if probing else ():
-                stack.enter_context(probe(side, path, m))
-            losses = m(*inputs[side])
-        parts = [torch.autograd.grad(sum(losses[k] for k in ks), params, retain_graph=i < len(part_keys) - 1,
-                                     allow_unused=True)
-                 for i, ks in enumerate(part_keys.values())]
-        grads = [{n: (g.float().cpu() if g is not None else torch.zeros(p.shape)) for (n, p), g in zip(named, gs)}
-                 for gs in parts]
-        return {k: float(v.detach()) for k, v in losses.items()}, grads
-
-    t0 = time.perf_counter()
-    want_losses, want_parts = run(cpu, "cpu")
-    cpu_s = time.perf_counter() - t0
-    for tap in taps.values():
-        tap.replay = list(tap.recorded)
-    got_losses, got_parts = run(model, "card")
+    got_losses, got_parts = rcnn_train_run_pass(model, cfg, batch, taps, draws, probes, probed)
     require(not check or all(not tap.replay for tap in taps.values()),
             "the card's run took fewer choices than the CPU's")
+    from vnext_tpu_torch.engine import detection
+
+    part_keys = rcnn_loss_parts(detection.loss_keys(cfg))
 
     def rel(a, b):
         return float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -5146,14 +5253,9 @@ def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Ma
     grad_tol = {g: 0.10 for g, _ in groups}
     if check and max(grad_err.values()) > 0.10:
         # bf16's own spread of the groups over 10%: the CPU in bf16 at the same choices, against its f32
-        cpu_bf16 = cls(**kwargs).train()
-        cpu_bf16.load_state_dict(cpu.state_dict())
-        for tap in taps.values():
-            tap.replay = list(tap.recorded)
-        t0 = time.perf_counter()
-        bf16_parts = run(cpu_bf16, "cpu", probing=False)[1]
-        bf16_s = time.perf_counter() - t0
-        del cpu_bf16
+        spread = rcnn_bf16_spread(cfg, {k: v.cpu() for k, v in model.state_dict().items()}, batch,
+                                  cpu_side["recorded"], cpu_side["draws"])
+        bf16_parts, bf16_s = spread["bf16_parts"], spread["bf16_s"]
         for g, pre in groups:
             if grad_err[g] > 0.10:
                 spread = rel(group(bf16_parts, pre), group(want_parts, pre))
@@ -5162,16 +5264,16 @@ def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Ma
                       f"choices ({bf16_s:.1f} s) reads {spread:.4g} from its f32; the card is held to 1.1x that, "
                       f"{grad_tol[g]:.4g}")
     probe_err = {f"{path}[{i}].{j}": rel(a, b) for path in probes
-                 for i, (outs_card, outs_cpu) in enumerate(zip(probed["card"][path], probed["cpu"][path]))
+                 for i, (outs_card, outs_cpu) in enumerate(zip(probed[path], cpu_side["probed"][path]))
                  for j, (a, b) in enumerate(zip(outs_card, outs_cpu))}
-    require(all(len(probed["card"][p]) == len(probed["cpu"][p]) > 0 for p in probes), "a probe was not reached")
+    require(all(len(probed[p]) == len(cpu_side["probed"][p]) > 0 for p in probes), "a probe was not reached")
     rpn_split = {part: rel(group([got_parts[i]], ("rpn.",)), group([want_parts[i]], ("rpn.",)))
                  for i, part in enumerate(("its own losses", "the ROI losses through the proposals"))}
     rpn_norms = [float(group([want_parts[i]], ("rpn.",)).norm()) for i in range(2)]
     by_part = {part: {g: (rel(group([got_parts[i]], pre), group([want_parts[i]], pre)),
                           float(group([want_parts[i]], pre).norm())) for g, pre in groups}
                for i, part in enumerate(part_keys)}
-    rois = pooled[0]
+    rois = cpu_side["pooled"][0]
     area = (rois[..., 2] - rois[..., 0]).clamp_min(0) * (rois[..., 3] - rois[..., 1]).clamp_min(0)
     n = batch["image"].shape[0]
     label = f"{label} train forward ({n} image{'s' * (n > 1)} at {RCNN_TRAIN_HW[0]}x{RCNN_TRAIN_HW[1]})"
@@ -5199,7 +5301,6 @@ def rcnn_train_card_vs_cpu(model, cfg, batch, dev, groups=RCNN_GROUPS, label="Ma
     for k, e in probe_err.items():
         require(not check or e <= 0.05, f"{label}: {k} relative L2 {e}")
     require(not check or int((area >= 1).sum()) > 0, "no sampled ROI has an area of a pixel")
-    del cpu
     return {"cpu_s": cpu_s, "loss_rel_err": loss_err, "grad_rel_l2": grad_err, "rpn_grad_rel_l2_by_part": rpn_split,
             "probe_rel_l2": probe_err, "grad_rel_l2_by_loss": by_part, "grad_limit": grad_tol,
             "sampled_rois": int(area.numel()), "sampled_rois_positive_area": int((area > 0).sum()),
@@ -5232,6 +5333,13 @@ def phase_rcnn_train(dev, kernels, smi):
     cfg_file = str(Path(__file__).resolve().parent / "configs" / RCNN_CONFIG)
     with tempfile.TemporaryDirectory() as tmp:
         register_rcnn_dataset(f"{tmp}/coco", RCNN_TRAIN_DATASET)
+        # the card-vs-CPU image's CPU side (at the seeded weights train_net starts from), in a process of its own
+        # while the card trains
+        ref_cfg = read_config(RCNN_CONFIG)
+        mapper = DetectionDatasetMapper.from_config(ref_cfg, is_train=True)
+        one = stack_detection_batch([mapper(DatasetCatalog.get(RCNN_TRAIN_DATASET)[0], random.Random(27))])
+        cpu_ref = CpuReference([{"call": "rcnn_cpu_side",
+                                 "kwargs": {"cfg": ref_cfg, "batch": one, "seed": max(ref_cfg.SEED, 0)}}])
         common = ["--config-file", cfg_file, "SOLVER.IMS_PER_BATCH", str(RCNN_TRAIN_BATCH),
                   "SOLVER.CHECKPOINT_PERIOD", "2", "DATASETS.TRAIN", f"('{RCNN_TRAIN_DATASET}',)"]
         trainer, rec = rcnn_train_run([*common, "SOLVER.MAX_ITER", str(RCNN_TRAIN_STEPS), "TEST.EVAL_PERIOD",
@@ -5320,12 +5428,9 @@ def phase_rcnn_train(dev, kernels, smi):
 
         # ---- one image card vs CPU, at the seeded weights train_net starts from: there every loss is O(1),
         # while after a few steps loss_cls is ~0.4 and a logit error of bf16's size moves it by ~5%
-        mapper = DetectionDatasetMapper.from_config(cfg, is_train=True)
-        record = DatasetCatalog.get(RCNN_TRAIN_DATASET)[0]
-        one = stack_detection_batch([mapper(record, random.Random(27))])
         require(one["image"].shape[1:3] == RCNN_TRAIN_HW and one["valid"].any(), f"{one['image'].shape}")
         seeded = build_rcnn_model(cfg, dev, seed=max(cfg.SEED, 0))
-        result["card_vs_cpu"] = rcnn_train_card_vs_cpu(seeded, cfg, one, dev)
+        result["card_vs_cpu"] = rcnn_train_card_vs_cpu(seeded, cfg, one, dev, cpu_side=cpu_ref.result(0))
         del seeded
         torch.cuda.empty_cache()
 
@@ -5574,6 +5679,11 @@ def phase_detector(name, dev, kernels, smi, tag):
         require(model.dtype == (torch.bfloat16 if bf16 else torch.float32), f"{label} computes in {model.dtype}")
         weights = f"{tmp}/{name}_seeded.pth"
         torch.save({"model": model.state_dict()}, weights)
+        # an R-CNN's card-vs-CPU image: its CPU side in a process of its own from here on
+        mapper = DetectionDatasetMapper.from_config(cfg, is_train=True)
+        one = stack_detection_batch([mapper(DatasetCatalog.get(dataset)[0], random.Random(int(tag)))])
+        cpu_ref = None if name in ("retinanet", "fcos", "semseg") else CpuReference(
+            [{"call": "rcnn_cpu_side", "kwargs": {"cfg": cfg, "batch": one, "probes": probes, "weights": weights}}])
         cfg_file = ["--config-file", str(Path(__file__).resolve().parent / "configs" / rel)]
         common = [*opts, "MODEL.WEIGHTS", weights, "DATASETS.TEST", f"('{dataset}',)"]
 
@@ -5749,8 +5859,6 @@ def phase_detector(name, dev, kernels, smi, tag):
             torch.cuda.empty_cache()
 
         # ---- one image card vs CPU at the weights the phase started from
-        mapper = DetectionDatasetMapper.from_config(cfg, is_train=True)
-        one = stack_detection_batch([mapper(DatasetCatalog.get(dataset)[0], random.Random(int(tag)))])
         require(one["image"].shape[1:3] == RCNN_TRAIN_HW and one["valid"].any()
                 and ("sem_seg" in one) == (name in SEGMENTERS), f"{one['image'].shape}, {sorted(one)}")
         seeded = build_model(cfg, device="meta").to_empty(device=dev)
@@ -5765,7 +5873,8 @@ def phase_detector(name, dev, kernels, smi, tag):
                 step = stack_detection_batch([mapper(r, random.Random(int(tag))) for r in records[:RCNN_TRAIN_BATCH]])
                 result["trace"] = trace_card_vs_cpu(seeded, cfg, {**singles, "images 0-1 as one batch": step}, dev,
                                                     groups, label, probes)
-            result["card_vs_cpu"] = rcnn_train_card_vs_cpu(seeded, cfg, one, dev, groups, label, probes)
+            result["card_vs_cpu"] = rcnn_train_card_vs_cpu(seeded, cfg, one, dev, groups, label, probes,
+                                                           cpu_side=cpu_ref.result(0))
         del seeded
         torch.cuda.empty_cache()
     result["phase_s"] = time.perf_counter() - t_phase
@@ -6127,13 +6236,576 @@ def phase_datasets(dev, kernels, smi):
     return launches, result
 
 
+# ---------------------------------------------------------------- phase 32
+REST_HW = (800, 1344)             # the detectron2 yamls' train size: K2's input, once a forward
+REST_BATCH = 2                    # detectron2's per-GPU share of the yamls' 16 images on 8 GPUs
+REST_REPS = 3                     # timed forwards and steps of each path, after one of warm-up
+REST_CPU_HW = (256, 384)          # the DCN v2 trunk's card-vs-CPU input: res5 at 8x12
+REST_STAGES = ("res2", "res3", "res4", "res5")
+TRUNKS = {  # name: (the detectron2 config that uses it, its constructor arguments)
+    "R-50 DCN v1": ("mask_rcnn_R_50_FPN_1x_dconv_c3-c5", dict(depth=50, deform_on_per_stage=(False, True, True, True))),
+    "R-50 DCN v2": ("mask_rcnn_R_50_FPN_1x_dconv_c3-c5 with DEFORM_MODULATED True",
+                    dict(depth=50, deform_on_per_stage=(False, True, True, True), deform_modulated=True)),
+    "X-101 32x8d": ("mask_rcnn_X_101_32x8d_FPN_3x", dict(depth=101, groups=32, width_per_group=8)),
+    "R-50 DC5": ("mask_rcnn_R_50_DC5_1x", dict(depth=50, res5_dilation=2)),
+    "RegNetX-4GF": ("new_baselines mask_rcnn_regnetx_4gf_dds_FPN", dict(variant="RegNetX-4GF")),
+    "RegNetY-4GF": ("new_baselines mask_rcnn_regnety_4gf_dds_FPN", dict(variant="RegNetY-4GF")),
+}
+C4_CLASSES, C4_ROIS = 80, 512     # mask_rcnn_R_50_C4_1x: ROI_HEADS.NUM_CLASSES, BATCH_SIZE_PER_IMAGE
+ROT_TRAIN_ROIS, ROT_SERVE_ROIS, ROT_GT = 512, 1000, 16
+ROT_EVAL_IMAGES = 3
+REST_CPU_ROIS = 64                # ROIs an image in the heads' card-vs-CPU checks
+TTA_HW, TTA_CPU_SIZE = (480, 640), 500      # one image; the card-vs-CPU size: 500x667, an odd width
+TRACK_FRAMES = 6
+
+
+def rest_trunk(name, dtype, seed=32):
+    """The trunk ``TRUNKS[name]`` on the CPU with seeded weights (every stage's
+    output). A DCN's offset convolutions, which the JAX package zero-initializes
+    (every tap then samples its own grid point), get seeded kernels of variance
+    1 / fan_in, so that the taps move by about a pixel."""
+    import math
+
+    import torch
+
+    from vnext_tpu_torch.models import RegNet
+    from vnext_tpu_torch.models.backbones.resnet import ResNet
+    from vnext_tpu_torch.models.layers import init_weights
+
+    kw = dict(TRUNKS[name][1])
+    model = (RegNet(kw["variant"], dtype=dtype) if "variant" in kw
+             else ResNet(kw.pop("depth"), dtype, out_features=REST_STAGES, **kw))
+    init_weights(model, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if getattr(m, "deform", False):
+                w = m.conv2_offset.weight
+                w.copy_(torch.randn(w.shape, generator=gen) / math.sqrt(w[0].numel()))
+    return model
+
+
+def trunk_loss(outs):
+    """A train step's scalar: every stage's mean square."""
+    return sum(o.float().square().mean() for o in outs.values())
+
+
+def trunk_input(hw, n=1, seed=32):
+    import torch
+
+    return torch.from_numpy(np.random.RandomState(seed).randn(n, *hw, 3).astype(np.float32))
+
+
+def dcn_cpu_side(name="R-50 DCN v2"):
+    """The DCN v2 trunk's card-vs-CPU check, its CPU side (f32, plain): the
+    stages and the gradient of ``trunk_loss`` at ``REST_CPU_HW``."""
+    import torch
+
+    model = rest_trunk(name, torch.float32)
+    outs = model(trunk_input(REST_CPU_HW))
+    trunk_loss(outs).backward()
+    return {"outputs": {k: v.detach() for k, v in outs.items()},
+            "grad": torch.cat([p.grad.reshape(-1) for p in model.parameters()])}
+
+
+def tta_model(device, dtype=None):
+    """``RCNN_CONFIG``'s Mask R-CNN R50-FPN, seeded (seed 0) with class 0's bias
+    raised by ``RCNN_CLASS_BIAS``, in ``dtype`` (the config's by default)."""
+    import torch
+
+    from vnext_tpu_torch.models import rcnn_kwargs_from_cfg
+    from vnext_tpu_torch.models.layers import init_weights
+    from vnext_tpu_torch.models.rcnn import GeneralizedRCNN
+
+    cfg = read_config(RCNN_CONFIG)
+    kwargs = rcnn_kwargs_from_cfg(cfg)
+    model = GeneralizedRCNN(**{**kwargs, "dtype": dtype or kwargs["dtype"]})
+    init_weights(model, 0)
+    with torch.no_grad():
+        model.roi_heads.cls_score.bias[0] += RCNN_CLASS_BIAS
+    return cfg, model.to(device).eval()
+
+
+def tta_image(cfg, device):
+    """One normalized [1, 480, 640, 3] image: a synthetic frame's left part."""
+    import torch
+
+    frame = synthetic_video(32, 1)[0][:TTA_HW[0], :TTA_HW[1]]
+    mean = torch.tensor(cfg.MODEL.PIXEL_MEAN, dtype=torch.float32)
+    std = torch.tensor(cfg.MODEL.PIXEL_STD, dtype=torch.float32)
+    return ((torch.from_numpy(frame).float() - mean) / std)[None].contiguous().to(device)
+
+
+TTA_REPLAYED = (("rcnn", "_topk_stable"), ("rcnn", "nms_mask"), ("rcnn", "batched_nms_mask"),
+                ("rcnn", "assign_fpn_levels"), ("rcnn", "clip_boxes"), ("tta", "batched_nms_mask"))
+
+
+def tta_pass(model, image, taps):
+    """``GeneralizedRCNNWithTTA`` at the one size ``TTA_CPU_SIZE`` with flip,
+    under ``taps`` (``ReplayTap``s); returns its outputs and the FPN maps of
+    every pass, on the host in f32."""
+    import torch
+
+    from vnext_tpu_torch.models import GeneralizedRCNNWithTTA
+
+    maps = []
+    features = model._features
+
+    def recording(images):
+        out = features(images)
+        maps.append({k: v.float().cpu() for k, v in out.items()})
+        return out
+
+    with contextlib.ExitStack() as stack:
+        for tap in taps:
+            stack.enter_context(tap)
+        stack.enter_context(patched(model, "_features", recording))
+        out = GeneralizedRCNNWithTTA(model, torch.tensor([list(TTA_HW)]), min_sizes=(TTA_CPU_SIZE,), flip=True,
+                                     max_detections=RCNN_CPU_PROPOSALS)(image)
+    return {k: v.float().cpu() for k, v in out.items()}, maps
+
+
+def tta_cpu_side():
+    """The TTA size's card-vs-CPU check, its CPU side (f32, plain): the
+    outputs, every pass's FPN maps and the recorded discrete choices."""
+    import torch
+
+    cfg, model = tta_model("cpu", torch.float32)
+    taps = [ReplayTap(name, module) for module, name in TTA_REPLAYED]
+    with torch.no_grad():
+        out, maps = tta_pass(model, tta_image(cfg, "cpu"), taps)
+    return {"outputs": out, "maps": maps, "recorded": [tap.recorded for tap in taps]}
+
+
+def rest_references():
+    """Phase 32's ``CpuReference`` jobs: the DCN v2 trunk's and the TTA size's CPU sides."""
+    return [(None, {"call": "dcn_cpu_side", "kwargs": {}}), (None, {"call": "tta_cpu_side", "kwargs": {}})]
+
+
+def rel_l2(a, b):
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def synced_span(acc, key, fn):
+    """``fn`` with its synchronized host time added to ``acc[key]`` (ms)."""
+    import torch
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        acc[key] = acc.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+    return wrapped
+
+
+def rotated_scene(rng, n_gt, n_rois, hw=REST_HW, classes=10):
+    """Seeded rotated ground truth [n_gt, 5] with labels, and ``n_rois`` ROIs:
+    the ground truth jittered (half of them) and boxes anywhere (the rest)."""
+    h, w = hw
+    gt = np.stack([rng.uniform(96, w - 96, n_gt), rng.uniform(96, h - 96, n_gt), rng.uniform(32, 192, n_gt),
+                   rng.uniform(32, 192, n_gt), rng.uniform(-90, 90, n_gt)], 1)
+    near = gt[rng.randint(0, n_gt, n_rois // 2)]
+    near = near + rng.randn(*near.shape) * [6, 6, 0, 0, 8]
+    near[:, 2:4] *= rng.uniform(0.85, 1.15, (len(near), 2))
+    far = np.stack([rng.uniform(0, w, n_rois - len(near)), rng.uniform(0, h, n_rois - len(near)),
+                    rng.uniform(16, 256, n_rois - len(near)), rng.uniform(16, 256, n_rois - len(near)),
+                    rng.uniform(-180, 180, n_rois - len(near))], 1)
+    rois = np.concatenate([near, far])[rng.permutation(n_rois)]
+    return gt.astype(np.float32), rng.randint(0, classes, n_gt), rois.astype(np.float32)
+
+
+def phase_rest(dev, kernels, smi, reference=None):
+    """Phase 32: the rest of the Detectron2 surface, bf16 on seeded weights.
+    K2 at the first TTA odd shape [1, 500, 667, 3], forward and backward
+    against its plain version. The trunks of ``TRUNKS`` forward and a train
+    step (every stage's mean square) at 2 x 800x1344: K2 once a forward on the
+    ResNets, none on RegNet (a 3x3 stem), times by CUDA events, peak memory,
+    the deformable convolutions' share of the DCN forwards. The C4 head
+    (``Res5ROIHeads``, 80 classes, masks) on an R-50 res4 with 512 ROIs an
+    image, forward and a step. ``RROIHeads`` (10 classes) on an R-50 res4: the
+    losses and a step over 512 rotated ROIs an image, serving 1,000 ROIs with
+    the rotated NMS (its IoU's and its walk's share), scored by
+    ``RotatedCOCOEvaluator`` on 3 images. ``GeneralizedRCNNWithTTA`` around
+    phase 26's Mask R-CNN on one 480x640 image at ``TEST.AUG.MIN_SIZES`` with
+    flip (K2 = 36), its wall time, and its busy share at one of the sizes. The three box trackers over
+    the Mask R-CNN's detections on 6 frames, their host time a frame. Card vs
+    CPU: the DCN v2 trunk at 256x384 (stages and gradient), the C4 head and
+    the rotated heads' losses and gradient on the card's res4 at 64 ROIs, and
+    one TTA size with an odd side (500x667 and its flip) at the CPU's replayed
+    choices. ``reference`` is ``started_references``' pair for the DCN and TTA
+    CPU sides, else the phase starts its own."""
+    import torch
+
+    from vnext_tpu_torch.evaluation import RotatedCOCOEvaluator
+    from vnext_tpu_torch.models import GeneralizedRCNNWithTTA, Res5ROIHeads, RROIHeads
+    from vnext_tpu_torch.models.backbones.resnet import Bottleneck, ResNet
+    from vnext_tpu_torch.models.layers import init_weights
+    from vnext_tpu_torch.ops import rotated_boxes, stem_conv
+    from vnext_tpu_torch.tracking import (BBoxIOUTracker, IOUWeightedHungarianBBoxIOUTracker,
+                                          VanillaHungarianBBoxIOUTracker)
+
+    t_phase = time.perf_counter()
+    dcn_ref, tta_ref = reference or started_references(rest_references())
+    bf16, k2 = torch.bfloat16, stem_conv.KERNEL.name
+    result, launches = {"trunks": {}, "segment_s": {}}, {}
+    t_lap = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        result["segment_s"][what] = now - t_lap[0]
+        t_lap[0] = now
+
+    result["k2_tta_odd"] = stem_train_case(dev, np.random.RandomState(33), 1, (500, 667), "TTA 500x667")
+    lap("k2")
+    x = trunk_input(REST_HW, REST_BATCH).to(dev)
+
+    # ---- the trunks
+    for name, (source, kw) in TRUNKS.items():
+        model = rest_trunk(name, bf16).to(dev)
+        resnet = "variant" not in kw
+
+        def forward():
+            with torch.no_grad():
+                return model(x)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            trunk_loss(model(x)).backward()
+
+        zero(kernels)
+        outs = forward()
+        step()
+        torch.cuda.synchronize()
+        path = f"rest_{name.lower().replace(' ', '_').replace('-', '')}"
+        launches[path] = counts(kernels)
+        require(launches[path] == ({k2: 2} if resnet else {}), f"{name}: launches {launches[path]}")
+        for k, v in outs.items():
+            s = model.output_strides[k]
+            require(tuple(v.shape[-2:]) == (-(-REST_HW[0] // s), -(-REST_HW[1] // s)) and bool(torch.isfinite(v).all()),
+                    f"{name} {k}: {tuple(v.shape)}")
+        grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters() if p.grad is not None)
+        require(grads_finite, f"{name}: non-finite gradients")
+        fwd_ms = time_ms(forward, reps=REST_REPS, warmup=1)
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_ms(step, reps=REST_REPS, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        entry = {"config": source, "forward_ms": fwd_ms, "step_ms": step_ms, "peak_gib": peak,
+                 "params_m": sum(p.numel() for p in model.parameters()) / 1e6}
+        line = ""
+        if kw.get("deform_on_per_stage"):
+            acc, shares = {}, []
+            with patched(Bottleneck, "deform_conv", synced_span(acc, "deform", Bottleneck.deform_conv)):
+                for _ in range(REST_REPS):
+                    acc.clear()
+                    synced_span(acc, "forward", forward)()
+                    shares.append(acc["deform"] / acc["forward"])
+            entry["deform_share"] = statistics.median(shares)
+            line = f", the deformable 3x3s {entry['deform_share']:.1%} of the synchronized forward"
+        print(f"  {name} ({source}; {entry['params_m']:.1f} M parameters), 2 x 800x1344 bf16: forward "
+              f"{fwd_ms:.2f} ms, step {step_ms:.2f} ms (CUDA events, median of {REST_REPS}), peak {peak:.2f} GiB"
+              f"{line}; launches {launches[path]}")
+        result["trunks"][name] = entry
+        del model, outs
+        torch.cuda.empty_cache()
+
+    lap("trunks")
+    # ---- the DCN v2 trunk card vs CPU at REST_CPU_HW
+    name = "R-50 DCN v2"
+    card = rest_trunk(name, bf16).to(dev)
+    outs = card(trunk_input(REST_CPU_HW).to(dev))
+    trunk_loss(outs).backward()
+    grad = torch.cat([p.grad.reshape(-1) for p in card.parameters()])
+    want = dcn_ref[3]()
+    reason = ("bf16 keeps 8 significant bits and the trunk rounds ~55 times in sequence (its convolutions, the "
+              "offsets' and the samples' casts), so errors that add like a random walk reach a few percent")
+    errs = {k: rel_l2(outs[k], want["outputs"][k]) for k in REST_STAGES}
+    errs["gradient"] = rel_l2(grad, want["grad"])
+    print(f"  {name} card (bf16, K2) vs CPU (f32, plain; {want['seconds']:.1f} s in the reference process) at "
+          f"{REST_CPU_HW[0]}x{REST_CPU_HW[1]}: relative L2 " + ", ".join(f"{k} {e:.4g}" for k, e in errs.items())
+          + f"; tolerance 0.05 for the stages, 0.10 for the gradient: {reason}")
+    for k, e in errs.items():
+        require(e <= (0.10 if k == "gradient" else 0.05), f"{name} card vs CPU: {k} relative L2 {e}")
+    result["dcn_card_vs_cpu"] = errs
+    del card, outs, grad, want
+    torch.cuda.empty_cache()
+
+    lap("dcn_card_vs_cpu")
+    # ---- the C4 head on an R-50 res4
+    rng = np.random.RandomState(34)
+    trunk = ResNet(50, bf16, out_features=("res4",))
+    init_weights(trunk, 34)
+    trunk = trunk.to(dev)
+    head = Res5ROIHeads(C4_CLASSES, mask_on=True, dtype=bf16)
+    init_weights(head, 35)
+    head = head.to(dev)
+    xy = rng.uniform(0, 1, (REST_BATCH, C4_ROIS, 2)) * [REST_HW[1] - 64, REST_HW[0] - 64]
+    rois = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(16, 400, (REST_BATCH, C4_ROIS, 2))], -1)
+                            .astype(np.float32)).to(dev)
+
+    def c4_forward():
+        with torch.no_grad():
+            return head(trunk(x)["res4"], rois)
+
+    def c4_step():
+        trunk.zero_grad(set_to_none=True)
+        head.zero_grad(set_to_none=True)
+        sum(v.float().square().mean() for v in head(trunk(x)["res4"], rois).values()).backward()
+
+    zero(kernels)
+    out = c4_forward()
+    c4_step()
+    torch.cuda.synchronize()
+    launches["rest_c4"] = counts(kernels)
+    require(launches["rest_c4"] == {k2: 2}, f"C4 launches {launches['rest_c4']}")
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    require(shapes == {"cls_logits": (2, C4_ROIS, C4_CLASSES + 1), "box_deltas": (2, C4_ROIS, 4 * C4_CLASSES),
+                       "mask_logits": (2, C4_ROIS, 14, 14, C4_CLASSES)}
+            and all(bool(torch.isfinite(v).all()) for v in out.values()), f"C4 outputs {shapes}")
+    fwd_ms = time_ms(c4_forward, reps=REST_REPS, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(c4_step, reps=REST_REPS, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # card vs CPU: the head on the card's res4 of image 0 and its first REST_CPU_ROIS ROIs
+    with torch.no_grad():
+        res4 = trunk(x[:1])["res4"]
+        sub = rois[:1, :REST_CPU_ROIS]
+        got = head(res4, sub)
+        cpu = Res5ROIHeads(C4_CLASSES, mask_on=True)
+        cpu.load_state_dict({k: v.cpu() for k, v in head.state_dict().items()})
+        want = cpu(res4.float().cpu(), sub.cpu())
+    errs = {k: rel_l2(got[k], want[k]) for k in want}
+    print(f"  C4 head (mask_rcnn_R_50_C4_1x: Res5ROIHeads, {C4_CLASSES} classes, masks) on R-50 res4, {C4_ROIS} ROIs "
+          f"an image at 2 x 800x1344: forward {fwd_ms:.2f} ms, step {step_ms:.2f} ms, peak {peak:.2f} GiB; launches "
+          f"{launches['rest_c4']}; card vs CPU on the card's res4 at {REST_CPU_ROIS} ROIs, relative L2 "
+          + ", ".join(f"{k} {e:.4g}" for k, e in errs.items()) + " tolerance 0.05: bf16 rounds ~12 times in "
+          "sequence (res5's 9 convolutions, the heads)")
+    for k, e in errs.items():
+        require(e <= 0.05, f"C4 head card vs CPU: {k} relative L2 {e}")
+    result["c4"] = {"forward_ms": fwd_ms, "step_ms": step_ms, "peak_gib": peak, "card_vs_cpu": errs}
+    del head, cpu, out, got, want, res4
+    torch.cuda.empty_cache()
+
+    lap("c4")
+    # ---- RROIHeads on the same R-50 res4
+    rhead = RROIHeads(dtype=bf16)
+    init_weights(rhead, 36)
+    rhead = rhead.to(dev)
+    scenes = [rotated_scene(np.random.RandomState(40 + i), ROT_GT, ROT_TRAIN_ROIS) for i in range(REST_BATCH)]
+    gt, labels, rrois = (torch.from_numpy(np.stack(a)).to(dev) for a in zip(*scenes))
+    gvalid = torch.ones(labels.shape, dtype=torch.bool, device=dev)
+
+    def rot_losses(feats, head, r, g, lab, gv):
+        out = head(feats, r, 1 / 16)
+        return RROIHeads.losses(out["cls_logits"], out["box_deltas"], r, g, lab, gv, head.num_classes)
+
+    def rot_step():
+        trunk.zero_grad(set_to_none=True)
+        rhead.zero_grad(set_to_none=True)
+        losses = rot_losses(trunk(x)["res4"], rhead, rrois, gt, labels, gvalid)
+        sum(losses.values()).backward()
+        return losses
+
+    zero(kernels)
+    losses = rot_step()
+    torch.cuda.synchronize()
+    launches["rest_rotated_train"] = counts(kernels)
+    require(launches["rest_rotated_train"] == {k2: 1}, f"rotated train launches {launches['rest_rotated_train']}")
+    require(all(bool(torch.isfinite(v)) for v in losses.values()) and float(losses["loss_box_reg_rotated"].detach()) > 0,
+            f"rotated losses {losses}")
+    torch.cuda.reset_peak_memory_stats()
+    rot_step_ms = time_ms(rot_step, reps=REST_REPS, warmup=1)
+    rot_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # serving: 1,000 ROIs on image 0
+    s_gt, _, s_rois = rotated_scene(np.random.RandomState(44), ROT_GT, ROT_SERVE_ROIS)
+    s_rois = torch.from_numpy(s_rois)[None].to(dev)
+    x1 = x[:1]
+
+    def rot_serve():
+        with torch.no_grad():
+            return rhead(trunk(x1)["res4"], s_rois, 1 / 16, train=False)
+
+    zero(kernels)
+    out = rot_serve()
+    torch.cuda.synchronize()
+    launches["rest_rotated_serve"] = counts(kernels)
+    require(launches["rest_rotated_serve"] == {k2: 1}, f"rotated serving launches {launches['rest_rotated_serve']}")
+    kept = int(out["valid"].sum())
+    require(tuple(out["boxes"].shape) == (1, 100, 5) and 0 < kept and bool(torch.isfinite(out["boxes"]).all()),
+            f"rotated detections {tuple(out['boxes'].shape)}, {kept} kept")
+    serve_ms = time_ms(rot_serve, reps=REST_REPS, warmup=1)
+    acc, split = {}, []
+    with patched(rotated_boxes, "greedy_keep", synced_span(acc, "walk", rotated_boxes.greedy_keep)), \
+            patched(rotated_boxes, "pairwise_iou_rotated", synced_span(acc, "iou", rotated_boxes.pairwise_iou_rotated)):
+        for _ in range(REST_REPS):
+            acc.clear()
+            synced_span(acc, "forward", rot_serve)()
+            split.append(dict(acc))
+    spans = {k: statistics.median(s[k] for s in split) for k in ("forward", "iou", "walk")}
+    # scoring: RotatedCOCOEvaluator on a few images with rotated ground truth
+    evaluator = RotatedCOCOEvaluator([f"class_{i}" for i in range(10)])
+    evaluator.reset()
+    for i in range(ROT_EVAL_IMAGES):
+        e_gt, e_lab, e_rois = rotated_scene(np.random.RandomState(50 + i), 6, ROT_SERVE_ROIS)
+        with torch.no_grad():
+            det = rhead(trunk(trunk_input(REST_HW, seed=50 + i).to(dev))["res4"], torch.from_numpy(e_rois)[None].to(dev),
+                        1 / 16, train=False)
+        evaluator.process([{"image_id": i, "annotations": [{"category_id": int(c), "bbox": b.tolist()}
+                                                           for c, b in zip(e_lab, e_gt)]}],
+                          [{k: v[0] for k, v in det.items() if k in ("boxes", "scores", "classes", "valid")}])
+    stats = evaluator.evaluate()["bbox"]
+    require(all(np.isfinite(v) and 0 <= v <= 100 for v in stats.values()) and {"AP", "AP50", "AP75"} <= set(stats),
+            f"RotatedCOCOEvaluator {stats}")
+    # card vs CPU: the losses and the head's gradient on the card's res4 of image 0 at REST_CPU_ROIS ROIs
+    with torch.no_grad():
+        feats = trunk(x1)["res4"]
+    sub = (rrois[:1, :REST_CPU_ROIS], gt[:1], labels[:1], gvalid[:1])
+    rhead.zero_grad(set_to_none=True)
+    got = rot_losses(feats, rhead, *sub)
+    sum(got.values()).backward()
+    cpu = RROIHeads()
+    cpu.load_state_dict({k: v.cpu() for k, v in rhead.state_dict().items()})
+    want = rot_losses(feats.float().cpu(), cpu, *(s.cpu() for s in sub))
+    sum(want.values()).backward()
+    loss_err = {k: abs(float(got[k].detach()) - float(v.detach())) / max(abs(float(v.detach())), 1e-6)
+                for k, v in want.items()}
+    grad_err = rel_l2(torch.cat([p.grad.reshape(-1) for p in rhead.parameters()]),
+                      torch.cat([p.grad.reshape(-1) for p in cpu.parameters()]))
+    print(f"  RROIHeads (10 classes, pooler 7, fc 1024) on R-50 res4: losses and step over {ROT_TRAIN_ROIS} rotated "
+          f"ROIs an image at 2 x 800x1344 {rot_step_ms:.2f} ms, peak {rot_peak:.2f} GiB (launches "
+          f"{launches['rest_rotated_train']}); serving {ROT_SERVE_ROIS} ROIs at 800x1344 {serve_ms:.2f} ms by CUDA "
+          f"events, {kept} kept; synchronized spans (median of {REST_REPS}): forward {spans['forward']:.2f} ms, the "
+          f"rotated IoU over {ROT_SERVE_ROIS}^2 pairs {spans['iou']:.2f} ({spans['iou'] / spans['forward']:.1%}), the "
+          f"NMS walk {spans['walk']:.2f} ({spans['walk'] / spans['forward']:.1%}); RotatedCOCOEvaluator on "
+          f"{ROT_EVAL_IMAGES} images {json.dumps({k: round(v, 4) for k, v in stats.items() if not k.startswith('AP-')})}"
+          f"; card vs CPU at {REST_CPU_ROIS} ROIs: losses relative error "
+          + ", ".join(f"{k} {e:.4g}" for k, e in loss_err.items()) + f" tolerance 0.05, the head's gradient "
+          f"relative L2 {grad_err:.4g} tolerance 0.10: bf16 rounds the pooled features' products in fc1-fc2 and "
+          "the heads")
+    for k, e in loss_err.items():
+        require(e <= 0.05, f"RROIHeads card vs CPU: {k} relative error {e}")
+    require(grad_err <= 0.10, f"RROIHeads card vs CPU: gradient relative L2 {grad_err}")
+    result["rotated"] = {"step_ms": rot_step_ms, "peak_gib": rot_peak, "serve_ms": serve_ms, "kept": kept,
+                         "spans_ms": spans, "nms_walk_share": spans["walk"] / spans["forward"],
+                         "iou_share": spans["iou"] / spans["forward"], "stats": stats,
+                         "card_vs_cpu": {"loss_rel_err": loss_err, "grad_rel_l2": grad_err}}
+    del trunk, rhead, cpu, feats, out
+    torch.cuda.empty_cache()
+
+    lap("rotated")
+    # ---- test-time augmentation around Mask R-CNN R50-FPN
+    cfg, model = tta_model(dev)
+    image = tta_image(cfg, dev)
+    aug = cfg.TEST.AUG
+    tta = GeneralizedRCNNWithTTA(model, torch.tensor([list(TTA_HW)]), min_sizes=aug.MIN_SIZES, flip=aug.FLIP,
+                                 max_detections=cfg.TEST.DETECTIONS_PER_IMAGE)
+    sizes = list(tta._sizes(*TTA_HW))
+    odd = [hw for hw in sizes if hw[0] % 2 or hw[1] % 2]
+
+    def run_tta():
+        out = tta(image)
+        torch.cuda.synchronize()
+        return out
+
+    zero(kernels)
+    t0 = time.perf_counter()
+    out = run_tta()
+    first_s = time.perf_counter() - t0
+    launches["rest_tta"] = counts(kernels)
+    n_pass = len(sizes) * (2 if aug.FLIP else 1)
+    require(launches["rest_tta"] == {k2: 2 * n_pass}, f"TTA launches {launches['rest_tta']} over {n_pass} variants")
+    kept = int(out["valid"].sum())
+    require(kept > 0 and all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+            and float(out["mask_probs"].min()) >= 0 and float(out["mask_probs"].max()) <= 1,
+            f"TTA outputs ({kept} kept)")
+    t0 = time.perf_counter()
+    run_tta()
+    walls = [(time.perf_counter() - t0) * 1e3]
+    # the device's busy share under the profiler at one of the sizes (800, the middle), with flip: at all nine
+    # the trace holds ~160,000 launches (the NMS walks), and its summary alone would take ~a minute
+    one = GeneralizedRCNNWithTTA(model, torch.tensor([list(TTA_HW)]), min_sizes=(800,), flip=aug.FLIP,
+                                 max_detections=cfg.TEST.DETECTIONS_PER_IMAGE)
+    busy, wall = profile_busy(lambda: (one(image), torch.cuda.synchronize()),
+                              "GeneralizedRCNNWithTTA at size 800 with flip, 2 detection and 2 mask passes", calls=1)
+    print(f"  GeneralizedRCNNWithTTA around Mask R-CNN R50-FPN ({RCNN_CONFIG}, bf16), one {TTA_HW[0]}x{TTA_HW[1]} "
+          f"image at TEST.AUG.MIN_SIZES {list(aug.MIN_SIZES)} with flip: variants "
+          f"{', '.join(f'{h}x{w}' for h, w in sizes)} ({len(odd)} with an odd side); launches {launches['rest_tta']}; "
+          f"{kept} detections kept; wall {first_s * 1e3:.1f} ms the first call, "
+          f"{walls[0]:.1f} ms the second; at size 800 with flip the device is busy {busy:.1f} of "
+          f"{wall:.1f} ms under the profiler ({busy / wall:.1%})")
+    result["tta"] = {"sizes": sizes, "odd_sizes": odd, "kept": kept, "first_ms": first_s * 1e3, "wall_ms": walls,
+                     "busy_ms_size_800": busy, "profiled_wall_ms_size_800": wall}
+    # card vs CPU at one odd size, at the CPU's replayed choices
+    want = tta_ref[3]()
+    taps = [ReplayTap(name, module) for module, name in TTA_REPLAYED]
+    for tap, recorded in zip(taps, want["recorded"]):
+        tap.replay = list(recorded)
+    with torch.no_grad():
+        got, maps = tta_pass(model, image, taps)
+    require(all(not tap.replay for tap in taps), "the card's TTA took fewer choices than the CPU's")
+    require(torch.equal(got["valid"], want["outputs"]["valid"]), "TTA card vs CPU: kept slots differ")
+    errs = {f"pass {i} {k}": rel_l2(m[k], w[k]) for i, (m, w) in enumerate(zip(maps, want["maps"])) for k in w}
+    errs["mask_probs"] = rel_l2(got["mask_probs"], want["outputs"]["mask_probs"])
+    print(f"  TTA at {TTA_CPU_SIZE}x{round(TTA_HW[1] * TTA_CPU_SIZE / TTA_HW[0])} with flip, card vs CPU (f32; "
+          f"{want['seconds']:.1f} s in the reference process) at the CPU's replayed top-k, NMS and levels: relative "
+          f"L2 of the FPN maps max {max(v for k, v in errs.items() if k.startswith('pass')):.4g}, the averaged masks "
+          f"{errs['mask_probs']:.4g}; tolerance 0.05: bf16 rounds ~60 times in sequence (the ResNet-50, the FPN, "
+          "the mask head)")
+    for k, e in errs.items():
+        require(e <= 0.05, f"TTA card vs CPU: {k} relative L2 {e}")
+    result["tta"]["card_vs_cpu"] = errs
+
+    lap("tta")
+    # ---- the box trackers over the Mask R-CNN's detections on a short video
+    frames = synthetic_video(33, TRACK_FRAMES)[:, :TTA_HW[0], :TTA_HW[1]]
+    mean, std = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD))
+    hw = torch.tensor([list(TTA_HW)], dtype=torch.int32, device=dev)
+    dets = []
+    zero(kernels)
+    with torch.no_grad():
+        for frame in frames:
+            img = ((torch.from_numpy(frame).to(dev).float() - mean) / std)[None].contiguous()
+            o = model.inference(img, hw)
+            v = o["valid"][0].cpu().numpy()
+            dets.append({k: o[k][0].cpu().numpy()[v] for k in ("boxes", "scores", "classes")})
+    launches["rest_trackers"] = counts(kernels)
+    require(launches["rest_trackers"] == {k2: TRACK_FRAMES}, f"tracker path launches {launches['rest_trackers']}")
+    tracked = {}
+    for cls in (BBoxIOUTracker, VanillaHungarianBBoxIOUTracker, IOUWeightedHungarianBBoxIOUTracker):
+        tracker, per_frame, ids = cls(), [], []
+        for d in dets:
+            t0 = time.perf_counter()
+            o = tracker.update(d)
+            per_frame.append((time.perf_counter() - t0) * 1e3)
+            require(len(set(o["ids"].tolist())) == len(d["boxes"]), f"{cls.__name__}: an id twice in a frame")
+            ids.append(o["ids"])
+        new = tracker._next_id
+        total = sum(len(d["boxes"]) for d in dets)
+        tracked[cls.__name__] = {"host_ms_per_frame": per_frame, "ids": new, "detections": total}
+        print(f"  {cls.__name__}: {total} detections over {TRACK_FRAMES} frames, {new} ids "
+              f"({total - new} carried), host {statistics.median(per_frame):.3f} ms a frame (median)")
+    result["trackers"] = tracked
+    del model, tta
+    torch.cuda.empty_cache()
+    lap("trackers")
+    result["phase_s"] = time.perf_counter() - t_phase
+    print("  seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in result["segment_s"].items()))
+    print(f"  {smi}")
+    print(f"[phase 32] DCN v1 / v2, ResNeXt-101, DC5 and RegNet trunks forward and trained at 2 x 800x1344, the C4 "
+          f"and rotated heads trained and served, RotatedCOCOEvaluator, TTA over {n_pass} variants ({len(odd)} sizes "
+          f"odd) through K2 = {2 * n_pass}, the box trackers; card agrees with CPU; {result['phase_s']:.1f} s")
+    return launches, result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
                                                  "with no argument, every phase.")
     parser.add_argument("--only", choices=("train_numerics", "entry_point", "minvis_entry", "seqformer_train",
                                            "swin_train", "instmove_train", "fused_tracker", "coco_pretrain",
                                            "tools", "rcnn", "rcnn_train", "dense_det", "rcnn_heads", "panoptic",
-                                           "datasets"),
+                                           "datasets", "rest"),
                         help="phase 1 and this phase alone (train_numerics: phase 6; entry_point: phase 17; "
                              "minvis_entry: phase 2b's MinVIS and SeqFormer shapes and phase 18; seqformer_train: "
                              "phase 19; swin_train: phases 20 and 21; instmove_train: K2 at InstMove's shape and "
@@ -6142,7 +6814,8 @@ def main(argv=None) -> int:
                              "at Mask R-CNN's train step [2, 800, 1344, 3] and phase 27; dense_det: phase 28; "
                              "rcnn_heads: phase 29; panoptic: K2 at PanopticFPN's [1, 800, 1344, 3] and "
                              "[2, 800, 1344, 3] and phase 30; datasets: K2's forward and backward at "
-                             "Cityscapes' [1, 1024, 2048, 3] and phase 31)")
+                             "Cityscapes' [1, 1024, 2048, 3] and phase 31; rest: phase 32, K2's forward and "
+                             "backward at TTA's [1, 500, 667, 3] with it)")
     parser.add_argument("--trace", action="store_true",
                         help="with --only rcnn_heads or panoptic: first trace each R-CNN's card-vs-CPU check with "
                              "the card in f32 and with the CPU in bf16 (nothing required of the traces)")
@@ -6236,6 +6909,9 @@ def main(argv=None) -> int:
                                            "Cityscapes train")}
             launches, datasets = phase_datasets(dev, kernels, smi)
             print(json.dumps({"k2_cityscapes": k2, "datasets": datasets, "launches": launches}))
+        elif args.only == "rest":
+            launches, rest = phase_rest(dev, kernels, smi)
+            print(json.dumps({"rest": rest, "launches": launches}))
         else:
             launches, tools = phase_tools(dev, kernels, smi)
             print(json.dumps({"tools": tools, "launches": launches}))
@@ -6314,17 +6990,18 @@ def main(argv=None) -> int:
     r101_launches, r101_timing, import_result = phase_r101_and_import(dev, kernels, swin_model, swin_cfg)
     del swin_model
     phase_seconds["16"] = time.perf_counter() - t0
-    # phases 19-21's card-vs-CPU CPU sides, computed in their own process from here on
+    # phases 18-21's and 32's card-vs-CPU CPU sides, computed in their own process from here on (18's first)
     t0 = time.perf_counter()
-    ref19, ref20, ref21 = started_references([
+    ref18, ref19, ref20, ref21, *ref32 = started_references([
+        minvis_reference(read_config("minvis/ovis_r50.yaml")),
         seqformer_reference(read_config("seqformer/ytvis19_r50.yaml"), TRAIN_HW),
         idol_swin_reference(read_config("idol/ytvis19_swinL.yaml")),
-        seqformer_reference(read_config("seqformer/swin_ytvis.yaml"), SEQ_SWIN_CPU_HW)])
-    phase_seconds["19-21 CPU sides started"] = time.perf_counter() - t0
+        seqformer_reference(read_config("seqformer/swin_ytvis.yaml"), SEQ_SWIN_CPU_HW), *rest_references()])
+    phase_seconds["18-21, 32 CPU sides started"] = time.perf_counter() - t0
     entry_point_launches, entry_result = phase_entry_point(dev, kernels, smi)
     phase_seconds["17"] = entry_result["phase_s"]
     torch.cuda.empty_cache()
-    minvis_entry_launches, minvis_entry_result = phase_minvis_entry(dev, kernels, smi)
+    minvis_entry_launches, minvis_entry_result = phase_minvis_entry(dev, kernels, smi, reference=ref18)
     phase_seconds["18"] = minvis_entry_result["phase_s"]
     seq_train_launches, seq_train_result = phase_seqformer_train(dev, kernels, smi, reference=ref19)
     phase_seconds["19"] = seq_train_result["phase_s"]
@@ -6357,6 +7034,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     datasets_launches, datasets_result = phase_datasets(dev, kernels, smi)
     phase_seconds["31"] = datasets_result["phase_s"]
+    torch.cuda.empty_cache()
+    rest_launches, rest_result = phase_rest(dev, kernels, smi, reference=ref32)
+    phase_seconds["32"] = rest_result["phase_s"]
     print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
     print(f"  the whole run: {time.perf_counter() - t_run:.1f} s")
 
@@ -6368,7 +7048,7 @@ def main(argv=None) -> int:
         "idol_swinl_train": swin_train_result, "seqformer_swinl_train": seq_swin_train_result,
         "instmove_train": instmove_train_result, "fused_tracker": fused_result, "coco_pretrain": coco_result,
         "tools": tools_result, "rcnn": rcnn_result, "rcnn_train": rcnn_train_result, "dense_det": dense_result,
-        "rcnn_heads": heads_result, "panoptic": panoptic_result, "datasets": datasets_result,
+        "rcnn_heads": heads_result, "panoptic": panoptic_result, "datasets": datasets_result, "rest": rest_result,
         "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
@@ -6383,7 +7063,7 @@ def main(argv=None) -> int:
              "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches, **entry_point_launches,
              **minvis_entry_launches, **seq_train_launches, **swin_train_launches, **seq_swin_train_launches,
              **fused_launches, **coco_launches, **tools_launches, **rcnn_launches, **rcnn_train_launches,
-             **dense_launches, **heads_launches, **panoptic_launches, **datasets_launches}
+             **dense_launches, **heads_launches, **panoptic_launches, **datasets_launches, **rest_launches}
     for path, names in (("minvis_entry_eval", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
                         ("minvis_entry_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
                         ("seqformer_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
@@ -6404,7 +7084,8 @@ def main(argv=None) -> int:
                         ("keypoint_eval", (stem_conv.KERNEL,)), ("keypoint_train", (stem_conv.KERNEL,)),
                         ("panoptic_eval", (stem_conv.KERNEL,)), ("panoptic_train", (stem_conv.KERNEL,)),
                         *((f"{name}_eval", (stem_conv.KERNEL,)) for name in DATASET_CONFIGS),
-                        *((f"{name}_train", (stem_conv.KERNEL,)) for name, c in DATASET_CONFIGS.items() if c[2])):
+                        *((f"{name}_train", (stem_conv.KERNEL,)) for name, c in DATASET_CONFIGS.items() if c[2]),
+                        *((path, (stem_conv.KERNEL,)) for path in rest_launches if "regnet" not in path)):
         for kern in names:
             require(paths[path].get(kern.name, 0) > 0, f"{kern.name}: no launch on the {path} path")
     # K4, K5 and K2 at the new train steps' shapes, beside their rows' train-step shape
@@ -6418,7 +7099,8 @@ def main(argv=None) -> int:
                                         "rcnn_serving": measured["stem_rcnn"],
                                         "rcnn_train": measured["stem_rcnn_train"],
                                         "cityscapes_serving": measured["stem_cityscapes"],
-                                        "cityscapes_train": measured["stem_cityscapes_train"]}
+                                        "cityscapes_train": measured["stem_cityscapes_train"],
+                                        "tta_odd_serving": rest_result["k2_tta_odd"]}
     rows = [  # (kernel, the path its launches are reported from, the measurement it is reported by)
         (msda.KERNEL, "serve", "enc"),
         (stem_conv.KERNEL, "train", "stem_train"),

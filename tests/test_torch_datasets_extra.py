@@ -289,7 +289,8 @@ def test_cityscapes_evaluators_equal_jax(root):
 
 def test_build_evaluator_dispatches_every_type(root, tmp_path):
     """The builtin splits' types make their evaluators (LVIS with segm under
-    MASK_ON; VOC07's metric for 2007 only); ``rotated_coco`` still raises."""
+    MASK_ON; VOC07's metric for 2007 only); ``rotated_coco`` builds the
+    rotated evaluator (tests/test_torch_rotated.py holds it against JAX)."""
     builtin.register_all_builtin()
     cfg = get_cfg()
     add_idol_config(cfg)
@@ -301,8 +302,7 @@ def test_build_evaluator_dispatches_every_type(root, tmp_path):
     sem = build_evaluator(cfg, "cityscapes_fine_sem_seg_val")
     assert isinstance(sem, CityscapesSemSegEvaluator) and sem._num_classes == 19
     MetadataCatalog.get("extra_rotated_kind").set(evaluator_type="rotated_coco")
-    with pytest.raises(NotImplementedError, match="rotated_coco.*item 11e"):
-        build_evaluator(cfg, "extra_rotated_kind")
+    assert type(build_evaluator(cfg, "extra_rotated_kind")).__name__ == "RotatedCOCOEvaluator"
 
 
 # ---------------------------------------------------------------- the mapper (fault 1)

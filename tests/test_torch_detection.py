@@ -21,8 +21,8 @@ case shares one JAX compile:
 - the entry point, ``vnext_tpu_torch.tools.train_net.main --eval-only
   MODEL.DEVICE cpu`` with the same tree in ``MODEL.WEIGHTS``: its results dict
   equal to JAX's ``do_eval_detection``'s, and ``TEST.EXPECTED_RESULTS`` verified;
-- refusals: an unknown architecture and the evaluator types of ROADMAP item
-  11e; and what is ported since: one Mask R-CNN train step through the entry
+- refusals: an unknown architecture; and what is ported since: the rotated
+  evaluator type (tests/test_torch_rotated.py), one Mask R-CNN train step through the entry
   point, PanopticFPN, SemanticSegmentor, ProposalNetwork, RetinaNet, FCOS,
   Cascade and keypoint R-CNN built and taken by the runner, the keypoints task
   evaluated (tests/test_torch_panoptic.py, tests/test_torch_rcnn_heads.py
@@ -350,13 +350,12 @@ def test_refusals_name_their_item(served, tmp_path):
                 build_model(other, device="meta")
     assert type(build_model(cfg, device="meta")).__name__ == "GeneralizedRCNN"
     assert COCOEvaluator(DATASET, ("bbox", "keypoints"))._tasks == ("bbox", "keypoints")
-    # LVIS is the LVIS evaluator since its datasets are ported (tests/test_torch_datasets_extra.py); the rotated
-    # type still raises, naming the rest of 11e
+    # LVIS is the LVIS evaluator since its datasets are ported (tests/test_torch_datasets_extra.py), and the
+    # rotated type the rotated evaluator since the rotated boxes are (tests/test_torch_rotated.py)
     MetadataCatalog.get("detection_lvis_kind").set(evaluator_type="lvis")
     assert type(build_evaluator(cfg, "detection_lvis_kind")).__name__ == "LVISEvaluator"
     MetadataCatalog.get("detection_rotated_kind").set(evaluator_type="rotated_coco")
-    with pytest.raises(NotImplementedError, match="'rotated_coco'.*item 11e"):
-        build_evaluator(cfg, "detection_rotated_kind")
+    assert type(build_evaluator(cfg, "detection_rotated_kind")).__name__ == "RotatedCOCOEvaluator"
     cfg.MODEL.META_ARCHITECTURE = "NoSuchArch"
     with pytest.raises(KeyError, match="No object named"):
         build_model(cfg, device="meta")

@@ -68,8 +68,13 @@ def test_stem_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError, match="float32"):
         stem_conv.stem_conv7x7s2_bn_relu(x.to(torch.bfloat16), k, scale, bias)
     with pytest.raises(ValueError, match="even"):
-        stem_conv.stem_conv7x7s2_bn_relu(x[:, :7], k, scale, bias)
+        torch.ops.vnext.stem_conv(x[:, :7].contiguous(), k, scale, bias)
     assert stem_conv.KERNEL.launches == before
+    # the wrapper pads an odd side with zeros and launches the kernel on the padded input
+    got = stem_conv.stem_conv7x7s2_bn_relu(x[:, :7], k, scale, bias)
+    want = stem_conv.stem_conv_plain(x[:, :7], k, scale, bias)
+    assert got.shape == want.shape == (1, 4, 4, 64) and stem_conv.KERNEL.launches == before + 1
+    assert float((got.float() - want.float()).abs().max()) <= 2.0 ** -7 * float(want.float().abs().max())
 
 
 def _edge_samples(levels, q, m, p, box, rng):

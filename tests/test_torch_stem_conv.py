@@ -71,9 +71,17 @@ def test_resnet_bf16_stem_is_the_stem_op():
 
 
 def test_odd_sizes_raise():
-    x, k, scale, bias = _inputs(1, h=31, w=48)
+    """The operator takes even sides only and raises on an odd one; the
+    wrapper pads the odd side with one zero row (or column) first, which
+    leaves the [B, ceil(H/2), ceil(W/2), 64] output of the unpadded
+    convolution."""
+    x, k, scale, bias = (t(a) for a in _inputs(1, h=31, w=48))
     with pytest.raises(ValueError, match="even"):
-        stem.stem_conv7x7s2_bn_relu(t(x), t(k), t(scale), t(bias))
+        torch.ops.vnext.stem_conv(x, k, scale, bias)
+    got = stem.stem_conv7x7s2_bn_relu(x, k, scale, bias)
+    assert got.shape == (2, 16, 24, 64)
+    want = stem.stem_conv_ref_f32(x.to(torch.bfloat16).float(), k, scale, bias)
+    _within_one_ulp(got.float().numpy(), want.numpy())
 
 
 def test_cpu_tensors_never_launch():

@@ -234,13 +234,12 @@ def test_build_evaluator_has_the_ytvis_type_only(tmp_path):
         "COCOEvaluator", "COCOPanopticEvaluator"]
     MetadataCatalog.get("eval_sem_seg_kind").set(evaluator_type="sem_seg")
     assert type(build_evaluator(cfg, "eval_sem_seg_kind")).__name__ == "SemSegEvaluator"
-    # LVIS, VOC and Cityscapes since their datasets are ported (tests/test_torch_datasets_extra.py); the rotated
-    # type comes with the rest of 11e
+    # LVIS, VOC and Cityscapes since their datasets are ported (tests/test_torch_datasets_extra.py), the rotated
+    # type since the rotated boxes are (tests/test_torch_rotated.py)
     MetadataCatalog.get("eval_lvis_kind").set(evaluator_type="lvis")
     assert type(build_evaluator(cfg, "eval_lvis_kind")).__name__ == "LVISEvaluator"
     MetadataCatalog.get("eval_rotated_kind").set(evaluator_type="rotated_coco")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11e"):
-        build_evaluator(cfg, "eval_rotated_kind")
+    assert type(build_evaluator(cfg, "eval_rotated_kind")).__name__ == "RotatedCOCOEvaluator"
 
 
 def test_inference_loop_and_combiner_equal_jax():

@@ -19,7 +19,16 @@ A rank-1 leaf that is not a kernel, such as FCOS's per-level ``scales``,
 carries across as it is, and the cascade's ``stage{k}`` heads by their paths;
 so do PanopticFPN's and SemanticSegmentor's ``sem_seg_head`` (its
 ``head_p{2..5}_conv`` kernels by the 4-d rule, its ``head_p{2..5}_norm``
-GroupNorm scales by ``scale``, its 1x1 ``predictor``).
+GroupNorm scales by ``scale``, its 1x1 ``predictor``). The trees of the
+ResNet variants and the other heads need no rule of their own: a ResNeXt's
+grouped 3x3 kernel [3, 3, in / groups, out] becomes [out, in / groups, 3, 3]
+by the 4-d rule, which is ``conv2d``'s grouped layout; a DCN block's
+``conv2_offset`` is a convolution like any other, and its raw 3x3 weight
+``conv2_weight`` (not named ``kernel``) carries across as it is, HWIO, the
+layout the port's ``Bottleneck`` keeps it in; RegNet's squeeze-excitation
+``fc1`` / ``fc2`` are 1x1 convolutions; the C4 head's ``mask_deconv`` is a
+``ConvTranspose``; the rotated heads' ``fc1``, ``fc2``, ``cls_score`` and
+``bbox_pred`` are Dense layers.
 
 The input is a nested dict of numpy arrays (``jax.tree.map(np.asarray, params)``),
 so this module needs neither jax nor flax.

@@ -121,8 +121,8 @@ def build_evaluator(cfg, dataset_name: str, output_dir: Optional[str] = None) ->
     with ``MODEL.MASK_ON`` "segm"); "pascal_voc"
     (``PascalVOCDetectionEvaluator`` over the ``thing_classes``, VOC07's
     11-point AP when the dataset's ``year`` is 2007); "cityscapes_instance"
-    and "cityscapes_sem_seg". "rotated_coco" comes with the rotated boxes
-    (ROADMAP Queue 1, item 11e)."""
+    and "cityscapes_sem_seg"; "rotated_coco" (``RotatedCOCOEvaluator`` over
+    the ``thing_classes``)."""
     meta = MetadataCatalog.get(dataset_name)
     evaluator_type = meta.get("evaluator_type", "ytvis")
     output_dir = output_dir or cfg.OUTPUT_DIR
@@ -166,7 +166,7 @@ def build_evaluator(cfg, dataset_name: str, output_dir: Optional[str] = None) ->
 
         return CityscapesSemSegEvaluator(class_names=meta.get("stuff_classes"))
     if evaluator_type == "rotated_coco":
-        raise NotImplementedError(
-            f"evaluator type 'rotated_coco' (dataset {dataset_name}): the rotated evaluator comes with the rest of "
-            "the Detectron2 families, RotatedBoxes, the rotated ROI heads and ops (ROADMAP Queue 1, item 11e)")
+        from .rotated_coco_eval import RotatedCOCOEvaluator
+
+        return RotatedCOCOEvaluator(class_names=meta.get("thing_classes"))
     raise NotImplementedError(f"no evaluator for type {evaluator_type!r} (dataset {dataset_name})")

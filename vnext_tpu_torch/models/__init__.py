@@ -9,7 +9,10 @@ CascadeROIHeads``), ``PanopticFPN``, ``SemanticSegmentor``,
 ``ProposalNetwork``, ``RetinaNet`` and ``FCOS``; a name neither package knows
 raises the registry's ``KeyError``.
 The entry points keep their own builders; the tools (demo, export, analysis,
-model zoo) use this one.
+model zoo) use this one. Like ``vnext_tpu.models`` it also exports the parts
+that no config reaches and users build through the API: the RegNet trunk, the
+ResNet builder and its registry, the C4 and rotated ROI heads and the
+test-time-augmentation wrappers.
 """
 
 from __future__ import annotations
@@ -17,14 +20,18 @@ from __future__ import annotations
 import torch
 
 from ..utils.registry import Registry
+from .backbones.regnet import RegNet
+from .backbones.resnet import BACKBONE_REGISTRY, build_resnet_backbone
 from .fcos import FCOS
 from .idol import IDOL, build_idol_model, idol_kwargs_from_cfg
 from .layers import init_weights
 from .mask2former import MaskFormer, build_maskformer_model, maskformer_kwargs_from_cfg
 from .rcnn import GeneralizedRCNN, PanopticFPN, ProposalNetwork
 from .retinanet import RetinaNet
+from .roi_heads_extra import Box2BoxTransformRotated, Res5ROIHeads, RROIHeads
 from .semantic_seg import SemanticSegmentor
 from .seqformer import SeqFormer, build_seqformer_model, seqformer_kwargs_from_cfg
+from .tta import DetectorWithTTA, GeneralizedRCNNWithTTA
 
 META_ARCH_REGISTRY = Registry("META_ARCH")
 for _cls in (IDOL, SeqFormer, MaskFormer, GeneralizedRCNN, PanopticFPN, ProposalNetwork, RetinaNet, FCOS,
@@ -169,7 +176,8 @@ def build_model(cfg, device="cuda", seed: int = 0) -> torch.nn.Module:
     return builder(cfg, device=device, seed=seed)
 
 
-__all__ = ["META_ARCH_REGISTRY", "build_fcos_model", "build_model", "build_panoptic_model", "build_proposal_model",
-           "build_rcnn_model", "build_retinanet_model", "build_semseg_model", "fcos_kwargs_from_cfg",
-           "panoptic_kwargs_from_cfg", "proposal_kwargs_from_cfg", "rcnn_kwargs_from_cfg", "retinanet_kwargs_from_cfg",
-           "semseg_kwargs_from_cfg"]
+__all__ = ["BACKBONE_REGISTRY", "Box2BoxTransformRotated", "DetectorWithTTA", "GeneralizedRCNNWithTTA",
+           "META_ARCH_REGISTRY", "RROIHeads", "RegNet", "Res5ROIHeads", "build_fcos_model", "build_model",
+           "build_panoptic_model", "build_proposal_model", "build_rcnn_model", "build_resnet_backbone",
+           "build_retinanet_model", "build_semseg_model", "fcos_kwargs_from_cfg", "panoptic_kwargs_from_cfg",
+           "proposal_kwargs_from_cfg", "rcnn_kwargs_from_cfg", "retinanet_kwargs_from_cfg", "semseg_kwargs_from_cfg"]

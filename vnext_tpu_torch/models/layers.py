@@ -112,17 +112,20 @@ class Dense(nn.Module):
 
 
 class Conv(nn.Module):
-    """2-d convolution on NCHW (flax nn.Conv with symmetric padding): weight OIHW."""
+    """2-d convolution on NCHW (flax nn.Conv with symmetric padding): weight OIHW,
+    [out, in / groups, kh, kw] for a grouped one (flax's ``feature_group_count``,
+    whose HWIO kernel is [kh, kw, in / groups, out])."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, bias: bool = True, dtype=torch.float32,
-                 kernel_init: str = "lecun", bias_init: Optional[Callable[[torch.Tensor], None]] = None):
+                 kernel_init: str = "lecun", bias_init: Optional[Callable[[torch.Tensor], None]] = None,
+                 dilation: int = 1, groups: int = 1):
         super().__init__()
         self.dtype = dtype
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
         self.kernel_init = kernel_init
         self.bias_init = bias_init
-        self.weight = _empty(out_ch, in_ch, kernel_size, kernel_size)
+        self.weight = _empty(out_ch, in_ch // groups, kernel_size, kernel_size)
         self.bias = _empty(out_ch) if bias else None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -138,7 +141,7 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding, self.dilation, self.groups)
 
 
 def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:

@@ -2,7 +2,14 @@
 
 Counterpart of ``vnext_tpu.ops.stem_conv.stem_conv7x7s2_bn_relu``: the input and
 the kernel are rounded to bf16, products are summed in f32, and the output is
-bf16 ``relu(conv(x, k) * scale + bias)`` of shape [B, H/2, W/2, 64] for even H, W.
+bf16 ``relu(conv(x, k) * scale + bias)`` of shape [B, ceil(H/2), ceil(W/2), 64].
+
+An odd H or W is padded with one zero row or column at the bottom or right
+before the convolution (:func:`pad_to_even`). That is exact: at stride 2 and
+padding 3 the padded side gives the same (H + 1) / 2 outputs, and the added
+zeros lie where the convolution's own zero padding already is. The kernel, its
+plain version and the operator all take even sides; autograd crops the
+gradient back to the input's shape.
 
 The forward is the operator ``torch.ops.vnext.stem_conv`` (so that
 ``torch.export`` keeps it in a graph): on a CPU tensor it runs
@@ -38,19 +45,27 @@ KERNEL = Kernel(
 K_RUN, K_RUN_PAD, K_PAD = 21, 22, 160
 
 
-def _check_args(x, k_hwio, scale, bias):
-    if x.dim() != 4 or x.shape[-1] != 3 or x.shape[1] % 2 or x.shape[2] % 2:
-        raise ValueError(f"stem input must be [B, H, W, 3] with H, W even, got {tuple(x.shape)}")
+def _check_args(x, k_hwio, scale, bias, even=True):
+    if x.dim() != 4 or x.shape[-1] != 3 or (even and (x.shape[1] % 2 or x.shape[2] % 2)):
+        raise ValueError(f"stem input must be [B, H, W, 3]{' with H, W even' * even}, got {tuple(x.shape)}")
     if k_hwio.shape != (7, 7, 3, 64):
         raise ValueError(f"stem kernel must be [7, 7, 3, 64] (HWIO), got {tuple(k_hwio.shape)}")
     if scale.shape != (64,) or bias.shape != (64,):
         raise ValueError("stem scale and bias must be [64]")
 
 
+def pad_to_even(x: torch.Tensor) -> torch.Tensor:
+    """x [B, H, W, C] with one zero row at the bottom if H is odd and one zero
+    column at the right if W is odd; ``x`` itself when both are even."""
+    ph, pw = x.shape[1] % 2, x.shape[2] % 2
+    return F.pad(x, (0, 0, 0, pw, 0, ph)) if ph or pw else x
+
+
 def stem_conv7x7s2_bn_relu(x, k_hwio, scale, bias) -> torch.Tensor:
     """x [B, H, W, 3] (any float dtype), k_hwio [7, 7, 3, 64], scale/bias [64] f32.
-    Returns bf16 [B, H/2, W/2, 64]."""
-    _check_args(x, k_hwio, scale, bias)
+    Returns bf16 [B, ceil(H/2), ceil(W/2), 64]; an odd side is padded to even."""
+    _check_args(x, k_hwio, scale, bias, even=False)
+    x = pad_to_even(x)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stem_conv: no implementation for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, k_hwio, scale, bias)):
@@ -69,12 +84,15 @@ def _forward(x, k_hwio, scale, bias):
 def stem_conv_op(x: torch.Tensor, k_hwio: torch.Tensor, scale: torch.Tensor,
                  bias: torch.Tensor) -> torch.Tensor:
     """The stem as an operator: the plain version on the CPU, K2 on the card
-    (registered below); bf16 [B, H/2, W/2, 64]."""
+    (registered below); bf16 [B, H/2, W/2, 64]. It takes even sides only:
+    the wrapper pads an odd one before it."""
+    _check_args(x, k_hwio, scale, bias)
     return stem_conv_plain(x, k_hwio, scale, bias)
 
 
 @stem_conv_op.register_kernel("cuda")
 def _stem_conv_cuda(x, k_hwio, scale, bias):
+    _check_args(x, k_hwio, scale, bias)
     return _launch(x, k_hwio, scale, bias)
 
 
@@ -123,9 +141,10 @@ def stem_conv_ref_f32(x, k_hwio, scale, bias) -> torch.Tensor:
 
 
 def stem_conv_plain(x, k_hwio, scale, bias) -> torch.Tensor:
-    """Plain PyTorch version: an f32 convolution of the bf16-rounded operands."""
-    _check_args(x, k_hwio, scale, bias)
-    xb = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
+    """Plain PyTorch version: an f32 convolution of the bf16-rounded operands
+    (an odd side padded to even, as the wrapper pads it)."""
+    _check_args(x, k_hwio, scale, bias, even=False)
+    xb = pad_to_even(x).to(torch.bfloat16).float().permute(0, 3, 1, 2)
     kb = k_hwio.to(torch.bfloat16).float().permute(3, 2, 0, 1)   # OIHW
     y = F.conv2d(xb, kb, stride=2, padding=3)
     y = y * scale.float()[None, :, None, None] + bias.float()[None, :, None, None]

@@ -1,10 +1,10 @@
 """Box operations: the matcher's, the criterion's and the R-CNN's.
 
-Counterpart of ``vnext_tpu.structures.boxes`` but for ``RotatedBoxes`` (ROADMAP
-Queue 1, item 11e). Boxes are [..., 4]; the pairwise functions take sets
-[..., N, 4] and [..., M, 4] with any leading batch dimensions and return
-[..., N, M]. ``BoxMode`` converts the host's numpy annotation boxes (the
-visualizer draws them); ``Boxes`` wraps an [N, 4] xyxy tensor.
+Counterpart of ``vnext_tpu.structures.boxes``. Boxes are [..., 4]; the
+pairwise functions take sets [..., N, 4] and [..., M, 4] with any leading
+batch dimensions and return [..., N, M]. ``BoxMode`` converts the host's numpy
+annotation boxes (the visualizer draws them); ``Boxes`` wraps an [N, 4] xyxy
+tensor and ``RotatedBoxes`` an [N, 5] (cx, cy, w, h, angle in degrees) one.
 """
 
 from __future__ import annotations
@@ -173,4 +173,39 @@ class Boxes:
 
     @classmethod
     def cat(cls, boxes_list) -> "Boxes":
+        return cls(torch.cat([b.tensor for b in boxes_list], 0))
+
+
+class RotatedBoxes:
+    """Thin wrapper over an (N, 5) (cx, cy, w, h, angle_deg) f32 tensor
+    (reference: structures/rotated_boxes.py)."""
+
+    def __init__(self, tensor):
+        tensor = torch.as_tensor(tensor, dtype=torch.float32)
+        if tensor.ndim != 2 or tensor.shape[-1] != 5:
+            raise ValueError(f"RotatedBoxes tensor must be (N, 5), got {tuple(tensor.shape)}")
+        self.tensor = tensor
+
+    def area(self) -> torch.Tensor:
+        return self.tensor[:, 2] * self.tensor[:, 3]
+
+    def normalize_angles(self) -> "RotatedBoxes":
+        """Angles into [-180, 180): ``(a + 180) mod 360 - 180``, Python's
+        floored modulo as ``jnp``'s."""
+        t = self.tensor.clone()
+        t[:, 4] = torch.remainder(t[:, 4] + 180.0, 360.0) - 180.0
+        return RotatedBoxes(t)
+
+    def __len__(self) -> int:
+        return self.tensor.shape[0]
+
+    def __getitem__(self, item) -> "RotatedBoxes":
+        t = self.tensor[item]
+        return RotatedBoxes(t[None] if t.ndim == 1 else t)
+
+    def __repr__(self) -> str:
+        return f"RotatedBoxes({self.tensor})"
+
+    @classmethod
+    def cat(cls, boxes_list) -> "RotatedBoxes":
         return cls(torch.cat([b.tensor for b in boxes_list], 0))
