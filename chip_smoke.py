@@ -19,6 +19,7 @@
     python3 chip_smoke.py --only panoptic          # phase 1, K2 at PanopticFPN's image and step, phase 30 alone
     python3 chip_smoke.py --only datasets          # phase 1, K2 at Cityscapes' image and step, phase 31 alone
     python3 chip_smoke.py --only rest              # phase 1 and phase 32 alone (K2 at TTA's odd shape in it)
+    python3 chip_smoke.py --only distributed       # phase 1 and phase 33 alone (a one-rank NCCL group)
 
 Phases, each printed as it ends; any failure raises and exits non-zero. Each
 path zeroes every kernel's launch counter just before it runs and reads them
@@ -341,6 +342,27 @@ port's own reader (``vnext_tpu_torch.config``).
     detections on 6 frames. Card vs CPU: the DCN v2 trunk at 256x384, the two
     heads on the card's res4, one TTA size at the CPU's replayed choices; the
     DCN and TTA CPU sides run in the CPU reference's process.
+33. Distribution on the one card (``parallel/``, ``engine/launch.py``): a
+    one-rank NCCL group the script makes itself (its init time printed). The
+    IDOL-R50 train step (ytvis19_r50, bf16, dropout 0.1) on phase 5's kind of
+    batch, 4 x (key + ref) at 512x640, through ``make_train_step`` under
+    ``DistributedDataParallel`` with the global loss counts, against the same
+    step with no group from the same weights and batch: the losses, the
+    clipped gradients and the parameters after within 3x the plain step's
+    own spread on the card (a second plain step from the same weights: K5's
+    f32 atomics reorder its sums from run to run), every parameter inside
+    AdamW's bound, and the two steps' times (DDP's own cost). The
+    time-sharded IDOL-R50 clip (10 frames at 480x864 through
+    ``make_sharded_clip_inference``) against ``IDOL.inference`` (bit-equal
+    where that is bit-equal to itself), and their times. The YTVIS evaluator's gathered AP dict against the ungathered
+    one. ``SyncBatchNorm`` on the card against its CPU result. 11f on the
+    card, each against its CPU result: ``ASPP`` at DeepLab's widths (2048 in,
+    256 out, dilations 6 / 12 / 18) on [1, 64, 128, 2048] (its forward
+    timed); ``BitMasks`` of 100 instances at 800x1344 (boxes and
+    ``mask_iou_pairwise``, bit-equal); ``ROIMasks.to_bitmasks`` of 100 28x28
+    masks (bit-equal); ``diou_loss`` / ``ciou_loss`` on 1,000 box pairs;
+    ``calculate_uncertainty``; ``resize_bilinear_ac``. Two ranks cannot share
+    the card: the two-rank equalities are tests/test_torch_distributed.py's.
 
 Then the seconds by phase and of the whole run, a JSON line with the slices' times, one with every kernel's launches,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Exits
@@ -352,6 +374,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import functools
 import gc
 import json
@@ -6799,13 +6822,319 @@ def phase_rest(dev, kernels, smi, reference=None):
     return launches, result
 
 
+# ---------------------------------------------------------------- phase 33
+DIST_STEPS = 3            # DDP and plain steps each: the checked first one, then the timed ones
+DIST_CLIP = 10            # the time-sharded clip's frames (CLIP), at the serving size
+ASPP_SHAPE = (1, 64, 128, 2048)          # Cityscapes' 1024x2048 at stride 16, DeepLab's res5 width
+MASKS_N, MASKS_HW = 100, (800, 1344)
+BOX_PAIRS = 1000
+
+
+def _rel(a, b) -> float:
+    import torch
+
+    a, b = a.detach().double().cpu().flatten(), b.detach().double().cpu().flatten()
+    return float(torch.linalg.vector_norm(a - b) / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def sync_bn_cpu_side():
+    """SyncBatchNorm with no group on the CPU: (input, the module after the
+    call, its output)."""
+    import torch
+
+    from vnext_tpu_torch.models.layers import SyncBatchNorm, init_weights
+
+    x = torch.from_numpy((np.random.RandomState(34).randn(8, 256, 32, 40) * 2 + 1).astype(np.float32))
+    bn = SyncBatchNorm(256)
+    init_weights(bn, 33)
+    return x, bn, bn(x)
+
+
+def dist_card_vs_cpu(dev, bn_cpu):
+    """SyncBatchNorm (in the one-rank group: its statistics all-reduced) and
+    the 11f names on the card, each against the same function on the CPU
+    (``bn_cpu``: ``sync_bn_cpu_side``, run before the group); the times of
+    ASPP's forward."""
+    import torch
+
+    from vnext_tpu_torch.models.layers import ASPP, SyncBatchNorm, init_weights
+    from vnext_tpu_torch.ops.interpolate import resize_bilinear_ac
+    from vnext_tpu_torch.ops.losses import ciou_loss, diou_loss
+    from vnext_tpu_torch.ops.point_sample import calculate_uncertainty
+    from vnext_tpu_torch.structures.masks import BitMasks, ROIMasks, mask_iou_pairwise
+
+    rng = np.random.RandomState(33)
+    out = {}
+    x, bn_want, y_want = bn_cpu
+    bn = SyncBatchNorm(256)
+    init_weights(bn, 33)
+    y = bn.to(dev)(x.to(dev))
+    out["sync_bn_rel_l2"] = [_rel(y, y_want), _rel(bn.bn.mean, bn_want.bn.mean), _rel(bn.bn.var, bn_want.bn.var)]
+    require(max(out["sync_bn_rel_l2"]) <= 1e-5, f"SyncBatchNorm card vs CPU {out['sync_bn_rel_l2']}")
+
+    # ASPP at DeepLab's widths, f32 (TF32 off, as in every phase)
+    aspp = ASPP(ASPP_SHAPE[-1], 256, (6, 12, 18))
+    init_weights(aspp, 33)
+    xa = torch.from_numpy(rng.randn(*ASPP_SHAPE).astype(np.float32))
+    with torch.no_grad():
+        want = aspp(xa)
+        aspp.to(dev)
+        xa_dev = xa.to(dev)
+        got = aspp(xa_dev)
+        out["aspp_rel_l2"] = _rel(got, want)
+        out["aspp_forward_ms"] = time_ms(lambda: aspp(xa_dev))
+        aspp_bf16 = ASPP(ASPP_SHAPE[-1], 256, (6, 12, 18), dtype=torch.bfloat16).to(dev)
+        aspp_bf16.load_state_dict(aspp.state_dict())
+        out["aspp_bf16_forward_ms"] = time_ms(lambda: aspp_bf16(xa_dev))
+    # 1x1 + 3 dilated 3x3 + pooled 1x1 + 1x1 projection, 2 operations a multiply-add
+    h, w, cin = ASPP_SHAPE[1:]
+    out["aspp_gflop"] = 2 * h * w * 256 * (cin * (1 + 27) + 5 * 256) / 1e9 + 2 * cin * 256 / 1e9
+    require(out["aspp_rel_l2"] <= 1e-5, f"ASPP card vs CPU relative L2 {out['aspp_rel_l2']}")
+    del aspp, aspp_bf16, xa_dev
+
+    # BitMasks: 100 rectangles with holes at 800x1344, two of them empty
+    hh, ww = MASKS_HW
+    masks = np.zeros((MASKS_N, hh, ww), bool)
+    for i in range(MASKS_N - 2):
+        y0, x0 = rng.randint(0, hh - 64), rng.randint(0, ww - 64)
+        masks[i, y0:y0 + rng.randint(16, hh - y0), x0:x0 + rng.randint(16, ww - x0)] = True
+    masks[:, ::7, ::5] = False
+    cpu_m = BitMasks(torch.from_numpy(masks))
+    dev_m = cpu_m.to(dev)
+    for name, got, want in (("boxes", dev_m.get_bounding_boxes(), cpu_m.get_bounding_boxes()),
+                            ("nonempty", dev_m.nonempty(), cpu_m.nonempty()),
+                            ("mask_iou_pairwise", mask_iou_pairwise(dev_m.tensor, dev_m.tensor[:50]),
+                             mask_iou_pairwise(cpu_m.tensor, cpu_m.tensor[:50]))):
+        require(torch.equal(got.cpu(), want), f"BitMasks {name}: card and CPU differ")
+    out["mask_iou_ms"] = time_ms(lambda: mask_iou_pairwise(dev_m.tensor, dev_m.tensor), reps=5)
+    del dev_m
+
+    # ROIMasks: 100 28x28 probabilities pasted into their boxes at 800x1344
+    probs = torch.from_numpy(rng.rand(MASKS_N, 28, 28).astype(np.float32))
+    xy = rng.rand(MASKS_N, 2) * [ww - 300, hh - 300]
+    boxes = torch.from_numpy(np.concatenate([xy, xy + rng.rand(MASKS_N, 2) * 280 + 8], 1).astype(np.float32))
+    want = ROIMasks(probs).to_bitmasks(boxes, hh, ww).tensor
+    got = ROIMasks(probs.to(dev)).to_bitmasks(boxes.to(dev), hh, ww).tensor.cpu()
+    differ = int((got != want).sum())
+    if differ:
+        # a pixel may flip only where the pasted probability is the threshold within f32 rounding
+        p = ROIMasks(probs).to_bitmasks(boxes, hh, ww, threshold=-1).tensor
+        require(bool(((p[got != want] - 0.5).abs() <= 1e-6).all()), "ROIMasks: card and CPU differ off the threshold")
+    out["roi_masks_pixels_differing"] = differ
+    out["roi_masks_pixels_set"] = int(want.sum())
+
+    # the box losses, the uncertainty and the align-corners resize
+    xy = rng.rand(2, BOX_PAIRS, 2) * 600
+    b1, b2 = (torch.from_numpy(np.concatenate([xy[i], xy[i] + rng.rand(BOX_PAIRS, 2) * 200 + 1], 1)
+                               .astype(np.float32)) for i in range(2))
+    logits = torch.from_numpy(rng.randn(MASKS_N, 112, 112).astype(np.float32))
+    img = torch.from_numpy(rng.randn(2, 64, 96, 160).astype(np.float32))
+    errs = {}
+    for name, fn, args in (("diou_loss", diou_loss, (b1, b2)), ("ciou_loss", ciou_loss, (b1, b2)),
+                           ("calculate_uncertainty", calculate_uncertainty, (logits,)),
+                           ("resize_bilinear_ac", lambda x: resize_bilinear_ac(x, 192, 320), (img,))):
+        errs[name] = _rel(fn(*(a.to(dev) for a in args)), fn(*args))
+        require(errs[name] <= 1e-6, f"{name}: card vs CPU relative L2 {errs[name]}")
+    out["rel_l2"] = errs
+    print(f"  SyncBatchNorm card vs CPU (output, running mean, running var): "
+          f"{', '.join(f'{v:.2e}' for v in out['sync_bn_rel_l2'])}; ASPP {ASPP_SHAPE} -> 256: relative L2 "
+          f"{out['aspp_rel_l2']:.2e}, forward {out['aspp_forward_ms']:.3f} ms f32 ({out['aspp_gflop']:.1f} GFLOP, "
+          f"{out['aspp_gflop'] / out['aspp_forward_ms']:.1f} TFLOP/s), {out['aspp_bf16_forward_ms']:.3f} ms bf16")
+    print(f"  BitMasks {MASKS_N} x {hh}x{ww}: boxes, nonempty and mask_iou_pairwise bit-equal (the {MASKS_N} x {MASKS_N} IoU "
+          f"{out['mask_iou_ms']:.3f} ms); ROIMasks.to_bitmasks: {differ} of {out['roi_masks_pixels_set']} set pixels "
+          f"differ; relative L2 " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+    return out
+
+
+def phase_distributed(dev, kernels, smi):
+    """Phase 33 (see the module's docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    from torch.nn.parallel import DistributedDataParallel
+
+    from vnext_tpu_torch.data.catalog import DatasetCatalog
+    from vnext_tpu_torch.engine.launch import free_port
+    from vnext_tpu_torch.engine.train_step import TrainState, make_train_step
+    from vnext_tpu_torch.engine.trainer import PIXEL_MEAN, PIXEL_STD, batch_to_model_inputs
+    from vnext_tpu_torch.evaluation.ytvis_eval import YTVISEvaluator
+    from vnext_tpu_torch.models.criterion import default_weight_dict
+    from vnext_tpu_torch.models.idol import build_idol_model
+    from vnext_tpu_torch.parallel import build_mesh, make_sharded_clip_inference, process_allgather
+    from vnext_tpu_torch.solver import build as solver
+
+    t_phase = time.perf_counter()
+    result = {}
+    cfg = read_config("idol/ytvis19_r50.yaml")
+    batch = synthetic_batch(np.random.RandomState(133))
+    inputs = batch_to_model_inputs(batch, PIXEL_MEAN, PIXEL_STD, dev)
+    weights = default_weight_dict(dec_layers=6)
+
+    def trainer(model):
+        optimizer = solver.build_optimizer(cfg, model)
+        step = make_train_step(model, optimizer, weights, solver.build_grad_clip(cfg))
+        return TrainState.create(model, optimizer, solver.build_lr_scheduler(cfg, optimizer)), step
+
+    def flat(tensors):
+        return torch.cat([t.detach().float().flatten() for t in tensors])
+
+    def timed_steps(state, step, n):
+        """(the first step's metrics, clipped gradients and parameters after; each step's ms)"""
+        ms, first = [], None
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, inputs)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                params = list(state.model.parameters())
+                first = ({k: float(v) for k, v in metrics.items()},
+                         flat(p.grad if p.grad is not None else torch.zeros_like(p) for p in params), flat(params))
+        return first, ms
+
+    # the step with no group, and once more from the same weights: the card's own run-to-run spread (K5's f32
+    # atomics and ATen's reorder their sums from run to run, ROADMAP Queue 2, item 6), against which the step
+    # under the group is held; then the evaluator ungathered
+    plain = build_idol_model(device=dev, seed=0)
+    model, again = copy.deepcopy(plain), copy.deepcopy(plain)
+    state, step = trainer(plain)
+    (plain_metrics, plain_grads, plain_after), plain_ms = timed_steps(state, step, DIST_STEPS)
+    state, step = trainer(again)
+    plain_again, _ = timed_steps(state, step, 1)
+    del state, step, again
+    bn_cpu = sync_bn_cpu_side()
+    tmp = tempfile.mkdtemp()
+    register_synthetic(tmp, "ytvis_synthetic_distributed", [f"class_{i}" for i in range(40)], num_frames=3)
+    records = DatasetCatalog.get("ytvis_synthetic_distributed")
+    outputs = ground_truth_outputs(records)
+    for o in outputs:     # one instance a video scored lower and its masks moved: an AP below 1
+        o["pred_scores"][0] = 0.5
+        o["pred_masks"][0] = [None if m is None else np.roll(m, 40, 1) for m in o["pred_masks"][0]]
+    evaluator = YTVISEvaluator("ytvis_synthetic_distributed")
+    evaluator.process(records, outputs)
+    ungathered = evaluator.evaluate()
+
+    # a group of one rank over NCCL, as engine/launch.py makes one a card
+    os.environ["LOCAL_WORLD_SIZE"] = "1"
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                            device_id=dev)
+    init_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    probe = torch.ones(1, device=dev)
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    first_collective_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        require(process_allgather("x") == ["x"], "process_allgather over the group of one")
+        state, step = trainer(model)
+        require(any(isinstance(c.cell_contents, DistributedDataParallel) for c in step.__closure__),
+                "the step under a group runs through DistributedDataParallel")
+        zero(kernels)
+        (ddp_metrics, ddp_grads, ddp_after), ddp_ms = timed_steps(state, step, DIST_STEPS)
+        train_launches = counts(kernels)
+        # AdamW's first update is lr x g / (|g| + eps): within 1e-3 of lr where |g| is 100 eps or more, and at
+        # most 2 lr apart where the gradient is at the level of the sums' rounding
+        lr = cfg.SOLVER.BASE_LR
+        bound = torch.where(plain_grads.abs() >= 100 * 1e-8, 1e-3 * lr, 2 * lr) + 2 * plain_after.abs() * 2 ** -23
+
+        def against_plain(metrics, grads, after):
+            """(losses' largest relative error, gradients' and parameters' relative L2, elements off the bound)"""
+            return (max(abs(metrics[k] - v) / max(abs(v), 1e-30) for k, v in plain_metrics.items()),
+                    _rel(grads, plain_grads), _rel(after, plain_after),
+                    int(((after - plain_after).abs() > bound).sum()))
+
+        got, spread = against_plain(ddp_metrics, ddp_grads, ddp_after), against_plain(*plain_again)
+        # the step under the group against the plain step, within 3x the plain step's own spread (floors for a
+        # spread that reads 0: f32 rounding of the losses, the gradients' sums, the parameters)
+        limits = [max(3 * v, floor) for v, floor in zip(spread[:3], (1e-6, 1e-5, 1e-6))]
+        result["train"] = {"loss_rel_err": got[0], "grad_rel_l2": got[1], "params_rel_l2": got[2],
+                           "params_off_bound": got[3], "plain_spread": list(spread), "limits": limits,
+                           "losses_bit_equal": all(ddp_metrics[k] == v for k, v in plain_metrics.items()),
+                           "grads_bit_equal": bool(torch.equal(ddp_grads, plain_grads)),
+                           "params_bit_equal": bool(torch.equal(ddp_after, plain_after)),
+                           "ddp_step_ms": ddp_ms, "plain_step_ms": plain_ms}
+        require(all(g <= lim for g, lim in zip(got, limits)) and got[3] == 0 and spread[3] == 0,
+                f"DDP step vs plain step: losses, gradients, parameters, elements off AdamW's bound {got}; the "
+                f"plain step against itself {spread}; limits {limits}")
+        loss_err, grad_err, param_err = got[:3]
+        expected = {"ms_deform_attn_v9_fwd": 24 * DIST_STEPS, "ms_deform_attn_v9_bwd": 24 * DIST_STEPS,
+                    "stem_conv": 2 * DIST_STEPS}
+        require(train_launches == expected, f"DDP step launches {train_launches} != {expected}")
+        print(f"  NCCL group of one: init {init_ms:.1f} ms, first all_reduce {first_collective_ms:.1f} ms")
+        print(f"  IDOL-R50 step under DDP vs no group (same weights and batch, {TRAIN_CLIPS} x (key + ref) at "
+              f"{TRAIN_HW[0]}x{TRAIN_HW[1]}): losses within {loss_err:.1e} (bit-equal "
+              f"{result['train']['losses_bit_equal']}), clipped gradients {grad_err:.1e} (bit-equal "
+              f"{result['train']['grads_bit_equal']}), parameters after {param_err:.1e} (bit-equal "
+              f"{result['train']['params_bit_equal']}), none off AdamW's bound; the plain step against itself "
+              f"{spread[0]:.1e} / {spread[1]:.1e} / {spread[2]:.1e}; step ms DDP {', '.join(f'{v:.1f}' for v in ddp_ms)}, "
+              f"plain {', '.join(f'{v:.1f}' for v in plain_ms)} (the first of each a warm-up); launches {train_launches}")
+        del state, step, model, ddp_after, plain_after, ddp_grads, plain_grads, plain_again
+
+        # the time-sharded clip on the mesh of one rank, against IDOL.inference
+        plain.eval()
+        frames = synthetic_video(33, DIST_CLIP)
+        x = torch.zeros((DIST_CLIP, HEIGHT, WIDTH, 3), dtype=torch.float32, device=dev)
+        mean = torch.tensor(PIXEL_MEAN, device=dev)
+        std = torch.tensor(PIXEL_STD, device=dev)
+        x[:, :VIDEO_HW[0], :VIDEO_HW[1]] = (torch.from_numpy(frames).to(dev).float() - mean) / std
+        sizes = torch.tensor([VIDEO_HW] * DIST_CLIP, dtype=torch.int32, device=dev)
+        sharded = make_sharded_clip_inference(plain, build_mesh((-1,), ("data",)))
+        with torch.no_grad():
+            want = plain.inference(x, sizes)
+            again = plain.inference(x, sizes)
+            zero(kernels)
+            got = sharded(x, sizes)
+            clip_launches = counts(kernels)
+        # bit-equal where IDOL.inference is bit-equal to itself, else within 3x its own spread
+        clip_err = {k: (_rel(got[k], v), _rel(again[k], v)) for k, v in want.items()}
+        for k, (err, spread_k) in clip_err.items():
+            require(err <= 3 * spread_k, f"time-sharded clip: {k} {err} from IDOL.inference (its own spread {spread_k})")
+        bit_equal = all(torch.equal(got[k], v) for k, v in want.items())
+        expected = {"ms_deform_attn_fwd": 12, "stem_conv": 1, "encoder_epilogue": 6}
+        require(clip_launches == expected, f"time-sharded clip launches {clip_launches} != {expected}")
+        with torch.no_grad():
+            sharded_ms = time_ms(lambda: sharded(x, sizes), reps=5, warmup=1)
+            plain_clip_ms = time_ms(lambda: plain.inference(x, sizes), reps=5, warmup=1)
+        result["clip"] = {"sharded_ms": sharded_ms, "plain_ms": plain_clip_ms, "bit_equal": bit_equal,
+                          "rel_l2_and_spread": clip_err}
+        print(f"  time-sharded IDOL-R50 clip ({DIST_CLIP} x {HEIGHT}x{WIDTH}) against IDOL.inference: bit-equal "
+              f"{bit_equal}; " + ", ".join(f"{k} {e:.1e} (its own spread {sp:.1e})" for k, (e, sp) in clip_err.items())
+              + f"; {sharded_ms:.2f} ms against {plain_clip_ms:.2f} ms (CUDA events, median of 5); launches "
+              f"{clip_launches}")
+        del plain, x, want, got, again
+
+        gathered = YTVISEvaluator("ytvis_synthetic_distributed")
+        gathered.process(records, outputs)
+        gathered = gathered.evaluate()
+        same = gathered.keys() == ungathered.keys() and all(
+            (np.isnan(v) and np.isnan(gathered["segm"][k])) or gathered["segm"][k] == v
+            for k, v in ungathered["segm"].items())
+        require(same and 0 < gathered["segm"]["AP"] < 1, f"YTVIS evaluator gathered {gathered} vs {ungathered}")
+        print(f"  YTVIS evaluator through process_allgather: the AP dict equals the ungathered one "
+              f"(AP {gathered['segm']['AP']:.4f})")
+        result["card_vs_cpu"] = dist_card_vs_cpu(dev, bn_cpu)
+    finally:
+        dist.destroy_process_group()
+        del os.environ["LOCAL_WORLD_SIZE"]
+    torch.cuda.empty_cache()
+    result.update(nccl_init_ms=init_ms, first_all_reduce_ms=first_collective_ms,
+                  phase_s=time.perf_counter() - t_phase)
+    print(f"  {smi}")
+    print(f"[phase 33] the IDOL-R50 step under DDP with global counts agrees with the plain step within the card's "
+          f"own spread, the time-sharded clip with IDOL.inference, the gathered AP equals the ungathered, SyncBatchNorm and the 11f names agree "
+          f"card vs CPU; {result['phase_s']:.1f} s")
+    return {"distributed_train": train_launches, "distributed_clip": clip_launches}, result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU; "
                                                  "with no argument, every phase.")
     parser.add_argument("--only", choices=("train_numerics", "entry_point", "minvis_entry", "seqformer_train",
                                            "swin_train", "instmove_train", "fused_tracker", "coco_pretrain",
                                            "tools", "rcnn", "rcnn_train", "dense_det", "rcnn_heads", "panoptic",
-                                           "datasets", "rest"),
+                                           "datasets", "rest", "distributed"),
                         help="phase 1 and this phase alone (train_numerics: phase 6; entry_point: phase 17; "
                              "minvis_entry: phase 2b's MinVIS and SeqFormer shapes and phase 18; seqformer_train: "
                              "phase 19; swin_train: phases 20 and 21; instmove_train: K2 at InstMove's shape and "
@@ -6815,7 +7144,7 @@ def main(argv=None) -> int:
                              "rcnn_heads: phase 29; panoptic: K2 at PanopticFPN's [1, 800, 1344, 3] and "
                              "[2, 800, 1344, 3] and phase 30; datasets: K2's forward and backward at "
                              "Cityscapes' [1, 1024, 2048, 3] and phase 31; rest: phase 32, K2's forward and "
-                             "backward at TTA's [1, 500, 667, 3] with it)")
+                             "backward at TTA's [1, 500, 667, 3] with it; distributed: phase 33)")
     parser.add_argument("--trace", action="store_true",
                         help="with --only rcnn_heads or panoptic: first trace each R-CNN's card-vs-CPU check with "
                              "the card in f32 and with the CPU in bf16 (nothing required of the traces)")
@@ -6912,6 +7241,9 @@ def main(argv=None) -> int:
         elif args.only == "rest":
             launches, rest = phase_rest(dev, kernels, smi)
             print(json.dumps({"rest": rest, "launches": launches}))
+        elif args.only == "distributed":
+            launches, distributed = phase_distributed(dev, kernels, smi)
+            print(json.dumps({"distributed": distributed, "launches": launches}))
         else:
             launches, tools = phase_tools(dev, kernels, smi)
             print(json.dumps({"tools": tools, "launches": launches}))
@@ -7037,6 +7369,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rest_launches, rest_result = phase_rest(dev, kernels, smi, reference=ref32)
     phase_seconds["32"] = rest_result["phase_s"]
+    dist_launches, dist_result = phase_distributed(dev, kernels, smi)
+    phase_seconds["33"] = dist_result["phase_s"]
     print("  seconds by phase: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
     print(f"  the whole run: {time.perf_counter() - t_run:.1f} s")
 
@@ -7049,6 +7383,7 @@ def main(argv=None) -> int:
         "instmove_train": instmove_train_result, "fused_tracker": fused_result, "coco_pretrain": coco_result,
         "tools": tools_result, "rcnn": rcnn_result, "rcnn_train": rcnn_train_result, "dense_det": dense_result,
         "rcnn_heads": heads_result, "panoptic": panoptic_result, "datasets": datasets_result, "rest": rest_result,
+        "distributed": dist_result,
         "phase_seconds": phase_seconds,
         "idol_forward_ms_by_impl": {"auto": timing["forward_ms"], **route_forward_ms},
         "msda_decoder_form": measured["dec"], "k4_decoder_form": measured["fwd_decoder"],
@@ -7063,7 +7398,8 @@ def main(argv=None) -> int:
              "seqformer_swinL": seq_swin_launches, "idol_r101": r101_launches, **entry_point_launches,
              **minvis_entry_launches, **seq_train_launches, **swin_train_launches, **seq_swin_train_launches,
              **fused_launches, **coco_launches, **tools_launches, **rcnn_launches, **rcnn_train_launches,
-             **dense_launches, **heads_launches, **panoptic_launches, **datasets_launches, **rest_launches}
+             **dense_launches, **heads_launches, **panoptic_launches, **datasets_launches, **rest_launches,
+             **dist_launches}
     for path, names in (("minvis_entry_eval", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL)),
                         ("minvis_entry_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
                         ("seqformer_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
@@ -7085,7 +7421,9 @@ def main(argv=None) -> int:
                         ("panoptic_eval", (stem_conv.KERNEL,)), ("panoptic_train", (stem_conv.KERNEL,)),
                         *((f"{name}_eval", (stem_conv.KERNEL,)) for name in DATASET_CONFIGS),
                         *((f"{name}_train", (stem_conv.KERNEL,)) for name, c in DATASET_CONFIGS.items() if c[2]),
-                        *((path, (stem_conv.KERNEL,)) for path in rest_launches if "regnet" not in path)):
+                        *((path, (stem_conv.KERNEL,)) for path in rest_launches if "regnet" not in path),
+                        ("distributed_train", (msda.KERNEL_V9_FWD, msda.KERNEL_V9_BWD, stem_conv.KERNEL)),
+                        ("distributed_clip", (msda.KERNEL, stem_conv.KERNEL, encoder_epilogue.KERNEL))):
         for kern in names:
             require(paths[path].get(kern.name, 0) > 0, f"{kern.name}: no launch on the {path} path")
     # K4, K5 and K2 at the new train steps' shapes, beside their rows' train-step shape

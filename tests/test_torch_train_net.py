@@ -28,9 +28,11 @@ package's ``tools/train_net.py``, on the CPU with the quick-schedule config
   video path cannot score it) or one with fewer categories than the model
   predicts.
 - ``main`` trains Mask R-CNN (a step here; tests/test_torch_rcnn_train.py
-  holds it), and refuses more than one GPU or process and a run on the card
-  when no CUDA device is visible; ``--eval-only`` with
-  ``TPU.FUSED_TRACKER True`` runs the on-device tracker.
+  holds it); the distribution flags parse, and a world of one process runs
+  straight through with no process group; ``--eval-only`` with
+  ``TPU.FUSED_TRACKER True`` runs the on-device tracker; a run on the card,
+  and a launch of two processes on cards, raise when no CUDA device is
+  visible. tests/test_torch_distributed.py runs two processes.
 """
 
 import importlib.util
@@ -253,14 +255,17 @@ def test_main_refuses_what_the_port_lacks(synthetic, synthetic_coco, tmp_path, m
     trainer = train_net.main(["--config-file", rcnn, "MODEL.DEVICE", "cpu", "SOLVER.MAX_ITER", "1",
                               "DATASETS.TEST", "()", "MODEL.FPN.OUT_CHANNELS", "32", *out])
     assert trainer.iter == 1 and np.isfinite(trainer.storage.history("total_loss").values()).all()
-    for flag in (["--num-gpus", "2"], ["--machine-rank", "1"], ["--dist-url", "tcp://127.0.0.1:29500"]):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            train_net.main(["--config-file", INSTANT, *flag, "MODEL.DEVICE", "cpu", *out])
-    # the on-device tracker is ported: --eval-only runs through it on the CPU
-    fused = train_net.main(["--config-file", INSTANT, "--eval-only", "MODEL.DEVICE", "cpu", "TPU.FUSED_TRACKER",
-                            "True", *out])
+    flags = ["--num-gpus", "1", "--num-machines", "1", "--machine-rank", "0", "--dist-url", "tcp://127.0.0.1:29500"]
+    args = train_net.default_argument_parser().parse_args(flags + ["--num-gpus", "4", "--machine-rank", "1"])
+    assert (args.num_gpus, args.num_machines, args.machine_rank, args.dist_url) == (4, 1, 1, "tcp://127.0.0.1:29500")
+    # one process in all: no group; the on-device tracker is ported: --eval-only runs through it on the CPU
+    fused = train_net.main(["--config-file", INSTANT, *flags, "--eval-only", "MODEL.DEVICE", "cpu",
+                            "TPU.FUSED_TRACKER", "True", *out])
     assert list(fused) == ["ytvis_synthetic_tiny"] and "AP" in fused["ytvis_synthetic_tiny"]["segm"]
+    assert not torch.distributed.is_initialized()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        train_net.main(["--config-file", INSTANT, "--num-gpus", "2", *out])
     for device in ("tpu", "cuda"):
         with pytest.raises(RuntimeError, match="no CUDA device is visible"):
             train_net.main(["--config-file", INSTANT, "--eval-only", "MODEL.DEVICE", device, *out])

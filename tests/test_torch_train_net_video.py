@@ -22,8 +22,9 @@ points, the synthetic YTVIS dataset) and ``MODEL.DEVICE cpu``.
   masks, sides not multiples of 16) raises a ``ValueError`` before any video;
   tests/test_torch_minvis_inference.py holds both packages failing at
   90x160 and 120x216.
-- Without a card the entry point raises unless asked for the CPU, and it
-  refuses another meta-architecture.
+- Without a card the entry point raises unless asked for the CPU (a launch
+  of two processes on cards too), and it refuses another meta-architecture;
+  the distribution flags of a world of one process run straight through.
 """
 
 import importlib.util
@@ -196,10 +197,15 @@ def test_main_refuses_what_the_port_lacks(synthetic, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="train_net"):
         tv.main(["--config-file", INSTANT, "--eval-only", "MODEL.DEVICE", "cpu", "MODEL.META_ARCHITECTURE", "IDOL",
                  *out])
-    for flag in (["--num-gpus", "2"], ["--machine-rank", "1"], ["--dist-url", "tcp://127.0.0.1:29500"]):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tv.main(["--config-file", INSTANT, *flag, "MODEL.DEVICE", "cpu", *out])
+    # a world of one process calls straight through: the architecture check runs, with no group
+    with pytest.raises(NotImplementedError, match="train_net"):
+        tv.main(["--config-file", INSTANT, "--num-gpus", "1", "--machine-rank", "0", "--dist-url",
+                 "tcp://127.0.0.1:29500", "--eval-only", "MODEL.DEVICE", "cpu", "MODEL.META_ARCHITECTURE", "IDOL",
+                 *out])
+    assert not torch.distributed.is_initialized()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        tv.main(["--config-file", INSTANT, "--num-gpus", "2", *out])
     for device in ("tpu", "cuda"):
         with pytest.raises(RuntimeError, match="no CUDA device is visible"):
             tv.main(["--config-file", INSTANT, "--eval-only", "MODEL.DEVICE", device, *out])

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..engine.train_step import TrainState
+from ..parallel.mesh import is_main_process
 from .torch_import import load_reference_weights, load_torch_state_dict
 
 logger = logging.getLogger("vnext_tpu_torch")
@@ -36,8 +37,11 @@ class Checkpointer:
     # -------------------------------------------------------------- core IO
     def save(self, name: str, state: dict) -> str:
         """``torch.save`` of ``state`` to ``<save_dir>/<name>.pth`` (written
-        under a temporary name, then renamed), and the marker names it."""
+        under a temporary name, then renamed), and the marker names it. Only
+        the main process writes; every process returns the path."""
         path = os.path.join(self.save_dir, f"{name}.pth")
+        if not is_main_process():
+            return path
         fd, tmp = tempfile.mkstemp(suffix=".pth", dir=self.save_dir)
         os.close(fd)
         try:

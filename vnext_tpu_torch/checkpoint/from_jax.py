@@ -28,7 +28,10 @@ by the 4-d rule, which is ``conv2d``'s grouped layout; a DCN block's
 layout the port's ``Bottleneck`` keeps it in; RegNet's squeeze-excitation
 ``fc1`` / ``fc2`` are 1x1 convolutions; the C4 head's ``mask_deconv`` is a
 ``ConvTranspose``; the rotated heads' ``fc1``, ``fc2``, ``cls_score`` and
-``bbox_pred`` are Dense layers.
+``bbox_pred`` are Dense layers. ``ASPP``'s convolutions take the 4-d rule;
+``SyncBatchNorm``'s flax ``bn`` scale and bias carry across as any norm's,
+and its ``batch_stats`` (``mean``, ``var``), merged into the same tree under
+``bn``, as they are, into the module's buffers.
 
 The input is a nested dict of numpy arrays (``jax.tree.map(np.asarray, params)``),
 so this module needs neither jax nor flax.

@@ -31,22 +31,24 @@ from .dataset_mapper import YTVISDatasetMapper
 
 
 class TrainingSampler:
-    """Infinite stream of dataset indices, shuffled per epoch with a seed. One
-    process reads every index: the JAX package's sharding across processes
-    comes with the port's distribution (ROADMAP Queue 1, item 12). The JAX
-    package's ``shuffle=False`` (in order, epoch after epoch) is left out: no
-    caller of either package sets it."""
+    """Infinite stream of dataset indices, shuffled per epoch with a seed that
+    every process shares; process ``shard_index`` of ``num_shards`` reads every
+    ``num_shards``-th index of each epoch from its own. The JAX package's
+    ``shuffle=False`` (in order, epoch after epoch) is left out: no caller of
+    either package sets it."""
 
-    def __init__(self, size: int, seed: int = 0):
+    def __init__(self, size: int, seed: int = 0, shard_index: int = 0, num_shards: int = 1):
         if size <= 0:
             raise ValueError(f"TrainingSampler needs a non-empty dataset, got size {size}")
         self._size = size
         self._seed = seed
+        self._shard = shard_index
+        self._num_shards = num_shards
 
     def __iter__(self) -> Iterator[int]:
         g = np.random.RandomState(self._seed)
         while True:
-            yield from g.permutation(self._size).tolist()
+            yield from g.permutation(self._size)[self._shard::self._num_shards].tolist()
 
 
 def _categories(record: dict) -> set:
@@ -61,16 +63,20 @@ class RepeatFactorTrainingSampler:
     """Category-frequency rebalancing (detectron2's sampler for LVIS): record I
     repeats r(I) = max over its categories c of max(1, sqrt(t / f(c))) times an
     epoch, f(c) the share of records holding c, the fractional part drawn
-    anew each epoch; each epoch's indices are shuffled. Image and video records
-    (a list of annotations per frame) both count."""
+    anew each epoch; each epoch's indices are shuffled and process
+    ``shard_index`` of ``num_shards`` reads every ``num_shards``-th of them.
+    Image and video records (a list of annotations per frame) both count."""
 
-    def __init__(self, dataset_dicts: List[dict], repeat_thresh: float, seed: int = 0):
+    def __init__(self, dataset_dicts: List[dict], repeat_thresh: float, seed: int = 0,
+                 shard_index: int = 0, num_shards: int = 1):
         cats = [_categories(rec) for rec in dataset_dicts]
         counts = Counter(c for rec_cats in cats for c in rec_cats)
         freqs = {c: counts[c] / len(dataset_dicts) for c in counts}
         self._repeat_factors = np.asarray(
             [max([1.0] + [max(1.0, np.sqrt(repeat_thresh / freqs[c])) for c in rec_cats]) for rec_cats in cats])
         self._seed = seed
+        self._shard = shard_index
+        self._num_shards = num_shards
 
     def __iter__(self) -> Iterator[int]:
         g = np.random.RandomState(self._seed)
@@ -79,14 +85,15 @@ class RepeatFactorTrainingSampler:
         while True:
             rounds = int_part + (g.rand(len(frac)) < frac)
             indices = np.repeat(np.arange(len(rounds)), rounds)
-            yield from indices[g.permutation(len(indices))].tolist()
+            yield from indices[g.permutation(len(indices))][self._shard::self._num_shards].tolist()
 
 
 class InferenceSampler:
-    """One pass over the dataset, in order."""
+    """One pass over the dataset, in order; process ``shard_index`` of
+    ``num_shards`` reads every ``num_shards``-th index."""
 
-    def __init__(self, size: int):
-        self._indices = list(range(size))
+    def __init__(self, size: int, shard_index: int = 0, num_shards: int = 1):
+        self._indices = list(range(size))[shard_index::num_shards]
 
     def __iter__(self):
         return iter(self._indices)
@@ -172,22 +179,27 @@ def build_vis_train_loader(
     dataset_dicts: Optional[List[dict]] = None,
     batch_size: Optional[int] = None,
     seed: int = 0,
+    shard_index: int = 0,
+    num_shards: int = 1,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Infinite batched train loader of clip samples: ``mapper`` (default: the
     YTVIS mapper from ``cfg``; the COCO-pretrain stage passes a
     ``CocoClipDatasetMapper``) maps ``(record, rng)`` to a clip. Every loader of
     one seed gives the same batches from its start (a resumed run starts it
-    again)."""
+    again). Process ``shard_index`` of ``num_shards`` reads its shard of the
+    sampler, ``SOLVER.IMS_PER_BATCH // num_shards`` clips a batch, its mapper
+    drawing from ``random.Random(seed * 1000 + shard_index)``, as the JAX
+    package's."""
     if dataset_dicts is None:
         dataset_dicts = [d for n in cfg.DATASETS.TRAIN for d in DatasetCatalog.get(n)]
     if mapper is None:
         mapper = YTVISDatasetMapper.from_config(cfg, is_train=True)
     if batch_size is None:
-        batch_size = cfg.SOLVER.IMS_PER_BATCH
-    sampler = TrainingSampler(len(dataset_dicts), seed=seed)
+        batch_size = cfg.SOLVER.IMS_PER_BATCH // num_shards
+    sampler = TrainingSampler(len(dataset_dicts), seed=seed, shard_index=shard_index, num_shards=num_shards)
 
     def gen():
-        rng = random.Random(seed * 1000)  # the JAX package's draw for shard 0
+        rng = random.Random(seed * 1000 + shard_index)
         batch = []
         for idx in sampler:
             batch.append(mapper(dataset_dicts[idx], rng))
@@ -202,9 +214,12 @@ def build_vis_test_loader(
     cfg=None,
     dataset_name: Optional[str] = None,
     dataset_dicts: Optional[List[dict]] = None,
+    shard_index: int = 0,
+    num_shards: int = 1,
 ):
-    """One video record at a time (a batch of one video)."""
+    """One video record at a time (a batch of one video): process
+    ``shard_index`` of ``num_shards`` serves every ``num_shards``-th video."""
     if dataset_dicts is None:
         dataset_dicts = DatasetCatalog.get(dataset_name or cfg.DATASETS.TEST[0])
-    for idx in InferenceSampler(len(dataset_dicts)):
+    for idx in InferenceSampler(len(dataset_dicts), shard_index, num_shards):
         yield dataset_dicts[idx]

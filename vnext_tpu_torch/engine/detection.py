@@ -33,7 +33,6 @@ random draws and nothing else), where JAX's starts the loader again.
 from __future__ import annotations
 
 import logging
-import os
 import random
 from typing import Dict, Iterator, List, Optional
 
@@ -53,9 +52,9 @@ from ..models.cascade_rcnn import STAGE_IOUS
 from ..models.rcnn import DetTargets
 from ..models.semantic_seg import combine_semantic_and_instance_outputs
 from ..ops.mask_ops import paste_masks_in_image
+from ..parallel.mesh import is_main_process, process_count, process_index
 from ..solver.build import build_grad_clip, build_lr_schedule, build_lr_scheduler, build_optimizer
-from ..utils.events import CommonMetricPrinter, JSONWriter
-from .hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, PeriodicWriter
+from .hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, metric_writers
 from .train_step import TrainState, make_train_step
 from .trainer import VISTrainer
 
@@ -74,26 +73,29 @@ SPEC = {
 }
 
 
-def build_detection_train_loader(cfg, seed: int = 0, start_iter: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+def build_detection_train_loader(cfg, seed: int = 0, start_iter: int = 0, shard_index: int = 0,
+                                 num_shards: int = 1) -> Iterator[Dict[str, np.ndarray]]:
     """Infinite loader of collated train batches of ``DATASETS.TRAIN``, its sets
     concatenated in order (reference data/build.py:378): ``TrainingSampler``'s
     shuffled indices whatever ``DATALOADER.SAMPLER_TRAIN`` says (the LVIS
     yamls' ``RepeatFactorTrainingSampler`` gets a warning: JAX's loader
     ignores the key too, ROADMAP Queue 3, item 5), the train
-    ``DetectionDatasetMapper`` drawing from one ``random.Random(seed * 1000)``,
-    ``SOLVER.IMS_PER_BATCH`` samples a batch, made ahead in the prefetch
-    thread. From ``start_iter`` on: the samples of the batches before it make
-    only their random draws (``mapper.draw``)."""
+    ``DetectionDatasetMapper`` drawing from one ``random.Random(seed * 1000 +
+    shard_index)``, ``SOLVER.IMS_PER_BATCH // num_shards`` samples a batch
+    (process ``shard_index`` of ``num_shards`` reads its shard of the
+    sampler), made ahead in the prefetch thread. From ``start_iter`` on: the
+    samples of the batches before it make only their random draws
+    (``mapper.draw``)."""
     if cfg.DATALOADER.SAMPLER_TRAIN != "TrainingSampler":
         logger.warning("DATALOADER.SAMPLER_TRAIN %r is not read on the detection path: the train loader samples "
                        "with TrainingSampler, as the JAX package's does", cfg.DATALOADER.SAMPLER_TRAIN)
     dataset_dicts = [d for n in cfg.DATASETS.TRAIN for d in DatasetCatalog.get(n)]
     mapper = DetectionDatasetMapper.from_config(cfg, is_train=True)
-    batch_size = max(cfg.SOLVER.IMS_PER_BATCH, 1)
-    sampler = TrainingSampler(len(dataset_dicts), seed=seed)
+    batch_size = max(cfg.SOLVER.IMS_PER_BATCH // num_shards, 1)
+    sampler = TrainingSampler(len(dataset_dicts), seed=seed, shard_index=shard_index, num_shards=num_shards)
 
     def gen():
-        rng = random.Random(seed * 1000)
+        rng = random.Random(seed * 1000 + shard_index)
         skip = start_iter * batch_size
         batch = []
         for idx in sampler:
@@ -170,13 +172,18 @@ def loss_keys(cfg) -> tuple:
 
 def make_detection_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimizer, seed: int = 0):
     """``make_train_step`` with the plain sum of the loss dict (make_detection_train_step
-    of the JAX package) and the config's clip."""
-    return make_train_step(model, optimizer, {k: 1.0 for k in loss_keys(cfg)}, build_grad_clip(cfg), seed=seed)
+    of the JAX package) and the config's clip. PanopticFPN's step leaves its
+    semantic head out of the graph on a batch without labels (``loss_sem_seg``
+    is taken only where the batch has them), so under a process group its DDP
+    looks for unused parameters; no other architecture skips any."""
+    return make_train_step(model, optimizer, {k: 1.0 for k in loss_keys(cfg)}, build_grad_clip(cfg), seed=seed,
+                           find_unused_parameters=cfg.MODEL.META_ARCHITECTURE == "PanopticFPN")
 
 
-def build_detection_test_loader(dataset_name: str) -> List[dict]:
-    """Per-image records for evaluation (reference build.py:469)."""
-    return DatasetCatalog.get(dataset_name)
+def build_detection_test_loader(dataset_name: str, shard_index: int = 0, num_shards: int = 1) -> List[dict]:
+    """Per-image records for evaluation (reference build.py:469): process
+    ``shard_index`` of ``num_shards`` serves every ``num_shards``-th image."""
+    return DatasetCatalog.get(dataset_name)[shard_index::num_shards]
 
 
 class DetectionInference:
@@ -283,7 +290,7 @@ def do_eval_detection(cfg, model: Optional[torch.nn.Module] = None,
         for dataset_name in cfg.DATASETS.TEST:
             evaluator = build_evaluator(cfg, dataset_name)
             evaluator.reset()
-            for record in build_detection_test_loader(dataset_name):
+            for record in build_detection_test_loader(dataset_name, process_index(), process_count()):
                 evaluator.process([record], [runner(record)])
             results[dataset_name] = evaluator.evaluate()
     finally:
@@ -310,12 +317,13 @@ def do_train_detection(cfg, resume: bool = False, device="cuda") -> VISTrainer:
     checkpointer = Checkpointer(cfg.OUTPUT_DIR)
     state = TrainState.create(model, optimizer, build_lr_scheduler(cfg, optimizer))
     state, start_iter = checkpointer.resume_or_load(cfg.MODEL.WEIGHTS, state, resume=resume)
-    loader = build_detection_train_loader(cfg, seed=seed, start_iter=start_iter)
+    loader = build_detection_train_loader(cfg, seed=seed, start_iter=start_iter, shard_index=process_index(),
+                                          num_shards=process_count())
     trainer = VISTrainer(train_step, state, loader, device, batch_adapter=adapter)
 
     def evaluate():
         results = do_eval_detection(cfg, trainer.state.model)
-        if cfg.TEST.EXPECTED_RESULTS and results:
+        if cfg.TEST.EXPECTED_RESULTS and results and is_main_process():
             verify_results(cfg, next(iter(results.values())))
         return results
 
@@ -324,8 +332,7 @@ def do_train_detection(cfg, resume: bool = False, device="cuda") -> VISTrainer:
         LRTracker(build_lr_schedule(cfg)),
         PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD),
         EvalHook(cfg.TEST.EVAL_PERIOD, evaluate),
-        PeriodicWriter([CommonMetricPrinter(cfg.SOLVER.MAX_ITER),
-                        JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json"))]),
+        *metric_writers(cfg),
     ])
     trainer.train(start_iter, cfg.SOLVER.MAX_ITER)
     verify_final_loss(cfg, trainer)

@@ -25,7 +25,8 @@ from typing import Any, Callable, Iterable, Optional, Sequence
 import torch
 from torch import nn
 
-from ..utils.events import EventWriter, get_event_storage
+from ..parallel.mesh import is_main_process
+from ..utils.events import CommonMetricPrinter, EventWriter, JSONWriter, get_event_storage
 
 logger = logging.getLogger("vnext_tpu_torch")
 
@@ -100,6 +101,16 @@ class PeriodicWriter(HookBase):
         for w in self._writers:
             w.write()
             w.close()
+
+
+def metric_writers(cfg) -> list:
+    """The entry points' metric writers (the console printer and
+    ``metrics.json``) in a ``PeriodicWriter``, on the main process; none on
+    the others, whose metrics are the ranks' mean already."""
+    if not is_main_process():
+        return []
+    return [PeriodicWriter([CommonMetricPrinter(cfg.SOLVER.MAX_ITER),
+                            JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json"))])]
 
 
 class PeriodicCheckpointer(HookBase):

@@ -7,9 +7,8 @@ instance AP is the video evaluator's accumulation (``YTVOSeval``) with every
 image a one-frame video keyed by its string id and the ground truth taken
 from the records' RLE masks (ROADMAP Queue 3, item 5), and the semantic
 mIoU is ``SemSegEvaluator``'s over the 19 train ids with the ground truth
-read from each record's labelTrainIds PNG. One process evaluates
-everything: the gather across processes waits for the port's distribution
-(ROADMAP Queue 1, item 12).
+read from each record's labelTrainIds PNG. Every process's part is gathered to the main process, which alone scores
+it (``parallel.process_allgather``); the others' ``evaluate`` returns None.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..parallel.mesh import is_main_process, process_allgather
 from .rle import rle_encode
 from .sem_seg_eval import SemSegEvaluator
 from .ytvis_eval import DatasetEvaluator
@@ -57,13 +57,19 @@ class CityscapesInstanceEvaluator(DatasetEvaluator):
                                     "score": float(scores[i]),
                                     "segmentations": [rle_encode(np.asarray(masks[i], bool))]})
 
-    def evaluate(self) -> Dict[str, Dict[str, float]]:
+    def evaluate(self) -> Optional[Dict[str, Dict[str, float]]]:
+        chunks = process_allgather((self._videos, self._gt_annos, self._preds))
+        if not is_main_process():
+            return None
+        videos = [v for c in chunks for v in c[0]]
+        gt_annos = [a for c in chunks for a in c[1]]
+        preds = [p for c in chunks for p in c[2]]
         names = self._class_names
-        n_cls = len(names) if names else max([g["category_id"] for g in self._gt_annos], default=0)
-        gt = {"videos": self._videos,
+        n_cls = len(names) if names else max([g["category_id"] for g in gt_annos], default=0)
+        gt = {"videos": videos,
               "categories": [{"id": i + 1, "name": names[i] if names else str(i)} for i in range(n_cls)],
-              "annotations": self._gt_annos}
-        return {"segm": YTVOSeval(gt, self._preds).evaluate()}
+              "annotations": gt_annos}
+        return {"segm": YTVOSeval(gt, preds).evaluate()}
 
 
 class CityscapesSemSegEvaluator(SemSegEvaluator):

@@ -22,6 +22,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..data.catalog import MetadataCatalog
+from ..parallel.mesh import is_main_process, process_allgather
 from ..structures.masks import polygons_to_bitmask
 from .rle import rle_encode
 from .ytvis_eval import DatasetEvaluator
@@ -125,10 +126,14 @@ class COCOEvaluator(DatasetEvaluator):
                     entry["keypoints"] = np.asarray(kps[i], np.float64).reshape(-1).tolist()
                 self._predictions.append(entry)
 
-    def evaluate(self) -> Dict[str, Dict[str, float]]:
-        """Writes the results json under the output directory; returns {task:
-        stats}, or {} where the dataset has no ground-truth json."""
-        predictions = self._predictions
+    def evaluate(self) -> Optional[Dict[str, Dict[str, float]]]:
+        """Gathers every process's predictions; on the main process writes the
+        results json under the output directory and returns {task: stats}, or
+        {} where the dataset has no ground-truth json; None on the others."""
+        chunks = process_allgather(self._predictions)
+        if not is_main_process():
+            return None
+        predictions = [p for c in chunks for p in c]
         if self._output_dir:
             os.makedirs(self._output_dir, exist_ok=True)
             path = os.path.join(self._output_dir, "coco_instances_results.json")

@@ -18,18 +18,24 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Dict
+from typing import Dict, Optional
 
+from ..parallel.mesh import is_main_process, process_allgather
 from .coco_eval import COCOEvaluator
 
 logger = logging.getLogger("vnext_tpu_torch")
 
 
 class LVISEvaluator(COCOEvaluator):
-    def evaluate(self) -> Dict[str, Dict[str, float]]:
-        """Writes ``lvis_instances_results.json`` under the output directory;
-        returns {task: stats}, or {} where the dataset has no ground-truth json."""
-        predictions = self._predictions
+    def evaluate(self) -> Optional[Dict[str, Dict[str, float]]]:
+        """Gathers every process's predictions; on the main process writes
+        ``lvis_instances_results.json`` under the output directory and returns
+        {task: stats}, or {} where the dataset has no ground-truth json; None
+        on the others."""
+        chunks = process_allgather(self._predictions)
+        if not is_main_process():
+            return None
+        predictions = [p for c in chunks for p in c]
         if self._output_dir:
             os.makedirs(self._output_dir, exist_ok=True)
             with open(os.path.join(self._output_dir, "lvis_instances_results.json"), "w") as f:

@@ -58,6 +58,8 @@ def load() -> Optional[ctypes.CDLL]:
     lib.tube_iou_matrix.restype = None
     lib.match_greedy.argtypes = [f64, ctypes.c_int64, ctypes.c_int64, u8, u8, f64, ctypes.c_int64, u8, u8]
     lib.match_greedy.restype = None
+    lib.rle_intersection_union.argtypes = [i64, ctypes.c_int64, i64, ctypes.c_int64, f64, f64]
+    lib.rle_intersection_union.restype = None
     logger.info("evaluation: native rle_ops loaded from %s", so)
     return lib
 
@@ -68,6 +70,20 @@ def available() -> bool:
 
 def _ptr(a: np.ndarray, typ):
     return a.ctypes.data_as(ctypes.POINTER(typ))
+
+
+def rle_intersection_union_native(ca: Sequence[int], cb: Sequence[int]) -> Tuple[float, float]:
+    """(intersection, union) pixel counts of two uncompressed RLE count
+    sequences of one mask size (runs of 0s and 1s alternating, 0s first)."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("the native rle_ops library is not available")
+    a = np.ascontiguousarray(ca, dtype=np.int64)
+    b = np.ascontiguousarray(cb, dtype=np.int64)
+    inter, union = ctypes.c_double(), ctypes.c_double()
+    lib.rle_intersection_union(_ptr(a, ctypes.c_int64), len(a), _ptr(b, ctypes.c_int64), len(b),
+                               ctypes.byref(inter), ctypes.byref(union))
+    return inter.value, union.value
 
 
 def tube_iou_matrix_native(

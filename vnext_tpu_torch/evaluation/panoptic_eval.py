@@ -4,8 +4,10 @@ the thing and stuff splits.
 Counterpart of ``vnext_tpu.evaluation.panoptic_eval`` (reference surface:
 detectron2/evaluation/panoptic_evaluation.py COCOPanopticEvaluator, whose
 math is panopticapi's), on (id map, segments' info) pairs with one
-intersection histogram per image. One process evaluates everything (ROADMAP
-Queue 1, item 12). The ground truth is the record's ``pan_seg`` id map where
+intersection histogram per image. Every process's per-category sums are
+added on the main process, which alone scores them
+(``parallel.process_allgather``); the others' ``evaluate`` returns None. The
+ground truth is the record's ``pan_seg`` id map where
 it has one, else ``rgb2id`` of its ``pan_seg_file_name`` PNG (the JAX package
 reads the array only, which its loader does not give: ROADMAP Queue 3,
 item 6).
@@ -20,6 +22,7 @@ import numpy as np
 from PIL import Image
 
 from ..data.datasets.coco_panoptic import rgb2id
+from ..parallel.mesh import is_main_process, process_allgather
 from .ytvis_eval import DatasetEvaluator
 
 VOID = 0
@@ -106,12 +109,16 @@ class COCOPanopticEvaluator(DatasetEvaluator):
             pq_single_image(panoptic_ground_truth(record), record["segments_info"], np.asarray(pan_pred),
                             segments_pred, self._stats)
 
-    def evaluate(self) -> Dict[str, Dict[str, float]]:
+    def evaluate(self) -> Optional[Dict[str, Dict[str, float]]]:
         """{"panoptic_seg": {"PQ", "SQ", "RQ" (and their _th / _st)}}, in
         percent, each the mean over the categories seen."""
+        chunks = process_allgather(dict(self._stats))
+        if not is_main_process():
+            return None
         stats: Dict[int, np.ndarray] = defaultdict(lambda: np.zeros(4))
-        for cat, v in self._stats.items():
-            stats[cat] += v
+        for chunk in chunks:
+            for cat, v in chunk.items():
+                stats[cat] += v
 
         def agg(cats):
             pqs, sqs, rqs, n = [], [], [], 0

@@ -7,17 +7,18 @@ by score, are matched greedily at IoU 0.5 (VOC's inclusive-pixel areas, the
 ``difficult`` object counts as neither a true nor a false positive, and
 difficult objects are not in the recall's count. AP is VOC07's 11-point
 interpolation or the area under the precision envelope (VOC10 and later).
-One process evaluates everything: the gather across processes waits for the
-port's distribution (ROADMAP Queue 1, item 12).
+Every process's detections and ground truth are gathered to the main
+process, which alone scores them.
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..parallel.mesh import is_main_process, process_allgather
 from .ytvis_eval import DatasetEvaluator
 
 
@@ -112,13 +113,24 @@ class PascalVOCDetectionEvaluator(DatasetEvaluator):
                 self._dets[int(classes[i])].append({"image_id": img_id, "score": float(scores[i]),
                                                     "box": boxes[i].tolist()})
 
-    def evaluate(self) -> Dict[str, Dict[str, float]]:
+    def evaluate(self) -> Optional[Dict[str, Dict[str, float]]]:
+        """{"bbox": AP50 and AP50 by class} on the main process, None on the others."""
+        gathered = process_allgather((dict(self._dets), dict(self._gt)))
+        if not is_main_process():
+            return None
+        dets: Dict[int, List[dict]] = defaultdict(list)
+        gt: Dict[int, Dict] = defaultdict(dict)
+        for d, g in gathered:
+            for c, lst in d.items():
+                dets[c].extend(lst)
+            for c, per_img in g.items():
+                gt[c].update(per_img)
         aps = []
         res = {}
         for c, name in enumerate(self._class_names):
-            if c not in self._gt:
+            if c not in gt:
                 continue
-            r = voc_eval_class(self._gt[c], self._dets.get(c, []), use_07_metric=self._use_07)
+            r = voc_eval_class(gt[c], dets.get(c, []), use_07_metric=self._use_07)
             aps.append(r["ap"])
             res[f"AP50-{name}"] = 100 * r["ap"]
         res["AP50"] = 100 * float(np.mean(aps)) if aps else 0.0

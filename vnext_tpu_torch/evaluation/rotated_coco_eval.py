@@ -6,9 +6,8 @@ class, the detections by score are matched greedily to the images' ground
 truth at each IoU threshold .50:.05:.95, the IoU being
 ``ops/rotated_boxes.pairwise_iou_rotated`` (on the host, in f32); each
 threshold's AP is the area under the precision envelope (``voc_ap``), and
-AP / AP50 / AP75 average over the classes with ground truth. One process
-evaluates everything: the gather across processes waits for the port's
-distribution (ROADMAP Queue 1, item 12).
+AP / AP50 / AP75 average over the classes with ground truth. Every process's part is gathered to the main process, which alone scores
+it (``parallel.process_allgather``); the others' ``evaluate`` returns None.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.rotated_boxes import pairwise_iou_rotated
+from ..parallel.mesh import is_main_process, process_allgather
 from .pascal_voc_eval import voc_ap
 from .ytvis_eval import DatasetEvaluator
 
@@ -88,8 +88,18 @@ class RotatedCOCOEvaluator(DatasetEvaluator):
             aps[t_i] = voc_ap(tp_c / npos, tp_c / np.maximum(tp_c + fp_c, 1e-9))
         return aps
 
-    def evaluate(self) -> Dict[str, Dict[str, float]]:
-        per_class = {c: self._eval_class(self._gt[c], self._dets.get(c, [])) for c in self._gt}
+    def evaluate(self) -> Optional[Dict[str, Dict[str, float]]]:
+        gathered = process_allgather((dict(self._dets), dict(self._gt)))
+        if not is_main_process():
+            return None
+        dets: Dict[int, List[dict]] = defaultdict(list)
+        gt: Dict[int, Dict] = defaultdict(dict)
+        for d, g in gathered:
+            for c, lst in d.items():
+                dets[c].extend(lst)
+            for c, per_img in g.items():
+                gt[c].update(per_img)
+        per_class = {c: self._eval_class(gt[c], dets.get(c, [])) for c in gt}
         if not per_class:
             return {"bbox": {"AP": 0.0, "AP50": 0.0, "AP75": 0.0}}
         all_aps = np.stack(list(per_class.values()))       # [C, T]

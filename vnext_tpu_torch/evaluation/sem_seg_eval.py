@@ -2,9 +2,10 @@
 pACC, mACC and each present class's IoU.
 
 Counterpart of ``vnext_tpu.evaluation.sem_seg_eval`` (reference surface:
-detectron2/evaluation/sem_seg_evaluation.py SemSegEvaluator). One process
-evaluates everything: the gather across processes waits for the port's
-distribution (ROADMAP Queue 1, item 12). The ground truth is the record's
+detectron2/evaluation/sem_seg_evaluation.py SemSegEvaluator). Every
+process's confusion matrix is summed on the main process, which alone scores
+it (``parallel.process_allgather``); the others' ``evaluate`` returns None.
+The ground truth is the record's
 ``sem_seg_gt`` array where it has one, else its ``sem_seg_file_name`` PNG (the
 JAX package reads the array only, which no loader gives: ROADMAP Queue 3,
 item 6).
@@ -17,6 +18,7 @@ from typing import Dict, List, Optional
 import numpy as np
 from PIL import Image
 
+from ..parallel.mesh import is_main_process, process_allgather
 from .ytvis_eval import DatasetEvaluator
 
 
@@ -51,10 +53,13 @@ class SemSegEvaluator(DatasetEvaluator):
             pred = np.clip(pred[valid], 0, n - 1)
             self._conf += np.bincount(gt[valid] * n + pred, minlength=n ** 2).reshape(n, n)
 
-    def evaluate(self) -> Dict[str, Dict[str, float]]:
+    def evaluate(self) -> Optional[Dict[str, Dict[str, float]]]:
         """{"sem_seg": {"mIoU", "fwIoU", "pACC", "mACC", "IoU-<class>" of each
         class present in the ground truth}}, in percent."""
-        conf = self._conf
+        chunks = process_allgather(self._conf)
+        if not is_main_process():
+            return None
+        conf = np.sum(np.stack(chunks), axis=0)
         tp = np.diag(conf).astype(np.float64)
         pos_gt = conf.sum(1).astype(np.float64)
         pos_pred = conf.sum(0).astype(np.float64)

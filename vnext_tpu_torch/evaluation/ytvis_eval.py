@@ -6,9 +6,9 @@ Counterpart of ``vnext_tpu.evaluation.ytvis_eval`` (``DatasetEvaluator``,
 ``YTVISEvaluator``, ``_normalize_gt``, ``build_evaluator``) for the ``ytvis``
 evaluator type; ``build_evaluator`` also makes the evaluators of the
 ``coco``, ``coco_panoptic_seg``, ``sem_seg``, ``lvis``, ``pascal_voc``,
-``cityscapes_instance`` and ``cityscapes_sem_seg`` types. One process
-evaluates everything: the gather across processes waits for the port's
-distribution (ROADMAP Queue 1, item 12).
+``cityscapes_instance`` and ``cityscapes_sem_seg`` types. Every process's
+predictions are gathered to the main process (``parallel.process_allgather``),
+which alone writes and scores them; the others' ``evaluate`` returns None.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..data.catalog import MetadataCatalog
+from ..parallel.mesh import is_main_process, process_allgather
 from ..structures.masks import polygons_to_bitmask
 from .rle import rle_encode
 from .ytvis_json import video_output_to_json
@@ -43,9 +44,14 @@ class DatasetEvaluator:
 
 
 class YTVISEvaluator(DatasetEvaluator):
-    def __init__(self, dataset_name: str, output_dir: Optional[str] = None):
+    """``results.json`` of every video's tracks, and the tube-IoU AP where the
+    dataset's json has ground truth and ``local_eval`` is set (without it,
+    the file alone, for the test server)."""
+
+    def __init__(self, dataset_name: str, output_dir: Optional[str] = None, local_eval: bool = True):
         self._dataset_name = dataset_name
         self._output_dir = output_dir
+        self._local_eval = local_eval
         self._metadata = MetadataCatalog.get(dataset_name)
         self._reverse_id_map = None
         id_map = self._metadata.get("thing_dataset_id_to_contiguous_id")
@@ -69,16 +75,22 @@ class YTVISEvaluator(DatasetEvaluator):
                 )
             )
 
-    def evaluate(self) -> Dict[str, Dict[str, float]]:
+    def evaluate(self) -> Optional[Dict[str, Dict[str, float]]]:
         """Writes ``results.json`` under the output directory; returns
-        ``{"segm": stats}``, or {} where there is no ground truth to score."""
-        predictions = self._predictions
+        ``{"segm": stats}``, or {} where there is no ground truth to score or
+        ``local_eval`` is off; None on a process other than the main one."""
+        chunks = process_allgather(self._predictions)
+        if not is_main_process():
+            return None
+        predictions = [p for c in chunks for p in c]
         if self._output_dir:
             os.makedirs(self._output_dir, exist_ok=True)
             path = os.path.join(self._output_dir, "results.json")
             with open(path, "w") as f:
                 json.dump(predictions, f)
             logger.info("YTVIS results written to %s (%d predictions)", path, len(predictions))
+        if not self._local_eval:
+            return {}
 
         json_file = self._metadata.get("json_file")
         if not json_file or not os.path.exists(json_file):

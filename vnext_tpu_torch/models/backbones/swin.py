@@ -225,3 +225,15 @@ class SwinTransformer(nn.Module):
             if stage < len(self.depths) - 1:
                 x = getattr(self, f"downsample_{stage}")(x)
         return outputs
+
+
+def build_swin_backbone(cfg, dtype=torch.float32) -> SwinTransformer:
+    """The Swin backbone of ``MODEL.SWIN`` (EMBED_DIM, DEPTHS, NUM_HEADS,
+    WINDOW_SIZE, PATCH_SIZE, MLP_RATIO, QKV_BIAS, QK_SCALE, DROP_PATH_RATE,
+    PATCH_NORM), with res2..res5 out, as the JAX package's function reads them.
+    Its parameters are uninitialized (``models.layers.init_weights`` fills them)."""
+    s = cfg.MODEL.SWIN
+    return SwinTransformer(embed_dim=s.EMBED_DIM, depths=tuple(s.DEPTHS), num_heads=tuple(s.NUM_HEADS),
+                           window_size=s.WINDOW_SIZE, patch_size=s.PATCH_SIZE, mlp_ratio=s.MLP_RATIO,
+                           qkv_bias=s.QKV_BIAS, qk_scale=s.QK_SCALE, drop_path_rate=s.DROP_PATH_RATE,
+                           patch_norm=s.PATCH_NORM, dtype=dtype)

@@ -26,6 +26,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import global_count
 from . import rcnn
 from .dense_heads import Box2BoxTransform
 from .layers import Dense
@@ -102,9 +103,9 @@ class CascadeROIHeads(nn.Module):
             cls_logits, deltas = self._stage(k, features, rois)
             ce = -torch.log_softmax(cls_logits, -1)
             cls_loss = ce.gather(-1, target_cls[..., None])[..., 0]
-            losses[f"loss_cls_stage{k}"] = (cls_loss * sel_valid).sum() / sel_valid.sum().clamp_min(1.0)
+            losses[f"loss_cls_stage{k}"] = (cls_loss * sel_valid).sum() / global_count(sel_valid.sum())
             diff = (deltas - self.transforms[k].get_deltas(rois, gt_boxes)).abs()
-            losses[f"loss_box_reg_stage{k}"] = (diff.sum(-1) * sel_fg).sum() / sel_fg.sum().clamp_min(1.0)
+            losses[f"loss_box_reg_stage{k}"] = (diff.sum(-1) * sel_fg).sum() / global_count(sel_fg.sum())
             rois = self._refine(k, deltas.detach(), rois, image_sizes)
         return losses
 

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..ops.losses import dice_loss, sigmoid_focal_loss, sigmoid_focal_loss_elementwise
 from ..structures.boxes import box_cxcywh_to_xyxy, elementwise_giou_loss
+from ..parallel.mesh import global_count
 from .matcher import MatchResult
 
 
@@ -30,7 +31,9 @@ class Targets(NamedTuple):
 
 
 def _num(mask: torch.Tensor) -> torch.Tensor:
-    return mask.sum().clamp_min(1).float()
+    """The count of ``mask`` over the global batch, this rank's share of it
+    under a process group (``parallel.global_count``)."""
+    return global_count(mask.sum())
 
 
 def loss_labels(logits, match: MatchResult, targets: Targets, num_classes: int) -> torch.Tensor:
@@ -47,7 +50,7 @@ def loss_boxes(boxes, match: MatchResult, targets: Targets) -> Dict[str, torch.T
     """L1 and GIoU on the matched (query, gt) pairs."""
     gt_boxes = torch.gather(targets.boxes.float(), 1, match.gt_index[..., None].expand(-1, -1, 4))
     sel = match.selected_query.float()
-    num = sel.sum().clamp_min(1.0)
+    num = global_count(sel.sum())
     boxes = boxes.float()
     l1 = (boxes - gt_boxes).abs().sum(-1)
     giou = elementwise_giou_loss(box_cxcywh_to_xyxy(boxes), box_cxcywh_to_xyxy(gt_boxes))

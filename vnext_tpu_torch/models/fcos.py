@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.losses import sigmoid_bce_with_logits, sigmoid_focal_loss_elementwise
+from ..parallel.mesh import global_count
 from ..structures.boxes import elementwise_giou_loss
 from .layers import Conv
 from .rcnn import DetTargets
@@ -136,7 +137,7 @@ class FCOS(DenseDetector):
             matched, fg, reg_all = self.match(points, strides, ranges, targets)
             gt_cls = targets.labels.gather(1, matched).long()
             onehot = F.one_hot(torch.where(fg, gt_cls, c), c + 1)[..., :-1].float()
-            num_fg = fg.sum().clamp_min(1).float()
+            num_fg = global_count(fg.sum())
             gt_reg = reg_all.gather(2, matched[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
             px, py = points[None, :, 0], points[None, :, 1]
             gt_boxes = torch.stack([px - gt_reg[..., 0], py - gt_reg[..., 1],
@@ -147,7 +148,7 @@ class FCOS(DenseDetector):
             fgf = fg.float()
         loss_cls = sigmoid_focal_loss_elementwise(logits, onehot, FOCAL_ALPHA, FOCAL_GAMMA).sum() / num_fg
         giou = elementwise_giou_loss(self.decode(points, strides, regs), gt_boxes)
-        loss_box = (giou * ctr_target * fgf).sum() / (ctr_target * fgf).sum().clamp_min(1e-6)
+        loss_box = (giou * ctr_target * fgf).sum() / global_count((ctr_target * fgf).sum(), 1e-6)
         loss_ctr = (sigmoid_bce_with_logits(ctrs, ctr_target) * fgf).sum() / num_fg
         return {"loss_fcos_cls": loss_cls, "loss_fcos_loc": loss_box, "loss_fcos_ctr": loss_ctr}
 

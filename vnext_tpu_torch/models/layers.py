@@ -1,5 +1,5 @@
-"""Shared building blocks: Dense, Conv (also flax's "SAME" and transposed forms), norms, MLP, ConvGN,
-MultiHeadAttention, dropout.
+"""Shared building blocks: Dense, Conv (also flax's "SAME" and transposed forms), norms (SyncBatchNorm
+among them), MLP, ConvGN, MultiHeadAttention, ASPP, dropout.
 
 Counterpart of ``vnext_tpu.models.layers``. Every module holds f32 parameters and
 computes in its ``dtype`` (bf16 on the card, f32 in the CPU tests), casting the
@@ -333,3 +333,118 @@ class MultiHeadAttention(nn.Module):
         attn = torch.softmax(logits, dim=-1).to(self.dtype)
         out = torch.matmul(attn, vp).transpose(1, 2).reshape(b, nq, d)
         return self.out_proj(out)
+
+
+class _BatchNormState(nn.Module):
+    """flax ``nn.BatchNorm``'s variables under its name: the ``weight`` (flax's
+    ``scale``) and ``bias`` parameters and the ``mean`` / ``var`` running
+    statistics (flax's ``batch_stats``) as buffers."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = _empty(features)
+        self.bias = _empty(features)
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum over the ranks whose gradient is the sum of the ranks' gradients
+    (detectron2's ``AllReduce``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class SyncBatchNorm(nn.Module):
+    """Batch normalization over the channel axis (dim 1: [N, C] or [N, C, H,
+    W]) with the statistics of the batch across every rank of ``group``.
+
+    Counterpart of ``vnext_tpu.models.layers.SyncBatchNorm`` (flax's
+    ``nn.BatchNorm`` with an ``axis_name``; detectron2's
+    ``NaiveSyncBatchNorm``): in train mode each rank takes the per-channel mean
+    and mean of squares of its batch, one ``all_reduce`` averages them over
+    the ranks (each rank holds the same batch size), and the variance is their
+    difference, as flax computes it. The running statistics move as flax's
+    do: ``momentum * old + (1 - momentum) * batch``, with the biased variance.
+    Without a process group it is plain batch norm; with
+    ``use_running_average`` it normalizes by the running statistics and
+    communicates nothing. f32 statistics, output in ``dtype``. Not
+    ``torch.nn.SyncBatchNorm``, which takes CUDA tensors only."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = BN_EPS, dtype=torch.float32,
+                 group=None):
+        super().__init__()
+        self.momentum, self.eps, self.dtype, self.group = momentum, eps, dtype, group
+        self.bn = _BatchNormState(features)
+
+    def forward(self, x: torch.Tensor, use_running_average: bool = False) -> torch.Tensor:
+        import torch.distributed as dist
+
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        if use_running_average:
+            mean, var = self.bn.mean, self.bn.var
+        else:
+            dims = [d for d in range(x.dim()) if d != 1]
+            stats = torch.stack([xf.mean(dims), (xf * xf).mean(dims)])
+            if dist.is_available() and dist.is_initialized():
+                stats = _AllReduce.apply(stats, self.group) / dist.get_world_size(self.group)
+            mean, mean2 = stats.unbind()
+            var = (mean2 - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.bn.mean.mul_(m).add_((1.0 - m) * mean.detach())
+                self.bn.var.mul_(m).add_((1.0 - m) * var.detach())
+        y = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + self.eps)
+        y = y * self.bn.weight.float().reshape(shape) + self.bn.bias.float().reshape(shape)
+        return y.to(self.dtype)
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling (detectron2's layers/aspp.py:14): a 1x1
+    branch, one 3x3 branch for each dilation, and a branch that pools the whole
+    map, each a bias-free convolution with ReLU, concatenated and projected by
+    a 1x1 convolution with ReLU. Counterpart of ``vnext_tpu.models.layers.ASPP``:
+    NHWC in and out, as the JAX module; the convolutions run NCHW inside."""
+
+    def __init__(self, in_channels: int, out_channels: int, dilations: Tuple[int, ...] = (6, 12, 18),
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        c = out_channels
+        self.conv1x1 = Conv(in_channels, c, 1, bias=False, dtype=dtype)
+        self.dilations = tuple(dilations)
+        for i, d in enumerate(self.dilations):
+            self.add_module(f"conv3x3_d{i}", Conv(in_channels, c, 3, padding=d, dilation=d, bias=False, dtype=dtype))
+        self.pool_conv = Conv(in_channels, c, 1, bias=False, dtype=dtype)
+        self.project = Conv(c * (len(self.dilations) + 2), c, 1, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, H, W, C_in] -> [B, H, W, C_out]."""
+        x = x.permute(0, 3, 1, 2)
+        branches = [torch.relu(self.conv1x1(x))]
+        branches += [torch.relu(getattr(self, f"conv3x3_d{i}")(x)) for i in range(len(self.dilations))]
+        pooled = torch.relu(self.pool_conv(x.mean((2, 3), keepdim=True)))
+        branches.append(pooled.expand(-1, -1, *x.shape[2:]))
+        return torch.relu(self.project(torch.cat(branches, 1))).permute(0, 2, 3, 1)

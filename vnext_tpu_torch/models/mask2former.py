@@ -35,6 +35,7 @@ from ..ops.hungarian import assign_batched
 from ..ops.interpolate import resize_bilinear
 from ..ops.losses import dice_loss, sigmoid_bce_with_logits
 from ..ops.point_sample import sampled_mask_losses
+from ..parallel.mesh import global_count
 from .backbones import SWIN_PRESETS, backbone_features, backbone_kwargs_from_cfg, make_backbone
 from .deformable_transformer import EncoderLayer, encoder_reference_points
 from .layers import MLP, Conv, Dense, GroupNorm, LayerNorm, MultiHeadAttention, init_weights
@@ -300,12 +301,12 @@ class MaskFormer(nn.Module):
         target_classes = target_classes[:, :q]
         ce = -torch.gather(F.log_softmax(logits.float(), -1), -1, target_classes[..., None])[..., 0]
         w = torch.where(target_classes == self.num_classes, self.no_object_weight, 1.0)
-        loss_ce = (ce * w).sum() / w.sum().clamp_min(1.0)
+        loss_ce = (ce * w).sum() / global_count(w.sum())
 
         hw = masks.shape[-2:]
         src_masks = torch.gather(masks.float(), 1, q_idx[..., None, None].expand(-1, -1, *hw))
         gt = targets.masks_s4.float()
-        num = valid.sum().clamp_min(1).float()
+        num = global_count(valid.sum())
         flat_valid = valid.reshape(-1)
         if self.num_points > 0:
             loss_mask, loss_dice = sampled_mask_losses(

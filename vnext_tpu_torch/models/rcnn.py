@@ -59,6 +59,7 @@ from torch import nn
 from ..ops.losses import sigmoid_bce_with_logits
 from ..ops.nms import batched_nms_mask, nms_mask
 from ..ops.roi_align import roi_align_levels, roi_align_per_item
+from ..parallel.mesh import global_count
 from ..structures.boxes import clip_boxes
 from .backbones.fpn import FPN
 from .backbones.resnet import ResNet
@@ -185,7 +186,7 @@ class RPN(nn.Module):
                     + (sigmoid_bce_with_logits(lg_bg, torch.zeros_like(lg_bg)) * bg_mask).sum())
         diff = (deltas.gather(1, fg_sel[..., None].expand(-1, -1, 4)) - gt_deltas).abs()
         loc_loss = (diff.sum(-1) * fg_mask).sum()
-        norm = float(batch_per_image) * fg.shape[0]
+        norm = global_count(torch.tensor(float(batch_per_image) * fg.shape[0], device=logits.device))
         return {"loss_rpn_cls": obj_loss / norm, "loss_rpn_loc": loc_loss / norm}
 
 
@@ -351,8 +352,8 @@ class GeneralizedRCNN(nn.Module):
 
         ce = -torch.log_softmax(head_out["cls_logits"], -1)
         cls_loss = ce.gather(-1, target_cls[..., None])[..., 0]
-        losses["loss_cls"] = (cls_loss * sel_valid).sum() / sel_valid.sum().clamp_min(1.0)
-        n_fg = sel_fg.sum().clamp_min(1.0)
+        losses["loss_cls"] = (cls_loss * sel_valid).sum() / global_count(sel_valid.sum())
+        n_fg = global_count(sel_fg.sum())
         gt_deltas = self.box2box.get_deltas(sel_rois, gt_boxes)
         rb = sel.shape[1]
         box_deltas = head_out["box_deltas"].reshape(b, rb, c, 4)

@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops.losses import sigmoid_focal_loss_elementwise
 from ..ops.nms import batched_nms_mask
+from ..parallel.mesh import global_count
 from .backbones.fpn import FPN
 from .backbones.resnet import ResNet
 from .dense_heads import Box2BoxTransform, anchors_for_level, generate_cell_anchors, iou_matcher
@@ -189,7 +190,7 @@ class RetinaNet(DenseDetector):
             onehot = F.one_hot(torch.where(fg, gt_cls, c), c + 1)[..., :-1].float()
             gt_boxes = targets.boxes.gather(1, matched_idx[..., None].expand(-1, -1, 4)).float()
             gt_deltas = self.box2box.get_deltas(anchors[None], gt_boxes)
-            num_fg = fg.sum().clamp_min(1).float()
+            num_fg = global_count(fg.sum())
         cls_loss = sigmoid_focal_loss_elementwise(logits, onehot, FOCAL_ALPHA, FOCAL_GAMMA)
         loss_cls = (cls_loss * valid_anchor[..., None]).sum() / num_fg
         diff = (deltas - gt_deltas).abs()

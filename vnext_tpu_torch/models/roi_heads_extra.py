@@ -32,6 +32,7 @@ from ..ops.interpolate import resize_bilinear
 from ..ops.roi_align import roi_align
 from ..ops.roi_align_rotated import roi_align_rotated
 from ..ops.rotated_boxes import nms_rotated_mask, pairwise_iou_rotated
+from ..parallel.mesh import global_count
 from ..structures.keypoints import Keypoints
 from .backbones.resnet import Bottleneck
 from .layers import Conv, ConvTranspose, Dense
@@ -122,7 +123,7 @@ def keypoint_rcnn_loss(heatmap_logits: torch.Tensor, keypoints: torch.Tensor, ro
     logp = torch.log_softmax(heatmap_logits.permute(0, 3, 1, 2).reshape(n, k, s * s), -1)
     ce = -logp.gather(-1, idx.clamp(0, s * s - 1)[..., None])[..., 0]
     w = valid.float() * fg_mask[:, None].float()
-    return (ce * w).sum() / w.sum().clamp_min(1.0)
+    return (ce * w).sum() / global_count(w.sum())
 
 
 def keypoint_rcnn_inference(heatmap_logits: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
@@ -231,5 +232,5 @@ class RROIHeads(nn.Module):
         matched_boxes = gt_boxes.float().gather(1, matched[..., None].expand(-1, -1, 5))
         gt_deltas = Box2BoxTransformRotated().get_deltas(rois.float(), matched_boxes)
         reg = (box_deltas - gt_deltas).abs().sum(-1)
-        n_fg = fg.sum().float().clamp_min(1.0)
+        n_fg = global_count(fg.sum())
         return {"loss_cls_rotated": cls_loss.mean(), "loss_box_reg_rotated": (reg * fg).sum() / n_fg}

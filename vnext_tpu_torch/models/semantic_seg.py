@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..ops.interpolate import resize_bilinear
+from ..parallel.mesh import global_count
 from .backbones.fpn import FPN
 from .backbones.resnet import ResNet
 from .layers import Conv, GroupNorm
@@ -63,7 +64,7 @@ def sem_seg_loss(logits: torch.Tensor, sem_seg_gt: torch.Tensor, ignore_value: i
     valid = sem_seg_gt != ignore_value
     gt = torch.where(valid, sem_seg_gt, torch.zeros_like(sem_seg_gt)).long()
     ce = -torch.log_softmax(logits, 1).gather(1, gt[:, None])[:, 0]
-    return (ce * valid).sum() / valid.sum().clamp_min(1.0)
+    return (ce * valid).sum() / global_count(valid.sum())
 
 
 class SemanticSegmentor(nn.Module):

@@ -36,6 +36,7 @@ from torch import nn
 from ..ops.hungarian import assign_batched
 from ..ops.losses import dice_loss, sigmoid_focal_loss, sigmoid_focal_loss_elementwise
 from ..ops.ms_deform_attn import check_impl, ms_deform_attn_standard
+from ..parallel.mesh import global_count
 from ..structures.boxes import box_cxcywh_to_xyxy, elementwise_giou_loss, generalized_box_iou
 from .backbones import SWIN_PRESETS, backbone_features, backbone_kwargs_from_cfg, make_backbone
 from .condinst import MaskHeadSmallConv, num_dynamic_params, run_dynamic_mask_head
@@ -351,7 +352,7 @@ class SeqFormer(DeformableVIS):
         nf = images.shape[1]
         out = self.forward_single(images, image_sizes, generator)
         mask_feats = self._mask_features(out["memory"].flatten(0, 1), out["spatial_shapes"])
-        num_boxes = targets.valid.sum().clamp_min(1).float()
+        num_boxes = global_count(targets.valid.sum())
         cost = torch.stack([seqformer_match_cost(out["logits"][i].detach(), out["boxes"][i].detach(),
                                                  targets.labels, targets.boxes, targets.valid)
                             for i in range(self.dec_layers)])

@@ -5,6 +5,7 @@ products against an [out, in] matrix built once on the host, which reproduces
 the JAX package's results to f32 rounding:
 
 - ``resize_bilinear``: torch ``align_corners=False`` (half-pixel centres, edge clamp);
+- ``resize_bilinear_ac``: torch ``align_corners=True`` (the corners' centres kept);
 - ``resize_nearest``: torch 'nearest', source index ``floor(i * in / out)``;
 - ``aligned_bilinear``: the CondInst upsampler (replicate pad + a 2-tap lerp);
 - ``compute_locations``: pixel-centre (x, y) of a stride-``s`` grid.
@@ -19,11 +20,15 @@ import torch
 
 
 @functools.lru_cache(maxsize=256)
-def _bilinear_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """[out, in] row-stochastic matrix, align_corners=False."""
+def _bilinear_matrix(in_size: int, out_size: int, align_corners: bool = False) -> np.ndarray:
+    """[out, in] row-stochastic matrix."""
     if in_size == out_size:
         return np.eye(in_size, dtype=np.float32)
-    src = (np.arange(out_size, dtype=np.float64) + 0.5) * in_size / out_size - 0.5
+    i = np.arange(out_size, dtype=np.float64)
+    if align_corners:
+        src = i * (in_size - 1) / max(out_size - 1, 1)
+    else:
+        src = (i + 0.5) * in_size / out_size - 0.5
     src = np.clip(src, 0.0, in_size - 1)
     lo = np.floor(src).astype(np.int64)
     hi = np.minimum(lo + 1, in_size - 1)
@@ -74,6 +79,10 @@ def _apply_separable(x: torch.Tensor, mat_h: np.ndarray, mat_w: np.ndarray) -> t
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return _apply_separable(x, _bilinear_matrix(x.shape[-2], out_h), _bilinear_matrix(x.shape[-1], out_w))
+
+
+def resize_bilinear_ac(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    return _apply_separable(x, _bilinear_matrix(x.shape[-2], out_h, True), _bilinear_matrix(x.shape[-1], out_w, True))
 
 
 def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

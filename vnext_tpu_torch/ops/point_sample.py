@@ -38,6 +38,12 @@ def point_sample(inputs: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def calculate_uncertainty(logits: torch.Tensor) -> torch.Tensor:
+    """-|logit|: highest at the decision boundary (the point-rend criterion's
+    ``calculate_uncertainty``)."""
+    return -logits.abs()
+
+
 def uniform_coords(n: int, count: int, generator: torch.Generator, device) -> torch.Tensor:
     """[n, count, 2] uniform draws in [0, 1) from ``generator``."""
     return torch.rand(n, count, 2, generator=generator, device=device)

@@ -1,4 +1,4 @@
-"""IDOL's and the Detectron2 families' training and evaluation entry point, on one NVIDIA GPU.
+"""IDOL's and the Detectron2 families' training and evaluation entry point, on NVIDIA GPUs.
 
 Counterpart of ``tools/train_net.py`` (the JAX package's entry point, with
 detectron2's command line):
@@ -60,6 +60,20 @@ The run is on the card unless the config says ``MODEL.DEVICE cpu`` (the
 tests' setting, which runs the kernels' plain versions); with no CUDA device
 visible it raises rather than carry on on the CPU. The defaults' ``"tpu"``, the
 JAX package's value, means the card here.
+
+``--num-gpus N`` runs N processes, one a card, through ``engine/launch.py``
+(an NCCL group; gloo with ``MODEL.DEVICE cpu``); ``--num-machines``,
+``--machine-rank`` and ``--dist-url`` spread them over machines:
+
+    python -m vnext_tpu_torch.tools.train_net --num-gpus 8 --config-file configs/idol/ytvis19_r50.yaml
+    python -m vnext_tpu_torch.tools.train_net --num-gpus 8 --num-machines 2 --machine-rank 0 \
+        --dist-url tcp://10.0.0.1:29500 --config-file configs/idol/ytvis19_r50.yaml
+
+Each process trains on its shard of the sampler, ``SOLVER.IMS_PER_BATCH /
+world`` samples a step, under ``DistributedDataParallel`` with the losses
+normalized over the global batch; each serves its shard of the test set, and
+the evaluators gather the predictions to the main process, which alone
+scores, checkpoints and writes the metrics. Every process loads the weights.
 """
 
 from __future__ import annotations
@@ -71,11 +85,11 @@ import sys
 import torch
 
 from ..checkpoint.checkpointer import Checkpointer, load_weights
-from ..config import add_idol_config, get_cfg
+from ..config import add_idol_config, add_maskformer_config, get_cfg
 from ..data import (CocoClipDatasetMapper, MetadataCatalog, build_vis_test_loader, build_vis_train_loader,
                     register_all_builtin, register_all_coco, register_all_ytvis)
 from ..data.datasets.synthetic import register_synthetic_coco, register_synthetic_panoptic, register_synthetic_ytvis
-from ..engine.hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, PeriodicWriter
+from ..engine.hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, metric_writers
 from ..engine.detection import SPEC as IMAGE_ARCHITECTURES
 from ..engine.detection import do_eval_detection, do_train_detection
 from ..engine.launch import launch
@@ -86,8 +100,8 @@ from ..evaluation.testing import verify_final_loss, verify_results
 from ..evaluation.ytvis_eval import build_evaluator
 from ..models.criterion import default_weight_dict
 from ..models.idol import build_idol_model
+from ..parallel.mesh import is_main_process, process_count, process_index
 from ..solver.build import build_grad_clip, build_lr_schedule, build_lr_scheduler, build_optimizer
-from ..utils.events import CommonMetricPrinter, JSONWriter
 from ..utils.logger import setup_logger
 
 # the quick-schedule configs' dataset (configs/quick_schedules/idol_instant_test.yaml)
@@ -103,29 +117,51 @@ def default_argument_parser():
     parser.add_argument("--config-file", default="", metavar="FILE")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--eval-only", action="store_true")
-    parser.add_argument("--num-gpus", type=int, default=0, help="0 or 1: the port runs on one card")
+    parser.add_argument("--num-gpus", type=int, default=0, help="processes (cards) on each machine; 0 counts as 1")
     parser.add_argument("--num-machines", type=int, default=1)
-    parser.add_argument("--machine-rank", type=int, help="not ported: one process (ROADMAP Queue 1, item 12)")
-    parser.add_argument("--dist-url", help="not ported: one process (ROADMAP Queue 1, item 12)")
+    parser.add_argument("--machine-rank", type=int, default=0, help="this machine's rank")
+    parser.add_argument("--dist-url", default="auto",
+                        help="the process group's address, tcp://host:port ('auto': a free port, one machine)")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return parser
 
 
 def setup(args, add_config=add_idol_config):
     """The frozen config (``add_config``'s keys, the file, the KEY VALUE
-    overrides); creates ``OUTPUT_DIR`` with the log and the config's dump in it."""
+    overrides); creates ``OUTPUT_DIR`` with the log (``log.txt``, and
+    ``log.txt.rank{k}`` for process k > 0) and, on the main process, the
+    config's dump in it."""
+    cfg = build_cfg(args, add_config)
+    cfg.freeze()
+    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    setup_logger(cfg.OUTPUT_DIR, process_rank=process_index())
+    if is_main_process():
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
+    return cfg
+
+
+def build_cfg(args, add_config=add_idol_config):
+    """The config of ``args`` (``add_config``'s keys, the file, the KEY VALUE overrides), not frozen."""
     cfg = get_cfg()
     add_config(cfg)
     if args.config_file:
         cfg.merge_from_file(args.config_file)
     if args.opts:
         cfg.merge_from_list(args.opts)
-    cfg.freeze()
-    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    setup_logger(cfg.OUTPUT_DIR)
-    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
     return cfg
+
+
+def _add_every_config(cfg):
+    add_idol_config(cfg)
+    add_maskformer_config(cfg)
+    cfg.set_new_allowed(True)
+
+
+def launch_device(args) -> str:
+    """"cpu" where the config of ``args`` says ``MODEL.DEVICE cpu``, else
+    "cuda": the processes' group is gloo on the CPU, NCCL on the cards."""
+    return "cpu" if build_cfg(args, _add_every_config).MODEL.DEVICE == "cpu" else "cuda"
 
 
 def resolve_device(cfg) -> torch.device:
@@ -193,7 +229,8 @@ def do_eval(cfg, model=None):
             runner = IDOLVideoInference.from_config(cfg, model)
             evaluator = build_evaluator(cfg, dataset_name)
             evaluator.reset()
-            for record in build_vis_test_loader(cfg, dataset_name):
+            for record in build_vis_test_loader(cfg, dataset_name, shard_index=process_index(),
+                                                num_shards=process_count()):
                 evaluator.process([record], [runner(record)])
             results[dataset_name] = evaluator.evaluate()
     finally:
@@ -225,7 +262,8 @@ def do_train(cfg, resume: bool = False) -> VISTrainer:
     state, start_iter = checkpointer.resume_or_load(cfg.MODEL.WEIGHTS, state, resume=resume)
 
     mapper = CocoClipDatasetMapper.from_config(cfg, is_train=True) if cfg.INPUT.COCO_PRETRAIN else None
-    loader = build_vis_train_loader(cfg, mapper=mapper, seed=seed)
+    loader = build_vis_train_loader(cfg, mapper=mapper, seed=seed, shard_index=process_index(),
+                                    num_shards=process_count())
     trainer = VISTrainer(train_step, state, loader, device,
                          pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN), pixel_std=tuple(cfg.MODEL.PIXEL_STD))
     trainer.register_hooks([
@@ -233,8 +271,7 @@ def do_train(cfg, resume: bool = False) -> VISTrainer:
         LRTracker(build_lr_schedule(cfg)),
         PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD),
         EvalHook(cfg.TEST.EVAL_PERIOD, lambda: do_eval(cfg, trainer.state.model)),
-        PeriodicWriter([CommonMetricPrinter(cfg.SOLVER.MAX_ITER),
-                        JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json"))]),
+        *metric_writers(cfg),
     ])
     trainer.train(start_iter, cfg.SOLVER.MAX_ITER)
     verify_final_loss(cfg, trainer)
@@ -247,26 +284,30 @@ def run(argv, setup, archs, elsewhere: str, do_eval, do_train):
     ``--eval-only`` (its first dataset's results held to
     ``TEST.EXPECTED_RESULTS``) or else ``do_train(cfg, resume=)``. Returns the
     eval results or the trainer. A ``MODEL.META_ARCHITECTURE`` not in
-    ``archs`` raises, saying where it runs (``elsewhere``)."""
+    ``archs`` raises, saying where it runs (``elsewhere``). With more than one
+    process (``--num-gpus``, ``--num-machines``) each runs it through
+    ``engine/launch.py``; the main process returns what it returns where it
+    runs in this process. ``setup``, ``do_eval`` and ``do_train`` are
+    module-level functions, so that spawned processes can take them."""
     args = default_argument_parser().parse_args(argv)
-    if args.machine_rank is not None or args.dist_url is not None:
-        raise NotImplementedError("--machine-rank and --dist-url: the port runs one process on one card until "
-                                  "its distribution is ported (ROADMAP Queue 1, item 12)")
+    return launch(main_worker, args.num_gpus, num_machines=args.num_machines, machine_rank=args.machine_rank,
+                  dist_url=args.dist_url, args=(args, setup, archs, elsewhere, do_eval, do_train),
+                  device=launch_device(args))
 
-    def main_func():
-        cfg = setup(args)
-        if cfg.MODEL.META_ARCHITECTURE not in archs:
-            raise NotImplementedError(f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE!r}: this entry "
-                                      f"point runs {', '.join(archs)}; {elsewhere}")
-        if args.eval_only:
-            results = do_eval(cfg)
-            if cfg.TEST.EXPECTED_RESULTS and results:
-                verify_results(cfg, next(iter(results.values())) or {})
-            print(results)
-            return results
-        return do_train(cfg, resume=args.resume)
 
-    return launch(main_func, args.num_gpus, num_machines=args.num_machines)
+def main_worker(args, setup, archs, elsewhere: str, do_eval, do_train):
+    """One process of ``run``: the config, then the evaluation or the training."""
+    cfg = setup(args)
+    if cfg.MODEL.META_ARCHITECTURE not in archs:
+        raise NotImplementedError(f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE!r}: this entry "
+                                  f"point runs {', '.join(archs)}; {elsewhere}")
+    if args.eval_only:
+        results = do_eval(cfg)
+        if cfg.TEST.EXPECTED_RESULTS and results and is_main_process():
+            verify_results(cfg, next(iter(results.values())) or {})
+        print(results)
+        return results
+    return do_train(cfg, resume=args.resume)
 
 
 def _register_image_datasets(cfg):

@@ -1,4 +1,4 @@
-"""MinVIS / Mask2Former (+ InstMove motion) training and evaluation entry point, on one NVIDIA GPU.
+"""MinVIS / Mask2Former (+ InstMove motion) training and evaluation entry point, on NVIDIA GPUs.
 
 Counterpart of ``tools/train_net_video.py`` (the JAX package's, with
 detectron2's command line):
@@ -18,13 +18,13 @@ frame-level ``MaskFormer``; ``--resume`` continues from the output directory's
 ``last_checkpoint``.
 
 The run is on the card unless the config says ``MODEL.DEVICE cpu``, as in
-``tools/train_net.py``, whose command line (``run``), setup of the config and
-the device, and dataset registration this module shares.
+``tools/train_net.py``, whose command line (``run``, with ``--num-gpus``,
+``--num-machines``, ``--machine-rank`` and ``--dist-url``), setup of the
+config and the device, and dataset registration this module shares.
 """
 
 from __future__ import annotations
 
-import os
 import sys
 
 import numpy as np
@@ -33,7 +33,7 @@ import torch
 from ..checkpoint.checkpointer import Checkpointer, load_weights
 from ..config import add_maskformer_config
 from ..data import build_vis_test_loader, build_vis_train_loader
-from ..engine.hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, PeriodicWriter
+from ..engine.hooks import EvalHook, IterationTimer, LRTracker, PeriodicCheckpointer, metric_writers
 from ..engine.minvis_inference import MinVISVideoInference
 from ..engine.train_step import TrainState, make_train_step
 from ..engine.trainer import VISTrainer
@@ -42,8 +42,8 @@ from ..evaluation.testing import verify_final_loss
 from ..evaluation.ytvis_eval import build_evaluator
 from ..models.instmove import build_instmove_model, check_mask_size
 from ..models.mask2former import MaskTargets, build_maskformer_model, maskformer_weight_dict
+from ..parallel.mesh import process_count, process_index
 from ..solver.build import build_grad_clip, build_lr_schedule, build_lr_scheduler, build_optimizer
-from ..utils.events import CommonMetricPrinter, JSONWriter
 from . import train_net
 from .train_net import _register_datasets, resolve_device
 
@@ -88,8 +88,8 @@ def do_eval(cfg, model=None):
             if motion is not None:
                 check_mask_size(runner.target_size[0] // 4, runner.target_size[1] // 4)
             evaluator = build_evaluator(cfg, dataset_name, cfg.OUTPUT_DIR)
-            results[dataset_name] = inference_on_dataset(runner, build_vis_test_loader(cfg, dataset_name),
-                                                         evaluator)
+            loader = build_vis_test_loader(cfg, dataset_name, shard_index=process_index(), num_shards=process_count())
+            results[dataset_name] = inference_on_dataset(runner, loader, evaluator)
     finally:
         model.train(was_training)
     return results
@@ -132,7 +132,7 @@ def do_train(cfg, resume: bool = False) -> VISTrainer:
     state = TrainState.create(model, optimizer, build_lr_scheduler(cfg, optimizer))
     state, start_iter = checkpointer.resume_or_load(cfg.MODEL.WEIGHTS, state, resume=resume)
 
-    loader = build_vis_train_loader(cfg, seed=seed)
+    loader = build_vis_train_loader(cfg, seed=seed, shard_index=process_index(), num_shards=process_count())
     trainer = VISTrainer(train_step, state, loader, device,
                          batch_adapter=minvis_batch_adapter(cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, device))
     trainer.register_hooks([
@@ -140,8 +140,7 @@ def do_train(cfg, resume: bool = False) -> VISTrainer:
         LRTracker(build_lr_schedule(cfg)),
         PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD),
         EvalHook(cfg.TEST.EVAL_PERIOD, lambda: do_eval(cfg, trainer.state.model)),
-        PeriodicWriter([CommonMetricPrinter(cfg.SOLVER.MAX_ITER),
-                        JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json"))]),
+        *metric_writers(cfg),
     ])
     trainer.train(start_iter, cfg.SOLVER.MAX_ITER)
     verify_final_loss(cfg, trainer)

@@ -13,9 +13,10 @@ operator.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 import torch
+import torch.utils._pytree
 from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
@@ -104,3 +105,25 @@ def activation_count(fn: Callable, *example_args) -> int:
     with torch.no_grad(), counter:
         fn(*example_args)
     return counter.total
+
+
+def find_unused_parameters(model: nn.Module, loss_fn: Callable, *args) -> List[str]:
+    """Names of the parameters that get no gradient from ``loss_fn(model,
+    *args)`` (a tensor, or a dict, list or tuple of them, summed in f32): the
+    gradient of the sum is None or exactly zero. Reference surface:
+    detectron2/utils/analysis.py:158 ``find_unused_parameters``; the JAX
+    package takes ``jax.grad`` of the same sum and names each leaf by its
+    ``keystr`` path, as the names here are (``['backbone']['conv']['kernel']``,
+    the flax tree's names, ``checkpoint/from_jax.py``'s map). A used
+    parameter with a zero gradient (a ReLU-dead branch) is listed too: a lint,
+    not a proof. The parameters' gradients are cleared before and after."""
+    named = list(_named_flax_parameters(model))
+    for _, p in named:
+        p.grad = None
+    out = loss_fn(model, *args)
+    leaves = torch.utils._pytree.tree_leaves(out)
+    sum(leaf.float().sum() for leaf in leaves if isinstance(leaf, torch.Tensor)).backward()
+    unused = [path for path, p in named if p.grad is None or not bool(torch.any(p.grad != 0))]
+    for _, p in named:
+        p.grad = None
+    return ["".join(f"['{k}']" for k in path.split(".")) for path in unused]

@@ -1,9 +1,10 @@
 """In-process metric storage and its writers.
 
 Counterpart of ``vnext_tpu.utils.events`` (``EventStorage``, ``HistoryBuffer``,
-``get_event_storage``, ``JSONWriter``, ``CommonMetricPrinter``), the detectron2
-surface: a training loop opens an ``EventStorage``, hooks and the trainer put
-scalars into it, and writers read the latest values.
+``get_event_storage``, ``has_event_storage``, ``JSONWriter``,
+``CommonMetricPrinter``, ``TensorboardWriter``), the detectron2 surface: a
+training loop opens an ``EventStorage``, hooks and the trainer put scalars into
+it, and writers read the latest values.
 """
 
 from __future__ import annotations
@@ -22,6 +23,10 @@ def get_event_storage() -> "EventStorage":
     if not _CURRENT_STORAGE_STACK:
         raise RuntimeError("get_event_storage() called outside 'with EventStorage(...)'")
     return _CURRENT_STORAGE_STACK[-1]
+
+
+def has_event_storage() -> bool:
+    return len(_CURRENT_STORAGE_STACK) > 0
 
 
 class HistoryBuffer:
@@ -160,3 +165,36 @@ class CommonMetricPrinter(EventWriter):
         lr = storage.history("lr").latest() if "lr" in storage.histories() else None
         msg += f"  lr: {lr:.5g}" if lr is not None else "  lr: N/A"
         self.logger.info(msg)
+
+
+class TensorboardWriter(EventWriter):
+    """The latest scalars of each new iteration as TensorBoard events under
+    ``log_dir`` (``torch.utils.tensorboard``); a no-op, with a warning, where
+    that module cannot be imported (it needs the ``tensorboard`` package), as
+    the JAX package's writer is. The port's storage holds scalars only, so
+    there are no images or histograms to write."""
+
+    def __init__(self, log_dir: str, window_size: int = 20):
+        self._window_size = window_size
+        self._writer = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            logging.getLogger("vnext_tpu_torch").warning("tensorboard unavailable; TensorboardWriter is a no-op")
+        else:
+            self._writer = SummaryWriter(log_dir)
+        self._last_write = -1
+
+    def write(self) -> None:
+        if self._writer is None:
+            return
+        new_last = self._last_write
+        for k, (v, itr) in get_event_storage().latest_with_smoothing_hint(self._window_size).items():
+            if itr > self._last_write:
+                self._writer.add_scalar(k, v, itr)
+                new_last = max(new_last, itr)
+        self._last_write = new_last
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
